@@ -1,0 +1,16 @@
+"""PyVertical in PyTorch for NVIDIA Hopper (H100) — the port of ``repro``.
+
+The JAX package ``repro`` is the reference; this package re-implements
+the paper's split training path beside it: DH-PSI entity resolution, the
+dual-headed MLP SplitNN, joint and split training over the measured
+transport, and the int8 cut codec on a hand-written CUDA kernel
+(``repro_torch/csrc/quantize.cu``).
+
+It imports ``torch`` and numpy, never ``jax`` and nothing of ``repro``.
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"`` (``repro_torch.device.resolve_device``).  The layout
+mirrors the reference: ``repro_torch.core.splitnn`` is the counterpart
+of ``repro.core.splitnn``, and so on.
+
+Importing this package imports nothing heavy; subpackages load on use.
+"""

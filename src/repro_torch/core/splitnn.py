@@ -1,0 +1,267 @@
+"""The multi-headed SplitNN engine (the port's counterpart of
+``repro.core.splitnn``).
+
+1. ``MLPSplitNN`` — the paper's Appendix-B model (dual-headed MLP for
+   vertically-partitioned MNIST: 392 -> 64 ReLU heads, concat -> 500 ->
+   10 trunk).  Parameters keep the reference's layout: each layer is
+   ``{"w": (in, out), "b": (out,)}`` computing ``x @ w + b``; ``heads``
+   is a list of layers whose leaves are stacked over owners
+   (``(P, 392, 64)``, ``(P, 64)``), ``trunk`` a list of layers.
+2. ``make_split_train_step`` — the joint training step: one autograd
+   pass through heads + combine + trunk, then per-segment updates
+   (owners' lr != scientist's lr).
+3. The per-segment programs that split execution runs over the
+   transport: the owner's head forward/backward and the scientist's
+   trunk step, fused or split into cut-gradient and weight-gradient
+   halves.
+
+Split vs. joint stays bitwise inside the port because both paths run
+the same functions at the same shapes: the joint step computes each
+owner's head with the same per-owner head function the owner thread
+runs (no batched product over owners, which may reduce in another
+order), and the loss is one function, ``nll_parts``, everywhere.
+
+``cut_layer_traffic`` accounts the bytes that cross party boundaries
+per step: only cut activations (fwd) and cut gradients (bwd).
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict
+
+import torch
+
+from repro_torch.configs.pyvertical_mnist import MLPSplitConfig
+from repro_torch.optim import apply_updates
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+
+def head_slice(heads, p: int):
+    """Owner ``p``'s head segment out of the owner-stacked ``heads``."""
+    return [{k: v[p] for k, v in layer.items()} for layer in heads]
+
+
+def stack_heads(slices):
+    """Inverse of :func:`head_slice` over all owners."""
+    return [{k: torch.stack([s[i][k] for s in slices]) for k in layer}
+            for i, layer in enumerate(slices[0])]
+
+
+def nll_parts(logits, labels, denom: float):
+    """``-sum(log_softmax(logits)[labels]) / denom`` and the correct
+    count / ``denom`` — the loss of the joint step, the trunk programs
+    and evaluation alike.  The label pick is a one-hot product
+    (elementwise, deterministic on the card in both directions)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    classes = torch.arange(logits.shape[-1], device=logits.device)
+    onehot = (labels[:, None] == classes).to(logp.dtype)
+    loss = -(logp * onehot).sum() / denom
+    acc = (logits.argmax(-1) == labels).sum().to(torch.float32) / denom
+    return loss, {"loss": loss, "accuracy": acc}
+
+
+class MLPSplitNN:
+    def __init__(self, cfg: MLPSplitConfig):
+        self.cfg = cfg
+        sp = cfg.split
+        self.P = sp.n_owners
+        if cfg.feature_splits and len(set(cfg.feature_splits)) > 1:
+            raise NotImplementedError(
+                "imbalanced owner feature widths are not ported yet "
+                "(ROADMAP.md, port queue)")
+        if (sp.nopeek_weight or sp.cut_noise_std or sp.grad_noise_std
+                or sp.grad_norm_mode != "none"):
+            raise NotImplementedError(
+                "NoPeek, cut noise and gradient defenses are not ported "
+                "yet (ROADMAP.md, port queue: masked_sum and privacy)")
+        if sp.combine not in ("concat", "sum", "mean", "max"):
+            raise ValueError(sp.combine)
+        if cfg.n_features % self.P:
+            raise ValueError(f"{cfg.n_features} features not divisible by "
+                             f"{self.P} owners")
+        self.f_p = cfg.n_features // self.P        # 392 per owner (paper)
+        self.k = cfg.head_layers[-1]               # 64
+        self.trunk_in = self.P * self.k if sp.combine == "concat" else self.k
+
+    @staticmethod
+    def _mlp_init(gen: torch.Generator, dims):
+        return [{"w": torch.randn((a, b), generator=gen) * math.sqrt(2.0 / a),
+                 "b": torch.zeros((b,))}
+                for a, b in zip(dims[:-1], dims[1:])]
+
+    def init(self, gen: torch.Generator):
+        """Random params on the CPU from ``gen`` (He-normal weights, zero
+        biases, the reference's scheme; the numbers differ from JAX's —
+        carry reference params across with ``repro_torch.weights``)."""
+        head_dims = (self.f_p,) + self.cfg.head_layers
+        heads = stack_heads([self._mlp_init(gen, head_dims)
+                             for _ in range(self.P)])
+        trunk = self._mlp_init(gen, (self.trunk_in,) + self.cfg.trunk_layers)
+        return {"heads": heads, "trunk": trunk}
+
+    @staticmethod
+    def _mlp_apply(params, x, final_linear=True):
+        for i, layer in enumerate(params):
+            x = x @ layer["w"] + layer["b"]
+            if i < len(params) - 1 or not final_linear:
+                x = torch.relu(x)
+        return x
+
+    def head_apply(self, hp, x):
+        """One owner's head: Linear(392 -> 64) + ReLU."""
+        return torch.relu(self._mlp_apply(hp, x))
+
+    def heads_forward(self, heads, x_slices):
+        """x_slices: (P, B, f_p).  Each owner's head through
+        :meth:`head_apply`, stacked to (P, B, k)."""
+        return torch.stack([self.head_apply(head_slice(heads, p), x_slices[p])
+                            for p in range(self.P)])
+
+    def combine(self, cut):
+        c = self.cfg.split.combine
+        if c == "concat":
+            P, B, k = cut.shape
+            return cut.transpose(0, 1).reshape(B, P * k)
+        if c == "sum":
+            return cut.sum(0)
+        if c == "mean":
+            return cut.mean(0)
+        return cut.amax(0)
+
+    def forward(self, params, x_slices):
+        z = self.combine(self.heads_forward(params["heads"], x_slices))
+        return self._mlp_apply(params["trunk"], z)   # logits (B, 10)
+
+    def loss_fn(self, params, batch):
+        logits = self.forward(params, batch["x_slices"])
+        return nll_parts(logits, batch["labels"], float(logits.shape[0]))
+
+
+# ---------------------------------------------------------------------------
+# Joint split training step
+# ---------------------------------------------------------------------------
+
+
+def _grad(loss, tree):
+    """d loss / d tree, as a tree of the same structure."""
+    return tree_unflatten(tree, list(torch.autograd.grad(
+        loss, tree_leaves(tree))))
+
+
+def _leaf(t):
+    return t.detach().requires_grad_()
+
+
+def make_split_train_step(loss_fn: Callable, optimizer) -> Callable:
+    """The joint step ``step(params, opt_state, batch, step_idx) ->
+    (params, opt_state, metrics)``: one autograd pass, then the
+    ``multi_segment`` optimizer (heads and trunk get their own rules,
+    mirroring the paper's independent per-party updates)."""
+
+    def step(params, opt_state, batch, step_idx):
+        with torch.enable_grad():
+            leaves = tree_map(_leaf, params)
+            _, metrics = loss_fn(leaves, batch)
+            grads = _grad(metrics["loss"], leaves)
+        with torch.no_grad():
+            updates, opt_state = optimizer.update(grads, opt_state, params,
+                                                  step_idx)
+            params = apply_updates(params, updates)
+        return params, opt_state, {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Per-segment programs (true split execution over a transport)
+# ---------------------------------------------------------------------------
+
+
+def make_mlp_head_programs(model: MLPSplitNN):
+    """Owner-side programs for one MLP head: ``head_fwd(hp, x) -> cut``;
+    ``head_bwd(hp, x, cut_grad) -> head_grads`` (recompute-forward
+    backward seeded with the received cut gradient)."""
+
+    def head_fwd(hp, x):
+        with torch.no_grad():
+            return model.head_apply(hp, x)
+
+    def head_bwd(hp, x, g):
+        with torch.enable_grad():
+            leaves = tree_map(_leaf, hp)
+            out = model.head_apply(leaves, x)
+            return tree_unflatten(leaves, list(torch.autograd.grad(
+                out, tree_leaves(leaves), g)))
+
+    return head_fwd, head_bwd
+
+
+def _chunk_loss(model, tp, cuts, labels, denom):
+    z = model.combine(torch.stack(tuple(cuts)))
+    return nll_parts(model._mlp_apply(tp, z), labels, denom)
+
+
+def _detached(parts):
+    return {k: v.detach() for k, v in parts.items()}
+
+
+def make_mlp_trunk_program(model: MLPSplitNN):
+    """The fused scientist step: ``trunk_step(tp, cuts (P-tuple of
+    (B, k)), labels) -> (metrics, trunk_grads, cut_grads tuple)``."""
+
+    def trunk_step(tp, cuts, labels):
+        with torch.enable_grad():
+            tl = tree_map(_leaf, tp)
+            cl = [_leaf(c) for c in cuts]
+            loss, parts = _chunk_loss(model, tl, cl, labels,
+                                      float(labels.shape[0]))
+            grads = torch.autograd.grad(loss, tree_leaves(tl) + cl)
+        n = len(tree_leaves(tl))
+        return (_detached(parts), tree_unflatten(tl, list(grads[:n])),
+                tuple(grads[n:]))
+
+    return trunk_step
+
+
+def make_mlp_trunk_microbatch_programs(model: MLPSplitNN):
+    """Per-chunk scientist programs (the pipelined schedule runs them
+    even with one chunk, as the reference does).  Each chunk's loss is
+    seeded ``sum / denom`` with ``denom`` = the full batch size.
+
+      ``cutgrad(tp, cuts, labels, denom) -> (cut_grad tuple, parts)`` —
+          the latency-critical half: the cut gradients ship back the
+          moment they exist.
+      ``weightgrad(tp, cuts, labels, denom) -> trunk_grads`` — the
+          recompute-based trunk gradients, taken while the cut
+          gradients are on the wire."""
+
+    def cutgrad(tp, cuts, labels, denom):
+        with torch.enable_grad():
+            cl = [_leaf(c) for c in cuts]
+            loss, parts = _chunk_loss(model, tp, cl, labels, denom)
+            return tuple(torch.autograd.grad(loss, cl)), _detached(parts)
+
+    def weightgrad(tp, cuts, labels, denom):
+        with torch.enable_grad():
+            tl = tree_map(_leaf, tp)
+            loss, _ = _chunk_loss(model, tl, cuts, labels, denom)
+            return _grad(loss, tl)
+
+    return cutgrad, weightgrad
+
+
+# ---------------------------------------------------------------------------
+# Communication accounting
+# ---------------------------------------------------------------------------
+
+
+def cut_layer_traffic(n_owners: int, batch: int, tokens_per_owner: int,
+                      cut_dim: int, bytes_per_el: int = 2) -> Dict[str, int]:
+    """Bytes crossing each owner<->scientist boundary per training step:
+    forward the cut activation (B, S_p, k), backward its gradient."""
+    one_way = batch * tokens_per_owner * cut_dim * bytes_per_el
+    return {
+        "per_owner_forward_bytes": one_way,
+        "per_owner_backward_bytes": one_way,
+        "total_per_step_bytes": 2 * one_way * n_owners,
+    }

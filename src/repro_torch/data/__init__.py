@@ -1,0 +1,2 @@
+from repro_torch.data.synthetic import (  # noqa: F401
+    make_mnist_like, make_vertical_mnist_parties)

@@ -1,0 +1,243 @@
+"""Party abstractions (the port's counterpart of
+``repro.federation.parties``).
+
+A data scientist trains on features vertically partitioned across data
+owners without ever touching raw features, and owners never see labels.
+These classes make that visibility contract structural:
+
+  * :class:`DataOwner` holds ``(ids, features)`` and no labels; its
+    ``features`` property raises :class:`PrivacyError` — raw features
+    are reachable only through the owner-side accessor ``_features``.
+  * :class:`DataScientist` holds ``(ids, labels)`` and nothing else.
+  * :class:`OwnerComputeEndpoint` is the compute that runs on an owner's
+    device in split training, driven by protocol messages.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.psi import PSIClient, PSIServer
+from repro_torch.core.resolution import VerticalDataset
+
+
+class PrivacyError(RuntimeError):
+    """Raised when code crosses the party-visibility boundary."""
+
+
+class DataOwner:
+    """A data owner: a vertical slice of every shared subject's features.
+    It ships only cut-layer activations; raw rows never leave."""
+
+    def __init__(self, name: str, ids: Sequence[str], features: np.ndarray):
+        self.name = name
+        self._vd = VerticalDataset(list(ids), np.asarray(features))
+        # the full population: ``_vd`` becomes the aligned training view
+        # after a resolve, but PSI always runs against the population
+        self._full = self._vd
+        self._psi_servers: Dict[str, PSIServer] = {}
+
+    @property
+    def ids(self) -> List[str]:
+        return self._vd.ids
+
+    @property
+    def n_rows(self) -> int:
+        return len(self._vd.ids)
+
+    @property
+    def feature_shape(self) -> Tuple[int, ...]:
+        """Per-row feature shape — metadata, not data."""
+        return tuple(self._vd.data.shape[1:])
+
+    @property
+    def features(self):
+        raise PrivacyError(
+            f"raw features of {self.name!r} are private to the owner; "
+            "only cut-layer activations cross the party boundary")
+
+    def __repr__(self):
+        return (f"DataOwner({self.name!r}, rows={self.n_rows}, "
+                f"feature_shape={self.feature_shape})")
+
+    def psi_server(self, group: str) -> PSIServer:
+        """The owner's PSI endpoint for ``group`` (its β and blinded own
+        set persist across resolves of the same population)."""
+        srv = self._psi_servers.get(group)
+        if srv is None or srv.items != self._full.ids:
+            srv = self._psi_servers[group] = PSIServer(self._full.ids, group)
+        return srv
+
+    # -- owner-side surface (runs 'on the owner's device') -----------------
+    @property
+    def _features(self) -> np.ndarray:
+        return self._vd.data
+
+    def _align(self, keep_ids: Sequence[str]) -> None:
+        """Discard non-shared rows and sort by ID (paper §3.1)."""
+        self._vd = self._full.filter_and_sort(keep_ids)
+
+
+class DataScientist:
+    """The data scientist: subject ids + labels.  Holds no features."""
+
+    def __init__(self, ids: Sequence[str], labels: Optional[np.ndarray]):
+        ids = list(ids)
+        self._vd = VerticalDataset(
+            ids, np.asarray(labels) if labels is not None
+            else np.zeros(len(ids), np.int32))
+        self.has_labels = labels is not None
+        self._full = self._vd
+        self._psi_clients: Dict[str, PSIClient] = {}
+
+    @property
+    def ids(self) -> List[str]:
+        return self._vd.ids
+
+    @property
+    def labels(self) -> Optional[np.ndarray]:
+        return self._vd.data if self.has_labels else None
+
+    def __repr__(self):
+        return (f"DataScientist(rows={len(self._vd.ids)}, "
+                f"labels={self.has_labels})")
+
+    def psi_client(self, group: str) -> PSIClient:
+        """The scientist's PSI endpoint for ``group``: its blinded upload
+        is memoized and reused against every owner round."""
+        cli = self._psi_clients.get(group)
+        if cli is None or cli.items != self._full.ids:
+            cli = self._psi_clients[group] = PSIClient(self._full.ids, group)
+        return cli
+
+    def _align(self, keep_ids: Sequence[str]) -> None:
+        self._vd = self._full.filter_and_sort(keep_ids)
+
+
+# ---------------------------------------------------------------------------
+# Owner-side compute endpoint (true split execution)
+# ---------------------------------------------------------------------------
+
+
+class OwnerComputeEndpoint:
+    """The compute that, in a deployment, runs on the owner's device.
+
+    Holds the owner's private feature slice (staged on the device once),
+    its head-segment parameters and its optimizer state; everything else
+    arrives as protocol messages on its transport endpoint:
+
+      ``head_fwd``       batch row indices for step t (seq t).  The owner
+                         gathers its own rows on the device and — once
+                         the step t-1 update is applied — runs the head
+                         forward and ships the codec-encoded cut
+                         (``cut_activations``, seq t).
+      ``cut_gradients``  the cut gradient for step t: head backward, one
+                         optimizer update, then the staged step-t+1
+                         forward if its request already arrived.
+      ``warmup``         pre-training handshake: one forward, one
+                         backward of a zero gradient and one update
+                         through both codec directions (a zero gradient
+                         leaves SGD params bitwise unchanged).
+      ``barrier``        flush marker, acked once every prior message is
+                         processed.
+      ``stop``           end of training.
+
+    FIFO channel order is the only synchronization: every gradient of
+    step t precedes the forward of step t+1 (an early ``head_fwd`` is
+    staged, not run), so the pipelined schedule is exact.  Every tensor
+    op runs on the session's device; the host copy at the wire boundary
+    synchronises, so the loop takes no explicit device sync.  ``run``
+    is the thread target.  The reference's microbatching, masking,
+    fault and supervision hooks are queued in ROADMAP.md.
+    """
+
+    def __init__(self, owner: DataOwner, endpoint, head_fwd, head_bwd, *,
+                 update, params, opt_state, codec, device,
+                 ack_steps: bool = False):
+        self.owner = owner
+        self.endpoint = endpoint
+        self.head_fwd, self.head_bwd = head_fwd, head_bwd
+        self._update = update
+        self.params = params
+        self.opt_state = opt_state
+        self.codec = codec
+        self.device = torch.device(device)
+        self.ack_steps = ack_steps
+        self.steps_done = 0
+        self.error: Optional[BaseException] = None
+        self._inflight: Dict[int, torch.Tensor] = {}   # seq -> head input
+        self._plan: Dict[int, torch.Tensor] = {}       # step -> staged rows
+        self._feats = torch.from_numpy(np.ascontiguousarray(
+            owner._features, np.float32)).to(self.device)
+
+    def _stage(self, idx) -> torch.Tensor:
+        """Gather the step's rows on the device."""
+        return self._feats[torch.from_numpy(
+            np.asarray(idx, np.int64)).to(self.device)]
+
+    def _run_fwd(self, step: int) -> None:
+        x = self._plan.pop(step)
+        self._inflight[step] = x
+        self.endpoint.send("cut_activations",
+                           self.codec.encode(self.head_fwd(self.params, x)),
+                           seq=step)
+
+    def _warmup(self, msg) -> None:
+        x = self._stage(msg.payload["idx"])
+        self.endpoint.send("warmup_cuts",
+                           self.codec.encode(self.head_fwd(self.params, x)),
+                           seq=0)
+        g = self.codec.decode(self.endpoint.recv_kind("warmup_grads").payload)
+        grads = self.head_bwd(self.params, x, g * 0.0)
+        self.params, self.opt_state = self._update(
+            self.params, self.opt_state, grads, 0)
+        self.endpoint.send("warmup_done", {}, seq=msg.seq)
+
+    def handle(self, msg) -> bool:
+        """Process one protocol message; returns False on ``stop``."""
+        if msg.kind == "stop":
+            return False
+        if msg.kind == "barrier":
+            self.endpoint.send("barrier_ack", {}, seq=msg.seq)
+        elif msg.kind == "warmup":
+            self._warmup(msg)
+        elif msg.kind == "head_fwd":
+            step = int(msg.seq)
+            self._plan[step] = self._stage(msg.payload["idx"])
+            if step == self.steps_done:
+                self._run_fwd(step)
+        elif msg.kind == "cut_gradients":
+            seq = int(msg.seq)
+            g = self.codec.decode(msg.payload)
+            grads = self.head_bwd(self.params, self._inflight.pop(seq), g)
+            self.params, self.opt_state = self._update(
+                self.params, self.opt_state, grads, self.steps_done)
+            self.steps_done += 1
+            if self.steps_done in self._plan:
+                self._run_fwd(self.steps_done)
+            if self.ack_steps:
+                self.endpoint.send("step_done", {}, seq=seq)
+        else:
+            raise RuntimeError(f"owner {self.owner.name}: unknown message "
+                               f"kind {msg.kind!r}")
+        return True
+
+    def run(self):
+        try:
+            while self.handle(self.endpoint.recv()):
+                pass
+        except Exception as e:         # noqa: BLE001 — surfaced by the
+            self.error = e             # session's receive poll
+
+
+def feature_parties(scientist_ds: VerticalDataset,
+                    owner_ds: Dict[str, VerticalDataset]
+                    ) -> Tuple[DataScientist, List[DataOwner]]:
+    """Wrap ``make_vertical_mnist_parties``-style datasets (scientist
+    labels + per-owner feature slices) as party objects."""
+    sci = DataScientist(scientist_ds.ids, scientist_ds.data)
+    owners = [DataOwner(name, ds.ids, ds.data)
+              for name, ds in owner_ds.items()]
+    return sci, owners

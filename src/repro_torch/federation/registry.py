@@ -1,0 +1,120 @@
+"""Model registry: ``session.build(config)`` dispatches a config to an
+adapter that gives the session one surface — init, loss, batch assembly,
+per-segment optimizers, and the per-segment programs split execution
+runs (the port's counterpart of ``repro.federation.registry``; only the
+MLP adapter is ported, the LM adapter is queued in ROADMAP.md).
+
+Every program accessor is cached on the adapter, so the joint path and
+the split workers call the very same function objects; with the same
+shapes on the same device that is what keeps split == joint bitwise.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.pyvertical_mnist import MLPSplitConfig
+from repro_torch.core import splitnn
+from repro_torch.federation import batching
+from repro_torch.optim import apply_updates, multi_segment, sgd
+
+
+def build_adapter(cfg):
+    if isinstance(cfg, MLPSplitConfig):
+        return MLPAdapter(cfg)
+    raise NotImplementedError(
+        f"no port adapter for {type(cfg).__name__}: only the MLP SplitNN "
+        "is ported (the LM serving slice is queued in ROADMAP.md)")
+
+
+class MLPAdapter:
+    """The paper's Appendix-B dual-headed MLP on feature-split data."""
+
+    def __init__(self, cfg: MLPSplitConfig):
+        self.cfg = cfg
+        self.model = splitnn.MLPSplitNN(cfg)
+        self.loss_fn = self.model.loss_fn
+        self._progs = {}
+
+    def _cached(self, key, make):
+        if key not in self._progs:
+            self._progs[key] = make()
+        return self._progs[key]
+
+    def init(self, gen: torch.Generator):
+        return self.model.init(gen)
+
+    def make_batch(self, owner_arrays: Sequence[np.ndarray],
+                   labels: Optional[np.ndarray], idx=None, *, device="cpu"):
+        return batching.feature_batch(owner_arrays, labels, idx,
+                                      device=device)
+
+    def _segment_opts(self, owner_lr: Optional[float] = None,
+                      scientist_lr: Optional[float] = None):
+        """THE per-segment update rules (Appendix B) — the joint
+        optimizer and the split-mode per-party optimizers both derive
+        from this one definition."""
+        sp = self.cfg.split
+        return {
+            "heads": sgd(owner_lr if owner_lr is not None else sp.owner_lr),
+            "trunk": sgd(scientist_lr if scientist_lr is not None
+                         else sp.scientist_lr)}
+
+    def default_optimizer(self, owner_lr: Optional[float] = None,
+                          scientist_lr: Optional[float] = None):
+        return multi_segment(self._segment_opts(owner_lr, scientist_lr))
+
+    def cut_shape(self, batch_size: int,
+                  feature_shape: Tuple[int, ...]) -> Tuple[int, ...]:
+        """Per-owner cut activation shape: (B, k) — not the raw width."""
+        return (batch_size, self.model.k)
+
+    # ------------------------------------------------- split execution
+    def owner_programs(self, owner_index: int):
+        """(head_fwd, head_bwd) — one pair serves every owner."""
+        return self._cached(
+            "head_progs", lambda: splitnn.make_mlp_head_programs(self.model))
+
+    def trunk_program(self):
+        return self._cached(
+            "trunk_prog", lambda: splitnn.make_mlp_trunk_program(self.model))
+
+    def trunk_microbatch_programs(self):
+        return self._cached(
+            "trunk_micro",
+            lambda: splitnn.make_mlp_trunk_microbatch_programs(self.model))
+
+    def owner_param_slice(self, params, p: int):
+        return splitnn.head_slice(params["heads"], p)
+
+    def stack_head_params(self, slices: Sequence):
+        return splitnn.stack_heads(list(slices))
+
+    def owner_optimizer(self, owner_lr: Optional[float] = None):
+        # plain SGD is elementwise, so one owner's slice of the joint
+        # stacked-heads update IS this update (bit for bit)
+        return self._segment_opts(owner_lr=owner_lr)["heads"]
+
+    def trunk_optimizer(self, scientist_lr: Optional[float] = None):
+        return self._segment_opts(scientist_lr=scientist_lr)["trunk"]
+
+    def _update_rule(self, key, optimizer):
+        def build():
+            def upd(params, state, grads, step):
+                with torch.no_grad():
+                    updates, state = optimizer.update(grads, state, params,
+                                                      step)
+                    return apply_updates(params, updates), state
+            return optimizer, upd
+        return self._cached(key, build)
+
+    def owner_update_rule(self, owner_lr: Optional[float] = None):
+        """(optimizer, update+apply) for one owner's head segment."""
+        return self._update_rule(("owner_upd", owner_lr),
+                                 self.owner_optimizer(owner_lr))
+
+    def trunk_update_rule(self, scientist_lr: Optional[float] = None):
+        return self._update_rule(("trunk_upd", scientist_lr),
+                                 self.trunk_optimizer(scientist_lr))

@@ -1,0 +1,613 @@
+"""VerticalSession — the entry point of the port's training path (the
+port's counterpart of ``repro.federation.session``).
+
+The paper's pipeline (Fig. 2): resolve -> build -> fit -> evaluate.
+
+<!-- docs-check: skip -->
+```python
+from repro_torch.configs import CONFIG
+from repro_torch.data import make_vertical_mnist_parties
+from repro_torch.federation import VerticalSession, feature_parties
+
+sci, owners = feature_parties(*make_vertical_mnist_parties(2000))
+session = VerticalSession(sci, owners)          # the CUDA card
+session.resolve(group="modp512")                # DH-PSI + ID alignment
+session.build(CONFIG)                           # the dual-headed SplitNN
+session.fit(epochs=1, batch_size=128, eval_frac=0.15, mode="split",
+            compression="int8", backend="queue")
+session.evaluate()
+```
+
+The session runs on the CUDA card unless built with ``device="cpu"``;
+with no card and no explicit device it raises.
+
+Training modes:
+
+  * ``fit(mode="joint")`` — one autograd step per batch through the
+    whole model (the gradient-equivalence oracle).
+  * ``fit(mode="split")`` — true split execution: each owner's head runs
+    on its own thread behind a transport channel; only cut activations
+    and cut gradients cross, measured on the wire.  With the lossless
+    codec it reproduces the joint path bit for bit (both schedules, both
+    backends).  ``compression="int8"`` ships cuts and gradients through
+    the int8 quantize kernel.
+
+Party-visibility contract: owners never see labels, the scientist never
+receives raw feature arrays; every cross-party message the session
+mediates is appended to ``session.transcript``.
+
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
+item): PSI bloom/hidden modes, the worker pool and the wire backends;
+``supervise``, ``aggregation``, ``backend="process"``,
+``microbatches > 1``, checkpointing and serving.
+"""
+from __future__ import annotations
+
+import queue as _queue
+import sys
+import threading
+import time
+import warnings
+from collections import deque
+from typing import Dict, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.psi import DEFAULT_CHUNK, psi_round
+from repro_torch.core.splitnn import cut_layer_traffic, make_split_train_step
+from repro_torch.device import resolve_device
+from repro_torch.federation import transport
+from repro_torch.federation.parties import (DataOwner, DataScientist,
+                                            OwnerComputeEndpoint,
+                                            PrivacyError)
+from repro_torch.federation.registry import build_adapter
+from repro_torch.tree import tree_map
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP.md, port "
+        f"queue: {item})")
+
+
+def _scalars(m):
+    return {k: float(v) for k, v in m.items()}
+
+
+class VerticalSession:
+    """Orchestrates one scientist + N owners through resolve / build /
+    fit / evaluate.  The session is the trusted simulation runtime;
+    party objects keep their raw data private."""
+
+    def __init__(self, scientist: DataScientist,
+                 owners: Union[Sequence[DataOwner], Dict[str, DataOwner]],
+                 *, seed: int = 0, device=None):
+        self.device = resolve_device(device)
+        self.scientist = scientist
+        self.owners: List[DataOwner] = (list(owners.values())
+                                        if isinstance(owners, dict)
+                                        else list(owners))
+        if len({o.name for o in self.owners}) != len(self.owners):
+            raise ValueError("owner names must be unique")
+        if not self.owners:
+            raise ValueError("need at least one data owner")
+        self.seed = seed
+        self.transcript: List[dict] = []
+        self.resolve_stats: Optional[dict] = None
+        self.transport_stats: Optional[dict] = None
+        self.adapter = None
+        self.config = None
+        self.params = None
+        self.history: Optional[dict] = None
+        self._resolved = False
+        self._train_idx = np.arange(0)
+        self._eval_idx = np.arange(0)
+
+    # ------------------------------------------------------------- plumbing
+
+    def _log(self, frm: str, to: str, kind: str, **payload):
+        self.transcript.append({"from": frm, "to": to, "kind": kind,
+                                **payload})
+
+    def _owner_arrays(self) -> List[np.ndarray]:
+        """Owner-side accessor: aligned per-owner feature matrices (the
+        simulation of owner-local head computation in the joint path)."""
+        return [o._features for o in self.owners]
+
+    def _require(self, *, resolved=False, built=False, labels=False):
+        if resolved and not self._resolved:
+            raise RuntimeError("call session.resolve() before training — "
+                               "parties are not ID-aligned yet")
+        if built and self.adapter is None:
+            raise RuntimeError("call session.build(config) first")
+        if labels and not self.scientist.has_labels:
+            raise PrivacyError("the scientist holds no labels; this "
+                               "session supports inference only")
+
+    # ------------------------------------------------------------ 1. resolve
+
+    def resolve(self, *, group: str = "modp2048", mode: str = "noinv",
+                parallelism: int = 0, chunk_size: int = DEFAULT_CHUNK,
+                backend: str = "direct") -> dict:
+        """The paper's §3.1 protocol: the scientist runs DH-PSI pairwise
+        with each owner (scientist = client, so only the scientist learns
+        each intersection), intersects globally, broadcasts the shared
+        IDs, and every party filters and sorts.  The scientist blinds its
+        set once and reuses the upload for every owner round (logged as
+        ``psi_blind_reuse``).  Returns the stats dict."""
+        if mode != "noinv":
+            raise _not_ported(f"PSI mode {mode!r}",
+                              "PSI bloom/hidden/delta and wire backends")
+        if parallelism:
+            raise _not_ported("the PSI worker pool (parallelism > 0)",
+                              "PSI bloom/hidden/delta and wire backends")
+        if backend != "direct":
+            raise _not_ported(f"resolve backend {backend!r}",
+                              "PSI bloom/hidden/delta and wire backends")
+        stats: dict = {"rounds": [], "global_intersection": 0,
+                       "mode": mode, "parallelism": 0,
+                       "chunk_size": chunk_size, "backend": backend}
+        client = self.scientist.psi_client(group)
+        global_ids = set(client.items)
+        for owner in self.owners:
+            wire: Dict[str, List[int]] = {}
+
+            def tally(kind, n_bytes, wire=wire):
+                c = wire.setdefault(kind, [0, 0])
+                c[0] += 1
+                c[1] += n_bytes
+
+            inter, rstats = psi_round(client, owner.psi_server(group),
+                                      chunk_size=chunk_size,
+                                      on_message=tally)
+            for kind, (n_msgs, n_bytes) in wire.items():
+                frm, to = (("scientist", owner.name)
+                           if kind == "psi_blind_chunk"
+                           else (owner.name, "scientist"))
+                self._log(frm, to, kind, bytes=n_bytes, chunks=n_msgs)
+            if rstats["blind_cached"]:
+                self._log("scientist", owner.name, "psi_blind_reuse",
+                          reused_upload_bytes=rstats["client_upload_bytes"])
+            global_ids &= set(inter)
+            stats["rounds"].append({
+                "owner": owner.name, "intersection_size": len(inter),
+                **{k: rstats[k] for k in
+                   ("client_upload_bytes", "server_response_bytes",
+                    "server_set_bytes", "n_chunks", "blind_cached")}})
+        stats["global_intersection"] = len(global_ids)
+        self.scientist._align(global_ids)
+        for owner in self.owners:
+            owner._align(global_ids)
+            self._log("scientist", owner.name, "resolved_ids",
+                      count=len(global_ids))
+            if owner.ids != self.scientist.ids:
+                raise RuntimeError(f"misaligned owner {owner.name}")
+        self._resolved = True
+        self.resolve_stats = stats
+        return stats
+
+    # -------------------------------------------------------------- 2. build
+
+    def build(self, config, *, seed: Optional[int] = None,
+              params=None) -> "VerticalSession":
+        """Instantiate the split model for ``config`` and its params on
+        the session's device: from ``params`` when given (a tree in the
+        reference's layout, e.g. ``repro_torch.weights.from_reference``
+        of the JAX params), else drawn from a ``torch.Generator`` seeded
+        with ``seed`` (default: the session seed)."""
+        self.adapter = build_adapter(config)
+        self.config = config
+        if params is None:
+            gen = torch.Generator().manual_seed(
+                self.seed if seed is None else seed)
+            params = self.adapter.init(gen)
+        self.params = tree_map(
+            lambda t: torch.as_tensor(t, dtype=torch.float32).to(
+                self.device).clone(), params)
+        return self
+
+    # ---------------------------------------------------------------- 3. fit
+
+    def fit(self, *, epochs: int, batch_size: int = 128,
+            eval_frac: float = 0.0, owner_lr: Optional[float] = None,
+            scientist_lr: Optional[float] = None,
+            shuffle_seed: Optional[int] = None, verbose: bool = True,
+            mode: str = "joint", schedule: str = "pipelined",
+            microbatches: int = 1, compression: Optional[str] = None,
+            backend: str = "queue", timeout: float = 120.0,
+            supervise: bool = False, aggregation: Optional[str] = None,
+            ckpt_dir: Optional[str] = None) -> dict:
+        """The SplitNN training loop over ``epochs`` epochs of full
+        batches.  ``eval_frac`` holds out the last fraction of aligned
+        rows; per-epoch eval metrics land in ``history["eval"]`` and the
+        per-step loss in ``history["loss_trail"]``.
+
+        ``mode="joint"`` runs the single autograd step.  ``mode="split"``
+        runs true split execution: ``schedule`` ("pipelined" ships the
+        step-t+1 forward request before step t's gradients, so owner
+        work overlaps the scientist's; "sequential" is the synchronous
+        baseline), ``compression`` (None | "fp16" | "int8" cut codec),
+        ``backend`` ("queue" = serialized simulated network, "direct" =
+        in-process handoff), ``timeout`` (seconds a receive from an
+        owner may wait).  Both modes draw batches from one index stream,
+        so they see the same batches in the same order."""
+        self._require(resolved=True, built=True, labels=True)
+        if mode not in ("joint", "split"):
+            raise ValueError(f"mode must be 'joint' or 'split': {mode!r}")
+        if supervise:
+            raise _not_ported("supervise=True", "supervise/recovery")
+        if aggregation is not None:
+            raise _not_ported(f"aggregation={aggregation!r}",
+                              "masked_sum and privacy")
+        if int(microbatches) != 1:
+            raise _not_ported("microbatches > 1", "microbatches > 1")
+        if ckpt_dir is not None:
+            raise _not_ported("checkpointing", "checkpointing")
+        n = len(self.scientist.ids)
+        n_train = n - int(n * eval_frac)
+        if n_train < batch_size:
+            raise ValueError(f"{n_train} train rows < batch {batch_size}")
+        self._train_idx = np.arange(n_train)
+        self._eval_idx = np.arange(n_train, n)
+        rng = np.random.default_rng(self.seed if shuffle_seed is None
+                                    else shuffle_seed)
+        stream = self._index_stream(rng, n_train, batch_size, epochs)
+        steps_per_epoch = (n_train - batch_size) // batch_size + 1
+        if mode == "split":
+            return self._fit_split(
+                stream, epochs=epochs, steps_per_epoch=steps_per_epoch,
+                batch_size=batch_size, owner_lr=owner_lr,
+                scientist_lr=scientist_lr, verbose=verbose,
+                schedule=schedule, compression=compression,
+                backend=backend, timeout=timeout)
+        return self._fit_joint(stream, epochs=epochs,
+                               steps_per_epoch=steps_per_epoch,
+                               batch_size=batch_size, owner_lr=owner_lr,
+                               scientist_lr=scientist_lr, verbose=verbose)
+
+    def _index_stream(self, rng, n_train, batch_size, epochs):
+        """The batch-index stream — one generator shared by the joint
+        and split loops (a fresh permutation per epoch, full batches)."""
+        for _ in range(epochs):
+            order = rng.permutation(self._train_idx)
+            for s in range(0, n_train - batch_size + 1, batch_size):
+                yield order[s:s + batch_size]
+
+    def _labels(self, idx) -> torch.Tensor:
+        return torch.from_numpy(self.scientist.labels[idx].astype(
+            np.int64)).to(self.device)
+
+    def _end_epoch(self, ep, metrics, history, t0, *, verbose, sync):
+        """Per-epoch history, eval and print, shared by both loops.
+        ``sync`` makes ``self.params`` current before eval reads them."""
+        rec = {"epoch": ep, **_scalars(metrics)}
+        history["train"].append(rec)
+        if len(self._eval_idx):
+            sync()
+            history["eval"].append({"epoch": ep, **self.evaluate()})
+        if verbose:
+            ev = history["eval"][-1] if history["eval"] else {}
+            extra = "".join(f" val_{k}={v:.4f}"
+                            for k, v in ev.items() if k != "epoch")
+            print(f"epoch {ep:3d} " + " ".join(
+                f"{k}={v:.4f}" for k, v in rec.items() if k != "epoch")
+                + extra + f" ({time.time() - t0:.1f}s)")
+
+    def _finish(self, history, losses):
+        history["loss_trail"] = torch.stack(losses).tolist() if losses \
+            else []
+        final = dict(history["train"][-1]) if history["train"] else {}
+        if history["eval"]:
+            final.update({f"val_{k}": v
+                          for k, v in history["eval"][-1].items()
+                          if k != "epoch"})
+        history["final"] = final
+        self.history = history
+        return history
+
+    # ------------------------------------------------------- 3a. joint
+
+    def _fit_joint(self, stream, *, epochs, steps_per_epoch, batch_size,
+                   owner_lr, scientist_lr, verbose) -> dict:
+        adapter = self.adapter
+        opt = adapter.default_optimizer(owner_lr, scientist_lr)
+        state = opt.init(self.params)
+        step_fn = make_split_train_step(adapter.loss_fn, opt)
+        for owner in self.owners:
+            shape = adapter.cut_shape(batch_size, owner.feature_shape)
+            self._log(owner.name, "scientist", "cut_activations",
+                      shape=shape, width=shape[-1], per_step=True)
+            self._log("scientist", owner.name, "cut_gradients",
+                      shape=shape, per_step=True)
+        owner_arrays = self._owner_arrays()
+        labels = self.scientist.labels
+        history: dict = {"train": [], "eval": []}
+        losses: list = []
+        t0 = time.time()
+        t = 0
+        for ep in range(epochs):
+            for _ in range(steps_per_epoch):
+                batch = adapter.make_batch(owner_arrays, labels,
+                                           next(stream), device=self.device)
+                self.params, state, metrics = step_fn(self.params, state,
+                                                      batch, t)
+                losses.append(metrics["loss"])
+                t += 1
+            self._end_epoch(ep, metrics, history, t0, verbose=verbose,
+                            sync=lambda: None)
+        return self._finish(history, losses)
+
+    # ------------------------------------------------- 3b. split execution
+
+    def _recv_from_owner(self, ep, worker, kind, timeout: float):
+        """Receive ``kind`` from one owner, surfacing a dead owner thread
+        within a second instead of after the full timeout."""
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                return ep.recv_kind(kind, timeout=1.0)
+            except _queue.Empty:
+                if worker.error is not None:
+                    raise RuntimeError(
+                        f"owner worker {worker.owner.name!r} failed"
+                    ) from worker.error
+                if time.monotonic() > deadline:
+                    raise RuntimeError(
+                        f"timed out waiting for {kind!r} from "
+                        f"{worker.owner.name!r}") from None
+
+    def _sync_split_params(self, workers, eps, trunk_params, timeout):
+        """Flush every owner's queue (barrier), then reassemble the
+        session's param tree from the owners' live head segments."""
+        for ep in eps:
+            ep.send("barrier", {}, seq=-1)
+        for ep, w in zip(eps, workers):
+            self._recv_from_owner(ep, w, "barrier_ack", timeout)
+        self.params = {
+            "heads": self.adapter.stack_head_params([w.params
+                                                     for w in workers]),
+            "trunk": trunk_params}
+
+    def _fit_split(self, stream, *, epochs, steps_per_epoch, batch_size,
+                   owner_lr, scientist_lr, verbose, schedule, compression,
+                   backend, timeout) -> dict:
+        """True split execution over the transport (paper Fig. 2).
+
+        Per step t the wire carries ``head_fwd`` (batch row indices),
+        ``cut_activations``, ``cut_gradients`` and — in the sequential
+        schedule only — ``step_done`` acks.  The pipelined schedule sends
+        the step-t+1 forward request before step t's gradients; the
+        owners stage it until their step-t update lands (FIFO), so the
+        math is the joint step's.  A warmup round runs every program and
+        both codec directions once before the timed region."""
+        adapter = self.adapter
+        if backend == "process":
+            raise _not_ported("backend='process'", "process backend")
+        if backend not in ("queue", "direct"):
+            raise ValueError(f"unknown fit backend {backend!r}")
+        if schedule not in ("pipelined", "sequential"):
+            raise ValueError(f"unknown schedule {schedule!r}")
+        sequential = schedule == "sequential"
+        codec = transport.get_codec(compression, self.device)
+        total_steps = epochs * steps_per_epoch
+        denom = float(batch_size)
+
+        trunk_opt, trunk_update = adapter.trunk_update_rule(scientist_lr)
+        tp = self.params["trunk"]
+        ts = trunk_opt.init(tp)
+        if sequential:
+            trunk_step = adapter.trunk_program()
+        else:
+            cutgrad, weightgrad = adapter.trunk_microbatch_programs()
+        owner_opt, owner_update = adapter.owner_update_rule(owner_lr)
+
+        workers, eps, threads = [], [], []
+        for p, owner in enumerate(self.owners):
+            ep_sci, ep_own = transport.channel_pair(
+                "scientist", owner.name, backend=backend)
+            head_fwd, head_bwd = adapter.owner_programs(p)
+            hp = adapter.owner_param_slice(self.params, p)
+            w = OwnerComputeEndpoint(
+                owner, ep_own, head_fwd, head_bwd, update=owner_update,
+                params=hp, opt_state=owner_opt.init(hp), codec=codec,
+                device=self.device, ack_steps=sequential)
+            th = threading.Thread(target=w.run, daemon=True,
+                                  name=f"owner-{owner.name}")
+            th.start()
+            workers.append(w)
+            eps.append(ep_sci)
+            threads.append(th)
+
+        inflight: deque = deque()
+
+        def send_fwd(seq):
+            idx = next(stream)
+            for ep in eps:
+                ep.send("head_fwd", {"idx": np.asarray(idx, np.int32)},
+                        seq=seq)
+            inflight.append(idx)
+
+        def recv_cuts(kind, seq, wait):
+            cuts = []
+            for ep, w in zip(eps, workers):
+                m = self._recv_from_owner(ep, w, kind, wait)
+                if m.seq != seq:
+                    raise RuntimeError(f"protocol desync: {kind} seq "
+                                       f"{m.seq} != expected {seq}")
+                cuts.append(codec.decode(m.payload))
+            return tuple(cuts)
+
+        def send_grads(kind, grads, seq):
+            for g, ep in zip(grads, eps):
+                ep.send(kind, codec.encode(g), seq=seq)
+
+        def sync():
+            self._sync_split_params(workers, eps, tp, timeout)
+
+        # party threads trade sub-millisecond messages; the default 5 ms
+        # switch interval would let one party stall another's dispatch
+        old_switch = sys.getswitchinterval()
+        sys.setswitchinterval(5e-4)
+        try:
+            # ---------------- warmup: every program once, before the clock
+            widx = np.zeros(batch_size, np.int32)
+            for ep in eps:
+                ep.send("warmup", {"idx": widx}, seq=-1)
+            wait = max(timeout, 120.0)
+            cuts = recv_cuts("warmup_cuts", 0, wait)
+            wlab = self._labels(widx)
+            if sequential:
+                _, _, cg = trunk_step(tp, cuts, wlab)
+            else:
+                cg, _ = cutgrad(tp, cuts, wlab, denom)
+                weightgrad(tp, cuts, wlab, denom)
+            send_grads("warmup_grads", [torch.zeros_like(cg[0])] * len(eps),
+                       0)
+            tp, ts = trunk_update(tp, ts, tree_map(torch.zeros_like, tp), 0)
+            for ep, w in zip(eps, workers):
+                self._recv_from_owner(ep, w, "warmup_done", wait)
+
+            # ---------------- the timed training region
+            history: dict = {"train": [], "eval": []}
+            losses: list = []
+            t0 = time.time()
+            t_warm = None
+            overhead_s = 0.0
+            fwd_next = 0
+            for t in range(total_steps):
+                if fwd_next == t:
+                    send_fwd(t)
+                    fwd_next = t + 1
+                if not sequential and fwd_next == t + 1 < total_steps:
+                    send_fwd(t + 1)
+                    fwd_next = t + 2
+                lab_t = self._labels(inflight.popleft())
+                cuts = recv_cuts("cut_activations", t, timeout)
+                if sequential:
+                    parts, tg, cg = trunk_step(tp, cuts, lab_t)
+                    tp, ts = trunk_update(tp, ts, tg, t)
+                    send_grads("cut_gradients", cg, t)
+                    for ep, w in zip(eps, workers):
+                        self._recv_from_owner(ep, w, "step_done", timeout)
+                else:
+                    cg, parts = cutgrad(tp, cuts, lab_t, denom)
+                    send_grads("cut_gradients", cg, t)
+                    tg = weightgrad(tp, cuts, lab_t, denom)
+                    tp, ts = trunk_update(tp, ts, tg, t)
+                losses.append(parts["loss"])
+                if t == 0:
+                    t_warm = time.time()
+                if (t + 1) % steps_per_epoch == 0:
+                    tb = time.time()
+                    self._end_epoch((t + 1) // steps_per_epoch - 1, parts,
+                                    history, t0, verbose=verbose, sync=sync)
+                    overhead_s += time.time() - tb
+            wall_s = time.time() - t0
+            sync()
+        finally:
+            sys.setswitchinterval(old_switch)
+            for ep in eps:
+                ep.send("stop", {})
+            for th in threads:
+                th.join(timeout=10.0)
+                if th.is_alive():
+                    warnings.warn(f"fit(split): {th.name} still running "
+                                  "10 s after stop", RuntimeWarning)
+
+        # ------------------------------------- measured traffic accounting
+        per_owner: Dict[str, dict] = {}
+        by_kind: Dict[str, dict] = {}      # both directions, all owners
+        tot_payload = tot_wire = 0
+        zero = {"payload_bytes": 0, "wire_bytes": 0}
+        for owner, ep in zip(self.owners, eps):
+            sent, rcvd = ep.sent_stats, ep.recv_stats
+            for st in (sent, rcvd):
+                for kind, v in st["by_kind"].items():
+                    acc = by_kind.setdefault(kind, dict.fromkeys(v, 0))
+                    for k in v:
+                        acc[k] += v[k]
+            cut_k = rcvd["by_kind"].get("cut_activations", zero)
+            grad_k = sent["by_kind"].get("cut_gradients", zero)
+            per_owner[owner.name] = {
+                "cut_payload_bytes": cut_k["payload_bytes"],
+                "cut_wire_bytes": cut_k["wire_bytes"],
+                "grad_payload_bytes": grad_k["payload_bytes"],
+                "grad_wire_bytes": grad_k["wire_bytes"],
+                "messages": sent["messages"] + rcvd["messages"],
+            }
+            tot_payload += cut_k["payload_bytes"] + grad_k["payload_bytes"]
+            tot_wire += cut_k["wire_bytes"] + grad_k["wire_bytes"]
+            self._log(owner.name, "scientist", "cut_activations",
+                      bytes=cut_k["payload_bytes"], measured=True,
+                      per_step_bytes=cut_k["payload_bytes"] // total_steps,
+                      width=adapter.cut_shape(
+                          batch_size, owner.feature_shape)[-1])
+            self._log("scientist", owner.name, "cut_gradients",
+                      bytes=grad_k["payload_bytes"], measured=True,
+                      per_step_bytes=grad_k["payload_bytes"] // total_steps)
+        step_s = wall_s - overhead_s
+        self.transport_stats = {
+            "mode": "split", "schedule": schedule, "microbatches": 1,
+            "compression": compression or "none", "backend": backend,
+            "device": str(self.device),
+            "steps": total_steps, "wall_s": wall_s,
+            # per-step cost excludes eval/sync bookkeeping ...
+            "step_ms": 1e3 * step_s / total_steps,
+            # ... and, steady-state, the step-0 pipeline fill too
+            "steady_step_ms": (1e3 * (t0 + step_s - t_warm)
+                               / (total_steps - 1) if total_steps > 1
+                               else 1e3 * step_s),
+            "per_owner": per_owner,
+            "wire_by_kind": by_kind,
+            "cut_payload_bytes_per_step": sum(
+                o["cut_payload_bytes"] for o in per_owner.values())
+            // total_steps,
+            "total_payload_bytes": tot_payload,
+            "total_wire_bytes": tot_wire,
+            "total_payload_bytes_per_step": tot_payload // total_steps,
+        }
+        history = self._finish(history, losses)
+        history["transport"] = self.transport_stats
+        return history
+
+    # ------------------------------------------------------------ 4. eval
+
+    def evaluate(self, *, split: str = "eval",
+                 batch_size: int = 512) -> Dict[str, float]:
+        """Metrics on the held-out (or train) rows, batched and
+        length-weighted."""
+        self._require(resolved=True, built=True, labels=True)
+        idx = self._eval_idx if split == "eval" else self._train_idx
+        if not len(idx):
+            raise ValueError(f"no rows in split {split!r} — "
+                             "fit with eval_frac > 0 first")
+        owner_arrays = self._owner_arrays()
+        labels = self.scientist.labels
+        totals: Dict[str, float] = {}
+        with torch.no_grad():
+            for s in range(0, len(idx), batch_size):
+                sub = idx[s:s + batch_size]
+                batch = self.adapter.make_batch(owner_arrays, labels, sub,
+                                                device=self.device)
+                _, m = self.adapter.loss_fn(self.params, batch)
+                for k, v in m.items():
+                    totals[k] = totals.get(k, 0.0) + float(v) * len(sub)
+        return {k: v / len(idx) for k, v in totals.items()}
+
+    # ---------------------------------------------------------- accounting
+
+    def cut_traffic(self, batch_size: int,
+                    bytes_per_el: int = 4) -> Dict[str, int]:
+        """Bytes crossing each owner<->scientist boundary per step."""
+        self._require(built=True)
+        shape = self.adapter.cut_shape(batch_size,
+                                       self.owners[0].feature_shape)
+        return cut_layer_traffic(len(self.owners), batch_size, 1, shape[-1],
+                                 bytes_per_el)
+
+    def checkpoint(self, ckpt_dir: str, step: int = 0):
+        raise _not_ported("checkpointing", "checkpointing")
+
+    def serve(self, **engine_kw):
+        raise _not_ported("serving", "the LM serving slice")

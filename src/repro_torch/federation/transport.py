@@ -1,0 +1,301 @@
+"""The transport layer: what crosses the party boundary (the port's
+counterpart of ``repro.federation.transport``).
+
+Parties exchange :class:`Message` objects over :class:`Channel` s, and
+everything the session reports about traffic is measured from the wire.
+Two backends:
+
+  * ``direct`` — in-process handoff: payload tensors move by reference
+    and stay on their device.
+  * ``queue``  — a simulated network: every payload is serialized to one
+    wire frame (``_pack``/``_unpack``) and byte counts come from the
+    frame.  Tensors cross as host numpy (``t.detach().cpu().numpy()``),
+    so frames — dtype names, shapes, bytes — are byte-identical to the
+    reference's.
+
+Cut-payload codecs live here too (``get_codec``): the only tensors that
+cross the boundary are cut activations and cut gradients.  ``fp16`` is a
+plain down-cast; ``int8`` is per-row symmetric quantization fused with
+wire packing in one CUDA kernel (``repro_torch/csrc/quantize.cu``): the
+payload is a single ``(rows, K+4)`` byte frame, values + bitcast scale.
+Decoding is a plain tensor multiply on the receiver's device.
+"""
+from __future__ import annotations
+
+import queue
+import struct
+import time
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["Message", "Channel", "Endpoint", "channel_pair", "Codec",
+           "FP16Codec", "Int8Codec", "get_codec"]
+
+
+# ---------------------------------------------------------------------------
+# Wire format: one frame of named arrays
+# ---------------------------------------------------------------------------
+#
+# Frame layout:  [u32 n_entries] then per entry
+#   [u16 name_len][name][u16 dtype_len][dtype.name][u8 ndim][i64 dims...]
+#   [i64 nbytes][raw buffer]
+# (the reference's layout, byte for byte).
+
+
+def _host(arr) -> np.ndarray:
+    """A payload value as contiguous host numpy (a device tensor is
+    copied to the host here; that copy synchronises with its stream)."""
+    if isinstance(arr, torch.Tensor):
+        arr = arr.detach().cpu().numpy()
+    return np.ascontiguousarray(np.asarray(arr))
+
+
+def _pack(payload: Dict[str, object]) -> bytes:
+    """Serialize ``{name: array or tensor}`` to one immutable blob."""
+    entries = [(name.encode(), _host(a)) for name, a in payload.items()]
+    parts = [struct.pack("<I", len(entries))]
+    for nb, arr in entries:
+        dt = arr.dtype.name.encode()
+        parts += [struct.pack("<H", len(nb)), nb,
+                  struct.pack("<H", len(dt)), dt,
+                  struct.pack(f"<B{arr.ndim}q", arr.ndim, *arr.shape),
+                  struct.pack("<q", arr.nbytes),
+                  arr.reshape(-1).view(np.uint8).tobytes()]
+    return b"".join(parts)
+
+
+def _unpack(blob: bytes) -> Dict[str, np.ndarray]:
+    """Inverse of ``_pack``: zero-copy read-only views into ``blob``."""
+    out: Dict[str, np.ndarray] = {}
+    off = 0
+    (n,) = struct.unpack_from("<I", blob, off)
+    off += 4
+    for _ in range(n):
+        (ln,) = struct.unpack_from("<H", blob, off)
+        off += 2
+        name = blob[off:off + ln].decode()
+        off += ln
+        (ld,) = struct.unpack_from("<H", blob, off)
+        off += 2
+        dtype = np.dtype(blob[off:off + ld].decode())
+        off += ld
+        (ndim,) = struct.unpack_from("<B", blob, off)
+        off += 1
+        shape = struct.unpack_from(f"<{ndim}q", blob, off)
+        off += 8 * ndim
+        (nbytes,) = struct.unpack_from("<q", blob, off)
+        off += 8
+        count = nbytes // dtype.itemsize if dtype.itemsize else 0
+        out[name] = np.frombuffer(blob, dtype=dtype, count=count,
+                                  offset=off).reshape(shape)
+        off += nbytes
+    return out
+
+
+def _nbytes(a) -> int:
+    if isinstance(a, torch.Tensor):
+        return a.numel() * a.element_size()
+    return np.asarray(a).nbytes
+
+
+def to_tensor(a, device: torch.device) -> torch.Tensor:
+    """A received payload value as a tensor on ``device`` (read-only wire
+    views are copied first: torch tensors are writable)."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    a = np.asarray(a)
+    if not a.flags.writeable:
+        a = a.copy()
+    return torch.from_numpy(a).to(device)
+
+
+# ---------------------------------------------------------------------------
+# Messages and channels
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Message:
+    sender: str
+    receiver: str
+    kind: str
+    payload: Dict[str, object]
+    seq: int = 0
+    payload_bytes: int = 0         # sum of array buffers (the protocol data)
+    wire_bytes: int = 0            # serialized blob incl. headers (queue)
+
+
+class Channel:
+    """One direction of a party boundary, with measured byte accounting.
+    A thread-safe FIFO: message order is the protocol's happens-before
+    edge (an owner applies the step-``t`` gradient before it runs the
+    step-``t+1`` forward)."""
+
+    def __init__(self, sender: str, receiver: str, *, serialize: bool):
+        self.sender, self.receiver = sender, receiver
+        self.serialize = serialize
+        self._q: "queue.Queue[Message]" = queue.Queue()
+        self.stats: Dict[str, object] = {
+            "messages": 0, "payload_bytes": 0, "wire_bytes": 0,
+            "by_kind": {}}
+
+    def _account(self, kind: str, payload_bytes: int, wire_bytes: int):
+        # one sender thread per channel: no lock needed
+        st = self.stats
+        st["messages"] += 1
+        st["payload_bytes"] += payload_bytes
+        st["wire_bytes"] += wire_bytes
+        k = st["by_kind"].setdefault(
+            kind, {"count": 0, "payload_bytes": 0, "wire_bytes": 0})
+        k["count"] += 1
+        k["payload_bytes"] += payload_bytes
+        k["wire_bytes"] += wire_bytes
+
+    def send(self, kind: str, payload: Dict[str, object], *,
+             seq: int = 0) -> Message:
+        pb = sum(_nbytes(a) for a in payload.values())
+        if self.serialize:
+            blob = _pack(payload)
+            wb = len(blob)
+            payload = {"__blob__": blob}           # only bytes travel
+        else:
+            wb = pb                                # by-reference handoff
+        msg = Message(self.sender, self.receiver, kind, payload, seq=seq,
+                      payload_bytes=pb, wire_bytes=wb)
+        self._account(kind, pb, wb)
+        self._q.put(msg)
+        return msg
+
+    def recv(self, timeout: Optional[float] = None) -> Message:
+        msg = self._q.get(timeout=timeout)
+        if self.serialize:
+            msg.payload = _unpack(msg.payload["__blob__"])
+        return msg
+
+
+class Endpoint:
+    """A party's end of a duplex boundary: an outbox + an inbox channel.
+    ``recv_kind`` keeps messages of other kinds for later instead of
+    dropping them (in a pipelined schedule the next step's cuts can
+    arrive while the scientist waits for an ack)."""
+
+    def __init__(self, name: str, peer: str, outbox: Channel,
+                 inbox: Channel):
+        self.name, self.peer = name, peer
+        self.outbox, self.inbox = outbox, inbox
+        self._stash: list = []
+
+    def send(self, kind: str, payload: Dict[str, object], *,
+             seq: int = 0) -> Message:
+        return self.outbox.send(kind, payload, seq=seq)
+
+    def recv(self, timeout: Optional[float] = None) -> Message:
+        if self._stash:
+            return self._stash.pop(0)
+        return self.inbox.recv(timeout=timeout)
+
+    def recv_kind(self, kind: str, timeout: Optional[float] = None
+                  ) -> Message:
+        """The next message of protocol kind ``kind``; raises
+        ``queue.Empty`` when ``timeout`` elapses first."""
+        for i, m in enumerate(self._stash):
+            if m.kind == kind:
+                return self._stash.pop(i)
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            left = (None if deadline is None
+                    else max(0.0, deadline - time.monotonic()))
+            msg = self.inbox.recv(timeout=left)
+            if msg.kind == kind:
+                return msg
+            self._stash.append(msg)
+
+    @property
+    def sent_stats(self) -> Dict[str, object]:
+        return self.outbox.stats
+
+    @property
+    def recv_stats(self) -> Dict[str, object]:
+        return self.inbox.stats
+
+
+def channel_pair(a: str, b: str, *, backend: str = "queue"
+                 ) -> Tuple[Endpoint, Endpoint]:
+    """The duplex boundary between parties ``a`` and ``b``:
+    ``(endpoint_a, endpoint_b)``."""
+    if backend not in ("queue", "direct"):
+        raise ValueError(f"unknown transport backend {backend!r}")
+    ser = backend == "queue"
+    ab = Channel(a, b, serialize=ser)
+    ba = Channel(b, a, serialize=ser)
+    return Endpoint(a, b, ab, ba), Endpoint(b, a, ba, ab)
+
+
+# ---------------------------------------------------------------------------
+# Cut-payload codecs
+# ---------------------------------------------------------------------------
+
+
+class Codec:
+    """Encode/decode for cut payloads.  ``encode`` maps a float tensor to
+    the wire payload dict (tensors stay on their device; a serializing
+    channel copies them to the host); ``decode`` returns an f32 tensor
+    on ``device``.  The lossless codec ships the f32 cut as it is."""
+
+    name = "none"
+
+    def __init__(self, device="cpu"):
+        self.device = torch.device(device)
+
+    def encode(self, t: torch.Tensor) -> Dict[str, object]:
+        return {"x": t.detach()}
+
+    def decode(self, payload: Dict[str, object]) -> torch.Tensor:
+        return to_tensor(payload["x"], self.device)
+
+
+class FP16Codec(Codec):
+    name = "fp16"
+
+    def encode(self, t):
+        return {"h": t.detach().to(torch.float16)}
+
+    def decode(self, payload):
+        return to_tensor(payload["h"], self.device).to(torch.float32)
+
+
+class Int8Codec(Codec):
+    """Per-row symmetric int8 (scale = absmax/127 over the last axis),
+    quantized and wire-packed in one kernel pass
+    (``repro_torch.kernels.quantize.quantize_pack_int8``): the payload is
+    one ``(rows, K+4)`` uint8 frame — K int8 values plus the
+    little-endian f32 scale in the trailing 4 bytes of each row."""
+
+    name = "int8"
+
+    def encode(self, t):
+        from repro_torch.kernels.quantize import quantize_pack_int8
+        a = t.detach().to(torch.float32)
+        packed = quantize_pack_int8(a.reshape(-1, a.shape[-1]).contiguous())
+        return {"qp": packed.reshape(a.shape[:-1] + (packed.shape[-1],))}
+
+    def decode(self, payload):
+        qp = to_tensor(payload["qp"], self.device)
+        k = qp.shape[-1] - 4
+        q = qp[..., :k].view(torch.int8).to(torch.float32)
+        scale = qp[..., k:].contiguous().view(torch.float32)
+        return q * scale
+
+
+CODECS = {c.name: c for c in (Codec, FP16Codec, Int8Codec)}
+
+
+def get_codec(name: Optional[str], device="cpu") -> Codec:
+    key = name or "none"
+    if key not in CODECS:
+        raise ValueError(f"unknown compression {name!r}; "
+                         f"known: {sorted(CODECS)}")
+    return CODECS[key](device)

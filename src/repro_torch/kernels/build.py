@@ -1,0 +1,91 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``*.cu`` under ``repro_torch/csrc/`` is compiled by ``nvcc`` for
+Hopper (``sm_90a``) into a shared library with a plain C interface, at
+first use, into ``build/repro_torch_kernels/`` at the repository root.
+The file name carries a hash of the source and the flags, so an edited
+source builds anew and an unchanged one loads what is there.  Sources
+build in parallel, one ``nvcc`` each.  There is no prebuilt binary.
+
+``nvcc`` is found as ``$CUDA_HOME/bin/nvcc``, else on ``PATH``, else at
+CUDA's default install prefix.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Sequence
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
+    "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+#: nvcc's report (``-Xptxas -v``: registers, shared memory, spills) for
+#: each library built by this process
+build_logs: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
+                       "to build the port's CUDA kernels")
+
+
+def _target(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Sequence[str]) -> Dict[str, Path]:
+    """Compile the named sources that are not built yet, all at once
+    (one nvcc process each), and return every library's path."""
+    targets = {n: _target(n) for n in names}
+    todo = {n: t for n, t in targets.items() if not t.exists()}
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = {}
+        for n, t in todo.items():
+            tmp = t.with_name(f"{t.name}.{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+            procs[n] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        failed = []
+        for n, (tmp, proc) in procs.items():
+            log, _ = proc.communicate()
+            build_logs[n] = log
+            if proc.returncode:
+                failed.append(f"{n}.cu (exit {proc.returncode}):\n{log}")
+            else:
+                os.replace(tmp, todo[n])
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return targets
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        if name not in _libs:
+            _libs[name] = ctypes.CDLL(str(build([name])[name]))
+        return _libs[name]

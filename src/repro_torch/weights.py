@@ -1,0 +1,27 @@
+"""Carry parameters between the JAX reference and the port.
+
+Both packages keep one layout: ``{"heads": [layer, ...], "trunk":
+[layer, ...]}`` with ``layer = {"w": (in, out), "b": (out,)}``, the head
+leaves stacked over owners (``(P, 392, 64)``, ``(P, 64)``).  The
+reference's params cross as numpy leaves (``jax.tree.map(np.asarray,
+params)``), so both packages start from identical weights.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.tree import tree_map
+
+
+def from_reference(tree):
+    """A tree of numpy (or array-like) leaves -> f32 CPU tensors (copies;
+    ``VerticalSession.build(..., params=...)`` moves them to its
+    device)."""
+    return tree_map(lambda a: torch.from_numpy(
+        np.array(a, dtype=np.float32, copy=True)), tree)
+
+
+def to_numpy(params):
+    """The port's params -> a tree of numpy leaves in the same layout."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), params)
