@@ -18,7 +18,21 @@ Phases, in order; any failure raises and exits non-zero:
      more epoch under torch.profiler for the device's busy share;
   5. split == joint bit for bit on the card (lossless codec, both
      schedules), and the card's joint run against the CPU's;
-  6. a ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}``
+  6. the attention kernel against its plain version on the card, on the
+     reference's kernel cases (f32 and bf16), queries over a cache, and
+     the serving path's three shapes, with times beside the bound and
+     beside one PyTorch call (``scaled_dot_product_attention``);
+  7. split-LM serving at full width: llama3.2-3b (random weights from a
+     seed) behind the wave engine over the queue transport with the int8
+     cut codec, 8 contexts of 1024 tokens in two waves of 4, 32 new
+     tokens each, with the kernel launch counts read around it, the cut
+     bytes held against the frame size, and one more wave under
+     torch.profiler;
+  8. engine == prefill + decode_step by hand on the card (greedy tokens
+     identical), and the card against the CPU at full width with 2
+     layers in f32 compute (identical greedy tokens, first-token logits
+     within rel 1e-3);
+  9. a ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}``
      JSON line last.
 
 Without a CUDA device it prints nothing and exits 2.  It imports only
@@ -40,8 +54,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 CARD_PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
               "H200": (4.8e12, 67e12), "H100": (3.35e12, 67e12)}
 # the kernel's shapes: the path's, a ragged block, one row, odd K with
-# an unaligned scale, and a large one
-SHAPES = [(128, 64), (130, 64), (1, 128), (257, 10), (65536, 64)]
+# an unaligned scale, a large one, and the serving path's llama3.2-3b
+# cuts (a prefill owner slice of 4 x 512 rows, a decode tick's 4 rows)
+SHAPES = [(128, 64), (130, 64), (1, 128), (257, 10), (65536, 64),
+          (2048, 3072), (4, 3072)]
 PATH_SHAPE = (128, 64)
 OPS_PER_ELEMENT = 6     # abs, max, divide, round, two clamps
 
@@ -276,6 +292,368 @@ def phase_split_equals_joint():
         raise AssertionError("card and CPU joint runs disagree")
 
 
+# ---------------------------------------------------------------------------
+# Split-LM serving (llama3.2-3b) and its attention kernel
+# ---------------------------------------------------------------------------
+
+BF16_FLOPS = 989e12     # H100 SXM dense bf16 (NVIDIA's data sheet)
+LM = "llama3.2-3b"
+SLOTS, CTX, NEW = 4, 1024, 32
+# the reference's kernel cases (tests/test_kernels.py ATTN_CASES):
+# B, Sq, Skv, nh, nkv, hd, kind, window, softcap
+ATTN_CASES = [
+    (2, 128, 128, 4, 4, 64, "causal", 0, 0.0),
+    (2, 256, 256, 8, 2, 64, "causal", 0, 0.0),
+    (1, 192, 192, 4, 2, 128, "local", 64, 0.0),
+    (1, 128, 128, 2, 2, 64, "bidir", 0, 0.0),
+    (1, 256, 256, 4, 2, 64, "causal", 0, 50.0),
+    (2, 100, 100, 4, 4, 32, "causal", 0, 0.0),
+]
+# queries over a cache: ... + q_offset, kv_len
+DECODE_CASES = [
+    (2, 1, 96, 6, 2, 64, "causal", 0, 0.0, 40, 41),
+    (2, 16, 128, 4, 2, 64, "causal", 0, 0.0, 32, 48),
+    (1, 1, 80, 4, 4, 32, "local", 16, 0.0, 50, 51),
+    (1, 8, 130, 4, 1, 128, "causal", 0, 30.0, 100, 108),
+]
+# the serving path's calls at llama3.2-3b width (24 q heads, 8 kv
+# heads, hd 128), engine at 4 slots, ctx 1024, 32 new tokens: head
+# prefill over a head cache of 512 + 33, trunk prefill over 1024 + 33,
+# and a trunk decode step 16 tokens in
+PATH_CASES = {
+    "head_prefill": (4, 512, 545, 24, 8, 128, "causal", 0, 0.0, 0, 512),
+    "trunk_prefill": (4, 1024, 1057, 24, 8, 128, "causal", 0, 0.0, 0, 1024),
+    "trunk_decode": (4, 1, 1057, 24, 8, 128, "causal", 0, 0.0, 1040, 1041),
+}
+HEADLINE = "trunk_prefill"
+
+
+def live_pairs(Sq, Skv, kind, window, q_offset, kv_len):
+    """(query, key) pairs the mask keeps — the work these inputs need."""
+    kv_lim = min(Skv, kv_len if kv_len is not None else Skv)
+    n = 0
+    for i in range(Sq):
+        qp = q_offset + i
+        hi = kv_lim if kind == "bidir" else min(kv_lim, qp + 1)
+        lo = max(0, qp - window + 1) if kind == "local" else 0
+        n += max(0, hi - lo)
+    return n, kv_lim
+
+
+def attn_bound(case, dtype, bw, f32_flops):
+    B, Sq, Skv, nh, nkv, hd, kind, window, _cap, q_off, kv_len = case
+    import torch
+    pairs, kv_lim = live_pairs(Sq, Skv, kind, window, q_off, kv_len)
+    flops = 4 * B * nh * hd * pairs
+    elt = 2 if dtype == torch.bfloat16 else 4
+    nbytes = elt * (2 * B * Sq * nh * hd + 2 * B * kv_lim * nkv * hd)
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else f32_flops
+    bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * flops / peak
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations"), flops
+
+
+def phase_attention(bw, f32_flops):
+    """Phase 6: the attention kernel vs its plain version on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.block_attention import (attention_ref,
+                                                     block_attention)
+    from repro_torch.kernels.block_attention.ref import attention_mask
+    tol = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+    err, rows = 0.0, {}
+    cases = [(f"case{i}", c + (0, None)) for i, c in enumerate(ATTN_CASES)]
+    cases += [(f"cache{i}", c) for i, c in enumerate(DECODE_CASES)]
+    cases += [(f"path:{n}", c) for n, c in PATH_CASES.items()]
+    for name, case in cases:
+        B, Sq, Skv, nh, nkv, hd, kind, window, cap, q_off, kv_len = case
+        rng = np.random.default_rng(0)
+        base = [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                .cuda() for s in ((B, Sq, nh, hd), (B, Skv, nkv, hd),
+                                  (B, Skv, nkv, hd))]
+        dtypes = ([torch.bfloat16] if name.startswith("path")
+                  else [torch.float32, torch.bfloat16])
+        for dt in dtypes:
+            q, k, v = (t.to(dt) for t in base)
+            kw = dict(kind=kind, window=window, softcap=cap,
+                      q_offset=q_off, kv_len=kv_len)
+            got = block_attention(q, k, v, **kw)
+            want = attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            e = (got.float() - want.float()).abs()
+            lim = tol[dt] + tol[dt] * want.float().abs()
+            if not bool((e <= lim).all()) or not torch.isfinite(got).all():
+                raise AssertionError(
+                    f"attention {name} {dt}: kernel vs plain max |diff| "
+                    f"{e.max().item():.3e} beyond atol=rtol={tol[dt]}")
+            err = max(err, e.max().item())
+            print(f"  {name} {tuple(q.shape)} kv {Skv} {kind} "
+                  f"{str(dt)[6:]}: max |diff| {e.max().item():.3e} "
+                  f"(tol {tol[dt]})")
+            if not name.startswith("path"):
+                continue
+            bound, by, flops = attn_bound(case, dt, bw, f32_flops)
+            library = sdpa_call(q, k, v, case, attention_mask)
+            lib_err = (library().float() - want.float()).abs().max().item()
+            # the library's fastest kernels are not deterministic ones
+            torch.use_deterministic_algorithms(False)
+            library_ms = device_ms(library, reps=10, rounds=7)
+            torch.use_deterministic_algorithms(True)
+            row = {"shape": [list(q.shape), list(k.shape)],
+                   "q_offset": q_off, "kv_len": kv_len,
+                   "ms": device_ms(lambda: block_attention(q, k, v, **kw),
+                                   reps=10, rounds=7),
+                   "plain_ms": device_ms(lambda: attention_ref(q, k, v,
+                                                               **kw),
+                                         reps=5, rounds=5),
+                   "library_ms": library_ms,
+                   "eager_ms": eager_ms(lambda: block_attention(q, k, v,
+                                                                **kw),
+                                        reps=10, rounds=5),
+                   "bound_ms": bound, "bound_by": by, "flops": flops,
+                   "max_abs_err": e.max().item(),
+                   "library_max_abs_err": lib_err}
+            row["tflops"] = flops / row["ms"] / 1e9
+            rows[name[5:]] = row
+            print(f"    kernel {row['ms']:.6f} ms ({row['tflops']:.2f} "
+                  f"TFLOP/s; eager {row['eager_ms']:.6f}), plain "
+                  f"{row['plain_ms']:.6f} ms, SDPA {row['library_ms']:.6f}"
+                  f" ms (|diff| {lib_err:.2e}), bound {row['bound_ms']:.6f}"
+                  f" ms ({by})")
+    return {"max_abs_err": err, "rows": rows}
+
+
+def sdpa_call(q, k, v, case, attention_mask):
+    """One ``scaled_dot_product_attention`` call that computes the case's
+    function, in its fastest form: the valid keys ``[:kv_len]`` sliced
+    (views), ``is_causal`` for a causal prefill from position 0, no mask
+    for a decode step that sees every valid key, else a boolean mask.
+    Timed as a yardstick only; the port never calls it."""
+    import torch
+    B, Sq, Skv, nh, nkv, hd, kind, window, cap, q_off, kv_len = case
+    if cap:
+        raise ValueError("SDPA has no soft-capping")
+    kv_lim = min(Skv, kv_len if kv_len is not None else Skv)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k[:, :kv_lim],
+                                              v[:, :kv_lim]))
+    kw = dict(enable_gqa=True)
+    if kind == "causal" and q_off == 0:
+        kw["is_causal"] = True
+    elif not (kind == "causal" and Sq == 1 and kv_lim <= q_off + 1):
+        kw["attn_mask"] = attention_mask(
+            q_off + torch.arange(Sq, device=q.device),
+            torch.arange(kv_lim, device=q.device), kind, window, None)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(qh, kh, vh, **kw).transpose(1, 2)
+
+
+def lm_contexts(vocab, n, length, seed=0):
+    from repro_torch.data import make_token_dataset
+    return make_token_dataset(n, length, vocab, seed)[:, :length]
+
+
+def phase_serving():
+    """Phase 7: llama3.2-3b at full width behind the wave engine over the
+    queue transport with the int8 cut codec."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import block_attention as attn
+    from repro_torch.kernels import quantize
+    from repro_torch.launch.engine import ServingEngine
+    from repro_torch.models.model import SplitModel
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(LM)
+    model = SplitModel(cfg)
+    t = time.time()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    print(f"  {LM}: {n_params / 1e9:.3f} G params (f32, "
+          f"{4 * n_params / 1e9:.2f} GB) on the card in "
+          f"{time.time() - t:.2f} s; {model.n_head_units} head units x "
+          f"{model.P} owners, {model.n_trunk_units} trunk units")
+    ctxs = lm_contexts(cfg.vocab, 2 * SLOTS, CTX)
+    kw = dict(batch_slots=SLOTS, ctx_len=CTX, max_new=NEW,
+              transport="queue", compression="int8", device="cuda")
+
+    warm = ServingEngine(model, params, **dict(kw, max_new=2))
+    for c in ctxs[:SLOTS]:
+        warm.submit(c)
+    warm.run()
+
+    eng = ServingEngine(model, params, **kw)
+    pre_s, dec_s = [], []
+    eng._split_prefill = synced(eng._split_prefill, pre_s)
+    eng._split_decode = synced(eng._split_decode, dec_s)
+    rids = [eng.submit(c) for c in ctxs]
+    attn.reset_launch_counts()
+    quantize.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = {**attn.launch_counts, **quantize.launch_counts}
+    st = eng.stats
+    waves, ticks = st["waves"], NEW - 1
+    print(f"  served {len(out)} requests in {waves} waves: wall "
+          f"{wall * 1e3:.3f} ms; prefill ms {[round(1e3 * s, 3) for s in pre_s]}"
+          f"; decode ms per token (median of {len(dec_s)}) "
+          f"{1e3 * float(np.median(dec_s)):.3f}, min "
+          f"{1e3 * min(dec_s):.3f}, max {1e3 * max(dec_s):.3f}; "
+          f"{st['tokens_generated'] / wall:.2f} tok/s")
+    for r in rids[:2]:
+        print(f"    request {r}: ...{ctxs[r][-6:].tolist()} -> "
+              f"{out[r].generated[:12]}...")
+    bad = [r for r in rids if len(out[r].generated) != NEW or not all(
+        0 <= tk < cfg.vocab for tk in out[r].generated)]
+    if bad or waves != 2:
+        raise AssertionError(f"serving output wrong for requests {bad}")
+    # the int8 frame: one uint8 (B, S_p or 1, d + 4) entry named "qp"
+    header = 4 + 2 + len("qp") + 2 + len("uint8") + 1 + 3 * 8 + 8
+    row = cfg.d_model + 4
+    per_wave = (model.P * (SLOTS * (CTX // model.P) * row + header)
+                + ticks * (SLOTS * row + header))
+    print(f"  cut_wire_bytes {st['cut_wire_bytes']} (analytic "
+          f"{waves * per_wave}: {model.P} x ({SLOTS}x{CTX // model.P}x"
+          f"{row} + {header}) + {ticks} x ({SLOTS}x{row} + {header}) per "
+          f"wave); cut_messages {st['cut_messages']}")
+    if st["cut_wire_bytes"] != waves * per_wave:
+        raise AssertionError("cut wire bytes differ from the frame size")
+    per_fwd = model.P * model.n_head_units + model.n_trunk_units
+    need = {"block_attention": waves * per_fwd * (1 + ticks),
+            "quantize_pack_int8": waves * (model.P + ticks)}
+    print(f"  kernel launches in the run: {counts} (needed at least "
+          f"{need})")
+    for k, n in need.items():
+        if counts[k] < n:
+            raise AssertionError(f"{k} launched {counts[k]} < {n} times")
+    busy = profile_wave(model, params, kw, ctxs[:SLOTS])
+    return {"counts": counts, "wall_ms": 1e3 * wall,
+            "prefill_ms": [1e3 * s for s in pre_s],
+            "decode_ms_median": 1e3 * float(np.median(dec_s)),
+            "tok_per_s": st["tokens_generated"] / wall,
+            "cut_wire_bytes": st["cut_wire_bytes"], "busy_share": busy,
+            "model": model, "params": params}
+
+
+def synced(fn, times):
+    """``fn`` timed on the host clock between two device syncs."""
+    import torch
+
+    def run(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return out
+    return run
+
+
+def profile_wave(model, params, kw, ctxs):
+    """One more wave under torch.profiler: the device's busy share of the
+    wave's wall time and the kernels that fill it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.engine import ServingEngine
+    eng = ServingEngine(model, params, **kw)
+    for c in ctxs:
+        eng.submit(c)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels)
+    if not busy:
+        print("  profiler: no device time recorded; busy share not measured")
+        return None
+    print(f"  profiled wave (prefill + {NEW - 1} decode ticks; profiler "
+          f"on): wall {wall_us / 1e3:.3f} ms, device busy "
+          f"{busy / 1e3:.3f} ms = {busy / wall_us:.4f} of it")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"    {e.self_device_time_total:12.1f} us  x{e.count:<6d} "
+              f"{e.key[:90]}")
+    # host dispatch: operator calls made from Python (an aten op whose
+    # parent is not itself an aten op), per forward of the wave
+    top = sum(1 for e in prof.events() if e.name.startswith("aten::") and (
+        e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::")))
+    print(f"  host: {top} top-level aten ops in the wave = {top / NEW:.0f} "
+          f"per forward (prefill or decode tick)")
+    for tag in ("attn_fwd", "quantize_rows"):
+        ours = [e for e in kernels if tag in e.key]
+        us = sum(e.self_device_time_total for e in ours)
+        print(f"  {tag}: {us:.1f} us over {sum(e.count for e in ours)} "
+              f"launches = {us / busy:.4f} of device busy time")
+    return busy / wall_us
+
+
+def phase_lm_checks(model, params):
+    """Phase 8: the engine against prefill + decode_step by hand on the
+    card, then the card against the CPU (full width, 2 layers, f32)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.engine import ServingEngine
+    from repro_torch.models.model import SplitModel
+    from repro_torch.tree import tree_map
+    S, n_new, P = 128, 8, model.P
+    ctx = lm_contexts(model.cfg.vocab, 1, S, seed=1)[0]
+    eng = ServingEngine(model, params, batch_slots=1, ctx_len=S,
+                        max_new=n_new, transport="direct", device="cuda")
+    rid = eng.submit(ctx)
+    got = eng.run()[rid].generated
+    with torch.inference_mode():
+        caches = model.cache_init(1, S, n_new=n_new + 1, device="cuda")
+        ot = torch.from_numpy(np.ascontiguousarray(
+            ctx.reshape(1, P, S // P).transpose(1, 0, 2))).cuda()
+        logits, caches = model.prefill(params, {"owner_tokens": ot}, caches)
+        tok, want = logits.argmax(-1)[:, None].to(torch.int32), []
+        for t in range(n_new):
+            want.append(int(tok[0, 0]))
+            if t < n_new - 1:
+                logits, caches = model.decode_step(params, caches, tok,
+                                                   S + t, S // P + t)
+                tok = logits.argmax(-1)[:, None].to(torch.int32)
+    print(f"  engine (direct, 1 slot): {got}\n  by hand:                 "
+          f"{want}")
+    if got != want:
+        raise AssertionError("engine and manual decode disagree on the card")
+
+    cfg = get_config(LM).replace(n_layers=2, compute_dtype="float32")
+    small = SplitModel(cfg)
+    t = time.time()
+    cpu_params = small.init(torch.Generator().manual_seed(0))
+    card_params = tree_map(lambda a: a.cuda(), cpu_params)
+    ctxs = lm_contexts(cfg.vocab, 2, 64, seed=2)
+    kw = dict(batch_slots=2, ctx_len=64, max_new=4, transport="queue")
+    toks, first = {}, {}
+    for dev, p in (("cuda", card_params), ("cpu", cpu_params)):
+        e = ServingEngine(small, p, device=dev, **kw)
+        rids = [e.submit(c) for c in ctxs]
+        res = e.run()
+        toks[dev] = [res[r].generated for r in rids]
+        with torch.inference_mode():
+            caches = small.cache_init(2, 64, n_new=5, device=dev)
+            ot = torch.from_numpy(np.ascontiguousarray(
+                ctxs.reshape(2, P, 32).transpose(1, 0, 2))).to(dev)
+            first[dev] = small.prefill(p, {"owner_tokens": ot},
+                                       caches)[0].cpu()
+    rel = ((first["cuda"] - first["cpu"]).abs().max()
+           / first["cpu"].abs().max()).item()
+    print(f"  card vs CPU ({LM} width, 2 layers, f32; {time.time() - t:.1f}"
+          f" s): tokens {toks['cuda']} vs {toks['cpu']}; first-token "
+          f"logits max rel diff {rel:.3e} (limit 1e-3)")
+    if toks["cuda"] != toks["cpu"] or rel > 1e-3:
+        raise AssertionError("card and CPU serving runs disagree")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -298,7 +676,7 @@ def main():
 
     print("== 2. build")
     t = time.time()
-    build.build(["quantize"])
+    build.build(["quantize", "block_attention"])
     print(f"  built in {time.time() - t:.2f} s")
     for src, log in build.build_logs.items():
         print("\n".join(f"  nvcc {src}: {line}" for line in
@@ -310,8 +688,21 @@ def main():
     counts, _ = phase_main_path()
     print("== 5. split == joint on the card")
     phase_split_equals_joint()
+    t = time.time()
+    print("== 6. attention kernel vs plain version on the card")
+    att = phase_attention(bw, flops)
+    print(f"  phase wall {time.time() - t:.2f} s")
+    t = time.time()
+    print(f"== 7. split-LM serving at full width: {LM}, wave engine, "
+          "queue transport, int8 cut codec")
+    serving = phase_serving()
+    print(f"  phase wall {time.time() - t:.2f} s")
+    t = time.time()
+    print("== 8. engine == manual decode; card vs CPU")
+    phase_lm_checks(serving.pop("model"), serving.pop("params"))
+    print(f"  phase wall {time.time() - t:.2f} s")
 
-    print("== 6. results")
+    print("== 9. results")
     src = "src/repro_torch/csrc/quantize.cu"
     tpu = "src/repro/kernels/quantize/kernel.py"
     replaces = {"quantize_pack_int8": f"{tpu}:28",     # _quantize_pack_kernel
@@ -329,6 +720,19 @@ def main():
             "shape": row["shape"], "eager_ms": row["eager_ms"],
             "plain_eager_ms": row["plain_eager_ms"],
             "all_shapes": res["rows"]})
+    row = att["rows"][HEADLINE]
+    entries.append({
+        "name": "block_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/block_attention.cu",
+        "replaces": "src/repro/kernels/block_attention/kernel.py:28",
+        "launches": serving["counts"]["block_attention"], "on_path": True,
+        "max_abs_err": att["max_abs_err"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        "shape": HEADLINE, "eager_ms": row["eager_ms"],
+        "all_shapes": att["rows"]})
+    entries[0]["serving_launches"] = \
+        serving["counts"]["quantize_pack_int8"]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,10 +1,12 @@
 """PyVertical in PyTorch for NVIDIA Hopper (H100) — the port of ``repro``.
 
 The JAX package ``repro`` is the reference; this package re-implements
-the paper's split training path beside it: DH-PSI entity resolution, the
+beside it the paper's split training path (DH-PSI entity resolution, the
 dual-headed MLP SplitNN, joint and split training over the measured
-transport, and the int8 cut codec on a hand-written CUDA kernel
-(``repro_torch/csrc/quantize.cu``).
+transport, the int8 cut codec on a hand-written CUDA kernel,
+``repro_torch/csrc/quantize.cu``) and split-LM serving (llama3.2-3b
+behind the wave engine, every attention layer on a hand-written CUDA
+flash-attention kernel, ``repro_torch/csrc/block_attention.cu``).
 
 It imports ``torch`` and numpy, never ``jax`` and nothing of ``repro``.
 Entry points run on the CUDA device unless the caller passes

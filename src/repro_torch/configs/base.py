@@ -1,17 +1,31 @@
-"""The SplitNN configuration (copy of ``repro.configs.base.SplitConfig``).
+"""Configuration dataclasses (copies of ``repro.configs.base``'s
+``SplitConfig`` and ``ArchConfig``).
 
-``n_owners`` data owners each hold a vertical slice of the features of
-the same data subjects.  Each owner runs ``cut_layer`` blocks (its head
-segment) locally; the data scientist combines head outputs at the cut
-layer and runs the remaining blocks (the trunk segment).
+``SplitConfig``: ``n_owners`` data owners each hold a vertical slice of
+the inputs of the same data subjects.  Each owner runs ``cut_layer``
+blocks (its head segment) locally; the data scientist combines head
+outputs at the cut layer and runs the remaining blocks (the trunk
+segment).  The privacy fields are kept so a reference config converts
+field for field; the port runs only with them at their defaults (NoPeek,
+cut noise and the gradient defenses are queued in ROADMAP.md).
 
-The privacy fields are kept so a reference config converts field for
-field; the port trains only with them at their defaults (NoPeek, cut
-noise and the gradient defenses are queued in ROADMAP.md).
+``ArchConfig``: one architecture, field for field as in the reference.
+The port builds the dense attention family only: ``moe``, ``ssm`` and
+``xlstm`` stay ``None`` here (the models raise otherwise).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error every unported option raises, naming its ROADMAP.md
+    item."""
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP.md, port "
+        f"queue: {item})")
 
 
 @dataclass(frozen=True)
@@ -26,3 +40,101 @@ class SplitConfig:
     nopeek_weight: float = 0.0
     grad_noise_std: float = 0.0
     grad_norm_mode: str = "none"
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                    # dense | moe | ssm | hybrid | vlm | audio
+    source: str                    # citation for the config
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+
+    head_dim: int = 0              # 0 -> d_model // n_heads
+    norm: str = "rmsnorm"          # rmsnorm | layernorm
+    norm_eps: float = 1e-5
+    post_block_norm: bool = False  # gemma2 pre+post norms
+    mlp: str = "swiglu"            # swiglu | geglu | gelu | relu2 | none
+    rope: str = "rope"             # rope | mrope | sincos | none
+    rope_theta: float = 10000.0
+    attn_softcap: float = 0.0      # gemma2 attention logit soft-capping
+    logit_softcap: float = 0.0     # gemma2 final logit soft-capping
+    swa_window: int = 4096
+    tie_embeddings: bool = False
+
+    # the repeating unit of blocks; n_layers is a multiple of its length
+    block_pattern: Tuple[str, ...] = ("attn:global",)
+
+    moe: Optional[object] = None   # MoE / SSM / xLSTM: not ported
+    ssm: Optional[object] = None
+    xlstm: Optional[object] = None
+
+    enc_dec: bool = False
+    n_enc_layers: int = 0
+    enc_bidirectional: bool = True
+
+    modality: str = "text"         # text | vision_text | audio_text
+    d_frontend: int = 0
+
+    long_context: str = "swa"
+    long_context_window: int = 8192
+
+    split: SplitConfig = field(default_factory=SplitConfig)
+
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    zero_sharding: bool = False
+    remat: bool = True             # no effect: the port only serves
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+        if self.enc_dec:
+            if self.n_enc_layers <= 0:
+                raise ValueError("enc_dec arch needs n_enc_layers")
+        elif self.n_layers % len(self.block_pattern) != 0:
+            raise ValueError(
+                f"{self.name}: n_layers={self.n_layers} not divisible by "
+                f"block pattern of length {len(self.block_pattern)}")
+
+    @property
+    def n_superblocks(self) -> int:
+        return self.n_layers // len(self.block_pattern)
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.head_dim
+
+    def replace(self, **kw) -> "ArchConfig":
+        return dataclasses.replace(self, **kw)
+
+    def reduced(self) -> "ArchConfig":
+        """The smoke-test variant: same family/block pattern, tiny dims."""
+        if self.moe is not None or self.ssm is not None or \
+                self.xlstm is not None:
+            raise not_ported("MoE/SSM/xLSTM configs", "item 8")
+        d_model = min(self.d_model, 256)
+        n_heads = min(self.n_heads, 4)
+        kw = dict(
+            n_layers=len(self.block_pattern) if not self.enc_dec else 2,
+            d_model=d_model,
+            n_heads=n_heads,
+            n_kv_heads=min(self.n_kv_heads, n_heads),
+            head_dim=max(d_model // n_heads, 16),
+            d_ff=min(self.d_ff, 512) if self.d_ff else 0,
+            vocab=min(self.vocab, 512),
+            swa_window=64,
+            long_context_window=128,
+            zero_sharding=False,
+        )
+        if self.enc_dec:
+            kw["n_enc_layers"] = 2
+        return dataclasses.replace(self, **kw)

@@ -1,6 +1,7 @@
-"""Synthetic MNIST-like data with unique subject IDs (numpy; a copy of
-``repro.data.synthetic``'s MNIST generators — for a seed it gives the
-reference's arrays and IDs exactly).
+"""Synthetic MNIST-like data with unique subject IDs, and synthetic token
+streams (numpy; a copy of ``repro.data.synthetic``'s MNIST and token
+generators — for a seed it gives the reference's arrays and IDs
+exactly).
 
 MNIST itself is not available offline, so a class-conditional image-like
 dataset with the same geometry (28x28, 10 classes, 784 features) stands
@@ -68,3 +69,24 @@ def make_vertical_mnist_parties(n: int, n_owners: int = 2, seed: int = 0,
     owners = {f"owner{i}": VerticalDataset(oid, od)
               for i, (oid, od) in enumerate(owners_raw)}
     return scientist, owners
+
+
+def make_token_dataset(n_docs: int, seq_len: int, vocab: int, seed: int = 0):
+    """Synthetic token streams with learnable structure (order-2 Markov
+    chains with per-doc offsets) + subject IDs.  (n, seq_len+1) int32 —
+    inputs are [:, :-1], labels [:, 1:]."""
+    rng = np.random.default_rng(seed)
+    toks = np.empty((n_docs, seq_len + 1), np.int64)
+    for i in range(n_docs):
+        t = np.empty(seq_len + 1, np.int64)
+        t[0] = rng.integers(0, vocab)
+        t[1] = rng.integers(0, vocab)
+        # one GLOBAL order-2 transition (15% random restarts): the same
+        # (t-1, t-2) context predicts the same next token everywhere
+        for j in range(2, seq_len + 1):
+            if rng.random() < 0.85:
+                t[j] = (t[j - 1] * 31 + t[j - 2] * 7 + 11) % vocab
+            else:
+                t[j] = rng.integers(0, vocab)
+        toks[i] = t
+    return toks.astype(np.int32)

@@ -1,14 +1,15 @@
-"""The feature batch layout of the MLP SplitNN (the port's counterpart of
-the feature layout in ``repro.federation.batching``).
+"""Batch layouts (the port's counterpart of ``repro.federation.batching``).
 
   feature layout    ``x_slices``     (P, B, f_p)   <-> partition_features
+  sequence layout   ``owner_tokens`` (P, B, S_p)   <-> partition_sequence
+  serving layout    padded request waves -> the sequence layout
 
 Owner-side shape plumbing: nothing here looks at labels except the
-optional label gather the session does for the scientist.  The sequence
-and serving layouts belong to the LM slice (ROADMAP.md).
+optional label gather the session does for the scientist.
 """
 from __future__ import annotations
 
+import hashlib
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -40,3 +41,67 @@ def feature_batch(owner_slices: Sequence[np.ndarray],
         batch["labels"] = torch.from_numpy(
             sel(np.asarray(labels)).astype(np.int64)).to(device)
     return batch
+
+
+# ---------------------------------------------------------------------------
+# sequence layout (split LMs: ``owner_tokens``)
+# ---------------------------------------------------------------------------
+
+
+def sequence_owner_slices(tokens, n_owners: int) -> np.ndarray:
+    """(B, S) combined sequences -> (P, B, S_p) contiguous owner slices
+    (owner p holds [p*S/P, (p+1)*S/P))."""
+    B, S = tokens.shape
+    if S % n_owners:
+        raise ValueError(f"seq {S} not divisible by {n_owners} owners")
+    return np.asarray(tokens).reshape(
+        B, n_owners, S // n_owners).transpose(1, 0, 2)
+
+
+# ---------------------------------------------------------------------------
+# serving layout (padded request waves -> sequence layout)
+# ---------------------------------------------------------------------------
+
+
+def pad_contexts(contexts, n_slots: int, length: int, pad: int = 0,
+                 pad_side: str = "left") -> np.ndarray:
+    """Ragged request contexts -> a full (n_slots, length) int32 wave.
+
+    ``pad_side="left"`` right-aligns each context (recency next to the
+    decode position — what the serving engine wants); unused slots stay
+    all-pad."""
+    if len(contexts) > n_slots:
+        raise ValueError(f"{len(contexts)} contexts > {n_slots} slots")
+    out = np.full((n_slots, length), pad, np.int32)
+    for i, c in enumerate(contexts):
+        c = np.asarray(c, np.int32)
+        if len(c) > length:
+            raise ValueError(f"context {len(c)} > wave length {length}")
+        if pad_side == "left":
+            out[i, length - len(c):] = c
+        elif pad_side == "right":
+            out[i, :len(c)] = c
+        else:
+            raise ValueError(pad_side)
+    return out
+
+
+def serving_owner_slices(batch_tokens, n_owners: int,
+                         device="cpu") -> torch.Tensor:
+    """Padded (B, S) wave -> (P, B, S_p) int32 owner slices on
+    ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(sequence_owner_slices(
+        batch_tokens, n_owners))).to(device)
+
+
+def pad_context_row(tokens, length: int, pad: int = 0,
+                    pad_side: str = "left") -> np.ndarray:
+    """One request's padded (length,) row."""
+    return pad_contexts([tokens], 1, length, pad=pad, pad_side=pad_side)[0]
+
+
+def context_tag(row) -> str:
+    """sha256 content tag of a padded context row: two requests with
+    byte-identical padded contexts are the same entity-context."""
+    a = np.ascontiguousarray(np.asarray(row, np.int32))
+    return hashlib.sha256(a.tobytes()).hexdigest()

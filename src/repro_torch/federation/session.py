@@ -54,6 +54,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch.configs.base import not_ported
 from repro_torch.core.psi import DEFAULT_CHUNK, psi_round
 from repro_torch.core.splitnn import cut_layer_traffic, make_split_train_step
 from repro_torch.device import resolve_device
@@ -63,12 +64,6 @@ from repro_torch.federation.parties import (DataOwner, DataScientist,
                                             PrivacyError)
 from repro_torch.federation.registry import build_adapter
 from repro_torch.tree import tree_map
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, port "
-        f"queue: {item})")
 
 
 def _scalars(m):
@@ -137,13 +132,13 @@ class VerticalSession:
         set once and reuses the upload for every owner round (logged as
         ``psi_blind_reuse``).  Returns the stats dict."""
         if mode != "noinv":
-            raise _not_ported(f"PSI mode {mode!r}",
+            raise not_ported(f"PSI mode {mode!r}",
                               "PSI bloom/hidden/delta and wire backends")
         if parallelism:
-            raise _not_ported("the PSI worker pool (parallelism > 0)",
+            raise not_ported("the PSI worker pool (parallelism > 0)",
                               "PSI bloom/hidden/delta and wire backends")
         if backend != "direct":
-            raise _not_ported(f"resolve backend {backend!r}",
+            raise not_ported(f"resolve backend {backend!r}",
                               "PSI bloom/hidden/delta and wire backends")
         stats: dict = {"rounds": [], "global_intersection": 0,
                        "mode": mode, "parallelism": 0,
@@ -236,14 +231,14 @@ class VerticalSession:
         if mode not in ("joint", "split"):
             raise ValueError(f"mode must be 'joint' or 'split': {mode!r}")
         if supervise:
-            raise _not_ported("supervise=True", "supervise/recovery")
+            raise not_ported("supervise=True", "supervise/recovery")
         if aggregation is not None:
-            raise _not_ported(f"aggregation={aggregation!r}",
+            raise not_ported(f"aggregation={aggregation!r}",
                               "masked_sum and privacy")
         if int(microbatches) != 1:
-            raise _not_ported("microbatches > 1", "microbatches > 1")
+            raise not_ported("microbatches > 1", "microbatches > 1")
         if ckpt_dir is not None:
-            raise _not_ported("checkpointing", "checkpointing")
+            raise not_ported("checkpointing", "checkpointing")
         n = len(self.scientist.ids)
         n_train = n - int(n * eval_frac)
         if n_train < batch_size:
@@ -383,7 +378,7 @@ class VerticalSession:
         both codec directions once before the timed region."""
         adapter = self.adapter
         if backend == "process":
-            raise _not_ported("backend='process'", "process backend")
+            raise not_ported("backend='process'", "process backend")
         if backend not in ("queue", "direct"):
             raise ValueError(f"unknown fit backend {backend!r}")
         if schedule not in ("pipelined", "sequential"):
@@ -607,7 +602,7 @@ class VerticalSession:
                                  bytes_per_el)
 
     def checkpoint(self, ckpt_dir: str, step: int = 0):
-        raise _not_ported("checkpointing", "checkpointing")
+        raise not_ported("checkpointing", "checkpointing")
 
     def serve(self, **engine_kw):
-        raise _not_ported("serving", "the LM serving slice")
+        raise not_ported("serving", "the LM serving slice")

@@ -11,7 +11,8 @@ Two backends:
     wire frame (``_pack``/``_unpack``) and byte counts come from the
     frame.  Tensors cross as host numpy (``t.detach().cpu().numpy()``),
     so frames — dtype names, shapes, bytes — are byte-identical to the
-    reference's.
+    reference's; bf16 crosses as its raw words under the name
+    ``bfloat16``.
 
 Cut-payload codecs live here too (``get_codec``): the only tensors that
 cross the boundary are cut activations and cut gradients.  ``fp16`` is a
@@ -45,20 +46,28 @@ __all__ = ["Message", "Channel", "Endpoint", "channel_pair", "Codec",
 # (the reference's layout, byte for byte).
 
 
-def _host(arr) -> np.ndarray:
-    """A payload value as contiguous host numpy (a device tensor is
-    copied to the host here; that copy synchronises with its stream)."""
+def _host(arr) -> Tuple[str, np.ndarray]:
+    """A payload value as (dtype name, contiguous host numpy).  A device
+    tensor is copied to the host here; that copy synchronises with its
+    stream.  numpy has no bfloat16 of its own, so a bf16 tensor crosses
+    as its raw 2-byte words under the dtype name ``bfloat16`` — the name
+    and bytes the reference's ml_dtypes array writes."""
     if isinstance(arr, torch.Tensor):
-        arr = arr.detach().cpu().numpy()
-    return np.ascontiguousarray(np.asarray(arr))
+        t = arr.detach()
+        if t.dtype == torch.bfloat16:
+            return "bfloat16", np.ascontiguousarray(
+                t.contiguous().view(torch.int16).cpu().numpy())
+        arr = t.cpu().numpy()
+    arr = np.ascontiguousarray(np.asarray(arr))
+    return arr.dtype.name, arr
 
 
 def _pack(payload: Dict[str, object]) -> bytes:
     """Serialize ``{name: array or tensor}`` to one immutable blob."""
-    entries = [(name.encode(), _host(a)) for name, a in payload.items()]
+    entries = [(name.encode(), *_host(a)) for name, a in payload.items()]
     parts = [struct.pack("<I", len(entries))]
-    for nb, arr in entries:
-        dt = arr.dtype.name.encode()
+    for nb, dtname, arr in entries:
+        dt = dtname.encode()
         parts += [struct.pack("<H", len(nb)), nb,
                   struct.pack("<H", len(dt)), dt,
                   struct.pack(f"<B{arr.ndim}q", arr.ndim, *arr.shape),
@@ -67,8 +76,10 @@ def _pack(payload: Dict[str, object]) -> bytes:
     return b"".join(parts)
 
 
-def _unpack(blob: bytes) -> Dict[str, np.ndarray]:
-    """Inverse of ``_pack``: zero-copy read-only views into ``blob``."""
+def _unpack(blob: bytes) -> Dict[str, object]:
+    """Inverse of ``_pack``: zero-copy read-only numpy views into
+    ``blob``; a ``bfloat16`` entry comes back as a CPU ``torch.bfloat16``
+    tensor (a copy of its words)."""
     out: Dict[str, np.ndarray] = {}
     off = 0
     (n,) = struct.unpack_from("<I", blob, off)
@@ -80,7 +91,8 @@ def _unpack(blob: bytes) -> Dict[str, np.ndarray]:
         off += ln
         (ld,) = struct.unpack_from("<H", blob, off)
         off += 2
-        dtype = np.dtype(blob[off:off + ld].decode())
+        dtname = blob[off:off + ld].decode()
+        dtype = np.dtype(np.uint16 if dtname == "bfloat16" else dtname)
         off += ld
         (ndim,) = struct.unpack_from("<B", blob, off)
         off += 1
@@ -89,8 +101,10 @@ def _unpack(blob: bytes) -> Dict[str, np.ndarray]:
         (nbytes,) = struct.unpack_from("<q", blob, off)
         off += 8
         count = nbytes // dtype.itemsize if dtype.itemsize else 0
-        out[name] = np.frombuffer(blob, dtype=dtype, count=count,
-                                  offset=off).reshape(shape)
+        a = np.frombuffer(blob, dtype=dtype, count=count,
+                          offset=off).reshape(shape)
+        out[name] = (torch.from_numpy(a.copy()).view(torch.bfloat16)
+                     if dtname == "bfloat16" else a)
         off += nbytes
     return out
 
@@ -103,7 +117,8 @@ def _nbytes(a) -> int:
 
 def to_tensor(a, device: torch.device) -> torch.Tensor:
     """A received payload value as a tensor on ``device`` (read-only wire
-    views are copied first: torch tensors are writable)."""
+    views are copied first: torch tensors are writable; a ``bfloat16``
+    frame entry already arrives as a ``torch.bfloat16`` tensor)."""
     if isinstance(a, torch.Tensor):
         return a.to(device)
     a = np.asarray(a)
@@ -242,8 +257,9 @@ def channel_pair(a: str, b: str, *, backend: str = "queue"
 class Codec:
     """Encode/decode for cut payloads.  ``encode`` maps a float tensor to
     the wire payload dict (tensors stay on their device; a serializing
-    channel copies them to the host); ``decode`` returns an f32 tensor
-    on ``device``.  The lossless codec ships the f32 cut as it is."""
+    channel copies them to the host); ``decode`` returns a tensor on
+    ``device``, f32 for the lossy codecs.  The lossless codec ships the cut as it is, in its own
+    dtype (f32 MLP cuts, bf16 LM cuts) — the receiver gets that dtype."""
 
     name = "none"
 

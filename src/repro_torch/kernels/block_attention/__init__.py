@@ -1,0 +1,4 @@
+from repro_torch.kernels.block_attention.ops import (  # noqa: F401
+    block_attention, launch_counts, reset_launch_counts)
+from repro_torch.kernels.block_attention.ref import (  # noqa: F401
+    attention_ref)

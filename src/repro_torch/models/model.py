@@ -1,0 +1,237 @@
+"""SplitModel — the paper's multi-headed SplitNN wrapped around a text
+language model (the port's counterpart of ``repro.models.model``).
+
+The network (``cfg.n_superblocks`` super-blocks) is split by layer: each
+of ``cfg.split.n_owners`` data owners runs an identical *head segment*
+(embedding + ``cut_layer`` super-blocks) on its private slice of the
+sequence (owner p holds positions [p*S/P, (p+1)*S/P)); the data
+scientist combines the cut-layer activations (concat along the sequence
+| sum | mean | max) and runs the *trunk segment* (remaining super-blocks
++ final norm + LM head).
+
+Head params are stacked on a leading owner dim, as in the reference; the
+port runs the owners' heads one after the other.  The reference's
+quirks are kept: ``decode_heads``/``decode_step`` run every owner's head
+on the new token and keep owner 0's cut (so every head cache advances);
+a decode token's head rope position is ``owner + pos_local``; the LM
+head is its own matrix even with ``tie_embeddings``; the logits are
+computed in f32.  No aux loss is returned (MoE is not ported).
+
+Only the text modality is ported; the vision/audio modalities, the
+encoder-decoder, cut-dim bottlenecks and ring caches raise.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, not_ported
+from repro_torch.models import layers, transformer
+from repro_torch.tree import tree_map
+
+Params = Dict[str, Any]
+
+
+def _cdtype(cfg) -> torch.dtype:
+    return layers.dtype_of(cfg.compute_dtype)
+
+
+class SplitModel:
+    def __init__(self, cfg: ArchConfig):
+        if cfg.modality != "text" or cfg.enc_dec:
+            raise not_ported(f"the {cfg.modality} modality / enc-dec",
+                             "item 8, the other architecture families")
+        if cfg.split.cut_dim > 0 or cfg.split.cut_noise_std > 0.0:
+            raise not_ported("cut-dim bottlenecks and cut noise",
+                             "item 3, masking and privacy")
+        if cfg.param_dtype != "float32":
+            raise ValueError("the port keeps params in float32")
+        self.cfg = cfg
+        sp = cfg.split
+        self.P = sp.n_owners
+        n_units = cfg.n_superblocks
+        cut = min(max(sp.cut_layer, 1), n_units - 1)
+        self.n_head_units = cut
+        self.n_trunk_units = n_units - cut
+
+    # ------------------------------------------------------------------ init
+
+    def init(self, gen: torch.Generator) -> Params:
+        """Random params on ``gen``'s device, drawn from ``gen``: dense
+        weights N(0, 1/d_in), embeddings and the LM head N(0, 0.02^2),
+        norms zero (the reference's distributions; not its draws)."""
+        cfg = self.cfg
+
+        def head_one():
+            return {"blocks": transformer.stack_init(
+                gen, cfg, self.n_head_units),
+                "embed": layers.embed_init(gen, cfg.vocab, cfg.d_model)}
+
+        heads = [head_one() for _ in range(self.P)]
+        heads = tree_map(lambda *ls: torch.stack(ls), *heads)
+        trunk: Params = {"blocks": transformer.stack_init(
+            gen, cfg, self.n_trunk_units)}
+        trunk["out_norm"] = layers.norm_init(cfg.d_model, cfg.norm,
+                                             gen.device)
+        trunk["lm_head"] = layers.dense_init(gen, cfg.d_model, cfg.vocab,
+                                             scale=0.02)
+        return {"heads": heads, "trunk": trunk}
+
+    # ------------------------------------------------------------ head pass
+
+    def _positions(self, S_p: int, owner: int, offset=0, device="cpu"):
+        """Global positions of owner ``owner``'s slice (rope input)."""
+        if self.cfg.rope == "mrope":
+            raise not_ported("M-RoPE positions", "item 8")
+        return owner * S_p + offset + torch.arange(S_p, device=device)
+
+    def _head_one(self, hp, owner_inputs, positions, caches=None, pos=None):
+        cfg = self.cfg
+        x = layers.embed_apply(hp["embed"], owner_inputs, _cdtype(cfg))
+        if cfg.rope == "sincos":
+            raise not_ported("sin-cos positions", "item 8")
+        x, caches = transformer.stack_apply(
+            hp["blocks"], x, cfg=cfg, positions=positions, caches=caches,
+            pos=pos)
+        return x, caches
+
+    def heads_forward(self, heads, owner_inputs, *, caches=None, pos=None):
+        """owner_inputs: (P, B, S_p) token ids.  Returns (cut (P, B, S_p,
+        k), caches); the head caches (leaves (P, n_units, ...)) are
+        updated in place."""
+        S_p = owner_inputs.shape[-1]
+        cuts = []
+        for p in range(self.P):
+            positions = self._positions(S_p, p, 0 if pos is None else pos,
+                                        owner_inputs.device)
+            hc = None if caches is None else transformer.unit(caches, p)
+            cut, _ = self._head_one(transformer.unit(heads, p),
+                                    owner_inputs[p], positions, hc, pos)
+            cuts.append(cut)
+        return torch.stack(cuts), caches
+
+    # ------------------------------------------------------------- combine
+
+    def combine(self, cut):
+        """The paper's cut-layer combine (data-scientist side).
+
+        cut: (P, B, S_p, k).  concat: along the sequence (ID-aligned
+        order) -> (B, S, k); sum/mean/max: elementwise across owners ->
+        (B, S_p, k)."""
+        sp = self.cfg.split
+        P, B, S_p, k = cut.shape
+        if sp.combine == "concat":
+            return cut.permute(1, 0, 2, 3).reshape(B, P * S_p, k)
+        if sp.combine == "sum":
+            return cut.sum(0)
+        if sp.combine == "mean":
+            return cut.mean(0)
+        if sp.combine == "max":
+            return cut.amax(0)
+        raise ValueError(sp.combine)
+
+    # ---------------------------------------------------------- trunk pass
+
+    def trunk_forward(self, trunk, z, *, caches=None, pos=None):
+        """z: combined cut (B, S, k).  Returns (logits (B, S, vocab) f32,
+        caches)."""
+        cfg = self.cfg
+        S = z.shape[1]
+        off = pos if pos is not None else 0
+        positions = off + torch.arange(S, device=z.device)
+        x, caches = transformer.stack_apply(
+            trunk["blocks"], z, cfg=cfg, positions=positions, caches=caches,
+            pos=pos)
+        x = layers.norm_apply(trunk["out_norm"], x, cfg.norm, cfg.norm_eps)
+        logits = layers.dense_apply(trunk["lm_head"], x.to(torch.float32))
+        logits = layers.softcap(logits, cfg.logit_softcap)
+        return logits, caches
+
+    # ------------------------------------------------------------- forward
+
+    def split_owner_inputs(self, batch):
+        """Vertical partition of a global batch into per-owner slices."""
+        if "owner_tokens" in batch:                   # pre-partitioned (P,B,S_p)
+            return batch["owner_tokens"]
+        t = batch["tokens"]                           # (B, S)
+        B, S = t.shape
+        return t.reshape(B, self.P, S // self.P).permute(1, 0, 2)
+
+    def forward(self, params, batch):
+        """Full-sequence forward (no cache).  Returns logits (B, S,
+        vocab)."""
+        cut, _ = self.heads_forward(params["heads"],
+                                    self.split_owner_inputs(batch))
+        z = self.combine(cut.to(_cdtype(self.cfg)))
+        logits, _ = self.trunk_forward(params["trunk"], z)
+        return logits
+
+    # ------------------------------------------------------------ serving
+
+    def cache_init(self, batch_size: int, s_max: int, n_new: int = 8,
+                   device="cpu"):
+        """Decode caches in the compute dtype.  The trunk cache covers
+        the combined sequence; head caches (stacked over owners) cover
+        each owner's slice + room for generated tokens."""
+        cfg = self.cfg
+        dt = _cdtype(cfg)
+        s_head = s_max // self.P + n_new
+        one = transformer.stack_cache_init(
+            batch_size, cfg, self.n_head_units, s_head, dt, device)
+        heads = tree_map(
+            lambda a: a[None].repeat((self.P,) + (1,) * a.dim()), one)
+        trunk = transformer.stack_cache_init(
+            batch_size, cfg, self.n_trunk_units, s_max + n_new, dt, device)
+        return {"heads": heads, "trunk": trunk}
+
+    def prefill(self, params, batch, caches):
+        """Process the full context, filling the caches.  Returns
+        (last-token logits, caches)."""
+        cut, hc = self.heads_forward(params["heads"],
+                                     self.split_owner_inputs(batch),
+                                     caches=caches["heads"], pos=0)
+        logits, tc = self.trunk_forward(params["trunk"], self.combine(cut),
+                                        caches=caches["trunk"], pos=0)
+        return logits[:, -1], {"heads": hc, "trunk": tc}
+
+    # ------------------------------------------- per-segment serving programs
+    #
+    # prefill/decode_step run heads + trunk as one program.  When the
+    # engine serves through a transport-backed boundary it uses these
+    # halves instead, so the cut activations are a real wire payload.
+
+    def prefill_heads(self, heads, owner_inputs, head_caches):
+        """Owner side of prefill: (cut (P, B, S_p, k), head caches)."""
+        return self.heads_forward(heads, owner_inputs, caches=head_caches,
+                                  pos=0)
+
+    def prefill_trunk(self, trunk, cut, trunk_caches):
+        """Scientist side of prefill: combine the received cut and run
+        the trunk.  Returns (last-token logits, trunk caches)."""
+        logits, tc = self.trunk_forward(trunk, self.combine(cut),
+                                        caches=trunk_caches, pos=0)
+        return logits[:, -1], tc
+
+    def decode_heads(self, heads, token, head_caches, pos_local: int):
+        """Owner side of one decode step: the generation owner's cut
+        slice (B, 1, k) plus updated head caches."""
+        oi = token[None].expand((self.P,) + tuple(token.shape))
+        cut, hc = self.heads_forward(heads, oi, caches=head_caches,
+                                     pos=pos_local)
+        return cut[0], hc
+
+    def decode_trunk(self, trunk, z, trunk_caches, pos: int):
+        logits, tc = self.trunk_forward(trunk, z, caches=trunk_caches,
+                                        pos=pos)
+        return logits[:, -1], tc
+
+    def decode_step(self, params, caches, token, pos: int, pos_local: int):
+        """One new token (B, 1).  The generation owner is owner 0.
+        ``pos``: global position in the combined sequence;
+        ``pos_local``: position within owner 0's slice/cache."""
+        z, hc = self.decode_heads(params["heads"], token, caches["heads"],
+                                  pos_local)
+        logits, tc = self.decode_trunk(params["trunk"], z, caches["trunk"],
+                                       pos)
+        return logits, {"heads": hc, "trunk": tc}

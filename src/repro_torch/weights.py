@@ -1,10 +1,15 @@
 """Carry parameters between the JAX reference and the port.
 
-Both packages keep one layout: ``{"heads": [layer, ...], "trunk":
-[layer, ...]}`` with ``layer = {"w": (in, out), "b": (out,)}``, the head
-leaves stacked over owners (``(P, 392, 64)``, ``(P, 64)``).  The
-reference's params cross as numpy leaves (``jax.tree.map(np.asarray,
-params)``), so both packages start from identical weights.
+Both packages keep one layout per model.  The MLP SplitNN:
+``{"heads": [layer, ...], "trunk": [layer, ...]}`` with ``layer = {"w":
+(in, out), "b": (out,)}``, the head leaves stacked over owners.  The
+split LM (``SplitModel``): ``{"heads": {"blocks": {"units": ...,
+"shared": {}}, "embed": ...}, "trunk": {"blocks": ..., "out_norm": ...,
+"lm_head": ...}}``, unit leaves stacked on a leading dim (after the
+owner dim in the heads).  The reference's params cross as numpy leaves
+(``jax.tree.map(np.asarray, params)``), leaf for leaf, empty dicts and
+zero-length unit stacks included, so both packages start from identical
+weights.
 """
 from __future__ import annotations
 

@@ -1,17 +1,20 @@
-"""The port on the card: the CUDA quantize kernel against its plain
-version, and the training path through it.  Every test here needs an
-NVIDIA GPU and skips without one; the file imports only ``repro_torch``
-(no JAX), so it runs on a machine with a card:
+"""The port on the card: the CUDA quantize and attention kernels against
+their plain versions, and the training and serving paths through them.
+Every test here needs an NVIDIA GPU and skips without one; the file
+imports only ``repro_torch`` (no JAX), so it runs on a machine with a
+card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 ``SHAPES`` and ``edge_inputs`` are shared with the CPU parity tests in
-``test_torch_quantize.py``.
+``test_torch_quantize.py``; ``ATTN_CASES``, ``DECODE_CASES`` and
+``attn_inputs`` with ``test_torch_attention.py``.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import block_attention as attn_kernel
 from repro_torch.kernels.quantize import (launch_counts, quantize_int8,
                                           quantize_int8_ref,
                                           quantize_pack_int8,
@@ -36,6 +39,39 @@ def edge_inputs(shape, seed=0):
     if T > 2:
         x[2, 0], x[2, -1] = 4.0, -4.0         # ±absmax tie
     return x
+
+
+# the reference's kernel cases (tests/test_kernels.py ATTN_CASES):
+# B, Sq, Skv, nh, nkv, hd, kind, window, softcap
+ATTN_CASES = [
+    (2, 128, 128, 4, 4, 64, "causal", 0, 0.0),
+    (2, 256, 256, 8, 2, 64, "causal", 0, 0.0),      # GQA group 4
+    (1, 192, 192, 4, 2, 128, "local", 64, 0.0),     # SWA
+    (1, 128, 128, 2, 2, 64, "bidir", 0, 0.0),       # whisper encoder
+    (1, 256, 256, 4, 2, 64, "causal", 0, 50.0),     # gemma2 softcap
+    (2, 100, 100, 4, 4, 32, "causal", 0, 0.0),      # ragged (padding path)
+]
+# queries over a cache: ... + q_offset, kv_len (the serving path's calls)
+DECODE_CASES = [
+    (2, 1, 96, 6, 2, 64, "causal", 0, 0.0, 40, 41),       # decode, group 3
+    (2, 16, 128, 4, 2, 64, "causal", 0, 0.0, 32, 48),     # chunk into a cache
+    (1, 1, 80, 4, 4, 32, "local", 16, 0.0, 50, 51),       # local decode
+    (1, 8, 130, 4, 1, 128, "causal", 0, 30.0, 100, 108),  # softcap, MQA
+]
+
+
+def attn_inputs(B, Sq, Skv, nh, nkv, hd, seed=0):
+    """q, k, v as f32 numpy normals."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, Sq, nh, hd)).astype(np.float32),
+            rng.normal(size=(B, Skv, nkv, hd)).astype(np.float32),
+            rng.normal(size=(B, Skv, nkv, hd)).astype(np.float32))
+
+
+def attn_tol(dtype):
+    """The reference's kernel tolerances (tests/test_kernels.py)."""
+    return dict(atol=2e-2, rtol=2e-2) if dtype == torch.bfloat16 \
+        else dict(atol=2e-4, rtol=2e-4)
 
 
 @pytest.fixture
@@ -88,3 +124,65 @@ def test_split_int8_fit_on_card_runs_the_kernel(cuda_device):
     steps = s.transport_stats["steps"]
     assert launch_counts["quantize_pack_int8"] - n0 >= 2 * 2 * steps
     assert all(np.isfinite(h["loss_trail"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [c + (0, None) for c in ATTN_CASES]
+                         + DECODE_CASES)
+def test_attention_kernel_matches_plain_on_card(cuda_device, case, dtype):
+    """On the card: the CUDA attention kernel against its plain version
+    at the reference's tolerances, one counted launch per call."""
+    B, Sq, Skv, nh, nkv, hd, kind, window, cap, q_offset, kv_len = case
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+               for a in attn_inputs(B, Sq, Skv, nh, nkv, hd))
+    kw = dict(kind=kind, window=window, softcap=cap, q_offset=q_offset,
+              kv_len=kv_len)
+    n0 = attn_kernel.launch_counts["block_attention"]
+    got = attn_kernel.block_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert attn_kernel.launch_counts["block_attention"] == n0 + 1
+    want = attn_kernel.attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **attn_tol(dtype))
+
+
+@pytest.mark.cuda
+def test_attention_wrapper_refuses_what_the_kernel_does_not_take(
+        cuda_device):
+    q = torch.zeros((1, 4, 2, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        attn_kernel.block_attention(q.half(), q.half(), q.half())
+    big = torch.zeros((1, 4, 2, 320), device=cuda_device)
+    with pytest.raises(ValueError, match="head dims up to 256"):
+        attn_kernel.block_attention(big, big, big)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        attn_kernel.block_attention(q, q.cpu(), q)
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_never_reach_the_plain_version(cuda_device,
+                                                    monkeypatch):
+    """On the card the wrapper launches the kernel; the plain version is
+    never called on the serving path."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.engine import ServingEngine
+    from repro_torch.models.model import SplitModel
+
+    def refuse(*a, **kw):
+        raise AssertionError("attention_ref called on the card")
+    monkeypatch.setattr(attn_kernel.ref, "attention_ref", refuse)
+    cfg = get_config("llama3.2-3b", reduced=True).replace(n_layers=4)
+    model = SplitModel(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    eng = ServingEngine(model, params, batch_slots=2, ctx_len=32,
+                        max_new=4, transport="queue", compression="int8")
+    rng = np.random.default_rng(0)
+    for _ in range(3):
+        eng.submit(rng.integers(0, cfg.vocab, 32))
+    n0 = attn_kernel.launch_counts["block_attention"]
+    out = eng.run()
+    assert all(len(r.generated) == 4 for r in out.values())
+    # 3 + 1 attention layers per forward, 1 prefill + 3 decode ticks per
+    # wave, two waves
+    assert attn_kernel.launch_counts["block_attention"] - n0 == \
+        (2 * 3 + 1) * 4 * 2
