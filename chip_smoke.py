@@ -31,8 +31,19 @@ Phases, in order; any failure raises and exits non-zero:
   8. engine == prefill + decode_step by hand on the card (greedy tokens
      identical), and the card against the CPU at full width with 2
      layers in f32 compute (identical greedy tokens, first-token logits
-     within rel 1e-3);
-  9. a ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}``
+     within rel 1e-3); then the llama params are freed;
+  9. the SSD scan kernel against its plain version on the card, on the
+     reference's kernel cases and more (f32 and bf16, with and without
+     an initial state) and at zamba2-2.7b's head and trunk prefill
+     shapes, all read as strided views of one conv-output buffer, with
+     times beside the bound;
+ 10. zamba2-2.7b (Mamba2 + shared attention, random weights from a
+     seed) served at full width and depth as in phase 7, with the exact
+     launch counts of all three kernels and the cut bytes checked, and
+     one more wave under torch.profiler;
+ 11. phase 8's checks for zamba2-2.7b: engine == by hand at full width,
+     and card == CPU at reduced widths with 18 layers in f32;
+ 12. a ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}``
      JSON line last.
 
 Without a CUDA device it prints nothing and exits 2.  It imports only
@@ -298,6 +309,7 @@ def phase_split_equals_joint():
 
 BF16_FLOPS = 989e12     # H100 SXM dense bf16 (NVIDIA's data sheet)
 LM = "llama3.2-3b"
+ZAMBA = "zamba2-2.7b"
 SLOTS, CTX, NEW = 4, 1024, 32
 # the reference's kernel cases (tests/test_kernels.py ATTN_CASES):
 # B, Sq, Skv, nh, nkv, hd, kind, window, softcap
@@ -324,6 +336,14 @@ PATH_CASES = {
     "head_prefill": (4, 512, 545, 24, 8, 128, "causal", 0, 0.0, 0, 512),
     "trunk_prefill": (4, 1024, 1057, 24, 8, 128, "causal", 0, 0.0, 0, 1024),
     "trunk_decode": (4, 1, 1057, 24, 8, 128, "causal", 0, 0.0, 1040, 1041),
+    # zamba2-2.7b's shared attention block (32 heads, MHA, hd 80: the
+    # kernel's hd-128 instantiation with the columns past 80 zeroed)
+    "zamba2_head_prefill": (4, 512, 545, 32, 32, 80, "causal", 0, 0.0, 0,
+                            512),
+    "zamba2_trunk_prefill": (4, 1024, 1057, 32, 32, 80, "causal", 0, 0.0, 0,
+                             1024),
+    "zamba2_trunk_decode": (4, 1, 1057, 32, 32, 80, "causal", 0, 0.0, 1040,
+                            1041),
 }
 HEADLINE = "trunk_prefill"
 
@@ -447,30 +467,173 @@ def sdpa_call(q, k, v, case, attention_mask):
     return lambda: sdpa(qh, kh, vh, **kw).transpose(1, 2)
 
 
+# ---------------------------------------------------------------------------
+# The SSD scan kernel (zamba2-2.7b's Mamba2 blocks)
+# ---------------------------------------------------------------------------
+
+# the reference's SSD kernel cases (tests/test_kernels.py SSD_CASES), then
+# chunks of several 64-row tiles with a ragged last chunk, ragged tiles
+# with 3 groups, and a chunk shorter than a tile: B, S, H, P, G, N, chunk
+SSD_CASES = [
+    (2, 128, 4, 32, 1, 16, 32),
+    (1, 96, 4, 32, 2, 16, 32),
+    (2, 256, 8, 64, 1, 64, 64),
+    (1, 64, 2, 16, 1, 8, 64),
+    (1, 300, 2, 64, 1, 64, 256),
+    (2, 200, 6, 32, 3, 16, 96),
+    (1, 40, 2, 16, 1, 8, 128),
+]
+# zamba2-2.7b's prefill scans (d_in 5120 = 80 heads of 64, one group of
+# 64 states, chunks of 256) at 4 slots: each owner's head over its 512
+# tokens, the trunk over 1024
+SCAN_PATH_CASES = {"head_prefill": (4, 512, 80, 64, 1, 64, 256),
+                   "trunk_prefill": (4, 1024, 80, 64, 1, 64, 256)}
+
+
+def scan_inputs(B, S, H, P, G, N, seed=0):
+    """The reference kernel test's distributions, f32 numpy: normal x, B,
+    C; dt uniform in [0.001, 0.1]; A uniform in [-2, -0.5]."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, S, H, P)).astype(np.float32),
+            rng.uniform(0.001, 0.1, size=(B, S, H)).astype(np.float32),
+            -rng.uniform(0.5, 2.0, size=(H,)).astype(np.float32),
+            rng.normal(size=(B, S, G, N)).astype(np.float32),
+            rng.normal(size=(B, S, G, N)).astype(np.float32))
+
+
+def conv_out_views(x, Bi, Ci, dtype):
+    """x, B, C as strided views of one (B, S, H*P + 2*G*N) buffer on the
+    card, as the Mamba2 block hands them to the scan."""
+    import torch
+    Bb, S, H, P = x.shape
+    G, N = Bi.shape[2], Bi.shape[3]
+    buf = torch.cat([torch.from_numpy(a).reshape(Bb, S, -1)
+                     for a in (x, Bi, Ci)], -1).to("cuda", dtype)
+    hp, gn = H * P, G * N
+    return (buf[..., :hp].reshape(Bb, S, H, P),
+            buf[..., hp:hp + gn].reshape(Bb, S, G, N),
+            buf[..., hp + gn:].reshape(Bb, S, G, N))
+
+
+def scan_bound(case, dtype, bw, f32_flops, with_init):
+    """Each input read once and each output written once (x, y, B, C in
+    ``dtype``; dt, A and the states in f32) over the memory rate, and the
+    causal work (scores and M.x over the live (i, j <= i) pairs, the
+    inter-chunk term and the state update) over the peak rate."""
+    import torch
+    B, S, H, P, G, N, chunk = case
+    L = min(chunk, S)
+    elt = 2 if dtype == torch.bfloat16 else 4
+    nbytes = (elt * (2 * B * S * H * P + 2 * B * S * G * N) + 4 * B * S * H
+              + 4 * H + 4 * B * H * N * P * (2 if with_init else 1))
+    flops = 0
+    for c0 in range(0, S, L):
+        live = min(L, S - c0)
+        flops += 2 * (live * (live + 1) // 2) * (N + P) + 4 * live * N * P
+    flops *= B * H
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else f32_flops
+    bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * flops / peak
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations"), flops, nbytes
+
+
+def phase_scan(bw, f32_flops):
+    """Phase 9: the SSD scan kernel vs its plain version on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.mamba2_scan import mamba2_scan, ssd_chunked
+    tol = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+    err, worst, rows = 0.0, 0.0, {}
+    cases = [(f"case{i}", c) for i, c in enumerate(SSD_CASES)]
+    cases += [(f"path:{n}", c) for n, c in SCAN_PATH_CASES.items()]
+    for name, case in cases:
+        B, S, H, P, G, N, chunk = case
+        x, dt, A, Bi, Ci = scan_inputs(B, S, H, P, G, N)
+        dt, A = (torch.from_numpy(a).cuda() for a in (dt, A))
+        s0 = torch.from_numpy(np.random.default_rng(1).normal(
+            size=(B, H, N, P)).astype(np.float32)).cuda()
+        for dtype in (torch.float32, torch.bfloat16):
+            xv, bv, cv = conv_out_views(x, Bi, Ci, dtype)
+            for init in (None, s0):
+                got = mamba2_scan(xv, dt, A, bv, cv, chunk=chunk,
+                                  initial_state=init)
+                want = ssd_chunked(xv, dt, A, bv, cv, chunk,
+                                   initial_state=init)
+                torch.cuda.synchronize()
+                e = r = 0.0
+                for a, b in zip(got, want):
+                    d = (a.float() - b.float()).abs()
+                    # |diff| over its limit atol + rtol |plain|, at most 1
+                    q = d / (tol[dtype] + tol[dtype] * b.float().abs())
+                    e, r = max(e, d.max().item()), max(r, q.max().item())
+                    if r > 1.0 or not torch.isfinite(a).all():
+                        raise AssertionError(
+                            f"scan {name} {dtype}: kernel vs plain max "
+                            f"|diff| {d.max().item():.3e} beyond "
+                            f"atol=rtol={tol[dtype]}")
+                err, worst = max(err, e), max(worst, r)
+                print(f"  {name} (B, S, H, P, G, N, chunk) {case} "
+                      f"{str(dtype)[6:]}, {'state' if init is not None else 'zero'}"
+                      f" init: max |diff| {e:.3e}, max |diff| / (atol + "
+                      f"rtol |plain|) {r:.3f} (atol=rtol={tol[dtype]})")
+            if not name.startswith("path") or dtype != torch.bfloat16:
+                continue
+            # timed as the path calls it: bf16, the fresh cache's zero
+            # state as initial_state
+            z = torch.zeros_like(s0)
+            bound, by, flops, nbytes = scan_bound(case, dtype, bw,
+                                                  f32_flops, True)
+            row = {"shape": list(case), "bound_ms": bound, "bound_by": by,
+                   "flops": flops, "bytes": nbytes,
+                   "ms": device_ms(lambda: mamba2_scan(
+                       xv, dt, A, bv, cv, chunk=chunk, initial_state=z),
+                       reps=10, rounds=7),
+                   "plain_ms": device_ms(lambda: ssd_chunked(
+                       xv, dt, A, bv, cv, chunk, initial_state=z),
+                       reps=3, rounds=5),
+                   "eager_ms": eager_ms(lambda: mamba2_scan(
+                       xv, dt, A, bv, cv, chunk=chunk, initial_state=z),
+                       reps=10, rounds=5),
+                   "library_ms": None}
+            row["tflops"] = flops / row["ms"] / 1e9
+            row["gbps"] = nbytes / row["ms"] / 1e6
+            rows[name[5:]] = row
+            print(f"    kernel {row['ms']:.6f} ms ({row['tflops']:.2f} "
+                  f"TFLOP/s, {row['gbps']:.1f} GB/s; eager "
+                  f"{row['eager_ms']:.6f}), plain {row['plain_ms']:.6f} ms, "
+                  f"bound {row['bound_ms']:.6f} ms ({by}; {flops / 1e9:.3f}"
+                  f" GFLOP, {nbytes / 1e6:.3f} MB)")
+    return {"max_abs_err": err, "tol_ratio": worst, "rows": rows}
+
+
 def lm_contexts(vocab, n, length, seed=0):
     from repro_torch.data import make_token_dataset
     return make_token_dataset(n, length, vocab, seed)[:, :length]
 
 
-def phase_serving():
-    """Phase 7: llama3.2-3b at full width behind the wave engine over the
-    queue transport with the int8 cut codec."""
+def phase_serving(arch):
+    """Phases 7 and 10: ``arch`` at full width behind the wave engine
+    over the queue transport with the int8 cut codec."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import block_attention as attn
+    from repro_torch.kernels import mamba2_scan as scan
     from repro_torch.kernels import quantize
     from repro_torch.launch.engine import ServingEngine
     from repro_torch.models.model import SplitModel
     from repro_torch.tree import tree_leaves
-    cfg = get_config(LM)
+    cfg = get_config(arch)
     model = SplitModel(cfg)
     t = time.time()
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in tree_leaves(params))
-    print(f"  {LM}: {n_params / 1e9:.3f} G params (f32, "
-          f"{4 * n_params / 1e9:.2f} GB) on the card in "
+    n_heads = sum(p.numel() for p in tree_leaves(params["heads"]))
+    print(f"  {arch}: {n_params / 1e9:.3f} G params (f32, "
+          f"{4 * n_params / 1e9:.2f} GB; heads {n_heads / 1e9:.3f} G, "
+          f"trunk {(n_params - n_heads) / 1e9:.3f} G) on the card in "
           f"{time.time() - t:.2f} s; {model.n_head_units} head units x "
           f"{model.P} owners, {model.n_trunk_units} trunk units")
     ctxs = lm_contexts(cfg.vocab, 2 * SLOTS, CTX)
@@ -487,14 +650,15 @@ def phase_serving():
     eng._split_prefill = synced(eng._split_prefill, pre_s)
     eng._split_decode = synced(eng._split_decode, dec_s)
     rids = [eng.submit(c) for c in ctxs]
-    attn.reset_launch_counts()
-    quantize.reset_launch_counts()
+    for k in (attn, scan, quantize):
+        k.reset_launch_counts()
     torch.cuda.synchronize()
     t = time.perf_counter()
     out = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    counts = {**attn.launch_counts, **quantize.launch_counts}
+    counts = {**attn.launch_counts, **scan.launch_counts,
+              **quantize.launch_counts}
     st = eng.stats
     waves, ticks = st["waves"], NEW - 1
     print(f"  served {len(out)} requests in {waves} waves: wall "
@@ -521,14 +685,20 @@ def phase_serving():
           f"wave); cut_messages {st['cut_messages']}")
     if st["cut_wire_bytes"] != waves * per_wave:
         raise AssertionError("cut wire bytes differ from the frame size")
-    per_fwd = model.P * model.n_head_units + model.n_trunk_units
-    need = {"block_attention": waves * per_fwd * (1 + ticks),
+    # launches are exact: every attention block of every forward, every
+    # Mamba2 block of a prefill (decode is the plain single-step
+    # recurrence), one quantize per cut message
+    units = model.P * model.n_head_units + model.n_trunk_units
+    n_attn = sum(k != "mamba2" for k in cfg.block_pattern)
+    n_ssm = sum(k == "mamba2" for k in cfg.block_pattern)
+    need = {"block_attention": waves * units * n_attn * (1 + ticks),
+            "mamba2_scan": waves * units * n_ssm,
             "quantize_pack_int8": waves * (model.P + ticks)}
-    print(f"  kernel launches in the run: {counts} (needed at least "
+    print(f"  kernel launches in the run: {counts} (needed exactly "
           f"{need})")
     for k, n in need.items():
-        if counts[k] < n:
-            raise AssertionError(f"{k} launched {counts[k]} < {n} times")
+        if counts[k] != n:
+            raise AssertionError(f"{k} launched {counts[k]} != {n} times")
     busy = profile_wave(model, params, kw, ctxs[:SLOTS])
     return {"counts": counts, "wall_ms": 1e3 * wall,
             "prefill_ms": [1e3 * s for s in pre_s],
@@ -586,7 +756,7 @@ def profile_wave(model, params, kw, ctxs):
         e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::")))
     print(f"  host: {top} top-level aten ops in the wave = {top / NEW:.0f} "
           f"per forward (prefill or decode tick)")
-    for tag in ("attn_fwd", "quantize_rows"):
+    for tag in ("attn_fwd", "ssd_scan", "quantize_rows"):
         ours = [e for e in kernels if tag in e.key]
         us = sum(e.self_device_time_total for e in ours)
         print(f"  {tag}: {us:.1f} us over {sum(e.count for e in ours)} "
@@ -594,12 +764,12 @@ def profile_wave(model, params, kw, ctxs):
     return busy / wall_us
 
 
-def phase_lm_checks(model, params):
-    """Phase 8: the engine against prefill + decode_step by hand on the
-    card, then the card against the CPU (full width, 2 layers, f32)."""
+def phase_lm_checks(model, params, small_cfg, small_ctx):
+    """Phases 8 and 11: the engine against prefill + decode_step by hand
+    on the card, then the card against the CPU on ``small_cfg`` (f32)
+    with contexts of ``small_ctx``."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.launch.engine import ServingEngine
     from repro_torch.models.model import SplitModel
     from repro_torch.tree import tree_map
@@ -626,13 +796,14 @@ def phase_lm_checks(model, params):
     if got != want:
         raise AssertionError("engine and manual decode disagree on the card")
 
-    cfg = get_config(LM).replace(n_layers=2, compute_dtype="float32")
+    cfg = small_cfg
     small = SplitModel(cfg)
     t = time.time()
     cpu_params = small.init(torch.Generator().manual_seed(0))
     card_params = tree_map(lambda a: a.cuda(), cpu_params)
-    ctxs = lm_contexts(cfg.vocab, 2, 64, seed=2)
-    kw = dict(batch_slots=2, ctx_len=64, max_new=4, transport="queue")
+    C = small_ctx
+    ctxs = lm_contexts(cfg.vocab, 2, C, seed=2)
+    kw = dict(batch_slots=2, ctx_len=C, max_new=4, transport="queue")
     toks, first = {}, {}
     for dev, p in (("cuda", card_params), ("cpu", cpu_params)):
         e = ServingEngine(small, p, device=dev, **kw)
@@ -640,16 +811,18 @@ def phase_lm_checks(model, params):
         res = e.run()
         toks[dev] = [res[r].generated for r in rids]
         with torch.inference_mode():
-            caches = small.cache_init(2, 64, n_new=5, device=dev)
+            caches = small.cache_init(2, C, n_new=5, device=dev)
             ot = torch.from_numpy(np.ascontiguousarray(
-                ctxs.reshape(2, P, 32).transpose(1, 0, 2))).to(dev)
+                ctxs.reshape(2, P, C // P).transpose(1, 0, 2))).to(dev)
             first[dev] = small.prefill(p, {"owner_tokens": ot},
                                        caches)[0].cpu()
     rel = ((first["cuda"] - first["cpu"]).abs().max()
            / first["cpu"].abs().max()).item()
-    print(f"  card vs CPU ({LM} width, 2 layers, f32; {time.time() - t:.1f}"
-          f" s): tokens {toks['cuda']} vs {toks['cpu']}; first-token "
-          f"logits max rel diff {rel:.3e} (limit 1e-3)")
+    print(f"  card vs CPU ({cfg.name}, d_model {cfg.d_model}, "
+          f"{cfg.n_layers} layers, f32, contexts of {C}; "
+          f"{time.time() - t:.1f} s): tokens {toks['cuda']} vs "
+          f"{toks['cpu']}; first-token logits max rel diff {rel:.3e} "
+          f"(limit 1e-3)")
     if toks["cuda"] != toks["cpu"] or rel > 1e-3:
         raise AssertionError("card and CPU serving runs disagree")
 
@@ -659,6 +832,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
+    from repro_torch.configs import get_config
     from repro_torch.device import configure_cuda
     from repro_torch.kernels import build
     configure_cuda()
@@ -676,7 +850,7 @@ def main():
 
     print("== 2. build")
     t = time.time()
-    build.build(["quantize", "block_attention"])
+    build.build(["quantize", "block_attention", "mamba2_scan"])
     print(f"  built in {time.time() - t:.2f} s")
     for src, log in build.build_logs.items():
         print("\n".join(f"  nvcc {src}: {line}" for line in
@@ -695,14 +869,32 @@ def main():
     t = time.time()
     print(f"== 7. split-LM serving at full width: {LM}, wave engine, "
           "queue transport, int8 cut codec")
-    serving = phase_serving()
+    serving = phase_serving(LM)
     print(f"  phase wall {time.time() - t:.2f} s")
     t = time.time()
     print("== 8. engine == manual decode; card vs CPU")
-    phase_lm_checks(serving.pop("model"), serving.pop("params"))
+    phase_lm_checks(serving.pop("model"), serving.pop("params"),
+                    get_config(LM).replace(n_layers=2,
+                                           compute_dtype="float32"), 64)
+    torch.cuda.empty_cache()       # the llama params are gone
+    print(f"  phase wall {time.time() - t:.2f} s")
+    t = time.time()
+    print("== 9. SSD scan kernel vs plain version on the card")
+    ssd = phase_scan(bw, flops)
+    print(f"  phase wall {time.time() - t:.2f} s")
+    t = time.time()
+    print(f"== 10. split-LM serving at full width: {ZAMBA}, wave engine, "
+          "queue transport, int8 cut codec")
+    zamba = phase_serving(ZAMBA)
+    print(f"  phase wall {time.time() - t:.2f} s")
+    t = time.time()
+    print("== 11. engine == manual decode; card vs CPU (zamba2-2.7b)")
+    phase_lm_checks(zamba.pop("model"), zamba.pop("params"),
+                    get_config(ZAMBA, reduced=True).replace(
+                        n_layers=18, compute_dtype="float32"), 128)
     print(f"  phase wall {time.time() - t:.2f} s")
 
-    print("== 9. results")
+    print("== 12. results")
     src = "src/repro_torch/csrc/quantize.cu"
     tpu = "src/repro/kernels/quantize/kernel.py"
     replaces = {"quantize_pack_int8": f"{tpu}:28",     # _quantize_pack_kernel
@@ -731,8 +923,22 @@ def main():
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         "shape": HEADLINE, "eager_ms": row["eager_ms"],
         "all_shapes": att["rows"]})
+    row = ssd["rows"]["trunk_prefill"]
+    entries.append({
+        "name": "mamba2_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/mamba2_scan.cu",
+        "replaces": "src/repro/kernels/mamba2_scan/kernel.py:25",
+        "launches": zamba["counts"]["mamba2_scan"], "on_path": True,
+        "max_abs_err": ssd["max_abs_err"], "tol_ratio": ssd["tol_ratio"],
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": None,
+        "shape": "trunk_prefill", "eager_ms": row["eager_ms"],
+        "all_shapes": ssd["rows"]})
     entries[0]["serving_launches"] = \
         serving["counts"]["quantize_pack_int8"]
+    entries[0]["zamba2_launches"] = zamba["counts"]["quantize_pack_int8"]
+    entries[2]["zamba2_launches"] = zamba["counts"]["block_attention"]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,5 +1,5 @@
 """Configuration dataclasses (copies of ``repro.configs.base``'s
-``SplitConfig`` and ``ArchConfig``).
+``SplitConfig``, ``SSMConfig`` and ``ArchConfig``).
 
 ``SplitConfig``: ``n_owners`` data owners each hold a vertical slice of
 the inputs of the same data subjects.  Each owner runs ``cut_layer``
@@ -10,8 +10,9 @@ field for field; the port runs only with them at their defaults (NoPeek,
 cut noise and the gradient defenses are queued in ROADMAP.md).
 
 ``ArchConfig``: one architecture, field for field as in the reference.
-The port builds the dense attention family only: ``moe``, ``ssm`` and
-``xlstm`` stay ``None`` here (the models raise otherwise).
+The port builds the dense attention family and the Mamba2 hybrid
+(``ssm``: an :class:`SSMConfig`); ``moe`` and ``xlstm`` stay ``None``
+here (the models raise otherwise).
 """
 from __future__ import annotations
 
@@ -43,6 +44,18 @@ class SplitConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 / SSD block configuration."""
+
+    d_state: int = 64
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64         # SSD head dim (P in the SSD paper)
+    n_groups: int = 1
+    chunk_size: int = 256
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str                    # dense | moe | ssm | hybrid | vlm | audio
@@ -69,8 +82,8 @@ class ArchConfig:
     # the repeating unit of blocks; n_layers is a multiple of its length
     block_pattern: Tuple[str, ...] = ("attn:global",)
 
-    moe: Optional[object] = None   # MoE / SSM / xLSTM: not ported
-    ssm: Optional[object] = None
+    moe: Optional[object] = None   # MoE / xLSTM: not ported
+    ssm: Optional[SSMConfig] = None
     xlstm: Optional[object] = None
 
     enc_dec: bool = False
@@ -118,9 +131,8 @@ class ArchConfig:
 
     def reduced(self) -> "ArchConfig":
         """The smoke-test variant: same family/block pattern, tiny dims."""
-        if self.moe is not None or self.ssm is not None or \
-                self.xlstm is not None:
-            raise not_ported("MoE/SSM/xLSTM configs", "item 8")
+        if self.moe is not None or self.xlstm is not None:
+            raise not_ported("MoE/xLSTM configs", "item 8")
         d_model = min(self.d_model, 256)
         n_heads = min(self.n_heads, 4)
         kw = dict(
@@ -137,4 +149,7 @@ class ArchConfig:
         )
         if self.enc_dec:
             kw["n_enc_layers"] = 2
+        if self.ssm is not None:
+            kw["ssm"] = dataclasses.replace(
+                self.ssm, d_state=16, head_dim=32, chunk_size=32)
         return dataclasses.replace(self, **kw)

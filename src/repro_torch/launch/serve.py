@@ -6,8 +6,9 @@ generation-owner head + scientist trunk.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
         --reduced --batch 4 --ctx 128 --new 16 [--device cpu]
 
-It runs on the CUDA card unless ``--device cpu`` is given; the weights
-are random, drawn from ``--seed``.
+``--arch`` is ``llama3.2-3b`` or ``zamba2-2.7b``.  It runs on the CUDA
+card unless ``--device cpu`` is given; the weights are random, drawn
+from ``--seed``.
 """
 from __future__ import annotations
 

@@ -13,7 +13,9 @@ Head params are stacked on a leading owner dim, as in the reference; the
 port runs the owners' heads one after the other.  The reference's
 quirks are kept: ``decode_heads``/``decode_step`` run every owner's head
 on the new token and keep owner 0's cut (so every head cache advances);
-a decode token's head rope position is ``owner + pos_local``; the LM
+a decode token's head rope position is ``owner + pos_local``; every
+owner's Mamba2 state advances on the decode token too; left-pad tokens
+flow through the Mamba2 state unmasked; the LM
 head is its own matrix even with ``tie_embeddings``; the logits are
 computed in f32.  No aux loss is returned (MoE is not ported).
 
@@ -171,9 +173,11 @@ class SplitModel:
 
     def cache_init(self, batch_size: int, s_max: int, n_new: int = 8,
                    device="cpu"):
-        """Decode caches in the compute dtype.  The trunk cache covers
-        the combined sequence; head caches (stacked over owners) cover
-        each owner's slice + room for generated tokens."""
+        """Decode caches: KV caches in the compute dtype, Mamba2 caches
+        (conv window, SSM state) in f32 whatever it is, as in the
+        reference.  The trunk cache covers the combined sequence; head
+        caches (stacked over owners) cover each owner's slice + room for
+        generated tokens."""
         cfg = self.cfg
         dt = _cdtype(cfg)
         s_head = s_max // self.P + n_new

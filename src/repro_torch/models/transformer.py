@@ -1,28 +1,32 @@
 """Block assembly: super-blocks stacked over units (the port's
 counterpart of ``repro.models.transformer``).
 
-An architecture is ``n_superblocks`` repetitions of ``cfg.block_pattern``.
-Parameters of the units are stacked on a leading dim, as in the
-reference; a Python loop over the units takes the place of
-``lax.scan``.  Zero units is a valid stack (the reduced llama's heads):
-the stack then returns its input unchanged.
+An architecture is ``n_superblocks`` repetitions of ``cfg.block_pattern``
+(e.g. zamba2: 5x mamba2 + 1 shared_attn).  Parameters of the units are
+stacked on a leading dim, as in the reference; a Python loop over the
+units takes the place of ``lax.scan``.  Zero units is a valid stack (the
+reduced llama's and zamba2's heads): the stack then returns its input
+unchanged.
 
-The port builds ``attn:global`` and ``attn:local`` blocks with the dense
-FFN.  The other block kinds and MoE raise ``NotImplementedError``.
+The port builds ``attn:global``, ``attn:local`` and ``shared_attn``
+blocks (attention with the dense FFN; the shared block's params live
+once in ``shared`` and every unit's slot for it is ``{}``) and
+``mamba2`` blocks.  The other block kinds (xLSTM, the whisper decoder)
+and MoE raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import not_ported
-from repro_torch.models import attention, layers, mlp as mlp_mod
+from repro_torch.models import attention, layers, mlp as mlp_mod, ssm
 from repro_torch.tree import tree_leaves, tree_map
 
-ATTN_KINDS = ("attn:global", "attn:local")
+KINDS = ("attn:global", "attn:local", "shared_attn", "mamba2")
 
 
 def _check_kind(cfg, kind: str) -> None:
-    if kind not in ATTN_KINDS:
+    if kind not in KINDS:
         raise not_ported(f"block kind {kind!r}",
                          "item 8, the other architecture families")
     if cfg.moe is not None:
@@ -42,8 +46,11 @@ def _has_ffn(cfg) -> bool:
 def block_init(gen, cfg, kind: str):
     _check_kind(cfg, kind)
     d, dev = cfg.d_model, gen.device
-    p = {"norm1": layers.norm_init(d, cfg.norm, dev),
-         "attn": attention.attn_init(gen, cfg)}
+    p = {"norm1": layers.norm_init(d, cfg.norm, dev)}
+    if kind == "mamba2":
+        p["mamba"] = ssm.mamba2_init(gen, cfg)
+        return p
+    p["attn"] = attention.attn_init(gen, cfg)
     if _has_ffn(cfg):
         p["norm2"] = layers.norm_init(d, cfg.norm, dev)
         p["ffn"] = mlp_mod.mlp_init(gen, d, cfg.d_ff, cfg.mlp)
@@ -56,7 +63,10 @@ def block_init(gen, cfg, kind: str):
 
 def block_cache_init(batch: int, cfg, kind: str, s_max: int,
                      dtype=torch.bfloat16, device="cpu"):
+    """KV caches in ``dtype``; the Mamba2 caches in f32 whatever it is."""
     _check_kind(cfg, kind)
+    if kind == "mamba2":
+        return ssm.mamba2_cache_init(batch, cfg, device)
     return attention.init_kv_cache(batch, s_max, cfg.n_kv_heads,
                                    cfg.head_dim, dtype, device)
 
@@ -67,6 +77,9 @@ def block_apply(params, x, *, cfg, kind: str, positions=None,
     """Returns (x_out, cache)."""
     _check_kind(cfg, kind)
     h = layers.norm_apply(params["norm1"], x, cfg.norm, cfg.norm_eps)
+    if kind == "mamba2":
+        y, cache = ssm.mamba2_apply(params["mamba"], h, cfg, cache)
+        return x + y.to(x.dtype), cache
     a, cache = attention.attn_apply(
         params["attn"], h, cfg=cfg, kind=attn_kind, positions=positions,
         window=window, cache=cache, pos=pos)
@@ -88,13 +101,18 @@ def block_apply(params, x, *, cfg, kind: str, positions=None,
 
 
 def stack_init(gen, cfg, n_units: int):
-    """Returns {"units": unit-stacked params, "shared": {}}.  Zero units
-    give leaves of shape (0, ...) (one unit is drawn for the shapes)."""
-    units = [{f"b{i}": block_init(gen, cfg, kind)
+    """Returns {"units": unit-stacked params, "shared": shared params}.
+    Zero units give leaves of shape (0, ...) (one unit is drawn for the
+    shapes); the shared block exists whatever the number of units."""
+    shared = {}
+    if "shared_attn" in cfg.block_pattern:
+        shared["shared_attn"] = block_init(gen, cfg, "shared_attn")
+    units = [{f"b{i}": ({} if kind == "shared_attn"   # params in `shared`
+                        else block_init(gen, cfg, kind))
               for i, kind in enumerate(cfg.block_pattern)}
              for _ in range(max(n_units, 1))]
     return {"units": tree_map(lambda *ls: torch.stack(ls)[:n_units], *units),
-            "shared": {}}
+            "shared": shared}
 
 
 def stack_cache_init(batch: int, cfg, n_units: int, s_max: int,
@@ -114,7 +132,7 @@ def unit(tree, u: int):
 def stack_apply(params, x, *, cfg, positions=None, caches=None, pos=None):
     """Apply all super-blocks.  Returns (x, caches); the caches are
     updated in place."""
-    units = params["units"]
+    units, shared = params["units"], params["shared"]
     n_units = _n_units(units)
     for u in range(n_units):
         up = unit(units, u)
@@ -123,8 +141,10 @@ def stack_apply(params, x, *, cfg, positions=None, caches=None, pos=None):
             attn_kind, window = "causal", 0
             if kind == "attn:local":
                 attn_kind, window = "local", cfg.swa_window
+            bp = (shared["shared_attn"] if kind == "shared_attn"
+                  else up[f"b{i}"])
             x, _ = block_apply(
-                up[f"b{i}"], x, cfg=cfg, kind=kind, positions=positions,
+                bp, x, cfg=cfg, kind=kind, positions=positions,
                 attn_kind=attn_kind, window=window,
                 cache=None if uc is None else uc[f"b{i}"], pos=pos)
     return x, caches

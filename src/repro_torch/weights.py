@@ -4,12 +4,15 @@ Both packages keep one layout per model.  The MLP SplitNN:
 ``{"heads": [layer, ...], "trunk": [layer, ...]}`` with ``layer = {"w":
 (in, out), "b": (out,)}``, the head leaves stacked over owners.  The
 split LM (``SplitModel``): ``{"heads": {"blocks": {"units": ...,
-"shared": {}}, "embed": ...}, "trunk": {"blocks": ..., "out_norm": ...,
+"shared": ...}, "embed": ...}, "trunk": {"blocks": ..., "out_norm": ...,
 "lm_head": ...}}``, unit leaves stacked on a leading dim (after the
-owner dim in the heads).  The reference's params cross as numpy leaves
-(``jax.tree.map(np.asarray, params)``), leaf for leaf, empty dicts and
-zero-length unit stacks included, so both packages start from identical
-weights.
+owner dim in the heads).  ``shared`` is ``{}`` for llama and
+``{"shared_attn": block}`` for zamba2, whose units hold ``{}`` in the
+shared block's slot (``b5``) and ``{"norm1", "mamba"}`` in the others;
+in the heads the shared block is stacked over owners too.  The
+reference's params cross as numpy leaves (``jax.tree.map(np.asarray,
+params)``), leaf for leaf, empty dicts and zero-length unit stacks
+included, so both packages start from identical weights.
 """
 from __future__ import annotations
 

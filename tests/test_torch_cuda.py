@@ -1,5 +1,6 @@
-"""The port on the card: the CUDA quantize and attention kernels against
-their plain versions, and the training and serving paths through them.
+"""The port on the card: the CUDA quantize, attention and SSD scan
+kernels against their plain versions, and the training and serving
+paths through them.
 Every test here needs an NVIDIA GPU and skips without one; the file
 imports only ``repro_torch`` (no JAX), so it runs on a machine with a
 card:
@@ -8,13 +9,16 @@ card:
 
 ``SHAPES`` and ``edge_inputs`` are shared with the CPU parity tests in
 ``test_torch_quantize.py``; ``ATTN_CASES``, ``DECODE_CASES`` and
-``attn_inputs`` with ``test_torch_attention.py``.
+``attn_inputs`` with ``test_torch_attention.py``; ``SSD_CASES``,
+``scan_inputs`` and ``attn_tol`` (the reference's kernel tolerances)
+with ``test_torch_ssm.py``.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import block_attention as attn_kernel
+from repro_torch.kernels import mamba2_scan as scan_kernel
 from repro_torch.kernels.quantize import (launch_counts, quantize_int8,
                                           quantize_int8_ref,
                                           quantize_pack_int8,
@@ -72,6 +76,54 @@ def attn_tol(dtype):
     """The reference's kernel tolerances (tests/test_kernels.py)."""
     return dict(atol=2e-2, rtol=2e-2) if dtype == torch.bfloat16 \
         else dict(atol=2e-4, rtol=2e-4)
+
+
+# the reference's SSD kernel cases (tests/test_kernels.py SSD_CASES), then
+# chunks of more than one 64-row tile with a ragged last chunk, grouped
+# B/C with a ragged sequence, and one chunk shorter than a tile:
+# B, S, H, P, G, N, chunk
+SSD_CASES = [
+    (2, 128, 4, 32, 1, 16, 32),
+    (1, 96, 4, 32, 2, 16, 32),       # grouped B/C + ragged seq
+    (2, 256, 8, 64, 1, 64, 64),      # zamba2-like dims
+    (1, 64, 2, 16, 1, 8, 64),        # single chunk
+    (1, 300, 2, 64, 1, 64, 256),     # 4 tiles per chunk, ragged
+    (2, 200, 6, 32, 3, 16, 96),      # ragged tiles, 3 groups
+    (1, 40, 2, 16, 1, 8, 128),       # L = S < one tile
+]
+# hd-80 attention with nh == nkv == 32 (zamba2-2.7b's shared block), in
+# the serving path's shapes: trunk prefill into a 1024 + 33 cache, a head
+# prefill, a decode step
+ZAMBA_ATTN_CASES = [
+    (4, 1024, 1057, 32, 32, 80, "causal", 0, 0.0, 0, 1024),
+    (2, 512, 545, 32, 32, 80, "causal", 0, 0.0, 0, 512),
+    (4, 1, 1057, 32, 32, 80, "causal", 0, 0.0, 1040, 1041),
+]
+
+
+def scan_inputs(B, S, H, P, G, N, seed=0):
+    """x, dt, A, B, C as f32 numpy arrays, in the reference kernel test's
+    distributions: normal x, B, C; dt uniform in [0.001, 0.1]; A
+    uniform in [-2, -0.5]."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, S, H, P)).astype(np.float32),
+            rng.uniform(0.001, 0.1, size=(B, S, H)).astype(np.float32),
+            -rng.uniform(0.5, 2.0, size=(H,)).astype(np.float32),
+            rng.normal(size=(B, S, G, N)).astype(np.float32),
+            rng.normal(size=(B, S, G, N)).astype(np.float32))
+
+
+def conv_out_views(x, Bi, Ci, dtype, device):
+    """x (B, S, H, P), B and C (B, S, G, N) as strided views of one
+    (B, S, H*P + 2*G*N) buffer, the Mamba2 block's conv output."""
+    Bb, S, H, P = x.shape
+    G, N = Bi.shape[2], Bi.shape[3]
+    buf = torch.cat([torch.from_numpy(a).reshape(Bb, S, -1)
+                     for a in (x, Bi, Ci)], -1).to(device, dtype)
+    hp, gn = H * P, G * N
+    return (buf[..., :hp].reshape(Bb, S, H, P),
+            buf[..., hp:hp + gn].reshape(Bb, S, G, N),
+            buf[..., hp + gn:].reshape(Bb, S, G, N))
 
 
 @pytest.fixture
@@ -186,3 +238,121 @@ def test_cuda_tensors_never_reach_the_plain_version(cuda_device,
     # wave, two waves
     assert attn_kernel.launch_counts["block_attention"] - n0 == \
         (2 * 3 + 1) * 4 * 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSD_CASES + [
+    (4, 512, 80, 64, 1, 64, 256),    # zamba2-2.7b head prefill
+    (4, 1024, 80, 64, 1, 64, 256)])  # zamba2-2.7b trunk prefill
+@pytest.mark.parametrize("init", [False, True], ids=["zero", "state"])
+def test_scan_kernel_matches_plain_on_card(cuda_device, case, dtype, init):
+    """On the card: the CUDA SSD scan against its plain version at the
+    reference's tolerances, from strided views of one conv output, with
+    and without an initial state; one counted launch per call."""
+    B, S, H, P, G, N, chunk = case
+    x, dt, A, Bi, Ci = scan_inputs(B, S, H, P, G, N)
+    xv, bv, cv = conv_out_views(x, Bi, Ci, dtype, cuda_device)
+    assert not xv.is_contiguous()
+    dt, A = (torch.from_numpy(a).to(cuda_device) for a in (dt, A))
+    s0 = None
+    if init:
+        s0 = torch.from_numpy(np.random.default_rng(1).normal(
+            size=(B, H, N, P)).astype(np.float32)).to(cuda_device)
+    n0 = scan_kernel.launch_counts["mamba2_scan"]
+    y, st = scan_kernel.mamba2_scan(xv, dt, A, bv, cv, chunk=chunk,
+                                    initial_state=s0)
+    torch.cuda.synchronize()
+    assert scan_kernel.launch_counts["mamba2_scan"] == n0 + 1
+    yr, sr = scan_kernel.ssd_chunked(xv, dt, A, bv, cv, chunk,
+                                     initial_state=s0)
+    assert y.dtype == dtype and st.dtype == torch.float32
+    torch.testing.assert_close(y.float(), yr.float(), **attn_tol(dtype))
+    torch.testing.assert_close(st, sr, **attn_tol(dtype))
+
+
+@pytest.mark.cuda
+def test_scan_kernel_is_chunk_independent_on_card(cuda_device):
+    x, dt, A, Bi, Ci = (torch.from_numpy(a).to(cuda_device) for a in
+                        scan_inputs(1, 300, 2, 64, 1, 64, seed=3))
+    outs = [scan_kernel.mamba2_scan(x, dt, A, Bi, Ci, chunk=c)
+            for c in (32, 64, 100, 256)]
+    for y, st in outs[1:]:
+        torch.testing.assert_close(y, outs[0][0], atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(st, outs[0][1], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_scan_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    x, dt, A, Bi, Ci = (torch.from_numpy(a).to(cuda_device) for a in
+                        scan_inputs(1, 64, 2, 16, 1, 8))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        scan_kernel.mamba2_scan(x.half(), dt, A, Bi.half(), Ci.half(),
+                                chunk=32)
+    with pytest.raises(ValueError, match="float32 dt and A"):
+        scan_kernel.mamba2_scan(x, dt.double(), A, Bi, Ci, chunk=32)
+    wide = torch.zeros((1, 64, 2, 96), device=cuda_device)
+    with pytest.raises(ValueError, match="up to 64"):
+        scan_kernel.mamba2_scan(wide, dt, A, Bi, Ci, chunk=32)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        scan_kernel.mamba2_scan(x, dt.cpu(), A, Bi, Ci, chunk=32)
+    strided = torch.zeros((1, 64, 2, 32), device=cuda_device)[..., ::2]
+    with pytest.raises(ValueError, match="last dim"):
+        scan_kernel.mamba2_scan(strided, dt, A, Bi, Ci, chunk=32)
+    with pytest.raises(ValueError, match="initial_state"):
+        scan_kernel.mamba2_scan(x, dt, A, Bi, Ci, chunk=32,
+                                initial_state=torch.zeros(
+                                    (1, 2, 16, 8), device=cuda_device))
+    with pytest.raises(ValueError, match="H % G|mismatched"):
+        scan_kernel.mamba2_scan(x, dt, A, Bi.expand(1, 64, 3, 8),
+                                Ci.expand(1, 64, 3, 8), chunk=32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ZAMBA_ATTN_CASES)
+def test_hd80_attention_matches_plain_on_card(cuda_device, case, dtype):
+    """zamba2's shared attention (hd 80, 32 heads, MHA) runs the hd-128
+    instantiation with the columns past 80 zeroed."""
+    B, Sq, Skv, nh, nkv, hd, kind, window, cap, q_offset, kv_len = case
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+               for a in attn_inputs(B, Sq, Skv, nh, nkv, hd))
+    kw = dict(kind=kind, window=window, softcap=cap, q_offset=q_offset,
+              kv_len=kv_len)
+    got = attn_kernel.block_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = attn_kernel.attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **attn_tol(dtype))
+
+
+@pytest.mark.cuda
+def test_zamba2_serving_never_reaches_the_plain_scan(cuda_device,
+                                                     monkeypatch):
+    """zamba2 on the card: every Mamba2 prefill launches the scan kernel
+    (one per mamba2 block per forward of a wave's prefill; decode is the
+    plain single-step recurrence), and neither plain version is called."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.engine import ServingEngine
+    from repro_torch.models.model import SplitModel
+
+    def refuse(*a, **kw):
+        raise AssertionError("a plain kernel version called on the card")
+    monkeypatch.setattr(scan_kernel.ops.ref, "ssd_chunked", refuse)
+    monkeypatch.setattr(attn_kernel.ref, "attention_ref", refuse)
+    cfg = get_config("zamba2-2.7b", reduced=True).replace(n_layers=18)
+    model = SplitModel(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    eng = ServingEngine(model, params, batch_slots=2, ctx_len=128,
+                        max_new=4, transport="queue", compression="int8")
+    rng = np.random.default_rng(0)
+    for _ in range(3):
+        eng.submit(rng.integers(0, cfg.vocab, 128))
+    n_scan = scan_kernel.launch_counts["mamba2_scan"]
+    n_attn = attn_kernel.launch_counts["block_attention"]
+    out = eng.run()
+    assert all(len(r.generated) == 4 for r in out.values())
+    # 2 owners x 2 head units + 1 trunk unit, 5 mamba2 blocks and one
+    # shared attention block each; two waves of a prefill + 3 decode ticks
+    assert scan_kernel.launch_counts["mamba2_scan"] - n_scan == 2 * 5 * 5
+    assert attn_kernel.launch_counts["block_attention"] - n_attn == \
+        2 * 5 * 4

@@ -3,7 +3,11 @@
 With ``compute_dtype="float32"`` both engines start from shared params
 and greedy-decode the same requests: the tokens are identical and the
 cut bytes on the wire (``cut_wire_bytes``) are equal to the byte, for
-every transport (none, direct, queue) and cut codec (none, fp16, int8).
+every transport (none, direct, queue) and cut codec (none, fp16, int8)
+on llama3.2-3b (reduced, 2 layers, contexts of 32), and on the direct
+and queue transports with the none and int8 codecs on zamba2-2.7b
+(reduced, 18 layers: 2 head units per owner and 1 trunk unit, contexts
+of 128, so a head prefill scans 2 chunks of 32 and the trunk 4).
 In the default bf16 compute the lossless codec ships the cut in bf16;
 its frames are byte-identical to the reference's ``_pack``.
 """
@@ -34,14 +38,15 @@ torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CTX, SLOTS, NEW = 32, 2, 4
+LLAMA, ZAMBA = "llama3.2-3b", "zamba2-2.7b"
+ZAMBA_CTX = 128
 
 
-def _models(compute, n_layers=2):
+def _models(compute, n_layers=2, arch=LLAMA):
     kw = dict(n_layers=n_layers, compute_dtype=compute)
-    ref = RefSplitModel(ref_get_config("llama3.2-3b", reduced=True)
-                        .replace(**kw))
+    ref = RefSplitModel(ref_get_config(arch, reduced=True).replace(**kw))
     ref_params = ref.init(jax.random.PRNGKey(0))
-    ours = SplitModel(get_config("llama3.2-3b", reduced=True).replace(**kw))
+    ours = SplitModel(get_config(arch, reduced=True).replace(**kw))
     return ref, ref_params, ours, from_reference(
         jax.tree.map(np.asarray, ref_params))
 
@@ -51,9 +56,14 @@ def f32_models():
     return _models("float32")
 
 
-def _contexts(vocab, n=3, seed=0):
+@pytest.fixture(scope="module")
+def zamba2_models():
+    return _models("float32", n_layers=18, arch=ZAMBA)
+
+
+def _contexts(vocab, n=3, seed=0, ctx=CTX):
     rng = np.random.default_rng(seed)
-    return [rng.integers(0, vocab, CTX - 4 * i) for i in range(n)]
+    return [rng.integers(0, vocab, ctx - 4 * i) for i in range(n)]
 
 
 def _serve(engine, contexts):
@@ -62,16 +72,26 @@ def _serve(engine, contexts):
     return [out[r].generated for r in rids]
 
 
-@pytest.mark.parametrize("compression", [None, "fp16", "int8"])
-@pytest.mark.parametrize("backend", [None, "direct", "queue"])
-def test_engine_matches_reference_engine(f32_models, backend, compression):
+# (arch, transport, codec); the llama cases keep their first ids
+ENGINE_CASES = [
+    pytest.param(LLAMA, b, c, id=f"{b}-{c}")
+    for b in (None, "direct", "queue") for c in (None, "fp16", "int8")] + [
+    pytest.param(ZAMBA, b, c, id=f"zamba2-{b}-{c}")
+    for b in ("direct", "queue") for c in (None, "int8")]
+
+
+@pytest.mark.parametrize("arch,backend,compression", ENGINE_CASES)
+def test_engine_matches_reference_engine(request, arch, backend,
+                                         compression):
     """Three requests in two waves: greedy tokens identical to the
     reference engine's, and the cut bytes and messages on the wire
     equal."""
-    ref, ref_params, ours, params = f32_models
-    kw = dict(batch_slots=SLOTS, ctx_len=CTX, max_new=NEW,
+    ref, ref_params, ours, params = request.getfixturevalue(
+        "f32_models" if arch == LLAMA else "zamba2_models")
+    ctx = CTX if arch == LLAMA else ZAMBA_CTX
+    kw = dict(batch_slots=SLOTS, ctx_len=ctx, max_new=NEW,
               transport=backend, compression=compression)
-    ctxs = _contexts(ours.cfg.vocab)
+    ctxs = _contexts(ours.cfg.vocab, ctx=ctx)
     want_eng = RefServingEngine(ref, ref_params, **kw)
     got_eng = ServingEngine(ours, params, device="cpu", **kw)
     assert _serve(got_eng, ctxs) == _serve(want_eng, ctxs)
@@ -198,10 +218,11 @@ def test_engine_without_device_needs_a_card(f32_models):
 
 
 def test_serve_cli_on_the_cpu(capsys):
-    gen = serve.main(["--reduced", "--device", "cpu", "--batch", "2",
-                      "--ctx", "16", "--new", "3"])
-    assert gen.shape == (2, 3)
-    assert "tok/s" in capsys.readouterr().out
+    for arch in (LLAMA, ZAMBA):
+        gen = serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                          "--batch", "2", "--ctx", "16", "--new", "3"])
+        assert gen.shape == (2, 3)
+        assert "tok/s" in capsys.readouterr().out
 
 
 def test_engine_imports_no_jax_and_no_reference():
