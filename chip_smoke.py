@@ -13,11 +13,14 @@ Phases, in order; any failure raises and exits non-zero:
      (CUDA events) beside the bytes-over-bandwidth bound;
   4. the main path at full width: PSI -> the paper's dual-headed MNIST
      SplitNN -> one split epoch over the queue transport with the int8
-     cut codec -> evaluate, with the kernel launch counts read around it
-     and the loss trail held against the same run on the CPU; then one
-     more epoch under torch.profiler for the device's busy share;
+     cut codec -> evaluate, with the exact kernel launch counts read
+     around it (the int8 codec on every cut and cut gradient, the
+     cut-fusion kernel on every trunk forward) and the loss trail held
+     against the same run on the CPU; then one more epoch under
+     torch.profiler for the device's busy share;
   5. split == joint bit for bit on the card (lossless codec, both
-     schedules), and the card's joint run against the CPU's;
+     schedules, the cut-fusion kernel in both, exact launch counts), and
+     the card's joint run against the CPU's;
   6. the attention kernel against its plain version on the card, on the
      reference's kernel cases (f32 and bf16), queries over a cache, and
      the serving path's three shapes, with times beside the bound and
@@ -43,7 +46,18 @@ Phases, in order; any failure raises and exits non-zero:
      one more wave under torch.profiler;
  11. phase 8's checks for zamba2-2.7b: engine == by hand at full width,
      and card == CPU at reduced widths with 18 layers in f32;
- 12. a ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}``
+ 12. the cut-fusion kernel against its plain version on the card, on the
+     reference's kernel cases and the training path's shapes (the
+     batch, a microbatch chunk, a ragged evaluation batch, sum and
+     mean) and the reference benchmark's shape, f32 and bf16, with
+     times beside the bound and beside one PyTorch call;
+ 13. the training path at full width through the other schedules:
+     split in 4 microbatches == the microbatched joint oracle bit for
+     bit, owners in spawned worker processes == the queue backend bit
+     for bit (lossless, then int8), each with exact launch counts; and
+     the concat, sum and mean trunks each through a joint fit, card
+     against CPU;
+ 14. a ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}``
      JSON line last.
 
 Without a CUDA device it prints nothing and exits 2.  It imports only
@@ -184,30 +198,77 @@ def phase_kernels(bw, flops):
     return out
 
 
-def mnist_session(device, n=2000):
+def mnist_session(device, n=2000, combine="concat"):
+    import dataclasses
     from repro_torch.configs import CONFIG
     from repro_torch.data import make_vertical_mnist_parties
     from repro_torch.federation import VerticalSession, feature_parties
     s = VerticalSession(*feature_parties(*make_vertical_mnist_parties(
         n, seed=0, keep_frac=0.9)), device=device)
     stats = s.resolve(group="modp512")
-    s.build(CONFIG)
+    s.build(dataclasses.replace(CONFIG, split=dataclasses.replace(
+        CONFIG.split, combine=combine)))
     return s, stats
 
 
-def phase_main_path():
-    """Phase 4: the paper's path at full width, through the int8 kernel."""
+def kernel_modules():
+    from repro_torch.kernels import block_attention, cut_fusion, mamba2_scan
+    from repro_torch.kernels import quantize
+    return (quantize, cut_fusion, block_attention, mamba2_scan)
+
+
+def reset_counts():
+    """Every kernel's launch count to 0."""
+    for k in kernel_modules():
+        k.reset_launch_counts()
+
+
+def read_counts():
     import torch
-    from repro_torch.kernels.quantize import (launch_counts,
-                                              reset_launch_counts)
-    reset_launch_counts()
+    torch.cuda.synchronize()
+    return {n: c for k in kernel_modules() for n, c in k.launch_counts.items()}
+
+
+def trunk_forwards(session, schedule="pipelined", microbatches=1,
+                   evaluates=1):
+    """The cut-fusion launches a fit of ``session`` implies: one per
+    trunk forward.  Pipelined split: cut gradient and weight gradient,
+    two per chunk, for every step and for the warmup chunks; sequential
+    split: one fused step per step and warmup; the microbatched joint
+    oracle: two per chunk, no warmup; the joint step: one per step.
+    Each ``evaluate`` adds one per batch of 512 held-out rows."""
+    steps = len(session.history["loss_trail"])
+    per_eval = -(-len(session._eval_idx) // 512)
+    M = microbatches
+    if schedule == "pipelined":
+        n = 2 * M * (steps + 1)
+    elif schedule == "sequential":
+        n = steps + 1
+    elif schedule == "joint":
+        n = 2 * M * steps if M > 1 else steps
+    return n + evaluates * per_eval
+
+
+def check_counts(counts, need, what):
+    print(f"  kernel launches in {what}: "
+          f"{ {k: counts[k] for k in need} } (needed exactly {need})")
+    for k, n in need.items():
+        if counts[k] != n:
+            raise AssertionError(f"{what}: {k} launched {counts[k]} != "
+                                 f"{n} times")
+
+
+def phase_main_path():
+    """Phase 4: the paper's path at full width, through the int8 and
+    cut-fusion kernels."""
+    import torch
+    reset_counts()
     t0 = time.time()
     session, stats = mnist_session("cuda")
     h = session.fit(epochs=1, batch_size=128, eval_frac=0.15, mode="split",
                     compression="int8", backend="queue", verbose=True)
     ev = session.evaluate()
-    torch.cuda.synchronize()
-    counts = dict(launch_counts)
+    counts = read_counts()
     wall = time.time() - t0
     ts = session.transport_stats
     steps, owners = ts["steps"], len(session.owners)
@@ -219,11 +280,12 @@ def phase_main_path():
     print(f"  step_ms {ts['step_ms']:.3f}, steady_step_ms "
           f"{ts['steady_step_ms']:.3f}")
     print(f"  wire bytes by kind: {json.dumps(ts['wire_by_kind'])}")
-    print(f"  kernel launches in the run: {counts}")
-    if counts["quantize_pack_int8"] < 2 * owners * steps:
-        raise AssertionError(f"quantize_pack_int8 launched "
-                             f"{counts['quantize_pack_int8']} times, "
-                             f"< 2 x {owners} owners x {steps} steps")
+    # int8: every cut (owners) and every cut gradient (scientist), the
+    # warmup's included; cut fusion: every trunk forward, the fit's
+    # epoch-end evaluation and the one above included
+    check_counts(counts, {
+        "quantize_pack_int8": 2 * owners * (steps + 1),
+        "cut_fusion": trunk_forwards(session, evaluates=2)}, "the run")
     if len(trail) != steps or not all(math.isfinite(v) for v in trail):
         raise AssertionError(f"bad loss trail {trail}")
     if not sum(trail[-3:]) < sum(trail[:3]):
@@ -280,11 +342,17 @@ def phase_split_equals_joint():
     from repro_torch.tree import tree_leaves
     kw = dict(epochs=1, batch_size=128, eval_frac=0.15, verbose=False)
     joint, _ = mnist_session("cuda")
+    reset_counts()
     hj = joint.fit(**kw)
+    check_counts(read_counts(), {"cut_fusion": trunk_forwards(
+        joint, "joint")}, "the joint fit")
     for schedule in ("pipelined", "sequential"):
         split, _ = mnist_session("cuda")
+        reset_counts()
         hs = split.fit(**kw, mode="split", schedule=schedule,
                        backend="queue")
+        check_counts(read_counts(), {"cut_fusion": trunk_forwards(
+            split, schedule)}, f"the split ({schedule}) fit")
         same = all(torch.equal(a, b) for a, b in
                    zip(tree_leaves(joint.params), tree_leaves(split.params)))
         if not same or hs["loss_trail"] != hj["loss_trail"]:
@@ -827,6 +895,217 @@ def phase_lm_checks(model, params, small_cfg, small_ctx):
         raise AssertionError("card and CPU serving runs disagree")
 
 
+# ---------------------------------------------------------------------------
+# The cut-fusion kernel (the scientist's cut layer) and the schedules
+# ---------------------------------------------------------------------------
+
+# the reference's kernel cases (tests/test_kernels.py CUT_CASES), then the
+# training path's calls (2 owners, k 64, trunk width 500): the batch of
+# 128, a microbatch chunk of 32 (microbatches=4), phase 4's evaluation
+# batch of 242 rows, sum and mean with W's one block row; then the
+# reference benchmark's shape (benchmarks/kernels_bench.py):
+# P, T, k, d, combine, rows of W
+CUT_CASES = [(2, 128, 64, 128, "concat", 2), (4, 256, 64, 96, "concat", 4),
+             (2, 100, 60, 70, "concat", 2), (2, 128, 64, 128, "sum", 2),
+             (3, 128, 64, 128, "mean", 3)]
+CUT_PATH_CASES = {"batch": (2, 128, 64, 500, "concat", 2),
+                  "chunk": (2, 32, 64, 500, "concat", 2),
+                  "eval": (2, 242, 64, 500, "concat", 2),
+                  "sum": (2, 128, 64, 500, "sum", 1),
+                  "mean": (2, 128, 64, 500, "mean", 1),
+                  "bench": (2, 4096, 512, 1024, "concat", 2)}
+
+
+def cut_bound(case, dtype, bw, f32_flops):
+    """Each input read once (sum and mean read one block row of W) and
+    the output written once, over the memory rate; the products (and
+    the owner sums, and the division for mean) over the peak rate."""
+    import torch
+    P, T, K, D, combine, _ = case
+    elt = 2 if dtype == torch.bfloat16 else 4
+    if combine == "concat":
+        flops, w_rows = 2 * P * T * K * D, P
+    else:
+        flops = 2 * T * K * D + (P - 1 + (combine == "mean")) * T * K
+        w_rows = 1
+    nbytes = elt * (P * T * K + w_rows * K * D + T * D)
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else f32_flops
+    bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * flops / peak
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations"), flops, nbytes
+
+
+def cut_library_call(z, w, combine):
+    """One PyTorch call computing the same function (cuBLAS, TF32 off):
+    ``einsum`` over owners and k for concat, ``matmul`` of the combined
+    cut for sum and mean.  Timed as a yardstick only; the port never
+    calls it."""
+    import torch
+    if combine == "concat":
+        return lambda: torch.einsum("ptk,pkd->td", z, w)
+    if combine == "sum":
+        return lambda: torch.matmul(z.sum(0), w[0])
+    return lambda: torch.matmul(z.mean(0), w[0])
+
+
+def phase_cut_fusion(bw, f32_flops):
+    """Phase 12: the cut-fusion kernel vs its plain version on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.cut_fusion import cut_fusion, cut_fusion_ref
+    tol = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+    err, worst, rows = 0.0, 0.0, {}
+    cases = [(f"case{i}", c) for i, c in enumerate(CUT_CASES)]
+    cases += [(f"path:{n}", c) for n, c in CUT_PATH_CASES.items()]
+    for name, case in cases:
+        P, T, K, D, combine, w_rows = case
+        rng = np.random.default_rng(0)
+        z32 = torch.from_numpy(rng.normal(size=(P, T, K)).astype(
+            np.float32)).cuda()
+        w32 = torch.from_numpy(rng.normal(size=(w_rows, K, D)).astype(
+            np.float32)).cuda()
+        for dt in (torch.float32, torch.bfloat16):
+            z, w = z32.to(dt), w32.to(dt)
+            got = cut_fusion(z, w, combine)
+            want = cut_fusion_ref(z, w, combine=combine)
+            torch.cuda.synchronize()
+            d = (got.float() - want.float()).abs()
+            r = (d / (tol[dt] + tol[dt] * want.float().abs())).max().item()
+            if r > 1.0 or not torch.isfinite(got).all():
+                raise AssertionError(
+                    f"cut_fusion {name} {dt}: kernel vs plain max |diff| "
+                    f"{d.max().item():.3e} beyond atol=rtol={tol[dt]}")
+            err, worst = max(err, d.max().item()), max(worst, r)
+            print(f"  {name} (P, T, k, d) {case[:4]} {combine} "
+                  f"{str(dt)[6:]}: max |diff| {d.max().item():.3e}, max "
+                  f"|diff| / (atol + rtol |plain|) {r:.3f}")
+            timed = name.startswith("path") and (
+                dt == torch.float32 or name == "path:bench")
+            if not timed:
+                continue
+            bound, by, flops, nbytes = cut_bound(case, dt, bw, f32_flops)
+            library = cut_library_call(z, w, combine)
+            lib_err = (library().float() - want.float()).abs().max().item()
+            row = {"shape": list(case[:4]), "combine": combine,
+                   "dtype": str(dt)[6:],
+                   "ms": device_ms(lambda: cut_fusion(z, w, combine)),
+                   "plain_ms": device_ms(lambda: cut_fusion_ref(
+                       z, w, combine=combine)),
+                   "library_ms": device_ms(library),
+                   "eager_ms": eager_ms(lambda: cut_fusion(z, w, combine)),
+                   "bound_ms": bound, "bound_by": by, "flops": flops,
+                   "bytes": nbytes, "max_abs_err": d.max().item(),
+                   "library_max_abs_err": lib_err}
+            row["tflops"] = flops / row["ms"] / 1e9
+            rows[f"{name[5:]}:{row['dtype']}"] = row
+            print(f"    kernel {row['ms']:.6f} ms ({row['tflops']:.3f} "
+                  f"TFLOP/s; eager {row['eager_ms']:.6f}), plain "
+                  f"{row['plain_ms']:.6f} ms, library "
+                  f"{row['library_ms']:.6f} ms (|diff| {lib_err:.2e}), bound"
+                  f" {row['bound_ms']:.6f} ms ({by}; {flops / 1e6:.3f} "
+                  f"MFLOP, {nbytes / 1e6:.4f} MB)")
+    return {"max_abs_err": err, "tol_ratio": worst, "rows": rows}
+
+
+def same_params(a, b):
+    import torch
+    from repro_torch.tree import tree_leaves
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a.params),
+                                                  tree_leaves(b.params)))
+
+
+def phase_schedules():
+    """Phase 13: the training path at full width through the schedules
+    beyond phase 4's: microbatched split == its joint oracle, owners in
+    worker processes == the queue backend, and the three fused combines
+    card vs CPU."""
+    from repro_torch.tree import tree_leaves
+    kw = dict(epochs=1, batch_size=128, eval_frac=0.15, verbose=False)
+    M = 4
+    runs = {}
+    for mode in ("joint", "split"):
+        s, _ = mnist_session("cuda")
+        reset_counts()
+        t = time.time()
+        h = s.fit(**kw, mode=mode, microbatches=M)
+        counts = read_counts()
+        check_counts(counts, {"cut_fusion": trunk_forwards(
+            s, "joint" if mode == "joint" else "pipelined", M)},
+            f"the {mode} fit in {M} microbatches")
+        runs[mode] = (s, h)
+        print(f"  {mode} fit, {M} microbatches of {128 // M}: "
+              f"{len(h['loss_trail'])} steps in {time.time() - t:.2f} s"
+              + (f"; steady_step_ms "
+                 f"{s.transport_stats['steady_step_ms']:.3f}"
+                 if mode == "split" else ""))
+    (j, hj), (sp, hs) = runs["joint"], runs["split"]
+    if not same_params(j, sp) or hs["loss_trail"] != hj["loss_trail"]:
+        raise AssertionError("microbatched split != its joint oracle")
+    print(f"  split in {M} microbatches == the microbatched joint oracle: "
+          f"params and loss trail bitwise equal over "
+          f"{len(hj['loss_trail'])} steps; cut frames "
+          f"{sp.transport_stats['wire_by_kind']['cut_activations']['count']}")
+
+    for compression in (None, "int8"):
+        pair = {}
+        for backend in ("queue", "process"):
+            s, _ = mnist_session("cuda")
+            reset_counts()
+            t = time.time()
+            h = s.fit(**kw, mode="split", backend=backend,
+                      compression=compression)
+            wall = time.time() - t
+            counts = read_counts()
+            steps = s.transport_stats["steps"]
+            # launches are per process: a worker process's int8 launches
+            # on its cuts are its own; the parent counts the scientist's
+            # (every cut gradient) and, for thread owners, theirs
+            need = {"cut_fusion": trunk_forwards(s)}
+            if compression == "int8":
+                need["quantize_pack_int8"] = len(s.owners) * (steps + 1) \
+                    * (2 if backend == "queue" else 1)
+            check_counts(counts, need,
+                         f"the {backend} fit ({compression or 'lossless'})")
+            pair[backend] = (s, h)
+            print(f"  {backend} ({compression or 'lossless'}): {steps} "
+                  f"steps, fit wall {wall:.2f} s (workers' start-up "
+                  f"included), steady_step_ms "
+                  f"{s.transport_stats['steady_step_ms']:.3f}")
+        (q, hq), (p, hp) = pair["queue"], pair["process"]
+        wq = q.transport_stats["wire_by_kind"]
+        wp = p.transport_stats["wire_by_kind"]
+        if not same_params(q, p) or hp["loss_trail"] != hq["loss_trail"]:
+            raise AssertionError(f"process != queue ({compression})")
+        if {k: wp[k] for k in wq} != wq or \
+                set(wp) - set(wq) != {"pull_params", "params_dump"}:
+            raise AssertionError(f"process wire bytes != queue's "
+                                 f"({compression}): {wp} vs {wq}")
+        print(f"  process == queue ({compression or 'lossless'}): params "
+              f"and loss trail bitwise equal; wire bytes by kind equal on "
+              f"the queue's {len(wq)} kinds (+ the param pulls)")
+
+    for combine in ("concat", "sum", "mean"):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            s, _ = mnist_session(dev, combine=combine)
+            reset_counts()
+            h = s.fit(**kw)
+            if dev == "cuda":
+                check_counts(read_counts(), {"cut_fusion": trunk_forwards(
+                    s, "joint")}, f"the joint fit ({combine})")
+            res[dev] = (s, h)
+        (c, hc), (u, hu) = res["cuda"], res["cpu"]
+        rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(hc["loss_trail"], hu["loss_trail"]))
+        pdiff = max((a.cpu() - b).abs().max().item() for a, b in
+                    zip(tree_leaves(c.params), tree_leaves(u.params)))
+        print(f"  joint ({combine}) card vs CPU: loss trail max rel "
+              f"{rel:.3e} (limit 1e-4), params max |diff| {pdiff:.3e} "
+              f"(limit 1e-4); final loss {hc['loss_trail'][-1]:.5f}")
+        if rel > 1e-4 or pdiff > 1e-4:
+            raise AssertionError(f"card and CPU joint ({combine}) disagree")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -850,7 +1129,8 @@ def main():
 
     print("== 2. build")
     t = time.time()
-    build.build(["quantize", "block_attention", "mamba2_scan"])
+    build.build(["quantize", "block_attention", "mamba2_scan",
+                 "cut_fusion"])
     print(f"  built in {time.time() - t:.2f} s")
     for src, log in build.build_logs.items():
         print("\n".join(f"  nvcc {src}: {line}" for line in
@@ -893,8 +1173,17 @@ def main():
                     get_config(ZAMBA, reduced=True).replace(
                         n_layers=18, compute_dtype="float32"), 128)
     print(f"  phase wall {time.time() - t:.2f} s")
+    t = time.time()
+    print("== 12. cut-fusion kernel vs plain version on the card")
+    cut = phase_cut_fusion(bw, flops)
+    print(f"  phase wall {time.time() - t:.2f} s")
+    t = time.time()
+    print("== 13. the training path through the other schedules: "
+          "microbatches, worker processes, combines")
+    phase_schedules()
+    print(f"  phase wall {time.time() - t:.2f} s")
 
-    print("== 12. results")
+    print("== 14. results")
     src = "src/repro_torch/csrc/quantize.cu"
     tpu = "src/repro/kernels/quantize/kernel.py"
     replaces = {"quantize_pack_int8": f"{tpu}:28",     # _quantize_pack_kernel
@@ -935,6 +1224,17 @@ def main():
         "bound_by": row["bound_by"], "library_ms": None,
         "shape": "trunk_prefill", "eager_ms": row["eager_ms"],
         "all_shapes": ssd["rows"]})
+    row = cut["rows"]["batch:float32"]
+    entries.append({
+        "name": "cut_fusion", "route": "cuda",
+        "source": "src/repro_torch/csrc/cut_fusion.cu",
+        "replaces": "src/repro/kernels/cut_fusion/kernel.py:30",
+        "launches": counts["cut_fusion"], "on_path": True,
+        "max_abs_err": cut["max_abs_err"], "tol_ratio": cut["tol_ratio"],
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"], "shape": "batch:float32",
+        "eager_ms": row["eager_ms"], "all_shapes": cut["rows"]})
     entries[0]["serving_launches"] = \
         serving["counts"]["quantize_pack_int8"]
     entries[0]["zamba2_launches"] = zamba["counts"]["quantize_pack_int8"]

@@ -6,7 +6,11 @@
    10 trunk).  Parameters keep the reference's layout: each layer is
    ``{"w": (in, out), "b": (out,)}`` computing ``x @ w + b``; ``heads``
    is a list of layers whose leaves are stacked over owners
-   (``(P, 392, 64)``, ``(P, 64)``), ``trunk`` a list of layers.
+   (``(P, 392, 64)``, ``(P, 64)``), ``trunk`` a list of layers.  The
+   trunk's first layer is the fused cut layer (``trunk_apply``): the
+   owners' cuts go through the cut-fusion kernel
+   (``repro_torch.kernels.cut_fusion``) straight into the trunk's input
+   projection, without building the combine.
 2. ``make_split_train_step`` — the joint training step: one autograd
    pass through heads + combine + trunk, then per-segment updates
    (owners' lr != scientist's lr).
@@ -19,7 +23,8 @@ Split vs. joint stays bitwise inside the port because both paths run
 the same functions at the same shapes: the joint step computes each
 owner's head with the same per-owner head function the owner thread
 runs (no batched product over owners, which may reduce in another
-order), and the loss is one function, ``nll_parts``, everywhere.
+order), the trunk is one function, ``trunk_apply``, and the loss is
+one function, ``nll_parts``, everywhere.
 
 ``cut_layer_traffic`` accounts the bytes that cross party boundaries
 per step: only cut activations (fwd) and cut gradients (bwd).
@@ -32,6 +37,7 @@ from typing import Callable, Dict
 import torch
 
 from repro_torch.configs.pyvertical_mnist import MLPSplitConfig
+from repro_torch.kernels.cut_fusion import cut_fusion_fn
 from repro_torch.optim import apply_updates
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -117,20 +123,30 @@ class MLPSplitNN:
         return torch.stack([self.head_apply(head_slice(heads, p), x_slices[p])
                             for p in range(self.P)])
 
-    def combine(self, cut):
+    def trunk_apply(self, trunk, cut):
+        """The scientist's side, the only route from the stacked cut
+        (P, B, k) to the logits: layer 0 is the fused cut layer,
+        ``cut_fusion(cut, W as (P, k, d) for concat or (1, k, d) for sum
+        and mean) + b`` (the combine is never built), then ReLU and the
+        rest of the trunk.  ``W`` keeps the reference's (P*k, d) / (k, d)
+        layout.  ``combine="max"`` has no kernel: amax, then the
+        product."""
         c = self.cfg.split.combine
-        if c == "concat":
-            P, B, k = cut.shape
-            return cut.transpose(0, 1).reshape(B, P * k)
-        if c == "sum":
-            return cut.sum(0)
-        if c == "mean":
-            return cut.mean(0)
-        return cut.amax(0)
+        first = trunk[0]
+        if c == "max":
+            x = cut.amax(0) @ first["w"]
+        else:
+            P, _, k = cut.shape
+            w = first["w"].view(P if c == "concat" else 1, k, -1)
+            x = cut_fusion_fn(cut.contiguous(), w, c)
+        x = x + first["b"]
+        if len(trunk) == 1:
+            return x
+        return self._mlp_apply(trunk[1:], torch.relu(x))
 
     def forward(self, params, x_slices):
-        z = self.combine(self.heads_forward(params["heads"], x_slices))
-        return self._mlp_apply(params["trunk"], z)   # logits (B, 10)
+        return self.trunk_apply(params["trunk"], self.heads_forward(
+            params["heads"], x_slices))              # logits (B, 10)
 
     def loss_fn(self, params, batch):
         logits = self.forward(params, batch["x_slices"])
@@ -197,8 +213,8 @@ def make_mlp_head_programs(model: MLPSplitNN):
 
 
 def _chunk_loss(model, tp, cuts, labels, denom):
-    z = model.combine(torch.stack(tuple(cuts)))
-    return nll_parts(model._mlp_apply(tp, z), labels, denom)
+    return nll_parts(model.trunk_apply(tp, torch.stack(tuple(cuts))),
+                     labels, denom)
 
 
 def _detached(parts):

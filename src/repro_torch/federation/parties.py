@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core.psi import PSIClient, PSIServer
 from repro_torch.core.resolution import VerticalDataset
+from repro_torch.tree import tree_add, tree_leaves
 
 
 class PrivacyError(RuntimeError):
@@ -129,19 +130,28 @@ class OwnerComputeEndpoint:
     arrives as protocol messages on its transport endpoint:
 
       ``head_fwd``       batch row indices for step t (seq t).  The owner
-                         gathers its own rows on the device and — once
-                         the step t-1 update is applied — runs the head
-                         forward and ships the codec-encoded cut
-                         (``cut_activations``, seq t).
-      ``cut_gradients``  the cut gradient for step t: head backward, one
+                         gathers its own rows on the device, cuts them
+                         into ``microbatches`` chunks and — once the step
+                         t-1 update is applied — runs the head forward
+                         per chunk, shipping each codec-encoded cut the
+                         moment it exists (``cut_activations``, seq
+                         ``t*M + m``).
+      ``cut_gradients``  the cut gradient of chunk m of step t (seq
+                         ``t*M + m``): the head backward for that chunk
+                         at once, accumulated in chunk order at
+                         step-start params; on the step's last chunk one
                          optimizer update, then the staged step-t+1
                          forward if its request already arrived.
-      ``warmup``         pre-training handshake: one forward, one
-                         backward of a zero gradient and one update
-                         through both codec directions (a zero gradient
-                         leaves SGD params bitwise unchanged).
+      ``warmup``         pre-training handshake: one forward per chunk,
+                         one backward of a zero gradient per chunk and
+                         one update, through both codec directions (a
+                         zero gradient leaves SGD params bitwise
+                         unchanged).
       ``barrier``        flush marker, acked once every prior message is
                          processed.
+      ``pull_params``    the head params as numbered numpy leaves
+                         (``params_dump``): across a process boundary the
+                         session's only view of the owner's state.
       ``stop``           end of training.
 
     FIFO channel order is the only synchronization: every gradient of
@@ -149,13 +159,14 @@ class OwnerComputeEndpoint:
     staged, not run), so the pipelined schedule is exact.  Every tensor
     op runs on the session's device; the host copy at the wire boundary
     synchronises, so the loop takes no explicit device sync.  ``run``
-    is the thread target.  The reference's microbatching, masking,
-    fault and supervision hooks are queued in ROADMAP.md.
+    is the thread target (and the spawned worker's loop,
+    ``federation/runtime.py``).  The reference's fused owner tail,
+    masking, fault and supervision hooks are queued in ROADMAP.md.
     """
 
     def __init__(self, owner: DataOwner, endpoint, head_fwd, head_bwd, *,
                  update, params, opt_state, codec, device,
-                 ack_steps: bool = False):
+                 ack_steps: bool = False, microbatches: int = 1):
         self.owner = owner
         self.endpoint = endpoint
         self.head_fwd, self.head_bwd = head_fwd, head_bwd
@@ -165,34 +176,45 @@ class OwnerComputeEndpoint:
         self.codec = codec
         self.device = torch.device(device)
         self.ack_steps = ack_steps
+        self.micro = int(microbatches)
         self.steps_done = 0
         self.error: Optional[BaseException] = None
         self._inflight: Dict[int, torch.Tensor] = {}   # seq -> head input
-        self._plan: Dict[int, torch.Tensor] = {}       # step -> staged rows
+        self._plan: Dict[int, List[torch.Tensor]] = {}  # step -> chunks
+        self._grad_acc = None
+        self._grads_seen = 0
         self._feats = torch.from_numpy(np.ascontiguousarray(
             owner._features, np.float32)).to(self.device)
 
-    def _stage(self, idx) -> torch.Tensor:
-        """Gather the step's rows on the device."""
-        return self._feats[torch.from_numpy(
+    def _stage(self, idx) -> List[torch.Tensor]:
+        """Gather the step's rows on the device and cut the chunks."""
+        x = self._feats[torch.from_numpy(
             np.asarray(idx, np.int64)).to(self.device)]
+        bm = x.shape[0] // self.micro
+        return [x[m * bm:(m + 1) * bm] for m in range(self.micro)]
 
     def _run_fwd(self, step: int) -> None:
-        x = self._plan.pop(step)
-        self._inflight[step] = x
-        self.endpoint.send("cut_activations",
-                           self.codec.encode(self.head_fwd(self.params, x)),
-                           seq=step)
+        for m, x in enumerate(self._plan.pop(step)):
+            seq = step * self.micro + m
+            self._inflight[seq] = x
+            self.endpoint.send(
+                "cut_activations",
+                self.codec.encode(self.head_fwd(self.params, x)), seq=seq)
 
     def _warmup(self, msg) -> None:
-        x = self._stage(msg.payload["idx"])
-        self.endpoint.send("warmup_cuts",
-                           self.codec.encode(self.head_fwd(self.params, x)),
-                           seq=0)
-        g = self.codec.decode(self.endpoint.recv_kind("warmup_grads").payload)
-        grads = self.head_bwd(self.params, x, g * 0.0)
+        chunks = self._stage(msg.payload["idx"])
+        for m, x in enumerate(chunks):
+            self.endpoint.send(
+                "warmup_cuts",
+                self.codec.encode(self.head_fwd(self.params, x)), seq=m)
+        for x in chunks:
+            g = self.codec.decode(
+                self.endpoint.recv_kind("warmup_grads").payload)
+            self._grad_acc = tree_add(self._grad_acc,
+                                      self.head_bwd(self.params, x, g * 0.0))
         self.params, self.opt_state = self._update(
-            self.params, self.opt_state, grads, 0)
+            self.params, self.opt_state, self._grad_acc, 0)
+        self._grad_acc = None
         self.endpoint.send("warmup_done", {}, seq=msg.seq)
 
     def handle(self, msg) -> bool:
@@ -201,6 +223,10 @@ class OwnerComputeEndpoint:
             return False
         if msg.kind == "barrier":
             self.endpoint.send("barrier_ack", {}, seq=msg.seq)
+        elif msg.kind == "pull_params":
+            self.endpoint.send("params_dump", {
+                str(i): leaf for i, leaf in
+                enumerate(tree_leaves(self.params))}, seq=msg.seq)
         elif msg.kind == "warmup":
             self._warmup(msg)
         elif msg.kind == "head_fwd":
@@ -211,12 +237,18 @@ class OwnerComputeEndpoint:
         elif msg.kind == "cut_gradients":
             seq = int(msg.seq)
             g = self.codec.decode(msg.payload)
-            grads = self.head_bwd(self.params, self._inflight.pop(seq), g)
-            self.params, self.opt_state = self._update(
-                self.params, self.opt_state, grads, self.steps_done)
-            self.steps_done += 1
-            if self.steps_done in self._plan:
-                self._run_fwd(self.steps_done)
+            self._grad_acc = tree_add(self._grad_acc, self.head_bwd(
+                self.params, self._inflight.pop(seq), g))
+            self._grads_seen += 1
+            if self._grads_seen == self.micro:
+                # every chunk's gradient is in: the step's one update
+                self.params, self.opt_state = self._update(
+                    self.params, self.opt_state, self._grad_acc,
+                    self.steps_done)
+                self._grad_acc, self._grads_seen = None, 0
+                self.steps_done += 1
+                if self.steps_done in self._plan:
+                    self._run_fwd(self.steps_done)
             if self.ack_steps:
                 self.endpoint.send("step_done", {}, seq=seq)
         else:

@@ -1,0 +1,221 @@
+"""The process boundary: the queue backend's semantics over a real OS
+pipe between party processes (the port's counterpart of
+``repro.federation.process_transport``, cut to what ``fit(backend=
+"process")`` uses).
+
+:class:`ProcessEndpoint` has the endpoint surface the session and the
+owner's compute loop use (``send`` / ``recv`` / ``recv_kind`` /
+``sent_stats`` / ``recv_stats``) over a ``multiprocessing`` connection,
+so ``OwnerComputeEndpoint`` runs unchanged inside a spawned worker
+(``federation/runtime.py``).
+
+  * **One pipe per party.**  Every protocol kind shares one duplex pipe;
+    the kind and seq ride a small transport header in front of the
+    payload frame, and ``recv_kind`` stashes other kinds exactly as the
+    queue backend's ``Endpoint`` does.
+  * **The queue backend's accounting.**  The payload frame is the very
+    ``transport._pack`` blob the queue backend serializes, and
+    ``wire_bytes`` counts that blob alone (the header plays the part of
+    the in-process ``Message`` envelope, which the queue backend does
+    not count either), so byte counts by kind equal the queue
+    backend's.
+  * **Sends never block the party.**  A writer thread per endpoint
+    drains an unbounded outbox into the pipe, so two parties sending at
+    once cannot deadlock on full socket buffers.
+  * **A dead peer raises.**  A failing worker ships one last
+    ``__worker_error__`` frame with its traceback; the peer's next
+    receive raises it as a ``RuntimeError``.  A death without that frame
+    shows as a closed pipe, which raises too.
+
+Latency and bandwidth injection, the transport tap, frame checksums and
+duplicate dropping (the reference's fault and recovery machinery) are
+queued in ROADMAP.md.
+"""
+from __future__ import annotations
+
+import queue as _queue
+import struct
+import threading
+import time
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+
+from repro_torch.federation.transport import Message, _nbytes, _pack, \
+    _unpack
+
+__all__ = ["ProcessEndpoint", "process_endpoint_pair", "POISON_KIND"]
+
+#: the frame a dying worker sends last
+POISON_KIND = "__worker_error__"
+
+#: transport header after the kind: [i64 seq][i64 payload_bytes]
+HEADER_FMT = "<qq"
+_HEADER_LEN = struct.calcsize(HEADER_FMT)
+
+_CLOSE = object()          # writer-thread shutdown sentinel
+
+
+def _new_stats() -> Dict[str, object]:
+    return {"messages": 0, "payload_bytes": 0, "wire_bytes": 0,
+            "by_kind": {}}
+
+
+def _account(stats: Dict[str, object], kind: str, payload_bytes: int,
+             wire_bytes: int) -> None:
+    stats["messages"] += 1
+    stats["payload_bytes"] += payload_bytes
+    stats["wire_bytes"] += wire_bytes
+    k = stats["by_kind"].setdefault(
+        kind, {"count": 0, "payload_bytes": 0, "wire_bytes": 0})
+    k["count"] += 1
+    k["payload_bytes"] += payload_bytes
+    k["wire_bytes"] += wire_bytes
+
+
+class ProcessEndpoint:
+    """One party's end of a duplex process boundary.  ``recv`` raises
+    ``queue.Empty`` on timeout and ``RuntimeError`` once the peer died
+    (its error frame, or a closed pipe)."""
+
+    _POLL_S = 0.05
+
+    def __init__(self, name: str, peer: str, conn):
+        self.name, self.peer = name, peer
+        self.conn = conn
+        self.sent_stats = _new_stats()
+        self.recv_stats = _new_stats()
+        #: the peer's error frame, once seen
+        self.peer_error: Optional[BaseException] = None
+        self._stash: list = []
+        self._lock = threading.Lock()
+        self._outq: "_queue.SimpleQueue" = _queue.SimpleQueue()
+        self._send_error: Optional[BaseException] = None
+        self._closed = False
+        self._writer = threading.Thread(
+            target=self._write_loop, daemon=True,
+            name=f"pt-writer-{name}->{peer}")
+        self._writer.start()
+
+    # -- sending -----------------------------------------------------------
+    def _write_loop(self) -> None:
+        while True:
+            frame = self._outq.get()
+            if frame is _CLOSE:
+                return
+            try:
+                self.conn.send_bytes(frame)
+            except (OSError, ValueError) as e:
+                # the peer is gone: keep the reason and drain quietly, so
+                # the party's sends never block on a dead pipe
+                if self._send_error is None:
+                    self._send_error = e
+
+    def send(self, kind: str, payload: Dict[str, object], *,
+             seq: int = 0) -> Message:
+        if self._closed:
+            raise RuntimeError(
+                f"{self.name}: endpoint to {self.peer} is closed")
+        pb = sum(_nbytes(a) for a in payload.values())
+        blob = _pack(payload)
+        with self._lock:
+            _account(self.sent_stats, kind, pb, len(blob))
+        kb = kind.encode()
+        self._outq.put(struct.pack("<H", len(kb)) + kb
+                       + struct.pack(HEADER_FMT, seq, pb) + blob)
+        return Message(self.name, self.peer, kind, {"__blob__": blob},
+                       seq=seq, payload_bytes=pb, wire_bytes=len(blob))
+
+    def send_error(self, exc: BaseException, tb: str = "") -> None:
+        """Ship the worker's terminal exception and traceback as the last
+        frame before the pipe closes."""
+        try:
+            self.send(POISON_KIND, {
+                "error": np.frombuffer(
+                    f"{type(exc).__name__}: {exc}".encode(), np.uint8),
+                "traceback": np.frombuffer(tb.encode(), np.uint8)})
+        except RuntimeError:
+            pass
+
+    # -- receiving ---------------------------------------------------------
+    def _recv_frame(self, timeout: Optional[float]) -> Message:
+        try:
+            if not self.conn.poll(timeout):
+                raise _queue.Empty
+            frame = self.conn.recv_bytes()
+        except (EOFError, OSError) as e:
+            raise RuntimeError(
+                f"{self.name}: connection to {self.peer!r} closed "
+                f"({type(e).__name__})") from (
+                    self.peer_error if self.peer_error is not None else e)
+        (klen,) = struct.unpack_from("<H", frame, 0)
+        kind = frame[2:2 + klen].decode()
+        seq, pb = struct.unpack_from(HEADER_FMT, frame, 2 + klen)
+        blob = frame[2 + klen + _HEADER_LEN:]
+        if kind == POISON_KIND:
+            pl = _unpack(blob)
+            err = pl["error"].tobytes().decode()
+            tb = pl["traceback"].tobytes().decode()
+            self.peer_error = RuntimeError(
+                f"party {self.peer!r} died: {err}"
+                + (f"\n--- remote traceback ---\n{tb}" if tb else ""))
+            raise self.peer_error
+        with self._lock:
+            _account(self.recv_stats, kind, int(pb), len(blob))
+        return Message(self.peer, self.name, kind, _unpack(blob),
+                       seq=int(seq), payload_bytes=int(pb),
+                       wire_bytes=len(blob))
+
+    def recv(self, timeout: Optional[float] = None) -> Message:
+        if self._stash:
+            return self._stash.pop(0)
+        if self.peer_error is not None:
+            raise self.peer_error
+        return self._recv_frame(timeout)
+
+    def recv_kind(self, kind: str, timeout: Optional[float] = None
+                  ) -> Message:
+        """The next message of ``kind``; other kinds that arrive first
+        are stashed for later.  Raises ``queue.Empty`` when ``timeout``
+        elapses first."""
+        for i, m in enumerate(self._stash):
+            if m.kind == kind:
+                return self._stash.pop(i)
+        if self.peer_error is not None:
+            raise self.peer_error
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            left = (self._POLL_S if deadline is None else
+                    min(self._POLL_S, max(0.0, deadline - time.monotonic())))
+            try:
+                msg = self._recv_frame(left)
+            except _queue.Empty:
+                if deadline is not None and time.monotonic() >= deadline:
+                    raise
+                continue
+            if msg.kind == kind:
+                return msg
+            self._stash.append(msg)
+
+    # -- lifecycle ---------------------------------------------------------
+    def close(self, drain_s: float = 5.0) -> None:
+        """Flush the outbox, stop the writer, close the pipe."""
+        if self._closed:
+            return
+        self._closed = True
+        self._outq.put(_CLOSE)
+        self._writer.join(timeout=drain_s)
+        try:
+            self.conn.close()
+        except OSError:
+            pass
+
+
+def process_endpoint_pair(a: str, b: str
+                          ) -> Tuple[ProcessEndpoint, ProcessEndpoint]:
+    """Both ends of a process boundary in the current process (the
+    worker spawn builds the far end inside the child; see
+    ``federation/runtime.py``)."""
+    import multiprocessing as mp
+    c1, c2 = mp.Pipe(duplex=True)
+    return ProcessEndpoint(a, b, c1), ProcessEndpoint(b, a, c2)

@@ -32,6 +32,10 @@ def build_adapter(cfg):
 class MLPAdapter:
     """The paper's Appendix-B dual-headed MLP on feature-split data."""
 
+    #: ``fit(microbatches=M)``: the trunk's per-chunk programs take the
+    #: full batch as ``denom``, so M chunks accumulate to the batch step
+    supports_microbatch = True
+
     def __init__(self, cfg: MLPSplitConfig):
         self.cfg = cfg
         self.model = splitnn.MLPSplitNN(cfg)

@@ -1,0 +1,161 @@
+"""One OS process per data owner (the port's counterpart of
+``repro.federation.runtime``, owner side only).
+
+``fit(backend="process")`` spawns one worker per owner.  Each worker is
+a ``spawn``-started process (CUDA cannot be used again in a forked
+child) that rebuilds its owner's compute from a picklable spec and runs
+the very loop the thread backend runs:
+
+  * :func:`owner_worker_main` — resolves the spec's device (on a card
+    that configures the reference numerics in the worker's own CUDA
+    context), rebuilds the registry adapter from the config dataclass,
+    takes its head params as numpy leaves, and runs an
+    :class:`~repro_torch.federation.parties.OwnerComputeEndpoint` over
+    a :class:`~repro_torch.federation.process_transport.ProcessEndpoint`.
+    Only cut activations and cut gradients cross back.
+  * :class:`WorkerHandle` — the parent's view: the endpoint, the
+    process, and the ``error`` the session's receive polls check (the
+    worker's error frame, or a nonzero exit code for a death too sudden
+    to send one).
+
+Lifecycle: spawn -> warmup handshake (driven by the session over the
+pipe, before the timed region) -> the step protocol -> ``stop`` ->
+drain, exit 0.  A worker that throws ships one error frame with its
+traceback and exits 1.  Kernel launch counts are per process: a
+worker's launches (the int8 codec on its cuts) are counted in the
+worker, not in the parent.  PSI workers and chaos hooks are queued in
+ROADMAP.md.
+"""
+from __future__ import annotations
+
+import traceback
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import numpy as np
+
+from repro_torch.federation.process_transport import ProcessEndpoint
+
+__all__ = ["OwnerWorkerSpec", "WorkerHandle", "owner_worker_main",
+           "spawn_owner_worker"]
+
+SCIENTIST = "scientist"
+
+
+@dataclass
+class OwnerWorkerSpec:
+    """Everything a spawned owner worker needs to rebuild its party:
+    ``config`` is the model config (a frozen dataclass);
+    ``param_leaves`` the owner's head params as numpy leaves in
+    ``tree_leaves`` order (the worker rebuilds the tree against the
+    structure of a freshly initialised slice, so no structure crosses);
+    ``device`` the explicit device string the worker resolves;
+    ``num_threads`` the worker's intra-op CPU threads (None: torch's
+    default)."""
+
+    name: str
+    ids: List[str]
+    features: np.ndarray
+    owner_index: int
+    config: object
+    device: str
+    param_leaves: List[np.ndarray] = field(default_factory=list)
+    codec: Optional[str] = None
+    microbatches: int = 1
+    ack_steps: bool = False
+    owner_lr: Optional[float] = None
+    num_threads: Optional[int] = None
+
+
+def _owner_body(spec: OwnerWorkerSpec, ep: ProcessEndpoint) -> None:
+    import torch
+
+    from repro_torch.device import resolve_device
+    from repro_torch.federation.parties import (DataOwner,
+                                                OwnerComputeEndpoint)
+    from repro_torch.federation.registry import build_adapter
+    from repro_torch.federation.transport import get_codec
+    from repro_torch.tree import tree_unflatten
+
+    if spec.num_threads:
+        torch.set_num_threads(spec.num_threads)
+    device = resolve_device(spec.device)
+    adapter = build_adapter(spec.config)
+    p = spec.owner_index
+    template = adapter.owner_param_slice(
+        adapter.init(torch.Generator().manual_seed(0)), p)
+    params = tree_unflatten(template, [
+        torch.from_numpy(np.array(leaf, np.float32)).to(device)
+        for leaf in spec.param_leaves])
+    owner_opt, owner_update = adapter.owner_update_rule(spec.owner_lr)
+    head_fwd, head_bwd = adapter.owner_programs(p)
+    worker = OwnerComputeEndpoint(
+        DataOwner(spec.name, spec.ids, spec.features), ep, head_fwd,
+        head_bwd, update=owner_update, params=params,
+        opt_state=owner_opt.init(params),
+        codec=get_codec(spec.codec, device), device=device,
+        ack_steps=spec.ack_steps, microbatches=spec.microbatches)
+    worker.run()
+    if worker.error is not None:
+        raise worker.error
+
+
+def owner_worker_main(spec: OwnerWorkerSpec, conn) -> None:
+    """Spawn target of an owner worker: the endpoint up, the owner's
+    loop, then a clean close (exit 0) — or the error frame and exit 1."""
+    ep = ProcessEndpoint(spec.name, SCIENTIST, conn)
+    try:
+        _owner_body(spec, ep)
+    except BaseException as e:              # noqa: BLE001 — shipped to
+        ep.send_error(e, traceback.format_exc())   # the parent's poll
+        ep.close()
+        raise SystemExit(1)
+    ep.close()
+
+
+class WorkerHandle:
+    """The scientist's view of one spawned owner worker: ``endpoint``
+    (its end of the pipe), ``proc``, ``owner`` (the parent-side party
+    object) and ``error``, which the session's receive polls read, as
+    they read a thread worker's."""
+
+    def __init__(self, name: str, proc, endpoint: ProcessEndpoint,
+                 owner=None):
+        self.name = name
+        self.proc = proc
+        self.endpoint = endpoint
+        self.owner = owner
+
+    @property
+    def error(self) -> Optional[BaseException]:
+        if self.endpoint.peer_error is not None:
+            return self.endpoint.peer_error
+        code = self.proc.exitcode
+        if code not in (None, 0):
+            return RuntimeError(
+                f"owner worker {self.name!r} exited with code {code}")
+        return None
+
+    def shutdown(self, timeout: float = 10.0) -> None:
+        """Join; terminate a worker that is stuck.  Idempotent."""
+        self.proc.join(timeout=timeout)
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join(timeout=5.0)
+        self.endpoint.close()
+
+
+def spawn_owner_worker(spec: OwnerWorkerSpec, *, owner=None
+                       ) -> WorkerHandle:
+    """Start one owner worker; returns the parent's handle, whose
+    ``endpoint`` is the scientist's end of the party boundary."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    parent_conn, child_conn = ctx.Pipe(duplex=True)
+    proc = ctx.Process(target=owner_worker_main, args=(spec, child_conn),
+                       daemon=True, name=f"owner-{spec.name}")
+    proc.start()
+    child_conn.close()          # the child owns its end now
+    return WorkerHandle(spec.name, proc,
+                        ProcessEndpoint(SCIENTIST, spec.name, parent_conn),
+                        owner=owner)

@@ -26,11 +26,21 @@ Training modes:
   * ``fit(mode="joint")`` — one autograd step per batch through the
     whole model (the gradient-equivalence oracle).
   * ``fit(mode="split")`` — true split execution: each owner's head runs
-    on its own thread behind a transport channel; only cut activations
-    and cut gradients cross, measured on the wire.  With the lossless
-    codec it reproduces the joint path bit for bit (both schedules, both
-    backends).  ``compression="int8"`` ships cuts and gradients through
-    the int8 quantize kernel.
+    on its own thread (``backend="queue"|"direct"``) or in its own
+    spawned OS process (``backend="process"``) behind a transport
+    channel; only cut activations and cut gradients cross, measured on
+    the wire.  With the lossless codec it reproduces the joint path bit
+    for bit (both schedules, every backend).  ``compression="int8"``
+    ships cuts and gradients through the int8 quantize kernel.
+  * ``microbatches=M`` cuts every batch into M GPipe chunks: the split
+    pipelined schedule ships each chunk's cut gradient as soon as its
+    cuts arrive, and ``fit(mode="joint", microbatches=M)`` is its
+    bit-for-bit oracle (per-chunk programs, gradients summed in chunk
+    order, one update per step).
+
+The scientist's trunk takes the owners' cuts through the cut-fusion
+kernel (``MLPSplitNN.trunk_apply``) on every path: joint, split,
+microbatched and evaluation.
 
 Party-visibility contract: owners never see labels, the scientist never
 receives raw feature arrays; every cross-party message the session
@@ -38,8 +48,7 @@ mediates is appended to ``session.transcript``.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
 item): PSI bloom/hidden modes, the worker pool and the wire backends;
-``supervise``, ``aggregation``, ``backend="process"``,
-``microbatches > 1``, checkpointing and serving.
+``supervise``, ``aggregation``, checkpointing and serving.
 """
 from __future__ import annotations
 
@@ -63,7 +72,7 @@ from repro_torch.federation.parties import (DataOwner, DataScientist,
                                             OwnerComputeEndpoint,
                                             PrivacyError)
 from repro_torch.federation.registry import build_adapter
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_add, tree_leaves, tree_map, tree_unflatten
 
 
 def _scalars(m):
@@ -218,15 +227,20 @@ class VerticalSession:
         rows; per-epoch eval metrics land in ``history["eval"]`` and the
         per-step loss in ``history["loss_trail"]``.
 
-        ``mode="joint"`` runs the single autograd step.  ``mode="split"``
-        runs true split execution: ``schedule`` ("pipelined" ships the
-        step-t+1 forward request before step t's gradients, so owner
-        work overlaps the scientist's; "sequential" is the synchronous
-        baseline), ``compression`` (None | "fp16" | "int8" cut codec),
-        ``backend`` ("queue" = serialized simulated network, "direct" =
-        in-process handoff), ``timeout`` (seconds a receive from an
-        owner may wait).  Both modes draw batches from one index stream,
-        so they see the same batches in the same order."""
+        ``mode="joint"`` runs the single autograd step (with
+        ``microbatches=M > 1``: the microbatched joint oracle).
+        ``mode="split"`` runs true split execution: ``schedule``
+        ("pipelined" ships the step-t+1 forward request before step t's
+        gradients, so owner work overlaps the scientist's, and with
+        ``microbatches=M`` every batch is cut into M GPipe chunks;
+        "sequential" is the synchronous baseline, whole batches only),
+        ``compression`` (None | "fp16" | "int8" cut codec), ``backend``
+        ("queue" = serialized simulated network, "direct" = in-process
+        handoff, "process" = each owner in a spawned worker process over
+        an OS pipe), ``timeout`` (seconds a receive from an owner may
+        wait; warmup receives wait at least 120 s, for worker start-up).
+        Both modes draw batches from one index stream, so they see the
+        same batches in the same order."""
         self._require(resolved=True, built=True, labels=True)
         if mode not in ("joint", "split"):
             raise ValueError(f"mode must be 'joint' or 'split': {mode!r}")
@@ -235,8 +249,16 @@ class VerticalSession:
         if aggregation is not None:
             raise not_ported(f"aggregation={aggregation!r}",
                               "masked_sum and privacy")
-        if int(microbatches) != 1:
-            raise not_ported("microbatches > 1", "microbatches > 1")
+        M = int(microbatches)
+        if M < 1:
+            raise ValueError(f"microbatches must be >= 1: {M}")
+        if M > 1:
+            if batch_size % M:
+                raise ValueError(f"microbatches={M} must divide "
+                                 f"batch_size={batch_size}")
+            if not getattr(self.adapter, "supports_microbatch", False):
+                raise ValueError(f"{type(self.adapter).__name__} does not "
+                                 "support microbatched training")
         if ckpt_dir is not None:
             raise not_ported("checkpointing", "checkpointing")
         n = len(self.scientist.ids)
@@ -254,8 +276,13 @@ class VerticalSession:
                 stream, epochs=epochs, steps_per_epoch=steps_per_epoch,
                 batch_size=batch_size, owner_lr=owner_lr,
                 scientist_lr=scientist_lr, verbose=verbose,
-                schedule=schedule, compression=compression,
+                schedule=schedule, microbatches=M, compression=compression,
                 backend=backend, timeout=timeout)
+        if M > 1:
+            return self._fit_joint_microbatched(
+                stream, epochs=epochs, steps_per_epoch=steps_per_epoch,
+                batch_size=batch_size, owner_lr=owner_lr,
+                scientist_lr=scientist_lr, verbose=verbose, microbatches=M)
         return self._fit_joint(stream, epochs=epochs,
                                steps_per_epoch=steps_per_epoch,
                                batch_size=batch_size, owner_lr=owner_lr,
@@ -333,11 +360,86 @@ class VerticalSession:
                             sync=lambda: None)
         return self._finish(history, losses)
 
+    # ------------------------------------- 3a'. microbatched joint oracle
+
+    def _fit_joint_microbatched(self, stream, *, epochs, steps_per_epoch,
+                                batch_size, owner_lr, scientist_lr, verbose,
+                                microbatches) -> dict:
+        """The GPipe oracle of ``fit(mode="split", microbatches=M)``: the
+        same cached per-segment programs in the same order.  Per chunk,
+        the owners' head forwards, the trunk's cut gradient and the
+        owners' head backwards, summed in chunk order at step-start
+        params; then one update per owner, the trunk's weight gradient
+        per chunk, summed in chunk order, and one trunk update.  Each
+        chunk's loss is ``sum / batch``, so the chunks add up to the
+        batch step.  The split run reproduces it bit for bit."""
+        adapter = self.adapter
+        M = microbatches
+        bm = batch_size // M
+        P = len(self.owners)
+        head_progs = [adapter.owner_programs(p) for p in range(P)]
+        owner_opt, owner_update = adapter.owner_update_rule(owner_lr)
+        slices = [adapter.owner_param_slice(self.params, p)
+                  for p in range(P)]
+        ostates = [owner_opt.init(s) for s in slices]
+        trunk_opt, trunk_update = adapter.trunk_update_rule(scientist_lr)
+        cutgrad, weightgrad = adapter.trunk_microbatch_programs()
+        tp = self.params["trunk"]
+        ts = trunk_opt.init(tp)
+        denom = float(batch_size)
+        # each owner's rows staged on the device, as its worker stages them
+        feats = [torch.from_numpy(np.ascontiguousarray(
+            f, np.float32)).to(self.device) for f in self._owner_arrays()]
+
+        def reassemble():
+            self.params = {"heads": adapter.stack_head_params(slices),
+                           "trunk": tp}
+
+        history: dict = {"train": [], "eval": []}
+        losses: list = []
+        t0 = time.time()
+        t = 0
+        for ep in range(epochs):
+            for _ in range(steps_per_epoch):
+                idx = next(stream)
+                rows = torch.from_numpy(np.asarray(idx, np.int64)).to(
+                    self.device)
+                xs = [f[rows] for f in feats]
+                lab = self._labels(idx)
+                hg: list = [None] * P
+                metrics, cache = None, []
+                for m in range(M):
+                    sl = slice(m * bm, (m + 1) * bm)
+                    chunks = [x[sl] for x in xs]
+                    cuts = tuple(head_progs[p][0](slices[p], chunks[p])
+                                 for p in range(P))
+                    cg, parts = cutgrad(tp, cuts, lab[sl], denom)
+                    for p in range(P):
+                        g = head_progs[p][1](slices[p], chunks[p], cg[p])
+                        hg[p] = tree_add(hg[p], g)
+                    metrics = tree_add(metrics, parts)
+                    cache.append((cuts, lab[sl]))
+                for p in range(P):
+                    slices[p], ostates[p] = owner_update(
+                        slices[p], ostates[p], hg[p], t)
+                tg = None
+                for cuts, lab_m in cache:
+                    tg = tree_add(tg, weightgrad(tp, cuts, lab_m, denom))
+                tp, ts = trunk_update(tp, ts, tg, t)
+                losses.append(metrics["loss"])
+                t += 1
+            self._end_epoch(ep, metrics, history, t0, verbose=verbose,
+                            sync=reassemble)
+        reassemble()
+        return self._finish(history, losses)
+
     # ------------------------------------------------- 3b. split execution
 
     def _recv_from_owner(self, ep, worker, kind, timeout: float):
-        """Receive ``kind`` from one owner, surfacing a dead owner thread
-        within a second instead of after the full timeout."""
+        """Receive ``kind`` from one owner, surfacing a dead owner within
+        a second instead of after the full timeout.  A worker process
+        can also fail through the receive itself (its error frame, or a
+        closed pipe): that too is raised as the owner's failure."""
         deadline = time.monotonic() + timeout
         while True:
             try:
@@ -351,22 +453,84 @@ class VerticalSession:
                     raise RuntimeError(
                         f"timed out waiting for {kind!r} from "
                         f"{worker.owner.name!r}") from None
+            except RuntimeError as e:
+                raise RuntimeError(
+                    f"owner worker {worker.owner.name!r} failed"
+                ) from (worker.error or e)
 
     def _sync_split_params(self, workers, eps, trunk_params, timeout):
         """Flush every owner's queue (barrier), then reassemble the
-        session's param tree from the owners' live head segments."""
+        session's param tree from the owners' live head segments: a
+        thread worker's params directly, a worker process's through a
+        ``pull_params`` request answered with numpy leaves."""
         for ep in eps:
             ep.send("barrier", {}, seq=-1)
-        for ep, w in zip(eps, workers):
+        slices = []
+        for p, (ep, w) in enumerate(zip(eps, workers)):
             self._recv_from_owner(ep, w, "barrier_ack", timeout)
-        self.params = {
-            "heads": self.adapter.stack_head_params([w.params
-                                                     for w in workers]),
-            "trunk": trunk_params}
+            if isinstance(w, OwnerComputeEndpoint):
+                slices.append(w.params)
+                continue
+            ep.send("pull_params", {}, seq=-1)
+            m = self._recv_from_owner(ep, w, "params_dump", timeout)
+            slices.append(tree_unflatten(
+                self.adapter.owner_param_slice(self.params, p),
+                [transport.to_tensor(m.payload[str(i)], self.device)
+                 for i in range(len(m.payload))]))
+        self.params = {"heads": self.adapter.stack_head_params(slices),
+                       "trunk": trunk_params}
+
+    def _start_owners(self, workers, eps, threads, backend, *, codec,
+                      compression, owner_lr, sequential, microbatches):
+        """One owner worker per owner, appended to ``workers`` (with its
+        scientist endpoint to ``eps``) as it starts, so that a failure
+        half way leaves every started one to the caller's clean-up: a
+        thread behind a channel pair (queue, direct; also appended to
+        ``threads``) or a spawned process behind a pipe."""
+        adapter = self.adapter
+        if backend == "process":
+            from repro_torch.federation import runtime
+            if self.device.type == "cuda" and compression == "int8":
+                # build before spawning: the workers load what is built
+                from repro_torch.kernels import build
+                build.build(["quantize"])
+            for p, owner in enumerate(self.owners):
+                spec = runtime.OwnerWorkerSpec(
+                    name=owner.name, ids=list(owner.ids),
+                    features=np.asarray(owner._features), owner_index=p,
+                    config=self.config, device=str(self.device),
+                    param_leaves=[t.detach().cpu().numpy() for t in
+                                  tree_leaves(adapter.owner_param_slice(
+                                      self.params, p))],
+                    codec=compression, microbatches=microbatches,
+                    ack_steps=sequential, owner_lr=owner_lr,
+                    num_threads=(torch.get_num_threads()
+                                 if self.device.type == "cpu" else None))
+                handle = runtime.spawn_owner_worker(spec, owner=owner)
+                workers.append(handle)
+                eps.append(handle.endpoint)
+            return
+        owner_opt, owner_update = adapter.owner_update_rule(owner_lr)
+        for p, owner in enumerate(self.owners):
+            ep_sci, ep_own = transport.channel_pair(
+                "scientist", owner.name, backend=backend)
+            head_fwd, head_bwd = adapter.owner_programs(p)
+            hp = adapter.owner_param_slice(self.params, p)
+            w = OwnerComputeEndpoint(
+                owner, ep_own, head_fwd, head_bwd, update=owner_update,
+                params=hp, opt_state=owner_opt.init(hp), codec=codec,
+                device=self.device, ack_steps=sequential,
+                microbatches=microbatches)
+            th = threading.Thread(target=w.run, daemon=True,
+                                  name=f"owner-{owner.name}")
+            th.start()
+            workers.append(w)
+            eps.append(ep_sci)
+            threads.append(th)
 
     def _fit_split(self, stream, *, epochs, steps_per_epoch, batch_size,
-                   owner_lr, scientist_lr, verbose, schedule, compression,
-                   backend, timeout) -> dict:
+                   owner_lr, scientist_lr, verbose, schedule, microbatches,
+                   compression, backend, timeout) -> dict:
         """True split execution over the transport (paper Fig. 2).
 
         Per step t the wire carries ``head_fwd`` (batch row indices),
@@ -374,16 +538,25 @@ class VerticalSession:
         schedule only — ``step_done`` acks.  The pipelined schedule sends
         the step-t+1 forward request before step t's gradients; the
         owners stage it until their step-t update lands (FIFO), so the
-        math is the joint step's.  A warmup round runs every program and
-        both codec directions once before the timed region."""
+        math is the joint step's.  With ``microbatches=M`` each batch
+        crosses as M chunks (seq ``t*M + m``): each chunk's cut gradient
+        leaves the moment its cuts arrive, and the trunk's weight
+        gradients and update run afterwards, while the gradients are on
+        the wire.  A warmup round runs every program and both codec
+        directions once per chunk before the timed region; with
+        ``backend="process"`` it also absorbs the workers' start-up."""
         adapter = self.adapter
-        if backend == "process":
-            raise not_ported("backend='process'", "process backend")
-        if backend not in ("queue", "direct"):
+        if backend not in ("queue", "direct", "process"):
             raise ValueError(f"unknown fit backend {backend!r}")
         if schedule not in ("pipelined", "sequential"):
             raise ValueError(f"unknown schedule {schedule!r}")
         sequential = schedule == "sequential"
+        M = microbatches
+        if sequential and M > 1:
+            raise ValueError("microbatches > 1 requires the pipelined "
+                             "schedule (sequential is the synchronous "
+                             "baseline)")
+        bm = batch_size // M
         codec = transport.get_codec(compression, self.device)
         total_steps = epochs * steps_per_epoch
         denom = float(batch_size)
@@ -395,25 +568,8 @@ class VerticalSession:
             trunk_step = adapter.trunk_program()
         else:
             cutgrad, weightgrad = adapter.trunk_microbatch_programs()
-        owner_opt, owner_update = adapter.owner_update_rule(owner_lr)
 
         workers, eps, threads = [], [], []
-        for p, owner in enumerate(self.owners):
-            ep_sci, ep_own = transport.channel_pair(
-                "scientist", owner.name, backend=backend)
-            head_fwd, head_bwd = adapter.owner_programs(p)
-            hp = adapter.owner_param_slice(self.params, p)
-            w = OwnerComputeEndpoint(
-                owner, ep_own, head_fwd, head_bwd, update=owner_update,
-                params=hp, opt_state=owner_opt.init(hp), codec=codec,
-                device=self.device, ack_steps=sequential)
-            th = threading.Thread(target=w.run, daemon=True,
-                                  name=f"owner-{owner.name}")
-            th.start()
-            workers.append(w)
-            eps.append(ep_sci)
-            threads.append(th)
-
         inflight: deque = deque()
 
         def send_fwd(seq):
@@ -444,21 +600,29 @@ class VerticalSession:
         # switch interval would let one party stall another's dispatch
         old_switch = sys.getswitchinterval()
         sys.setswitchinterval(5e-4)
+        clean = False
         try:
-            # ---------------- warmup: every program once, before the clock
+            self._start_owners(
+                workers, eps, threads, backend, codec=codec,
+                compression=compression, owner_lr=owner_lr,
+                sequential=sequential, microbatches=M)
+            # ---------------- warmup: every program once per chunk shape,
+            # before the clock
             widx = np.zeros(batch_size, np.int32)
             for ep in eps:
                 ep.send("warmup", {"idx": widx}, seq=-1)
             wait = max(timeout, 120.0)
-            cuts = recv_cuts("warmup_cuts", 0, wait)
             wlab = self._labels(widx)
-            if sequential:
-                _, _, cg = trunk_step(tp, cuts, wlab)
-            else:
-                cg, _ = cutgrad(tp, cuts, wlab, denom)
-                weightgrad(tp, cuts, wlab, denom)
-            send_grads("warmup_grads", [torch.zeros_like(cg[0])] * len(eps),
-                       0)
+            for m in range(M):
+                cuts = recv_cuts("warmup_cuts", m, wait)
+                lab_m = wlab[m * bm:(m + 1) * bm]
+                if sequential:
+                    _, _, cg = trunk_step(tp, cuts, lab_m)
+                else:
+                    cg, _ = cutgrad(tp, cuts, lab_m, denom)
+                    weightgrad(tp, cuts, lab_m, denom)
+                send_grads("warmup_grads",
+                           [torch.zeros_like(cg[0])] * len(eps), m)
             tp, ts = trunk_update(tp, ts, tree_map(torch.zeros_like, tp), 0)
             for ep, w in zip(eps, workers):
                 self._recv_from_owner(ep, w, "warmup_done", wait)
@@ -478,37 +642,56 @@ class VerticalSession:
                     send_fwd(t + 1)
                     fwd_next = t + 2
                 lab_t = self._labels(inflight.popleft())
-                cuts = recv_cuts("cut_activations", t, timeout)
                 if sequential:
-                    parts, tg, cg = trunk_step(tp, cuts, lab_t)
+                    cuts = recv_cuts("cut_activations", t, timeout)
+                    metrics, tg, cg = trunk_step(tp, cuts, lab_t)
                     tp, ts = trunk_update(tp, ts, tg, t)
                     send_grads("cut_gradients", cg, t)
                     for ep, w in zip(eps, workers):
                         self._recv_from_owner(ep, w, "step_done", timeout)
                 else:
-                    cg, parts = cutgrad(tp, cuts, lab_t, denom)
-                    send_grads("cut_gradients", cg, t)
-                    tg = weightgrad(tp, cuts, lab_t, denom)
+                    metrics, cache = None, []
+                    for m in range(M):
+                        seq = t * M + m
+                        lab_m = lab_t[m * bm:(m + 1) * bm]
+                        cuts = recv_cuts("cut_activations", seq, timeout)
+                        cg, parts = cutgrad(tp, cuts, lab_m, denom)
+                        send_grads("cut_gradients", cg, seq)
+                        metrics = tree_add(metrics, parts)
+                        cache.append((cuts, lab_m))
+                    tg = None
+                    for cuts, lab_m in cache:
+                        tg = tree_add(tg, weightgrad(tp, cuts, lab_m, denom))
                     tp, ts = trunk_update(tp, ts, tg, t)
-                losses.append(parts["loss"])
+                losses.append(metrics["loss"])
                 if t == 0:
                     t_warm = time.time()
                 if (t + 1) % steps_per_epoch == 0:
                     tb = time.time()
-                    self._end_epoch((t + 1) // steps_per_epoch - 1, parts,
+                    self._end_epoch((t + 1) // steps_per_epoch - 1, metrics,
                                     history, t0, verbose=verbose, sync=sync)
                     overhead_s += time.time() - tb
             wall_s = time.time() - t0
             sync()
+            clean = True
         finally:
             sys.setswitchinterval(old_switch)
             for ep in eps:
-                ep.send("stop", {})
+                try:
+                    ep.send("stop", {})
+                except RuntimeError:        # a worker process already gone
+                    pass
             for th in threads:
                 th.join(timeout=10.0)
                 if th.is_alive():
                     warnings.warn(f"fit(split): {th.name} still running "
                                   "10 s after stop", RuntimeWarning)
+            for w in workers:
+                if not isinstance(w, OwnerComputeEndpoint):
+                    # after a failure a survivor may wait on a message
+                    # that never comes: terminate it soon
+                    w.shutdown(timeout=10.0 if clean else 1.0)
+
 
         # ------------------------------------- measured traffic accounting
         per_owner: Dict[str, dict] = {}
@@ -543,7 +726,7 @@ class VerticalSession:
                       per_step_bytes=grad_k["payload_bytes"] // total_steps)
         step_s = wall_s - overhead_s
         self.transport_stats = {
-            "mode": "split", "schedule": schedule, "microbatches": 1,
+            "mode": "split", "schedule": schedule, "microbatches": M,
             "compression": compression or "none", "backend": backend,
             "device": str(self.device),
             "steps": total_steps, "wall_s": wall_s,

@@ -37,3 +37,9 @@ def tree_unflatten(template, leaves: List[Any]):
     if next(it, None) is not None:
         raise ValueError("more leaves than the template holds")
     return out
+
+
+def tree_add(acc, tree):
+    """``tree`` added leaf by leaf onto ``acc``; ``acc=None`` starts the
+    sum (gradients and metrics accumulated over chunks, in order)."""
+    return tree if acc is None else tree_map(lambda a, b: a + b, acc, tree)

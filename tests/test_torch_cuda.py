@@ -1,6 +1,7 @@
-"""The port on the card: the CUDA quantize, attention and SSD scan
-kernels against their plain versions, and the training and serving
-paths through them.
+"""The port on the card: the CUDA quantize, attention, SSD scan and
+cut-fusion kernels against their plain versions, and the training and
+serving paths through them (the microbatched and process-backend
+schedules included).
 Every test here needs an NVIDIA GPU and skips without one; the file
 imports only ``repro_torch`` (no JAX), so it runs on a machine with a
 card:
@@ -11,7 +12,8 @@ card:
 ``test_torch_quantize.py``; ``ATTN_CASES``, ``DECODE_CASES`` and
 ``attn_inputs`` with ``test_torch_attention.py``; ``SSD_CASES``,
 ``scan_inputs`` and ``attn_tol`` (the reference's kernel tolerances)
-with ``test_torch_ssm.py``.
+with ``test_torch_ssm.py``; ``CUT_CASES`` and ``cut_inputs`` with
+``test_torch_cut_fusion.py``.
 """
 import numpy as np
 import pytest
@@ -99,6 +101,34 @@ ZAMBA_ATTN_CASES = [
     (2, 512, 545, 32, 32, 80, "causal", 0, 0.0, 0, 512),
     (4, 1, 1057, 32, 32, 80, "causal", 0, 0.0, 1040, 1041),
 ]
+
+
+# the reference's cut-fusion cases (tests/test_kernels.py CUT_CASES):
+# P, T, k, d, combine
+CUT_CASES = [
+    (2, 128, 64, 128, "concat"),
+    (4, 256, 64, 96, "concat"),
+    (2, 100, 60, 70, "concat"),       # ragged
+    (2, 128, 64, 128, "sum"),
+    (3, 128, 64, 128, "mean"),
+]
+# the training path's calls (2 owners, k 64, trunk width 500): the
+# batch of 128, a chunk of 32 (microbatches=4), an evaluation batch of
+# 242 rows (ragged), and sum / mean with one block row of W
+CUT_PATH_CASES = [
+    (2, 128, 64, 500, "concat"),
+    (2, 32, 64, 500, "concat"),
+    (2, 242, 64, 500, "concat"),
+    (2, 128, 64, 500, "sum"),
+    (2, 128, 64, 500, "mean"),
+]
+
+
+def cut_inputs(P, T, K, D, seed=0):
+    """z (P, T, k) and w (P, k, d) as f32 numpy normals."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(P, T, K)).astype(np.float32),
+            rng.normal(size=(P, K, D)).astype(np.float32))
 
 
 def scan_inputs(B, S, H, P, G, N, seed=0):
@@ -356,3 +386,130 @@ def test_zamba2_serving_never_reaches_the_plain_scan(cuda_device,
     assert scan_kernel.launch_counts["mamba2_scan"] - n_scan == 2 * 5 * 5
     assert attn_kernel.launch_counts["block_attention"] - n_attn == \
         2 * 5 * 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CUT_CASES + CUT_PATH_CASES)
+def test_cut_fusion_kernel_matches_plain_on_card(cuda_device, case, dtype):
+    """On the card: the CUDA cut-fusion kernel against its plain version
+    at the reference's tolerances, one counted launch per call; sum and
+    mean read one block row of W, whether W has one or P."""
+    from repro_torch.kernels import cut_fusion as cf
+    P, T, K, D, combine = case
+    z, w = (torch.from_numpy(a).to(cuda_device, dtype)
+            for a in cut_inputs(P, T, K, D))
+    rows = [w] if combine == "concat" else [w, w[:1].contiguous()]
+    for ww in rows:
+        n0 = cf.launch_counts["cut_fusion"]
+        got = cf.cut_fusion(z, ww, combine)
+        torch.cuda.synchronize()
+        assert cf.launch_counts["cut_fusion"] == n0 + 1
+        assert got.dtype == dtype and tuple(got.shape) == (T, D)
+        want = cf.cut_fusion_ref(z, ww, combine=combine)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **attn_tol(dtype))
+    # deterministic: the same bits on every call
+    assert torch.equal(cf.cut_fusion(z, w, combine),
+                       cf.cut_fusion(z, w, combine))
+
+
+@pytest.mark.cuda
+def test_cut_fusion_wrapper_refuses_what_the_kernel_does_not_take(
+        cuda_device):
+    from repro_torch.kernels.cut_fusion import cut_fusion
+    z = torch.zeros((2, 8, 16), device=cuda_device)
+    w = torch.zeros((2, 16, 4), device=cuda_device)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        cut_fusion(z.half(), w.half())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        cut_fusion(z, w.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        cut_fusion(z.transpose(1, 2).contiguous().transpose(1, 2), w)
+    with pytest.raises(ValueError, match="block rows"):
+        cut_fusion(z, w[:1].contiguous(), "concat")
+    with pytest.raises(ValueError, match="no max"):
+        cut_fusion(z, w, "max")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("combine", ["concat", "sum", "mean"])
+def test_cut_fusion_autograd_on_card(cuda_device, combine):
+    """The autograd Function on the card: one kernel launch per forward,
+    the output and both gradients within the f32 tolerance of the same
+    computation on the CPU (plain version and plain products)."""
+    from repro_torch.kernels import cut_fusion as cf
+    z, w = cut_inputs(2, 128, 64, 500, seed=3)
+    w = w if combine == "concat" else w[:1]
+    r = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(128, 500)).astype(np.float32))
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        zt = torch.from_numpy(z).to(dev).requires_grad_()
+        wt = torch.from_numpy(w).to(dev).requires_grad_()
+        n0 = cf.launch_counts["cut_fusion"]
+        out = cf.cut_fusion_fn(zt, wt, combine)
+        grads[str(dev)] = [t.cpu() for t in (out, *torch.autograd.grad(
+            (out * r.to(dev)).sum(), (zt, wt)))]
+        assert cf.launch_counts["cut_fusion"] == n0 + (dev != "cpu")
+    for a, b in zip(grads["cpu"], grads[str(cuda_device)]):
+        torch.testing.assert_close(b, a, atol=2e-4, rtol=2e-4)
+
+
+def _mnist_session(device, n=400):
+    from repro_torch.configs import CONFIG
+    from repro_torch.data import make_vertical_mnist_parties
+    from repro_torch.federation import VerticalSession, feature_parties
+    s = VerticalSession(*feature_parties(*make_vertical_mnist_parties(
+        n, seed=0, keep_frac=0.9)), device=device)
+    s.resolve(group="modp512")
+    s.build(CONFIG)
+    return s
+
+
+def _same_params(a, b):
+    from repro_torch.tree import tree_leaves
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a.params),
+                                                  tree_leaves(b.params)))
+
+
+@pytest.mark.cuda
+def test_microbatched_split_equals_oracle_on_card(cuda_device):
+    """On the card, through the cut-fusion kernel: split pipelined
+    execution in 4 chunks == the microbatched joint oracle bit for bit,
+    with the exact kernel launches each schedule implies (two trunk
+    forwards per chunk — cut gradient and weight gradient — plus the
+    split run's warmup chunks, plus one per evaluation batch)."""
+    from repro_torch.kernels import cut_fusion as cf
+    kw = dict(epochs=1, batch_size=64, eval_frac=0.1, verbose=False,
+              microbatches=4)
+    runs = {}
+    for mode in ("joint", "split"):
+        s = _mnist_session(cuda_device)
+        n0 = cf.launch_counts["cut_fusion"]
+        h = s.fit(**kw, mode=mode)
+        runs[mode] = (s, h, cf.launch_counts["cut_fusion"] - n0)
+    (j, hj, nj), (sp, hs, ns) = runs["joint"], runs["split"]
+    steps = len(hj["loss_trail"])
+    evals = -(-len(j._eval_idx) // 512)
+    assert nj == 2 * 4 * steps + evals
+    assert ns == 2 * 4 * (steps + 1) + evals
+    assert _same_params(j, sp) and hs["loss_trail"] == hj["loss_trail"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compression", [None, "int8"])
+def test_process_equals_queue_on_card(cuda_device, compression):
+    """On the card: owners in spawned worker processes (each its own
+    CUDA context) == the thread-backed queue run bit for bit, with the
+    same wire bytes on every kind the queue run has."""
+    kw = dict(epochs=1, batch_size=64, eval_frac=0.1, verbose=False,
+              mode="split", microbatches=2, compression=compression)
+    q = _mnist_session(cuda_device)
+    hq = q.fit(**kw, backend="queue")
+    p = _mnist_session(cuda_device)
+    hp = p.fit(**kw, backend="process")
+    assert _same_params(q, p) and hp["loss_trail"] == hq["loss_trail"]
+    wq = q.transport_stats["wire_by_kind"]
+    wp = p.transport_stats["wire_by_kind"]
+    assert {k: wp[k] for k in wq} == wq

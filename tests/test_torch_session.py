@@ -1,8 +1,16 @@
 """The port's training path end to end against the JAX reference:
 PSI resolution and alignment, joint and split fits from shared params,
-the wire's per-kind byte accounting, and split == joint bitwise inside
-the port.  CPU only, at n=400 rows as the reference's transport tests.
+the microbatched (GPipe) schedule, the wire's per-kind byte accounting,
+split == joint bitwise inside the port, and the process backend (owners
+in spawned worker processes) == the queue backend bitwise.  CPU only, at
+n=400 rows as the reference's transport tests.
 """
+import multiprocessing
+import os
+import pathlib
+import subprocess
+import sys
+
 import jax
 import numpy as np
 import pytest
@@ -155,8 +163,6 @@ def test_session_without_device_needs_a_card():
 @pytest.mark.parametrize("kw,item", [
     (dict(supervise=True), "supervise"),
     (dict(aggregation="masked_sum"), "masked_sum"),
-    (dict(mode="split", backend="process"), "process backend"),
-    (dict(microbatches=2), "microbatches"),
     (dict(ckpt_dir="x"), "checkpointing")])
 def test_unported_fit_options_raise(kw, item):
     s = _session(120)
@@ -208,3 +214,196 @@ def test_direct_backend_hands_tensors_over():
     a.send("cut_activations", {"x": t}, seq=3)
     m = b.recv_kind("cut_activations")
     assert m.payload["x"] is t and m.seq == 3 and m.wire_bytes == 24
+
+
+# ---------------------------------------------------------------------------
+# Microbatches (GPipe chunks)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("M", [2, 4])
+def test_microbatched_joint_fit_matches_reference(ref_params, M):
+    """The microbatched joint oracle from shared params against the
+    reference's ``fit(mode="joint", microbatches=M)``: per-epoch train
+    and eval losses within rtol=1e-4, as the whole-batch fit above."""
+    kw = dict(FIT, microbatches=M)
+    hr = _ref_session().fit(**kw)
+    h = _session(params=from_reference(ref_params)).fit(**kw)
+    np.testing.assert_allclose([r["loss"] for r in h["train"]],
+                               [r["loss"] for r in hr["train"]], rtol=1e-4)
+    np.testing.assert_allclose([r["loss"] for r in h["eval"]],
+                               [r["loss"] for r in hr["eval"]], rtol=1e-4)
+    np.testing.assert_allclose([r["accuracy"] for r in h["eval"]],
+                               [r["accuracy"] for r in hr["eval"]],
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("M,backend", [(2, "queue"), (4, "direct")])
+def test_split_microbatched_equals_joint_microbatched_bitwise(
+        ref_params, M, backend):
+    """Split pipelined execution in M chunks reproduces the microbatched
+    joint oracle's params, loss trail and eval metrics bit for bit, and
+    ships M cut frames per owner per step."""
+    kw = dict(FIT, microbatches=M)
+    joint = _session(params=from_reference(ref_params))
+    hj = joint.fit(**kw)
+    split = _session(params=from_reference(ref_params))
+    hs = split.fit(**kw, mode="split", backend=backend)
+    assert _same(joint.params, split.params)
+    assert hs["loss_trail"] == hj["loss_trail"]
+    assert hs["eval"] == hj["eval"]
+    ts = split.transport_stats
+    assert ts["microbatches"] == M
+    assert ts["wire_by_kind"]["cut_activations"]["count"] == \
+        len(split.owners) * M * ts["steps"]
+    # the chunks add up to the whole-batch step (to rounding)
+    whole = _session(params=from_reference(ref_params)).fit(**FIT)
+    np.testing.assert_allclose(hj["loss_trail"], whole["loss_trail"],
+                               rtol=1e-5)
+
+
+def test_microbatches_must_divide_the_batch():
+    s = _session(120)
+    with pytest.raises(ValueError, match="must divide"):
+        s.fit(epochs=1, batch_size=32, verbose=False, microbatches=3)
+    with pytest.raises(ValueError, match="must be >= 1"):
+        s.fit(epochs=1, batch_size=32, verbose=False, microbatches=0)
+
+
+def test_microbatches_need_the_pipelined_schedule():
+    s = _session(120)
+    with pytest.raises(ValueError, match="requires the pipelined"):
+        s.fit(epochs=1, batch_size=32, verbose=False, mode="split",
+              schedule="sequential", microbatches=2)
+
+
+# ---------------------------------------------------------------------------
+# The process backend: owners in spawned worker processes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("M,compression", [(2, None), (1, "int8")])
+def test_process_backend_equals_queue_bitwise(ref_params, M, compression):
+    """Owners in spawned worker processes reproduce the thread-backed
+    queue run bit for bit: params, loss trail and eval metrics; and the
+    wire's bytes by kind are the queue backend's on every kind the queue
+    run has (the frames are the same ``_pack`` blobs).  The process run
+    adds only the session's param pulls (``pull_params`` /
+    ``params_dump``), which a thread worker does not need."""
+    kw = dict(FIT, epochs=1, mode="split", microbatches=M,
+              compression=compression)
+    queue_s = _session(params=from_reference(ref_params))
+    hq = queue_s.fit(**kw, backend="queue")
+    proc_s = _session(params=from_reference(ref_params))
+    hp = proc_s.fit(**kw, backend="process")
+    assert _same(queue_s.params, proc_s.params)
+    assert hp["loss_trail"] == hq["loss_trail"]
+    assert hp["eval"] == hq["eval"]
+    wq = queue_s.transport_stats["wire_by_kind"]
+    wp = proc_s.transport_stats["wire_by_kind"]
+    assert {k: wp[k] for k in wq} == wq
+    assert set(wp) - set(wq) == {"pull_params", "params_dump"}
+    for k in ("total_wire_bytes", "total_payload_bytes"):
+        assert proc_s.transport_stats[k] == queue_s.transport_stats[k]
+    cut_keys = ("cut_payload_bytes", "cut_wire_bytes", "grad_payload_bytes",
+                "grad_wire_bytes")
+    for name, per in queue_s.transport_stats["per_owner"].items():
+        got = proc_s.transport_stats["per_owner"][name]
+        assert {k: got[k] for k in cut_keys} == {k: per[k] for k in cut_keys}
+    assert proc_s.transport_stats["backend"] == "process"
+    assert not multiprocessing.active_children()
+
+
+def test_process_worker_exception_surfaces_in_parent():
+    """A worker that throws (here: an owner whose staged features lost a
+    column, so its head product fails inside the child) ships its error
+    and traceback; the parent raises it as the owner's failure instead
+    of hanging, and no worker process outlives the fit."""
+    from repro_torch.core.resolution import VerticalDataset
+    s = _session(120)
+    bad = s.owners[1]
+    bad._vd = VerticalDataset(bad.ids, bad._features[:, 1:])
+    with pytest.raises(RuntimeError, match="owner worker 'owner1' failed") \
+            as info:
+        s.fit(epochs=1, batch_size=32, verbose=False, mode="split",
+              backend="process", timeout=60.0)
+    cause = str(info.value.__cause__)
+    assert "died" in cause and "remote traceback" in cause
+    assert not multiprocessing.active_children()
+
+
+def test_spawned_owner_workers_import_no_jax_and_no_reference():
+    """A process-backend fit in a fresh interpreter: neither the session
+    nor either spawned owner worker imports jax or any ``repro`` module
+    (``-X importtime`` passes to the spawned children, and every
+    process's imports land on the shared stderr)."""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    code = (
+        "import torch\n"
+        "torch.set_num_threads(1)\n"        # the workers take the same
+        "from repro_torch.configs import CONFIG\n"
+        "from repro_torch.data import make_vertical_mnist_parties\n"
+        "from repro_torch.federation import VerticalSession, "
+        "feature_parties\n"
+        "s = VerticalSession(*feature_parties(*make_vertical_mnist_parties("
+        "120, seed=0)), device='cpu')\n"
+        "s.resolve(group='modp512')\n"
+        "s.build(CONFIG)\n"
+        "s.fit(epochs=1, batch_size=32, mode='split', backend='process', "
+        "verbose=False)\n"
+        "print('steps', s.transport_stats['steps'])\n")
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-X", "importtime", "-c", code],
+                         cwd=root, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.startswith("steps")
+    mods = [line.rsplit("|", 1)[-1].strip()
+            for line in out.stderr.splitlines()
+            if line.startswith("import time:")]
+    bad = sorted({m for m in mods if m.split(".")[0] in ("jax", "repro")})
+    assert not bad, bad
+    # the parent and both workers imported the worker's module
+    assert mods.count("repro_torch.federation.runtime") == 3
+
+
+def test_process_endpoint_error_frame_and_closed_pipe():
+    """The pipe endpoint: frames carry the queue backend's byte counts;
+    a peer's error frame raises (and keeps raising) with its traceback;
+    a closed pipe raises instead of blocking."""
+    from repro_torch.federation.process_transport import (
+        process_endpoint_pair)
+    a, b = process_endpoint_pair("owner0", "scientist")
+    q_a, q_b = transport.channel_pair("owner0", "scientist",
+                                      backend="queue")
+    try:
+        payload = {"x": np.arange(12, dtype=np.float32).reshape(3, 4)}
+        for ep, far in ((a, b), (q_a, q_b)):
+            ep.send("cut_activations", payload, seq=5)
+            ep.send("barrier_ack", {}, seq=-1)
+            m = far.recv_kind("barrier_ack", timeout=5.0)
+            assert m.seq == -1
+            m = far.recv_kind("cut_activations", timeout=5.0)
+            assert m.seq == 5
+            assert np.array_equal(m.payload["x"], payload["x"])
+        assert a.sent_stats == q_a.sent_stats
+        assert b.recv_stats == q_b.recv_stats
+        try:
+            raise ValueError("owner-side failure")
+        except ValueError as e:
+            a.send_error(e, "tb-line-1\ntb-line-2")
+        for _ in range(2):
+            with pytest.raises(RuntimeError,
+                               match="died: ValueError: owner-side"):
+                b.recv(timeout=5.0)
+        assert "tb-line-2" in str(b.peer_error)
+    finally:
+        a.close()
+        b.close()
+    c, d = process_endpoint_pair("owner0", "scientist")
+    c.close()
+    try:
+        with pytest.raises(RuntimeError, match="connection .* closed"):
+            d.recv(timeout=5.0)
+    finally:
+        d.close()
