@@ -21,14 +21,18 @@ Phases, in order; any failure raises and exits non-zero:
   5. split == joint bit for bit on the card (lossless codec, both
      schedules, the cut-fusion kernel in both, exact launch counts), and
      the card's joint run against the CPU's;
-  6. the attention kernel against its plain version on the card, on the
-     reference's kernel cases (f32 and bf16), queries over a cache, and
-     the serving path's three shapes, with times beside the bound and
-     beside one PyTorch call (``scaled_dot_product_attention``);
+  6. the attention kernels against their plain version on the card, on
+     the reference's kernel cases (f32 and bf16), queries over a cache,
+     and the serving path's six shapes, each on the route the wrapper
+     picks (decode: split-KV; tc: wgmma and TMA; fma: CUDA cores), with
+     times beside the fma route's at the same shape, the bound and one
+     PyTorch call (``scaled_dot_product_attention``);
   7. split-LM serving at full width: llama3.2-3b (random weights from a
      seed) behind the wave engine over the queue transport with the int8
      cut codec, 8 contexts of 1024 tokens in two waves of 4, 32 new
-     tokens each, with the kernel launch counts read around it, the cut
+     tokens each, with the kernel launch counts read around it (every
+     prefill attention call on the tc route, every decode call on the
+     decode route), the cut
      bytes held against the frame size, and one more wave under
      torch.profiler;
   8. engine == prefill + decode_step by hand on the card (greedy tokens
@@ -442,14 +446,19 @@ def attn_bound(case, dtype, bw, f32_flops):
 
 
 def phase_attention(bw, f32_flops):
-    """Phase 6: the attention kernel vs its plain version on the card."""
+    """Phase 6: the attention kernels vs their plain version on the card,
+    each case on the route the wrapper picks; at the path's shapes the
+    route's time beside the fma route's (the private ``ops._launch``),
+    the plain version's, SDPA's and the bound."""
     import numpy as np
     import torch
     from repro_torch.kernels.block_attention import (attention_ref,
-                                                     block_attention)
+                                                     block_attention, ops,
+                                                     route_of)
+    from repro_torch.kernels.block_attention.plan import ROUTES
     from repro_torch.kernels.block_attention.ref import attention_mask
     tol = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
-    err, rows = 0.0, {}
+    err, rows, seen = {r: 0.0 for r in ROUTES}, {}, set()
     cases = [(f"case{i}", c + (0, None)) for i, c in enumerate(ATTN_CASES)]
     cases += [(f"cache{i}", c) for i, c in enumerate(DECODE_CASES)]
     cases += [(f"path:{n}", c) for n, c in PATH_CASES.items()]
@@ -465,6 +474,8 @@ def phase_attention(bw, f32_flops):
             q, k, v = (t.to(dt) for t in base)
             kw = dict(kind=kind, window=window, softcap=cap,
                       q_offset=q_off, kv_len=kv_len)
+            route = route_of(q, k, v)
+            seen.add(route)
             got = block_attention(q, k, v, **kw)
             want = attention_ref(q, k, v, **kw)
             torch.cuda.synchronize()
@@ -472,14 +483,18 @@ def phase_attention(bw, f32_flops):
             lim = tol[dt] + tol[dt] * want.float().abs()
             if not bool((e <= lim).all()) or not torch.isfinite(got).all():
                 raise AssertionError(
-                    f"attention {name} {dt}: kernel vs plain max |diff| "
-                    f"{e.max().item():.3e} beyond atol=rtol={tol[dt]}")
-            err = max(err, e.max().item())
+                    f"attention {name} {dt} ({route}): kernel vs plain max "
+                    f"|diff| {e.max().item():.3e} beyond atol=rtol={tol[dt]}")
+            err[route] = max(err[route], e.max().item())
             print(f"  {name} {tuple(q.shape)} kv {Skv} {kind} "
-                  f"{str(dt)[6:]}: max |diff| {e.max().item():.3e} "
-                  f"(tol {tol[dt]})")
+                  f"{str(dt)[6:]} [{route}]: max |diff| "
+                  f"{e.max().item():.3e} (tol {tol[dt]})")
             if not name.startswith("path"):
                 continue
+            need = "decode" if Sq == 1 else "tc"
+            if route != need:
+                raise AssertionError(f"attention {name}: route {route}, "
+                                     f"the serving path needs {need}")
             bound, by, flops = attn_bound(case, dt, bw, f32_flops)
             library = sdpa_call(q, k, v, case, attention_mask)
             lib_err = (library().float() - want.float()).abs().max().item()
@@ -487,10 +502,16 @@ def phase_attention(bw, f32_flops):
             torch.use_deterministic_algorithms(False)
             library_ms = device_ms(library, reps=10, rounds=7)
             torch.use_deterministic_algorithms(True)
+            fma = ops._launch("fma", q, k, v, **kw)
+            fma_err = (fma.float() - want.float()).abs().max().item()
             row = {"shape": [list(q.shape), list(k.shape)],
-                   "q_offset": q_off, "kv_len": kv_len,
+                   "q_offset": q_off, "kv_len": kv_len, "route": route,
                    "ms": device_ms(lambda: block_attention(q, k, v, **kw),
                                    reps=10, rounds=7),
+                   "fma_ms": device_ms(lambda: ops._launch("fma", q, k, v,
+                                                           **kw),
+                                       reps=10, rounds=7),
+                   "fma_max_abs_err": fma_err,
                    "plain_ms": device_ms(lambda: attention_ref(q, k, v,
                                                                **kw),
                                          reps=5, rounds=5),
@@ -502,12 +523,17 @@ def phase_attention(bw, f32_flops):
                    "max_abs_err": e.max().item(),
                    "library_max_abs_err": lib_err}
             row["tflops"] = flops / row["ms"] / 1e9
+            row["fma_over_route"] = row["fma_ms"] / row["ms"]
             rows[name[5:]] = row
-            print(f"    kernel {row['ms']:.6f} ms ({row['tflops']:.2f} "
-                  f"TFLOP/s; eager {row['eager_ms']:.6f}), plain "
-                  f"{row['plain_ms']:.6f} ms, SDPA {row['library_ms']:.6f}"
-                  f" ms (|diff| {lib_err:.2e}), bound {row['bound_ms']:.6f}"
-                  f" ms ({by})")
+            print(f"    {route} {row['ms']:.6f} ms ({row['tflops']:.2f} "
+                  f"TFLOP/s; eager {row['eager_ms']:.6f}); fma route "
+                  f"{row['fma_ms']:.6f} ms (x{row['fma_over_route']:.2f}, "
+                  f"|diff| {fma_err:.2e}); plain {row['plain_ms']:.6f} ms;"
+                  f" SDPA {row['library_ms']:.6f} ms (|diff| {lib_err:.2e})"
+                  f"; bound {row['bound_ms']:.6f} ms ({by})")
+    missing = [r for r in ROUTES if r not in seen]
+    if missing:
+        raise AssertionError(f"attention routes never exercised: {missing}")
     return {"max_abs_err": err, "rows": rows}
 
 
@@ -759,7 +785,12 @@ def phase_serving(arch):
     units = model.P * model.n_head_units + model.n_trunk_units
     n_attn = sum(k != "mamba2" for k in cfg.block_pattern)
     n_ssm = sum(k == "mamba2" for k in cfg.block_pattern)
+    # every bf16 prefill call takes the tc route, every decode call the
+    # decode route, none the fma route
     need = {"block_attention": waves * units * n_attn * (1 + ticks),
+            "block_attention.tc": waves * units * n_attn,
+            "block_attention.decode": waves * units * n_attn * ticks,
+            "block_attention.fma": 0,
             "mamba2_scan": waves * units * n_ssm,
             "quantize_pack_int8": waves * (model.P + ticks)}
     print(f"  kernel launches in the run: {counts} (needed exactly "
@@ -824,7 +855,8 @@ def profile_wave(model, params, kw, ctxs):
         e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::")))
     print(f"  host: {top} top-level aten ops in the wave = {top / NEW:.0f} "
           f"per forward (prefill or decode tick)")
-    for tag in ("attn_fwd", "ssd_scan", "quantize_rows"):
+    for tag in ("attn_tc", "decode_split", "decode_combine", "attn_fwd",
+                "ssd_scan", "quantize_rows"):
         ours = [e for e in kernels if tag in e.key]
         us = sum(e.self_device_time_total for e in ours)
         print(f"  {tag}: {us:.1f} us over {sum(e.count for e in ours)} "
@@ -1129,8 +1161,8 @@ def main():
 
     print("== 2. build")
     t = time.time()
-    build.build(["quantize", "block_attention", "mamba2_scan",
-                 "cut_fusion"])
+    build.build(["quantize", "block_attention", "attention_decode",
+                 "attention_prefill_sm90", "mamba2_scan", "cut_fusion"])
     print(f"  built in {time.time() - t:.2f} s")
     for src, log in build.build_logs.items():
         print("\n".join(f"  nvcc {src}: {line}" for line in
@@ -1201,17 +1233,28 @@ def main():
             "shape": row["shape"], "eager_ms": row["eager_ms"],
             "plain_eager_ms": row["plain_eager_ms"],
             "all_shapes": res["rows"]})
-    row = att["rows"][HEADLINE]
-    entries.append({
-        "name": "block_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/block_attention.cu",
-        "replaces": "src/repro/kernels/block_attention/kernel.py:28",
-        "launches": serving["counts"]["block_attention"], "on_path": True,
-        "max_abs_err": att["max_abs_err"], "ms": row["ms"],
-        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-        "shape": HEADLINE, "eager_ms": row["eager_ms"],
-        "all_shapes": att["rows"]})
+    # the attention kernel's three routes, each at its headline shape:
+    # tc at llama's trunk prefill, decode at llama's trunk decode, and the
+    # fma route (off the serving path) timed at the trunk prefill
+    for aroute, shape, src in (
+            ("tc", HEADLINE, "attention_prefill_sm90"),
+            ("decode", "trunk_decode", "attention_decode"),
+            ("fma", HEADLINE, "block_attention")):
+        row = att["rows"][shape]
+        key = f"block_attention.{aroute}"
+        fma = aroute == "fma"
+        entries.append({
+            "name": key, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{src}.cu",
+            "replaces": "src/repro/kernels/block_attention/kernel.py:28",
+            "launches": serving["counts"][key], "on_path": not fma,
+            "max_abs_err": att["max_abs_err"][aroute],
+            "ms": row["fma_ms" if fma else "ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": shape, "zamba2_launches": zamba["counts"][key],
+            "eager_ms": None if fma else row["eager_ms"],
+            "all_shapes": att["rows"] if aroute == "tc" else None})
     row = ssd["rows"]["trunk_prefill"]
     entries.append({
         "name": "mamba2_scan", "route": "cuda",
@@ -1238,7 +1281,6 @@ def main():
     entries[0]["serving_launches"] = \
         serving["counts"]["quantize_pack_int8"]
     entries[0]["zamba2_launches"] = zamba["counts"]["quantize_pack_int8"]
-    entries[2]["zamba2_launches"] = zamba["counts"]["block_attention"]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,10 +1,15 @@
-"""Wrapper of the attention kernel: the CUDA kernel
-(``repro_torch/csrc/block_attention.cu``) for tensors on the card, the
-plain version (``ref.py``) for tensors on the CPU.
+"""Wrapper of the attention kernels: for tensors on the card, one of three
+hand-written CUDA kernels chosen by ``plan.choose_route`` from dtype and
+shapes before the launch — ``decode`` (``csrc/attention_decode.cu``,
+split-KV), ``tc`` (``csrc/attention_prefill_sm90.cu``, wgmma and TMA)
+or ``fma`` (``csrc/block_attention.cu``); the plain version (``ref.py``)
+for tensors on the CPU.
 
-A CUDA tensor launches the kernel or raises; nothing falls back.  The
-wrapper counts its launches (``launch_counts``), so a run can show that
-its path went through the kernel.
+A CUDA tensor launches its route's kernel or raises; nothing falls back
+to another route or to the plain version.  The wrapper counts its
+launches (``launch_counts``): ``block_attention`` once per call, and
+``block_attention.<route>`` for the route it took, so a run can show
+which kernels its path went through.
 """
 from __future__ import annotations
 
@@ -15,15 +20,19 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.block_attention import ref
+from repro_torch.kernels.block_attention import plan, ref
 
 _count_lock = threading.Lock()
 #: kernel launches since the last ``reset_launch_counts``
-launch_counts: Dict[str, int] = {"block_attention": 0}
+launch_counts: Dict[str, int] = {
+    "block_attention": 0, **{f"block_attention.{r}": 0 for r in plan.ROUTES}}
 
 KINDS = {"causal": 0, "local": 1, "bidir": 2}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+#: the CUDA source of each route
+SOURCES = {"decode": "attention_decode", "tc": "attention_prefill_sm90",
+           "fma": "block_attention"}
 
 
 def reset_launch_counts() -> None:
@@ -32,22 +41,42 @@ def reset_launch_counts() -> None:
             launch_counts[k] = 0
 
 
-_lib = None
+_libs: Dict[str, ctypes.CDLL] = {}
+_n_sm: Dict[int, int] = {}
 
 
-def _library() -> ctypes.CDLL:
-    """The built kernel library with its C signature declared (pointers
-    and the stream as ``c_void_p``, strides as 64-bit ints)."""
-    global _lib
-    if _lib is None:
-        lib = build.load("block_attention")
+def _library(route: str) -> ctypes.CDLL:
+    """The built library of ``route`` with its C signature declared
+    (pointers and the stream as ``c_void_p``, strides as 64-bit ints)."""
+    if route not in _libs:
+        name = SOURCES[route]
+        lib = build.load(name)
         vp, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                         ctypes.c_float)
-        lib.block_attention_launch.argtypes = (
-            [vp] * 4 + [i] * 6 + [ll] * 9 + [i] * 4 + [f, f, vp])
-        lib.block_attention_launch.restype = i
-        _lib = lib
-    return _lib
+        fn = getattr(lib, f"{name}_launch")
+        if route == "decode":
+            fn.argtypes = ([vp] * 6 + [i] * 6 + [ll] * 9 + [i] * 4 + [f, f]
+                           + [i] * 5 + [vp])
+        else:           # tc (Skv in place of dtype) and fma
+            fn.argtypes = [vp] * 4 + [i] * 6 + [ll] * 9 + [i] * 4 + [f, f, vp]
+        fn.restype = i
+        _libs[route] = lib
+    return _libs[route]
+
+
+def _sm_count(device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _n_sm:
+        _n_sm[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _n_sm[idx]
+
+
+def _aligned16(*ts) -> bool:
+    """Base pointers and the strides of the first three dims on 16-byte
+    boundaries (TMA's rule, and the decode route's vector loads)."""
+    return all(t.data_ptr() % 16 == 0 and all(
+        s * t.element_size() % 16 == 0 for s in t.stride()[:3]) for t in ts)
 
 
 def _check(q, k, v, kind):
@@ -79,6 +108,13 @@ def _check(q, k, v, kind):
         raise ValueError(kind)
 
 
+def route_of(q, k, v) -> str:
+    """The route ``block_attention`` takes for CUDA tensors q, k, v."""
+    B, Sq, nh, hd = q.shape
+    return plan.choose_route(q.dtype, Sq, nh, k.shape[2], hd,
+                             tma_aligned=_aligned16(q, k, v))
+
+
 def block_attention(q, k, v, *, kind: str = "causal", window: int = 0,
                     softcap: float = 0.0, q_offset: int = 0,
                     kv_len: Optional[int] = None,
@@ -91,20 +127,71 @@ def block_attention(q, k, v, *, kind: str = "causal", window: int = 0,
                                  softcap=softcap, q_offset=q_offset,
                                  kv_len=kv_len, scale=scale)
     _check(q, k, v, kind)
+    return _run(route_of(q, k, v), q, k, v, kind, window, softcap,
+                q_offset, kv_len, scale)
+
+
+def _launch(route, q, k, v, *, kind="causal", window=0, softcap=0.0,
+            q_offset=0, kv_len=None, scale=None):
+    """Check CUDA tensors, launch ``route``'s kernel and count it.
+    ``chip_smoke.py`` calls it to time the ``fma`` route at the shapes
+    the other routes take; ``block_attention`` picks the route itself."""
+    _check(q, k, v, kind)
+    return _run(route, q, k, v, kind, window, softcap, q_offset, kv_len,
+                scale)
+
+
+def _run(route, q, k, v, kind, window, softcap, q_offset, kv_len, scale):
     B, Sq, nh, hd = q.shape
     Skv, nkv = k.shape[1], k.shape[2]
     scale = scale if scale is not None else hd ** -0.5
     kv_lim = Skv if kv_len is None else max(0, min(int(kv_len), Skv))
     out = torch.empty((B, Sq, nh, hd), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _library().block_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        DTYPES[q.dtype], B, Sq, nh, nkv, hd,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        KINDS[kind], int(window), kv_lim, int(q_offset), float(softcap),
-        float(scale), stream)
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    mask = (KINDS[kind], int(window), kv_lim, int(q_offset))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if route == "decode":
+        rows = Sq * (nh // nkv)
+        if rows > plan.DECODE_MAX_ROWS:
+            raise ValueError(f"the decode route takes at most "
+                             f"{plan.DECODE_MAX_ROWS} query rows per kv "
+                             f"head, got {rows}")
+        k_begin, k_end = plan.live_range(Sq, kind, int(window),
+                                         int(q_offset), kv_lim)
+        split_len, n_split = plan.split_plan(k_begin, k_end, B * nkv,
+                                             _sm_count(q.device))
+        # f32 scratch: the partial accumulators, then (m, l) per row
+        n = max(1, n_split * B * nkv * rows)
+        scratch = torch.empty(n * (hd + 2), dtype=torch.float32,
+                              device=q.device)
+        vec = int(_aligned16(q, k, v) and hd * k.element_size() % 16 == 0)
+        err = _library(route).attention_decode_launch(
+            *ptrs, scratch.data_ptr(), scratch.data_ptr() + 4 * n * hd,
+            DTYPES[q.dtype], B, Sq, nh, nkv, hd, *strides, *mask,
+            float(softcap), float(scale), k_begin, k_end, split_len,
+            n_split, vec, stream)
+    elif route == "tc":
+        if (q.dtype != torch.bfloat16 or hd % 16
+                or hd > plan.TC_MAX_HEAD_DIM or not _aligned16(q, k, v)):
+            raise ValueError(f"the tc route takes bf16 with hd a multiple "
+                             f"of 16 up to {plan.TC_MAX_HEAD_DIM} and "
+                             f"16-byte aligned tensors, got {q.dtype}, "
+                             f"hd {hd}")
+        err = _library(route).attention_prefill_sm90_launch(
+            *ptrs, B, Sq, Skv, nh, nkv, hd, *strides, *mask,
+            float(softcap), float(scale), stream)
+    elif route == "fma":
+        err = _library(route).block_attention_launch(
+            *ptrs, DTYPES[q.dtype], B, Sq, nh, nkv, hd, *strides, *mask,
+            float(softcap), float(scale), stream)
+    else:
+        raise ValueError(f"unknown attention route {route!r}")
     if err:
-        raise RuntimeError(f"block_attention launch failed: cudaError {err}")
+        raise RuntimeError(f"block_attention {route} launch failed: "
+                           + ("tensor map not encoded" if err == -1
+                              else f"cudaError {err}"))
     with _count_lock:
         launch_counts["block_attention"] += 1
+        launch_counts[f"block_attention.{route}"] += 1
     return out

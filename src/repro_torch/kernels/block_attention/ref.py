@@ -4,13 +4,16 @@ f32, the reference's ``Skv <= chunk or Sq == 1`` branch of
 ``repro.models.attention.attention``, with ``q_offset`` and ``kv_len``.
 
 The CPU runs it through the wrapper in ``ops.py``; ``chip_smoke.py``
-holds the CUDA kernel against it on the card.
+holds the CUDA kernels against it on the card.  ``attention_split_kv_ref``
+is the plain version of the decode route's split-KV schedule.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from repro_torch.kernels.block_attention import plan
 
 NEG_INF = -2.0 ** 30  # large-but-finite: keeps padded-row softmax NaN-free
 
@@ -55,3 +58,46 @@ def attention_ref(q, k, v, *, kind: str = "causal", window: int = 0,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskh->bqkgh", p, v.to(torch.float32))
     return o.reshape(B, Sq, nh, hd).to(q.dtype)
+
+
+def attention_split_kv_ref(q, k, v, *, kind: str = "causal",
+                           window: int = 0, softcap: float = 0.0,
+                           q_offset: int = 0, kv_len: Optional[int] = None,
+                           scale: Optional[float] = None, n_sm: int = 132):
+    """What the decode route computes: the live kv range cut by
+    ``plan.split_plan``, each split's unnormalised partial (row max m,
+    sum l, acc = sum of exp(s - m) v) in f32, merged in split order:
+    out = sum_s exp(m_s - M) acc_s / max(sum_s exp(m_s - M) l_s, 1e-30)."""
+    B, Sq, nh, hd = q.shape
+    Skv, nkv = k.shape[1], k.shape[2]
+    g = nh // nkv
+    scale = scale if scale is not None else hd ** -0.5
+    kv_lim = Skv if kv_len is None else max(0, min(int(kv_len), Skv))
+    k_begin, k_end = plan.live_range(Sq, kind, window, q_offset, kv_lim)
+    split_len, n_split = plan.split_plan(k_begin, k_end, B * nkv, n_sm)
+    dev = q.device
+    qf = (q.to(torch.float32) * scale).reshape(B, Sq, nkv, g, hd)
+    mask = attention_mask(q_offset + torch.arange(Sq, device=dev),
+                          torch.arange(Skv, device=dev), kind, window,
+                          kv_lim)
+    parts = []
+    for lo, hi in plan.splits(k_begin, k_end, split_len, n_split):
+        s = torch.einsum("bqkgh,bskh->bkgqs", qf,
+                         k[:, lo:hi].to(torch.float32))
+        if softcap > 0.0:
+            s = softcap * torch.tanh(s / softcap)
+        s = torch.where(mask[:, lo:hi], s, torch.full_like(s, NEG_INF))
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        parts.append((m, p.sum(-1), torch.einsum(
+            "bkgqs,bskh->bkgqh", p, v[:, lo:hi].to(torch.float32))))
+    o = torch.zeros((B, nkv, g, Sq, hd), dtype=torch.float32, device=dev)
+    if parts:
+        M = torch.stack([m for m, _, _ in parts]).amax(0)
+        L = torch.zeros_like(M)
+        for m, l, acc in parts:        # fixed split order
+            w = torch.exp(m - M)
+            L = L + w * l
+            o = o + w[..., None] * acc
+        o = o / torch.clamp(L, min=1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, nh, hd).to(q.dtype)

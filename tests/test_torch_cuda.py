@@ -10,7 +10,8 @@ card:
 
 ``SHAPES`` and ``edge_inputs`` are shared with the CPU parity tests in
 ``test_torch_quantize.py``; ``ATTN_CASES``, ``DECODE_CASES`` and
-``attn_inputs`` with ``test_torch_attention.py``; ``SSD_CASES``,
+``attn_inputs`` with ``test_torch_attention.py``; ``ROUTE_CASES`` with
+``test_torch_attention_routes.py``; ``SSD_CASES``,
 ``scan_inputs`` and ``attn_tol`` (the reference's kernel tolerances)
 with ``test_torch_ssm.py``; ``CUT_CASES`` and ``cut_inputs`` with
 ``test_torch_cut_fusion.py``.
@@ -20,6 +21,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import block_attention as attn_kernel
+from repro_torch.kernels.block_attention import plan as attn_plan
 from repro_torch.kernels import mamba2_scan as scan_kernel
 from repro_torch.kernels.quantize import (launch_counts, quantize_int8,
                                           quantize_int8_ref,
@@ -100,6 +102,25 @@ ZAMBA_ATTN_CASES = [
     (4, 1024, 1057, 32, 32, 80, "causal", 0, 0.0, 0, 1024),
     (2, 512, 545, 32, 32, 80, "causal", 0, 0.0, 0, 512),
     (4, 1, 1057, 32, 32, 80, "causal", 0, 0.0, 1040, 1041),
+]
+
+
+# the attention routes' edges (B, Sq, Skv, nh, nkv, hd, kind, window,
+# softcap, q_offset, kv_len): the head prefill over its 545-key cache
+# (tc in bf16), ragged Sq and Skv at hd 16, 48, 80 and 96, local with a
+# softcap, hd 256 (fma in both dtypes), and decode calls of 4, 16 and 64
+# rows per kv head, one at hd 256
+ROUTE_CASES = [
+    (4, 512, 545, 24, 8, 128, "causal", 0, 0.0, 0, 512),
+    (2, 70, 130, 2, 1, 16, "bidir", 0, 0.0, 0, 129),
+    (1, 130, 200, 4, 4, 48, "causal", 0, 0.0, 70, 200),
+    (1, 200, 333, 4, 2, 80, "causal", 0, 0.0, 100, 300),
+    (1, 129, 129, 2, 2, 96, "causal", 0, 0.0, 0, None),
+    (1, 300, 300, 2, 2, 64, "local", 100, 20.0, 0, None),
+    (1, 128, 128, 2, 2, 256, "causal", 0, 0.0, 0, None),
+    (2, 1, 300, 8, 2, 256, "causal", 0, 0.0, 299, 300),
+    (1, 4, 500, 12, 3, 128, "causal", 0, 0.0, 400, 404),
+    (1, 16, 200, 8, 2, 64, "causal", 0, 0.0, 150, 166),
 ]
 
 
@@ -211,19 +232,29 @@ def test_split_int8_fit_on_card_runs_the_kernel(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", [c + (0, None) for c in ATTN_CASES]
-                         + DECODE_CASES)
+                         + DECODE_CASES + ZAMBA_ATTN_CASES + ROUTE_CASES)
 def test_attention_kernel_matches_plain_on_card(cuda_device, case, dtype):
-    """On the card: the CUDA attention kernel against its plain version
-    at the reference's tolerances, one counted launch per call."""
+    """On the card: each call takes the route ``plan.choose_route`` names
+    (decode for at most 64 query rows per kv head, tc for other bf16
+    calls with hd a multiple of 16 up to 128, fma for the rest), counts
+    one launch there and one in the total, and agrees with the plain
+    version at the reference's tolerances."""
     B, Sq, Skv, nh, nkv, hd, kind, window, cap, q_offset, kv_len = case
     q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
                for a in attn_inputs(B, Sq, Skv, nh, nkv, hd))
     kw = dict(kind=kind, window=window, softcap=cap, q_offset=q_offset,
               kv_len=kv_len)
-    n0 = attn_kernel.launch_counts["block_attention"]
+    route = attn_plan.choose_route(dtype, Sq, nh, nkv, hd)
+    if dtype == torch.bfloat16 and hd == 256 and Sq * nh // nkv > 64:
+        assert route == "fma"
+    n0 = dict(attn_kernel.launch_counts)
     got = attn_kernel.block_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert attn_kernel.launch_counts["block_attention"] == n0 + 1
+    n = {r: attn_kernel.launch_counts[f"block_attention.{r}"]
+         - n0[f"block_attention.{r}"] for r in attn_plan.ROUTES}
+    assert n == {r: int(r == route) for r in attn_plan.ROUTES}
+    assert attn_kernel.launch_counts["block_attention"] == \
+        n0["block_attention"] + 1
     want = attn_kernel.attention_ref(q, k, v, **kw)
     torch.testing.assert_close(got.float(), want.float(), **attn_tol(dtype))
 
@@ -244,8 +275,10 @@ def test_attention_wrapper_refuses_what_the_kernel_does_not_take(
 @pytest.mark.cuda
 def test_cuda_tensors_never_reach_the_plain_version(cuda_device,
                                                     monkeypatch):
-    """On the card the wrapper launches the kernel; the plain version is
-    never called on the serving path."""
+    """On the card the wrapper launches the kernels; the plain version is
+    never called on the serving path.  Every bf16 prefill (the owners'
+    80 tokens, the trunk's 160, each over more than 64 query rows per kv
+    head) takes the tc route, every decode tick the decode route."""
     from repro_torch.configs import get_config
     from repro_torch.launch.engine import ServingEngine
     from repro_torch.models.model import SplitModel
@@ -256,18 +289,64 @@ def test_cuda_tensors_never_reach_the_plain_version(cuda_device,
     cfg = get_config("llama3.2-3b", reduced=True).replace(n_layers=4)
     model = SplitModel(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    eng = ServingEngine(model, params, batch_slots=2, ctx_len=32,
+    eng = ServingEngine(model, params, batch_slots=2, ctx_len=160,
                         max_new=4, transport="queue", compression="int8")
     rng = np.random.default_rng(0)
     for _ in range(3):
-        eng.submit(rng.integers(0, cfg.vocab, 32))
-    n0 = attn_kernel.launch_counts["block_attention"]
+        eng.submit(rng.integers(0, cfg.vocab, 160))
+    n0 = dict(attn_kernel.launch_counts)
     out = eng.run()
     assert all(len(r.generated) == 4 for r in out.values())
+    n = {k: c - n0[k] for k, c in attn_kernel.launch_counts.items()}
     # 3 + 1 attention layers per forward, 1 prefill + 3 decode ticks per
     # wave, two waves
-    assert attn_kernel.launch_counts["block_attention"] - n0 == \
-        (2 * 3 + 1) * 4 * 2
+    assert n["block_attention"] == (2 * 3 + 1) * 4 * 2
+    assert n["block_attention.tc"] == (2 * 3 + 1) * 2
+    assert n["block_attention.decode"] == (2 * 3 + 1) * 3 * 2
+    assert n["block_attention.fma"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_len", [1, 63, 64, 65, 545, 1041])
+def test_decode_route_at_cache_edges_on_card(cuda_device, kv_len, dtype):
+    """llama3.2-3b's decode tick (24/8 heads, hd 128) over a 1057-key
+    cache at fill levels around the 64-key tiles and the splits."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+               for a in attn_inputs(4, 1, 1057, 24, 8, 128))
+    kw = dict(q_offset=kv_len - 1, kv_len=kv_len)
+    n0 = attn_kernel.launch_counts["block_attention.decode"]
+    got = attn_kernel.block_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert attn_kernel.launch_counts["block_attention.decode"] == n0 + 1
+    want = attn_kernel.attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **attn_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,case,dtype", [
+    ("decode", (4, 1, 1057, 24, 8, 128, "causal", 0, 0.0, 1040, 1041),
+     torch.bfloat16),
+    ("decode", (2, 16, 600, 8, 2, 64, "causal", 0, 0.0, 500, 516),
+     torch.float32),
+    ("tc", (2, 512, 545, 24, 8, 128, "causal", 0, 0.0, 0, 512),
+     torch.bfloat16),
+    ("fma", (1, 256, 256, 8, 2, 64, "causal", 0, 0.0, 0, None),
+     torch.float32)])
+def test_attention_routes_are_deterministic_on_card(cuda_device, route, case,
+                                                    dtype):
+    """Two calls on the same inputs give the same bits on every route
+    (fixed split order in decode, no split-K or atomics anywhere)."""
+    B, Sq, Skv, nh, nkv, hd, kind, window, cap, q_offset, kv_len = case
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+               for a in attn_inputs(B, Sq, Skv, nh, nkv, hd))
+    assert attn_kernel.route_of(q, k, v) == route
+    kw = dict(kind=kind, window=window, softcap=cap, q_offset=q_offset,
+              kv_len=kv_len)
+    a = attn_kernel.block_attention(q, k, v, **kw)
+    b = attn_kernel.block_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
