@@ -26,7 +26,9 @@ Phases, in order; any failure raises and exits non-zero:
      and the serving path's six shapes, each on the route the wrapper
      picks (decode: split-KV; tc: wgmma and TMA; fma: CUDA cores), with
      times beside the fma route's at the same shape, the bound and one
-     PyTorch call (``scaled_dot_product_attention``);
+     PyTorch call (``scaled_dot_product_attention``); then calls in
+     which some query row sees no key (kv_len 0, a local window past
+     kv_len) on every route that takes them;
   7. split-LM serving at full width: llama3.2-3b (random weights from a
      seed) behind the wave engine over the queue transport with the int8
      cut codec, 8 contexts of 1024 tokens in two waves of 4, 32 new
@@ -39,22 +41,29 @@ Phases, in order; any failure raises and exits non-zero:
      identical), and the card against the CPU at full width with 2
      layers in f32 compute (identical greedy tokens, first-token logits
      within rel 1e-3); then the llama params are freed;
-  9. the SSD scan kernel against its plain version on the card, on the
-     reference's kernel cases and more (f32 and bf16, with and without
-     an initial state) and at zamba2-2.7b's head and trunk prefill
-     shapes, all read as strided views of one conv-output buffer, with
-     times beside the bound;
+  9. the SSD scan kernels against their plain version on the card, on
+     the reference's kernel cases and more (f32 and bf16, with and
+     without an initial state) and at zamba2-2.7b's head and trunk
+     prefill shapes, all read as strided views of one conv-output
+     buffer, on both routes where both apply (chunked: three launches on
+     the tensor cores; serial: one block per (batch, head)), with the
+     two routes timed in the same call beside the plain version and the
+     bound;
  10. zamba2-2.7b (Mamba2 + shared attention, random weights from a
      seed) served at full width and depth as in phase 7, with the exact
-     launch counts of all three kernels and the cut bytes checked, and
-     one more wave under torch.profiler;
+     launch counts of all three kernels (every scan on the chunked
+     route) and the cut bytes checked, and one more wave under
+     torch.profiler;
  11. phase 8's checks for zamba2-2.7b: engine == by hand at full width,
      and card == CPU at reduced widths with 18 layers in f32;
  12. the cut-fusion kernel against its plain version on the card, on the
      reference's kernel cases and the training path's shapes (the
      batch, a microbatch chunk, a ragged evaluation batch, sum and
-     mean) and the reference benchmark's shape, f32 and bf16, with
-     times beside the bound and beside one PyTorch call;
+     mean) and the reference benchmark's shape, f32 and bf16, on both
+     routes where both apply (fma: CUDA-core f32 FMAs; tc: wgmma and
+     TMA on bf16), with times beside the bound and beside one PyTorch
+     call; and a row's bits independent of T (the first 32 rows of a
+     call equal a call on those rows, f32 and bf16);
  13. the training path at full width through the other schedules:
      split in 4 microbatches == the microbatched joint oracle bit for
      bit, owners in spawned worker processes == the queue backend bit
@@ -287,9 +296,11 @@ def phase_main_path():
     # int8: every cut (owners) and every cut gradient (scientist), the
     # warmup's included; cut fusion: every trunk forward, the fit's
     # epoch-end evaluation and the one above included
+    n_cut = trunk_forwards(session, evaluates=2)
     check_counts(counts, {
         "quantize_pack_int8": 2 * owners * (steps + 1),
-        "cut_fusion": trunk_forwards(session, evaluates=2)}, "the run")
+        "cut_fusion": n_cut, "cut_fusion.fma": n_cut, "cut_fusion.tc": 0},
+        "the run")
     if len(trail) != steps or not all(math.isfinite(v) for v in trail):
         raise AssertionError(f"bad loss trail {trail}")
     if not sum(trail[-3:]) < sum(trail[:3]):
@@ -418,6 +429,18 @@ PATH_CASES = {
                             1041),
 }
 HEADLINE = "trunk_prefill"
+# calls in which some query row sees no key (the reference gives such a
+# row the mean of V over all Skv keys): kv_len 0, a local window wholly
+# past kv_len, windows that leave only the last rows without a key; run
+# on every route that takes them
+EMPTY_ROW_CASES = [
+    (2, 1, 96, 6, 2, 64, "causal", 0, 0.0, 40, 0),
+    (1, 1, 80, 4, 4, 32, "local", 8, 0.0, 90, 60),
+    (1, 16, 130, 4, 2, 64, "local", 8, 0.0, 100, 105),
+    (1, 128, 200, 4, 2, 64, "local", 16, 0.0, 40, 100),
+    (2, 100, 150, 4, 4, 64, "causal", 0, 10.0, 0, 0),
+    (1, 80, 96, 2, 2, 32, "bidir", 0, 0.0, 0, 0),
+]
 
 
 def live_pairs(Sq, Skv, kind, window, q_offset, kv_len):
@@ -534,6 +557,42 @@ def phase_attention(bw, f32_flops):
     missing = [r for r in ROUTES if r not in seen]
     if missing:
         raise AssertionError(f"attention routes never exercised: {missing}")
+    empty_seen = set()
+    for i, case in enumerate(EMPTY_ROW_CASES):
+        B, Sq, Skv, nh, nkv, hd, kind, window, cap, q_off, kv_len = case
+        rng = np.random.default_rng(0)
+        base = [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                .cuda() for s in ((B, Sq, nh, hd), (B, Skv, nkv, hd),
+                                  (B, Skv, nkv, hd))]
+        kw = dict(kind=kind, window=window, softcap=cap, q_offset=q_off,
+                  kv_len=kv_len)
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (t.to(dt) for t in base)
+            want = attention_ref(q, k, v, **kw)
+            for route in ROUTES:
+                if route == "decode" and Sq * nh // nkv > 64:
+                    continue
+                if route == "tc" and dt != torch.bfloat16:
+                    continue
+                got = ops._launch(route, q, k, v, **kw)
+                torch.cuda.synchronize()
+                e = (got.float() - want.float()).abs()
+                lim = tol[dt] + tol[dt] * want.float().abs()
+                if not bool((e <= lim).all()) or \
+                        not torch.isfinite(got).all():
+                    raise AssertionError(
+                        f"attention empty{i} {dt} ({route}): kernel vs plain"
+                        f" max |diff| {e.max().item():.3e} beyond "
+                        f"atol=rtol={tol[dt]}")
+                err[route] = max(err[route], e.max().item())
+                empty_seen.add(route)
+                print(f"  empty{i} {tuple(q.shape)} kv {Skv} {kind} "
+                      f"q_offset {q_off} kv_len {kv_len} {str(dt)[6:]} "
+                      f"[{route}]: max |diff| {e.max().item():.3e} (rows "
+                      f"with no key: the mean of V)")
+    missing = [r for r in ROUTES if r not in empty_seen]
+    if missing:
+        raise AssertionError(f"rows with no key never run on: {missing}")
     return {"max_abs_err": err, "rows": rows}
 
 
@@ -633,12 +692,18 @@ def scan_bound(case, dtype, bw, f32_flops, with_init):
 
 
 def phase_scan(bw, f32_flops):
-    """Phase 9: the SSD scan kernel vs its plain version on the card."""
+    """Phase 9: the SSD scan kernels vs their plain version on the card,
+    each case on the route the wrapper picks and, where the chunked
+    route applies, on the serial route too; at the path's shapes both
+    routes timed in one call."""
     import numpy as np
     import torch
-    from repro_torch.kernels.mamba2_scan import mamba2_scan, ssd_chunked
+    from repro_torch.kernels.mamba2_scan import (mamba2_scan, ops, route_of,
+                                                 ssd_chunked)
+    from repro_torch.kernels.mamba2_scan.plan import ROUTES
     tol = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
-    err, worst, rows = 0.0, 0.0, {}
+    err = {r: 0.0 for r in ROUTES}
+    worst, rows = 0.0, {}
     cases = [(f"case{i}", c) for i, c in enumerate(SSD_CASES)]
     cases += [(f"path:{n}", c) for n, c in SCAN_PATH_CASES.items()]
     for name, case in cases:
@@ -650,39 +715,49 @@ def phase_scan(bw, f32_flops):
         for dtype in (torch.float32, torch.bfloat16):
             xv, bv, cv = conv_out_views(x, Bi, Ci, dtype)
             for init in (None, s0):
-                got = mamba2_scan(xv, dt, A, bv, cv, chunk=chunk,
-                                  initial_state=init)
+                route = route_of(xv, bv, cv, init)
+                both = [route] + (["serial"] if route == "chunked" else [])
                 want = ssd_chunked(xv, dt, A, bv, cv, chunk,
                                    initial_state=init)
-                torch.cuda.synchronize()
-                e = r = 0.0
-                for a, b in zip(got, want):
-                    d = (a.float() - b.float()).abs()
-                    # |diff| over its limit atol + rtol |plain|, at most 1
-                    q = d / (tol[dtype] + tol[dtype] * b.float().abs())
-                    e, r = max(e, d.max().item()), max(r, q.max().item())
-                    if r > 1.0 or not torch.isfinite(a).all():
-                        raise AssertionError(
-                            f"scan {name} {dtype}: kernel vs plain max "
-                            f"|diff| {d.max().item():.3e} beyond "
-                            f"atol=rtol={tol[dtype]}")
-                err, worst = max(err, e), max(worst, r)
-                print(f"  {name} (B, S, H, P, G, N, chunk) {case} "
-                      f"{str(dtype)[6:]}, {'state' if init is not None else 'zero'}"
-                      f" init: max |diff| {e:.3e}, max |diff| / (atol + "
-                      f"rtol |plain|) {r:.3f} (atol=rtol={tol[dtype]})")
+                for r_ in both:
+                    got = ops._launch(r_, xv, dt, A, bv, cv, chunk=chunk,
+                                      initial_state=init)
+                    torch.cuda.synchronize()
+                    e = r = 0.0
+                    for a, b in zip(got, want):
+                        d = (a.float() - b.float()).abs()
+                        # |diff| over its limit atol + rtol |plain|, <= 1
+                        q = d / (tol[dtype] + tol[dtype] * b.float().abs())
+                        e, r = max(e, d.max().item()), max(r, q.max().item())
+                        if r > 1.0 or not torch.isfinite(a).all():
+                            raise AssertionError(
+                                f"scan {name} {dtype} ({r_}): kernel vs "
+                                f"plain max |diff| {d.max().item():.3e} "
+                                f"beyond atol=rtol={tol[dtype]}")
+                    err[r_], worst = max(err[r_], e), max(worst, r)
+                    print(f"  {name} (B, S, H, P, G, N, chunk) {case} "
+                          f"{str(dtype)[6:]}, "
+                          f"{'state' if init is not None else 'zero'} init "
+                          f"[{r_}]: max |diff| {e:.3e}, max |diff| / (atol "
+                          f"+ rtol |plain|) {r:.3f} (atol=rtol={tol[dtype]})")
             if not name.startswith("path") or dtype != torch.bfloat16:
                 continue
             # timed as the path calls it: bf16, the fresh cache's zero
-            # state as initial_state
+            # state as initial_state; the serial route in the same call
             z = torch.zeros_like(s0)
+            if route_of(xv, bv, cv, z) != "chunked":
+                raise AssertionError(f"scan {name}: the serving path's "
+                                     "prefill needs the chunked route")
             bound, by, flops, nbytes = scan_bound(case, dtype, bw,
                                                   f32_flops, True)
             row = {"shape": list(case), "bound_ms": bound, "bound_by": by,
-                   "flops": flops, "bytes": nbytes,
+                   "flops": flops, "bytes": nbytes, "route": "chunked",
                    "ms": device_ms(lambda: mamba2_scan(
                        xv, dt, A, bv, cv, chunk=chunk, initial_state=z),
                        reps=10, rounds=7),
+                   "serial_ms": device_ms(lambda: ops._launch(
+                       "serial", xv, dt, A, bv, cv, chunk=chunk,
+                       initial_state=z), reps=10, rounds=7),
                    "plain_ms": device_ms(lambda: ssd_chunked(
                        xv, dt, A, bv, cv, chunk, initial_state=z),
                        reps=3, rounds=5),
@@ -692,12 +767,15 @@ def phase_scan(bw, f32_flops):
                    "library_ms": None}
             row["tflops"] = flops / row["ms"] / 1e9
             row["gbps"] = nbytes / row["ms"] / 1e6
+            row["serial_over_chunked"] = row["serial_ms"] / row["ms"]
             rows[name[5:]] = row
-            print(f"    kernel {row['ms']:.6f} ms ({row['tflops']:.2f} "
+            print(f"    chunked {row['ms']:.6f} ms ({row['tflops']:.2f} "
                   f"TFLOP/s, {row['gbps']:.1f} GB/s; eager "
-                  f"{row['eager_ms']:.6f}), plain {row['plain_ms']:.6f} ms, "
-                  f"bound {row['bound_ms']:.6f} ms ({by}; {flops / 1e9:.3f}"
-                  f" GFLOP, {nbytes / 1e6:.3f} MB)")
+                  f"{row['eager_ms']:.6f}); serial {row['serial_ms']:.6f} "
+                  f"ms (x{row['serial_over_chunked']:.2f}); plain "
+                  f"{row['plain_ms']:.6f} ms; bound {row['bound_ms']:.6f} "
+                  f"ms ({by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} "
+                  f"MB)")
     return {"max_abs_err": err, "tol_ratio": worst, "rows": rows}
 
 
@@ -786,12 +864,14 @@ def phase_serving(arch):
     n_attn = sum(k != "mamba2" for k in cfg.block_pattern)
     n_ssm = sum(k == "mamba2" for k in cfg.block_pattern)
     # every bf16 prefill call takes the tc route, every decode call the
-    # decode route, none the fma route
+    # decode route, none the fma route; every scan the chunked route
     need = {"block_attention": waves * units * n_attn * (1 + ticks),
             "block_attention.tc": waves * units * n_attn,
             "block_attention.decode": waves * units * n_attn * ticks,
             "block_attention.fma": 0,
             "mamba2_scan": waves * units * n_ssm,
+            "mamba2_scan.chunked": waves * units * n_ssm,
+            "mamba2_scan.serial": 0,
             "quantize_pack_int8": waves * (model.P + ticks)}
     print(f"  kernel launches in the run: {counts} (needed exactly "
           f"{need})")
@@ -981,12 +1061,18 @@ def cut_library_call(z, w, combine):
 
 
 def phase_cut_fusion(bw, f32_flops):
-    """Phase 12: the cut-fusion kernel vs its plain version on the card."""
+    """Phase 12: the cut-fusion kernel vs its plain version on the card,
+    each case on the route the wrapper picks and, where the tc route
+    applies, on the fma route too; times at the path's shapes; a row's
+    bits independent of T."""
     import numpy as np
     import torch
-    from repro_torch.kernels.cut_fusion import cut_fusion, cut_fusion_ref
+    from repro_torch.kernels.cut_fusion import (cut_fusion, cut_fusion_ref,
+                                                ops, route_of)
+    from repro_torch.kernels.cut_fusion.plan import ROUTES
     tol = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
-    err, worst, rows = 0.0, 0.0, {}
+    err = {r: 0.0 for r in ROUTES}
+    worst, rows = 0.0, {}
     cases = [(f"case{i}", c) for i, c in enumerate(CUT_CASES)]
     cases += [(f"path:{n}", c) for n, c in CUT_PATH_CASES.items()]
     for name, case in cases:
@@ -998,19 +1084,26 @@ def phase_cut_fusion(bw, f32_flops):
             np.float32)).cuda()
         for dt in (torch.float32, torch.bfloat16):
             z, w = z32.to(dt), w32.to(dt)
-            got = cut_fusion(z, w, combine)
+            route = route_of(z, w, combine)
             want = cut_fusion_ref(z, w, combine=combine)
-            torch.cuda.synchronize()
-            d = (got.float() - want.float()).abs()
-            r = (d / (tol[dt] + tol[dt] * want.float().abs())).max().item()
-            if r > 1.0 or not torch.isfinite(got).all():
-                raise AssertionError(
-                    f"cut_fusion {name} {dt}: kernel vs plain max |diff| "
-                    f"{d.max().item():.3e} beyond atol=rtol={tol[dt]}")
-            err, worst = max(err, d.max().item()), max(worst, r)
-            print(f"  {name} (P, T, k, d) {case[:4]} {combine} "
-                  f"{str(dt)[6:]}: max |diff| {d.max().item():.3e}, max "
-                  f"|diff| / (atol + rtol |plain|) {r:.3f}")
+            for r_ in [route] + (["fma"] if route == "tc" else []):
+                got = ops._launch(r_, z, w, combine)
+                torch.cuda.synchronize()
+                d = (got.float() - want.float()).abs()
+                r = (d / (tol[dt] + tol[dt] * want.float().abs())).max()
+                r = r.item()
+                if r > 1.0 or not torch.isfinite(got).all():
+                    raise AssertionError(
+                        f"cut_fusion {name} {dt} ({r_}): kernel vs plain max"
+                        f" |diff| {d.max().item():.3e} beyond "
+                        f"atol=rtol={tol[dt]}")
+                err[r_], worst = max(err[r_], d.max().item()), max(worst, r)
+                if r_ == route:
+                    route_err = d.max().item()
+                print(f"  {name} (P, T, k, d) {case[:4]} {combine} "
+                      f"{str(dt)[6:]} [{r_}]: max |diff| "
+                      f"{d.max().item():.3e}, max |diff| / (atol + rtol "
+                      f"|plain|) {r:.3f}")
             timed = name.startswith("path") and (
                 dt == torch.float32 or name == "path:bench")
             if not timed:
@@ -1019,23 +1112,52 @@ def phase_cut_fusion(bw, f32_flops):
             library = cut_library_call(z, w, combine)
             lib_err = (library().float() - want.float()).abs().max().item()
             row = {"shape": list(case[:4]), "combine": combine,
-                   "dtype": str(dt)[6:],
+                   "dtype": str(dt)[6:], "route": route,
                    "ms": device_ms(lambda: cut_fusion(z, w, combine)),
                    "plain_ms": device_ms(lambda: cut_fusion_ref(
                        z, w, combine=combine)),
                    "library_ms": device_ms(library),
                    "eager_ms": eager_ms(lambda: cut_fusion(z, w, combine)),
                    "bound_ms": bound, "bound_by": by, "flops": flops,
-                   "bytes": nbytes, "max_abs_err": d.max().item(),
+                   "bytes": nbytes, "max_abs_err": route_err,
                    "library_max_abs_err": lib_err}
+            if route == "tc":         # the fma route at the same shape
+                row["fma_ms"] = device_ms(lambda: ops._launch(
+                    "fma", z, w, combine))
             row["tflops"] = flops / row["ms"] / 1e9
+            row["x_lib"] = row["ms"] / row["library_ms"]
             rows[f"{name[5:]}:{row['dtype']}"] = row
-            print(f"    kernel {row['ms']:.6f} ms ({row['tflops']:.3f} "
-                  f"TFLOP/s; eager {row['eager_ms']:.6f}), plain "
-                  f"{row['plain_ms']:.6f} ms, library "
-                  f"{row['library_ms']:.6f} ms (|diff| {lib_err:.2e}), bound"
-                  f" {row['bound_ms']:.6f} ms ({by}; {flops / 1e6:.3f} "
-                  f"MFLOP, {nbytes / 1e6:.4f} MB)")
+            print(f"    {route} {row['ms']:.6f} ms ({row['tflops']:.3f} "
+                  f"TFLOP/s; eager {row['eager_ms']:.6f})"
+                  + (f", fma route {row['fma_ms']:.6f} ms"
+                     if "fma_ms" in row else "")
+                  + f", plain {row['plain_ms']:.6f} ms, library "
+                  f"{row['library_ms']:.6f} ms (x lib {row['x_lib']:.2f}; "
+                  f"|diff| {lib_err:.2e}), bound {row['bound_ms']:.6f} ms "
+                  f"({by}; {flops / 1e6:.3f} MFLOP, {nbytes / 1e6:.4f} MB)")
+    # a row's bits do not depend on T: the first 32 rows of a call are a
+    # call on those 32 rows (f32 on the fma route, with another tile
+    # plan at T 4096; bf16 on the tc route)
+    for P, T, K, D in ((2, 242, 64, 512), (2, 4096, 512, 1024)):
+        rng = np.random.default_rng(1)
+        z32 = torch.from_numpy(rng.normal(size=(P, T, K)).astype(
+            np.float32)).cuda()
+        w32 = torch.from_numpy(rng.normal(size=(P, K, D)).astype(
+            np.float32)).cuda()
+        for dt in (torch.float32, torch.bfloat16):
+            z, w = z32.to(dt), w32.to(dt)
+            for combine in ("concat", "sum", "mean"):
+                full = cut_fusion(z, w, combine)
+                head = cut_fusion(z[:, :32].contiguous(), w, combine)
+                torch.cuda.synchronize()
+                if not torch.equal(head, full[:32]):
+                    raise AssertionError(
+                        f"cut_fusion {combine} {dt} ({route_of(z, w)}): "
+                        f"rows 0..31 of T {T} differ from a call on them")
+            print(f"  rows independent of T ({P}, {T}, {K}, {D}) "
+                  f"{str(dt)[6:]} [{route_of(z, w)}]: the first 32 rows "
+                  f"of the call equal a call on them, bitwise, for concat,"
+                  f" sum and mean")
     return {"max_abs_err": err, "tol_ratio": worst, "rows": rows}
 
 
@@ -1162,7 +1284,8 @@ def main():
     print("== 2. build")
     t = time.time()
     build.build(["quantize", "block_attention", "attention_decode",
-                 "attention_prefill_sm90", "mamba2_scan", "cut_fusion"])
+                 "attention_prefill_sm90", "mamba2_scan",
+                 "mamba2_scan_chunked", "cut_fusion"])
     print(f"  built in {time.time() - t:.2f} s")
     for src, log in build.build_logs.items():
         print("\n".join(f"  nvcc {src}: {line}" for line in
@@ -1255,29 +1378,46 @@ def main():
             "shape": shape, "zamba2_launches": zamba["counts"][key],
             "eager_ms": None if fma else row["eager_ms"],
             "all_shapes": att["rows"] if aroute == "tc" else None})
+    # the scan's two routes at zamba2's trunk prefill, timed in one call:
+    # chunked (the serving path's) and serial (off the path)
     row = ssd["rows"]["trunk_prefill"]
-    entries.append({
-        "name": "mamba2_scan", "route": "cuda",
-        "source": "src/repro_torch/csrc/mamba2_scan.cu",
-        "replaces": "src/repro/kernels/mamba2_scan/kernel.py:25",
-        "launches": zamba["counts"]["mamba2_scan"], "on_path": True,
-        "max_abs_err": ssd["max_abs_err"], "tol_ratio": ssd["tol_ratio"],
-        "ms": row["ms"],
-        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"], "library_ms": None,
-        "shape": "trunk_prefill", "eager_ms": row["eager_ms"],
-        "all_shapes": ssd["rows"]})
-    row = cut["rows"]["batch:float32"]
-    entries.append({
-        "name": "cut_fusion", "route": "cuda",
-        "source": "src/repro_torch/csrc/cut_fusion.cu",
-        "replaces": "src/repro/kernels/cut_fusion/kernel.py:30",
-        "launches": counts["cut_fusion"], "on_path": True,
-        "max_abs_err": cut["max_abs_err"], "tol_ratio": cut["tol_ratio"],
-        "ms": row["ms"], "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-        "library_ms": row["library_ms"], "shape": "batch:float32",
-        "eager_ms": row["eager_ms"], "all_shapes": cut["rows"]})
+    for sroute, src, key in (("chunked", "mamba2_scan_chunked", "ms"),
+                             ("serial", "mamba2_scan", "serial_ms")):
+        name_ = f"mamba2_scan.{sroute}"
+        entries.append({
+            "name": name_, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{src}.cu",
+            "replaces": "src/repro/kernels/mamba2_scan/kernel.py:25",
+            "launches": zamba["counts"][name_],
+            "on_path": sroute == "chunked",
+            "max_abs_err": ssd["max_abs_err"][sroute],
+            "tol_ratio": ssd["tol_ratio"], "ms": row[key],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
+            "shape": "trunk_prefill",
+            "eager_ms": row["eager_ms"] if sroute == "chunked" else None,
+            "all_shapes": ssd["rows"] if sroute == "chunked" else None})
+    # cut fusion's two routes: fma (f32, the training path's) at the
+    # batch, tc (bf16, off the path) at the benchmark shape
+    for croute, shape in (("fma", "batch:float32"),
+                          ("tc", "bench:bfloat16")):
+        row = cut["rows"][shape]
+        if row["route"] != croute:
+            raise AssertionError(f"cut_fusion {shape}: route {row['route']}"
+                                 f", expected {croute}")
+        name_ = f"cut_fusion.{croute}"
+        entries.append({
+            "name": name_, "route": "cuda",
+            "source": "src/repro_torch/csrc/cut_fusion.cu",
+            "replaces": "src/repro/kernels/cut_fusion/kernel.py:30",
+            "launches": counts[name_], "on_path": croute == "fma",
+            "max_abs_err": cut["max_abs_err"][croute],
+            "tol_ratio": cut["tol_ratio"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "shape": shape,
+            "eager_ms": row["eager_ms"],
+            "all_shapes": cut["rows"] if croute == "fma" else None})
     entries[0]["serving_launches"] = \
         serving["counts"]["quantize_pack_int8"]
     entries[0]["zamba2_launches"] = zamba["counts"]["quantize_pack_int8"]

@@ -20,7 +20,10 @@
 //     g = nh / nkv query heads of its kv head and the Sq query rows
 //     into R = Sq * g rows (row r = query r / g, head kvh * g + r % g),
 //     so each K/V byte is read once per call, not g times;
-//   * the live kv range [k_begin, k_end) is cut into n_split splits of
+//   * the live kv range [k_begin, k_end) (the whole cache [0, Skv)
+//     when some row of the call sees no key, so that such a row gets the
+//     reference's uniform weights, the mean of V; keys past a split's
+//     end weigh 0) is cut into n_split splits of
 //     split_len keys (whole 64-key tiles; the plan is
 //     block_attention/plan.py::split_plan, chosen from the live range
 //     and the SM count so that there are blocks for every SM), and a
@@ -50,6 +53,7 @@
 //     only on the shapes and kv_len, never on scheduling.
 
 #include <climits>
+#include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -279,7 +283,7 @@ __global__ void __launch_bounds__(kThreads) decode_split(Params p) {
       bool ok = kp < p.kv_lim;
       if (p.kind == kCausal) ok = ok && kp <= qp;
       else if (p.kind == kLocal) ok = ok && kp <= qp && kp > qp - p.window;
-      sS[r * kLdS + key] = ok ? x : kNegInf;
+      sS[r * kLdS + key] = kp >= s_end ? -INFINITY : ok ? x : kNegInf;
     }
     __syncthreads();
 
@@ -513,7 +517,7 @@ __global__ void __launch_bounds__(kThreads) decode_mma(Params p) {
         if (p.softcap > 0.0f) x = p.softcap * tanhf(x / p.softcap);
         const int kp = kb + 8 * nt + 2 * t + (e & 1);
         const bool ok = (e & 2) ? kp >= lo1 && kp < hi1 : kp >= lo0 && kp < hi0;
-        c[nt][e] = ok ? x : kNegInf;
+        c[nt][e] = kp >= s_end ? -INFINITY : ok ? x : kNegInf;
         if (e & 2) mx1 = fmaxf(mx1, c[nt][e]);
         else mx0 = fmaxf(mx0, c[nt][e]);
       }

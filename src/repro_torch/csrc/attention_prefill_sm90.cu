@@ -46,7 +46,11 @@
 //     inside the bf16 tolerance of 2e-2;
 //   * kv tiles that the mask leaves empty for the CTA are never loaded;
 //     only tiles on the diagonal, the window's edge or past kv_len are
-//     masked, element by element;
+//     masked, element by element.  When some row of the call sees no key
+//     (`full`, block_attention/plan.py::has_empty_row), every CTA walks
+//     the whole cache [0, Skv) instead, so such a row gets the
+//     reference's uniform weights (the mean of V); keys past the walked
+//     range (the TMA's zero fill) weigh 0;
 //   * no split-K and no atomics: the bits depend only on the inputs.
 // Not yet here: FlashAttention-3's overlap of one tile's softmax with the
 // next tile's wgmmas inside a warpgroup (a first try, with P.V of tile j
@@ -54,15 +58,21 @@
 // trunk prefill), and the ping-pong scheduling of the two warpgroups.
 // cuTensorMapEncodeTiled is taken from the driver through
 // cudaGetDriverEntryPoint(ByVersion), so the library links nothing
-// beyond the CUDA runtime.
+// beyond the CUDA runtime; it, the mbarrier, TMA and wgmma helpers live
+// in sm90.cuh, shared with cut_fusion.cu and mamba2_scan_chunked.cu.
 
 #include <climits>
+#include <cmath>
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "sm90.cuh"
+
 namespace {
+
+using namespace sm90;
 
 constexpr int kBQ = 128;            // q rows per CTA
 constexpr int kBK = 128;            // keys per kv tile
@@ -76,85 +86,11 @@ enum Kind { kCausal = 0, kLocal = 1, kBidir = 2 };
 
 struct Params {
   __nv_bfloat16* o;
-  int Sq, nh, nkv, hd;
+  int Sq, Skv, nh, nkv, hd;
   int kind, window, kv_lim, q_offset;
+  int full;                        // walk [0, Skv): some row sees no key
   float softcap, scale;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// --- mbarriers -------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// Returns once the phase of parity `phase` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int phase) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(phase)
-        : "memory");
-  }
-}
-
-// --- TMA -------------------------------------------------------------------
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// --- wgmma -----------------------------------------------------------------
-
-// Shared-memory matrix descriptor for the 128-byte swizzle: start
-// address, leading and stride byte offsets (16-byte units), layout 1.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)lbo << 16) |
-         ((uint64_t)sbo << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keeps the compiler from moving uses of accumulator registers across
-// the asynchronous wgmma (CUTLASS's warpgroup_fence_operand).
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 #define D8(b)                                                            \
   "+f"(d[b]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]),            \
@@ -212,11 +148,6 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
 // --- the kernel ------------------------------------------------------------
 
 // Shared memory, from a 1024-byte aligned base: Q (2 warpgroups x NB
@@ -267,6 +198,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (p.kind != kBidir) k_end = min(k_end, pos_last + 1);
   if (p.kind == kLocal) k_begin = max(0, pos_first - p.window + 1);
   k_begin = (k_begin / kBK) * kBK;
+  if (p.full) {
+    k_begin = 0;
+    k_end = p.Skv;
+  }
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
 
   if (tid == 0) {
@@ -287,7 +222,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_expect_tx(bar_q, 2 * NB * kBoxBytes);
       for (int w = 0; w < 2; ++w)
         for (int c = 0; c < NB; ++c)
-          tma_load(sQ + (w * NB + c) * kBoxBytes, &tq, bar_q, 64 * c, h,
+          tma_load4(sQ + (w * NB + c) * kBoxBytes, &tq, bar_q, 64 * c, h,
                    q0 + 64 * w, b);
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % kStages, ph = (j / kStages) & 1;
@@ -295,11 +230,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_wait(bar_e(s), ph ^ 1);
         mbar_expect_tx(bar_k(s), L::TILE_TX);
         for (int c = 0; c < NB; ++c)
-          tma_load(sK + (s * NB + c) * 2 * kBoxBytes, &tk, bar_k(s), 64 * c,
+          tma_load4(sK + (s * NB + c) * 2 * kBoxBytes, &tk, bar_k(s), 64 * c,
                    kvh, k0, b);
         mbar_expect_tx(bar_v(s), L::TILE_TX);
         for (int c = 0; c < NB; ++c)
-          tma_load(sV + (s * NB + c) * 2 * kBoxBytes, &tv, bar_v(s), 64 * c,
+          tma_load4(sV + (s * NB + c) * 2 * kBoxBytes, &tv, bar_v(s), 64 * c,
                    kvh, k0, b);
       }
     }
@@ -369,7 +304,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int kp = kb + 8 * (i >> 2) + (i & 1);
           const bool ok = kp >= ((i & 2) ? lo1 : lo0) &&
                           kp < ((i & 2) ? hi1 : hi0);
-          sc[i] = ok ? sc[i] : kNegInf;
+          sc[i] = kp >= k_end ? -INFINITY : ok ? sc[i] : kNegInf;
         }
       }
       float mx[4] = {kNegInf, kNegInf, kNegInf, kNegInf};
@@ -448,47 +383,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult res = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                     cudaEnableDefault, &res);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
-                            &res);
-#endif
-    if (res == cudaDriverEntryPointSuccess) fn = (EncodeTiled)ptr;
-  }
-  return fn;
-}
-
 // A 4-D map (hd, heads, seq, batch) over a bf16 tensor with element
 // strides s_h, s_s, s_b; boxes of 64 columns x 1 head x `rows` x 1.
 bool make_map(CUtensorMap* map, const void* ptr, int hd, int heads, int seq,
               int batch, long long s_b, long long s_s, long long s_h,
               int rows) {
-  EncodeTiled fn = encode_fn();
-  if (!fn) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
                               (cuuint64_t)seq, (cuuint64_t)batch};
   const cuuint64_t strides[3] = {(cuuint64_t)s_h * 2, (cuuint64_t)s_s * 2,
                                  (cuuint64_t)s_b * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_bf16(map, ptr, 4, dims, strides, box);
 }
 
 template <int KS>
@@ -511,7 +416,8 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
 // launch was accepted), or -1 when a tensor map could not be encoded.
 // q (B, Sq, nh, hd), k and v (B, Skv, nkv, hd), o (B, Sq, nh, hd)
 // contiguous, all bf16; strides in elements, the last dimension
-// contiguous.  kind 0 = causal, 1 = local, 2 = bidir.  The wrapper
+// contiguous.  kind 0 = causal, 1 = local, 2 = bidir; full = 1 walks
+// every key of [0, Skv) (some row sees no key).  The wrapper
 // checks hd % 16 == 0, hd <= 128, 16-byte aligned pointers and strides
 // (TMA's rule), nh % nkv == 0 and B * nh <= 65535.
 extern "C" int attention_prefill_sm90_launch(
@@ -519,15 +425,16 @@ extern "C" int attention_prefill_sm90_launch(
     int Skv, int nh, int nkv, int hd, long long qs_b, long long qs_s,
     long long qs_h, long long ks_b, long long ks_s, long long ks_h,
     long long vs_b, long long vs_s, long long vs_h, int kind, int window,
-    int kv_lim, int q_offset, float softcap, float scale, void* stream) {
+    int kv_lim, int q_offset, int full, float softcap, float scale,
+    void* stream) {
   if (B == 0 || Sq == 0) return (int)cudaGetLastError();
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, hd, nh, Sq, B, qs_b, qs_s, qs_h, 64) ||
       !make_map(&tk, k, hd, nkv, Skv, B, ks_b, ks_s, ks_h, kBK) ||
       !make_map(&tv, v, hd, nkv, Skv, B, vs_b, vs_s, vs_h, kBK))
     return -1;
-  Params p{static_cast<__nv_bfloat16*>(o), Sq, nh, nkv, hd, kind, window,
-           kv_lim, q_offset, softcap, scale};
+  Params p{static_cast<__nv_bfloat16*>(o), Sq, Skv, nh, nkv, hd, kind,
+           window, kv_lim, q_offset, full, softcap, scale};
   switch (hd / 16) {
     case 1: return launch<1>(tq, tk, tv, p, B, stream);
     case 2: return launch<2>(tq, tk, tv, p, B, stream);

@@ -20,7 +20,12 @@
 // Beyond the TPU kernel it takes the two arguments the serving path
 // needs: q_offset (query row i sits at position q_offset + i) and
 // kv_lim = min(kv_len, Skv) (keys at positions >= kv_lim are masked).
-// q_offset = 0 and kv_lim = Skv give the TPU kernel's function.
+// q_offset = 0 and kv_lim = Skv give the TPU kernel's function.  When
+// some row of the call sees no key (`full`, decided by the wrapper:
+// block_attention/plan.py::has_empty_row), every q tile walks the whole
+// cache [0, Skv) and skips no tile, so such a row gets the reference's
+// uniform weights over all Skv keys (the mean of V); keys past the
+// walked range, the zero-filled tail of the last tile, weigh 0.
 //
 // Design: one block of 16 x 16 threads per (q tile of 64 rows, batch x
 // q head).  The q tile is staged in shared memory once, scaled, in f32.
@@ -39,10 +44,11 @@
 // serving path's prefill shapes that is far above the card's
 // flops-per-byte ridge.  This first design does not use the tensor
 // cores (no wgmma, no TMA): every product is an f32 FMA, and a thread
-// issues one shared-memory load per two FMAs.  A decode call (Sq = 1)
-// fills one row of the 64-row q tile and wastes the rest; a split-KV
-// decode design is later work (ROADMAP.md).
+// issues one shared-memory load per two FMAs.  It is the `fma` route of
+// block_attention/ops.py: f32 prefills and bf16 calls the tensor-core
+// route does not take; decode calls take csrc/attention_decode.cu.
 
+#include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,11 +72,12 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
-  int Sq, nh, nkv, hd;
+  int Sq, Skv, nh, nkv, hd;
   long long qs_b, qs_s, qs_h;      // element strides of q, k, v
   long long ks_b, ks_s, ks_h;
   long long vs_b, vs_s, vs_h;
   int kind, window, kv_lim, q_offset;
+  int full;                        // walk [0, Skv): some row sees no key
   float softcap, scale;
 };
 
@@ -127,6 +134,10 @@ __global__ void __launch_bounds__(kThreads) attn_fwd(Params p) {
   if (p.kind != kBidir) k_end = min(k_end, pos_last + 1);
   if (p.kind == kLocal) k_begin = max(0, pos_first - p.window + 1);
   k_begin = (k_begin / kBK) * kBK;
+  if (p.full) {
+    k_begin = 0;
+    k_end = p.Skv;
+  }
 
   float m_i[kRows], l_i[kRows], acc[kRows][NJ];
 #pragma unroll
@@ -172,7 +183,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd(Params p) {
         bool ok = kp < p.kv_lim;
         if (p.kind == kCausal) ok = ok && kp <= qp;
         else if (p.kind == kLocal) ok = ok && kp <= qp && kp > qp - p.window;
-        s[i][j] = ok ? x : kNegInf;
+        s[i][j] = kp >= k_end ? -INFINITY : ok ? x : kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
       // the 16 lanes of a row group share one ty: xor offsets < 16 stay
@@ -261,18 +272,20 @@ int launch_hd(const Params& p, int B, void* stream) {
 // Launches on `stream` and returns the CUDA error code (0 when the
 // launch was accepted).  dtype 0 = f32, 1 = bf16 (q, k, v and o share
 // it).  Strides are in elements; the last dimension of q, k and v is
-// contiguous.  kind 0 = causal, 1 = local, 2 = bidir.  The wrapper
+// contiguous.  kind 0 = causal, 1 = local, 2 = bidir; full = 1 walks
+// every key of [0, Skv) (some row sees no key).  The wrapper
 // checks 1 <= hd <= 256, nh % nkv == 0 and B * nh <= 65535.
 extern "C" int block_attention_launch(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
-    int Sq, int nh, int nkv, int hd, long long qs_b, long long qs_s,
+    int Sq, int Skv, int nh, int nkv, int hd, long long qs_b, long long qs_s,
     long long qs_h, long long ks_b, long long ks_s, long long ks_h,
     long long vs_b, long long vs_s, long long vs_h, int kind, int window,
-    int kv_lim, int q_offset, float softcap, float scale, void* stream) {
+    int kv_lim, int q_offset, int full, float softcap, float scale,
+    void* stream) {
   if (B == 0 || Sq == 0) return (int)cudaGetLastError();
-  Params p{q, k, v, o, Sq, nh, nkv, hd,
+  Params p{q, k, v, o, Sq, Skv, nh, nkv, hd,
            qs_b, qs_s, qs_h, ks_b, ks_s, ks_h, vs_b, vs_s, vs_h,
-           kind, window, kv_lim, q_offset, softcap, scale};
+           kind, window, kv_lim, q_offset, full, softcap, scale};
   if (dtype == 0) return launch_hd<float>(p, B, stream);
   if (dtype == 1) return launch_hd<__nv_bfloat16>(p, B, stream);
   return (int)cudaErrorInvalidValue;

@@ -26,7 +26,9 @@ def build_adapter(cfg):
         return MLPAdapter(cfg)
     raise NotImplementedError(
         f"no port adapter for {type(cfg).__name__}: only the MLP SplitNN "
-        "is ported (the LM serving slice is queued in ROADMAP.md)")
+        "trains in the port (LM training, SplitLMAdapter, is queued as "
+        "item 13 in ROADMAP.md; LM serving runs through "
+        "repro_torch.launch.engine)")
 
 
 class MLPAdapter:

@@ -57,8 +57,10 @@ def _library(route: str) -> ctypes.CDLL:
         if route == "decode":
             fn.argtypes = ([vp] * 6 + [i] * 6 + [ll] * 9 + [i] * 4 + [f, f]
                            + [i] * 5 + [vp])
-        else:           # tc (Skv in place of dtype) and fma
-            fn.argtypes = [vp] * 4 + [i] * 6 + [ll] * 9 + [i] * 4 + [f, f, vp]
+        elif route == "tc":     # Skv in place of dtype; `full` after mask
+            fn.argtypes = [vp] * 4 + [i] * 6 + [ll] * 9 + [i] * 5 + [f, f, vp]
+        else:                   # fma: dtype and Skv; `full` after mask
+            fn.argtypes = [vp] * 4 + [i] * 7 + [ll] * 9 + [i] * 5 + [f, f, vp]
         fn.restype = i
         _libs[route] = lib
     return _libs[route]
@@ -150,6 +152,10 @@ def _run(route, q, k, v, kind, window, softcap, q_offset, kv_len, scale):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     mask = (KINDS[kind], int(window), kv_lim, int(q_offset))
+    # tc and fma walk the whole cache, skipping no tile, when some row
+    # sees no key (the decode route's live range says the same)
+    full = int(plan.has_empty_row(Sq, kind, int(window), int(q_offset),
+                                  kv_lim))
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     if route == "decode":
         rows = Sq * (nh // nkv)
@@ -158,7 +164,7 @@ def _run(route, q, k, v, kind, window, softcap, q_offset, kv_len, scale):
                              f"{plan.DECODE_MAX_ROWS} query rows per kv "
                              f"head, got {rows}")
         k_begin, k_end = plan.live_range(Sq, kind, int(window),
-                                         int(q_offset), kv_lim)
+                                         int(q_offset), kv_lim, Skv)
         split_len, n_split = plan.split_plan(k_begin, k_end, B * nkv,
                                              _sm_count(q.device))
         # f32 scratch: the partial accumulators, then (m, l) per row
@@ -179,12 +185,12 @@ def _run(route, q, k, v, kind, window, softcap, q_offset, kv_len, scale):
                              f"16-byte aligned tensors, got {q.dtype}, "
                              f"hd {hd}")
         err = _library(route).attention_prefill_sm90_launch(
-            *ptrs, B, Sq, Skv, nh, nkv, hd, *strides, *mask,
+            *ptrs, B, Sq, Skv, nh, nkv, hd, *strides, *mask, full,
             float(softcap), float(scale), stream)
     elif route == "fma":
         err = _library(route).block_attention_launch(
-            *ptrs, DTYPES[q.dtype], B, Sq, nh, nkv, hd, *strides, *mask,
-            float(softcap), float(scale), stream)
+            *ptrs, DTYPES[q.dtype], B, Sq, Skv, nh, nkv, hd, *strides,
+            *mask, full, float(softcap), float(scale), stream)
     else:
         raise ValueError(f"unknown attention route {route!r}")
     if err:

@@ -1,7 +1,16 @@
-"""How the attention wrapper splits its work: the route a call takes and
-the split-KV plan of the decode route.  Pure functions of dtype, shapes,
-``q_offset``, ``kv_len`` and the SM count, so the CPU tests cover them
-and a call's bits depend on nothing else.
+"""How the attention wrapper splits its work: the route a call takes,
+the keys every route walks and the split-KV plan of the decode route.
+Pure functions of dtype, shapes, ``q_offset``, ``kv_len`` and the SM
+count, so the CPU tests cover them and a call's bits depend on nothing
+else.
+
+A query row that sees no key (``kv_len`` 0, or a ``local`` window wholly
+past ``kv_len``) gets the reference's answer, the mean of V over all Skv
+keys: its scores are all the finite -2^30, so the softmax is uniform.
+So when some row of a call sees no key (``has_empty_row``), every route
+walks the whole cache ``[0, Skv)`` and skips no tile; rows that do see
+keys are unchanged, since exp(-2^30 - m) is 0.  Keys past the walked
+range (the zero-filled tail of the last tile) weigh exactly 0.
 
 Routes (``ops.py`` launches one per call, decided before the launch):
 
@@ -18,7 +27,7 @@ Routes (``ops.py`` launches one per call, decided before the launch):
 from __future__ import annotations
 
 import functools
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -40,11 +49,34 @@ def choose_route(dtype, Sq: int, nh: int, nkv: int, hd: int,
     return "fma"
 
 
+def _row_sees_no_key(pos: int, kind: str, window: int,
+                     kv_lim: int) -> bool:
+    lo = max(0, pos - window + 1) if kind == "local" else 0
+    hi = kv_lim if kind == "bidir" else min(kv_lim, pos + 1)
+    return hi <= lo
+
+
+def has_empty_row(Sq: int, kind: str, window: int, q_offset: int,
+                  kv_lim: int) -> bool:
+    """Whether some query row of the call sees no key.  The rows that see
+    a key are the positions of one interval (``[0, kv_lim + window - 1)``
+    for ``local``, ``[0, inf)`` for ``causal``, all for ``bidir``, none
+    at ``kv_lim`` 0), so the first and the last row decide it."""
+    if Sq <= 0:
+        return False
+    return any(_row_sees_no_key(pos, kind, window, kv_lim)
+               for pos in (q_offset, q_offset + Sq - 1))
+
+
 def live_range(Sq: int, kind: str, window: int, q_offset: int,
-               kv_lim: int, tile: int = TILE) -> Tuple[int, int]:
-    """Keys ``[k_begin, k_end)`` that some query row of the call may see,
-    with ``k_begin`` rounded down to a whole tile (as every route walks
-    them)."""
+               kv_lim: int, skv: Optional[int] = None,
+               tile: int = TILE) -> Tuple[int, int]:
+    """Keys ``[k_begin, k_end)`` that the routes walk: those some query
+    row of the call may see, with ``k_begin`` rounded down to a whole tile
+    — or the whole cache ``[0, skv)`` when some row sees no key
+    (``skv`` defaults to ``kv_lim``)."""
+    if has_empty_row(Sq, kind, window, q_offset, kv_lim):
+        return 0, kv_lim if skv is None else skv
     pos_first, pos_last = q_offset, q_offset + Sq - 1
     k_begin, k_end = 0, kv_lim
     if kind != "bidir":

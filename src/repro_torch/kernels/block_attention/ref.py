@@ -64,7 +64,8 @@ def attention_split_kv_ref(q, k, v, *, kind: str = "causal",
                            window: int = 0, softcap: float = 0.0,
                            q_offset: int = 0, kv_len: Optional[int] = None,
                            scale: Optional[float] = None, n_sm: int = 132):
-    """What the decode route computes: the live kv range cut by
+    """What the decode route computes: the live kv range (the whole cache
+    when some row sees no key, ``plan.live_range``) cut by
     ``plan.split_plan``, each split's unnormalised partial (row max m,
     sum l, acc = sum of exp(s - m) v) in f32, merged in split order:
     out = sum_s exp(m_s - M) acc_s / max(sum_s exp(m_s - M) l_s, 1e-30)."""
@@ -73,7 +74,8 @@ def attention_split_kv_ref(q, k, v, *, kind: str = "causal",
     g = nh // nkv
     scale = scale if scale is not None else hd ** -0.5
     kv_lim = Skv if kv_len is None else max(0, min(int(kv_len), Skv))
-    k_begin, k_end = plan.live_range(Sq, kind, window, q_offset, kv_lim)
+    k_begin, k_end = plan.live_range(Sq, kind, window, q_offset, kv_lim,
+                                     Skv)
     split_len, n_split = plan.split_plan(k_begin, k_end, B * nkv, n_sm)
     dev = q.device
     qf = (q.to(torch.float32) * scale).reshape(B, Sq, nkv, g, hd)

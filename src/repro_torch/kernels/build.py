@@ -3,8 +3,9 @@
 Every ``*.cu`` under ``repro_torch/csrc/`` is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into a shared library with a plain C interface, at
 first use, into ``build/repro_torch_kernels/`` at the repository root.
-The file name carries a hash of the source and the flags, so an edited
-source builds anew and an unchanged one loads what is there.  Sources
+The file name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header builds
+anew and an unchanged one loads what is there.  Sources
 build in parallel, one ``nvcc`` each.  There is no prebuilt binary.
 
 ``nvcc`` is found as ``$CUDA_HOME/bin/nvcc``, else on ``PATH``, else at
@@ -51,6 +52,8 @@ def _nvcc() -> str:
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # the shared headers
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

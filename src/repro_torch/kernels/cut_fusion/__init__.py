@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.cut_fusion.ops import (  # noqa: F401
-    cut_fusion, launch_counts, reset_launch_counts)
+    cut_fusion, launch_counts, reset_launch_counts, route_of)
 from repro_torch.kernels.cut_fusion.ref import (  # noqa: F401
     COMBINES, cut_fusion_ref)
 

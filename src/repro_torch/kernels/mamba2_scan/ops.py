@@ -1,14 +1,18 @@
-"""Wrapper of the SSD scan kernel: the CUDA kernel
-(``repro_torch/csrc/mamba2_scan.cu``) for tensors on the card, the plain
-version (``ref.py``) for tensors on the CPU.
+"""Wrapper of the SSD scan kernels: for tensors on the card, one of two
+hand-written CUDA routes chosen by ``plan.choose_route`` before the
+launch — ``chunked`` (``repro_torch/csrc/mamba2_scan_chunked.cu``, three
+launches over chunks in parallel, on the tensor cores) or ``serial``
+(``repro_torch/csrc/mamba2_scan.cu``); the plain version (``ref.py``) for
+tensors on the CPU.
 
 The model layout is taken as it is (the reference's Pallas wrapper
 transposes to (B, H, S, P) first): x (B, S, H, P), B_in and C_in
 (B, S, G, N) are read through their strides, so slices of one
 ``conv_out`` buffer need no copy.  A CUDA tensor launches the kernel or
-raises; nothing falls back.  The wrapper counts its launches
-(``launch_counts``), so a run can show that its path went through the
-kernel.
+raises; nothing falls back to another route or to the plain version.
+The wrapper counts its calls (``launch_counts``): ``mamba2_scan`` once
+per call and ``mamba2_scan.<route>`` for the route it took, so a run can
+show which kernels its path went through.
 """
 from __future__ import annotations
 
@@ -19,11 +23,13 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.mamba2_scan import ref
+from repro_torch.kernels.mamba2_scan import plan, ref
 
 _count_lock = threading.Lock()
 #: kernel launches since the last ``reset_launch_counts``
-launch_counts: Dict[str, int] = {"mamba2_scan": 0}
+launch_counts: Dict[str, int] = {
+    "mamba2_scan": 0, **{f"mamba2_scan.{r}": 0 for r in plan.ROUTES}}
+SOURCES = {"serial": "mamba2_scan", "chunked": "mamba2_scan_chunked"}
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_DIM = 64          # the kernel's tile width: N and P up to 64
@@ -36,21 +42,40 @@ def reset_launch_counts() -> None:
             launch_counts[k] = 0
 
 
-_lib = None
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
-def _library() -> ctypes.CDLL:
-    """The built kernel library with its C signature declared (pointers
-    and the stream as ``c_void_p``, strides as 64-bit ints)."""
-    global _lib
-    if _lib is None:
-        lib = build.load("mamba2_scan")
+def _library(route: str) -> ctypes.CDLL:
+    """The built library of ``route`` with its C signature declared
+    (pointers and the stream as ``c_void_p``, strides as 64-bit ints)."""
+    if route not in _libs:
+        name = SOURCES[route]
+        lib = build.load(name)
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.mamba2_scan_launch.argtypes = (
-            [vp] * 8 + [i] * 8 + [ll] * 12 + [vp])
-        lib.mamba2_scan_launch.restype = i
-        _lib = lib
-    return _lib
+        fn = getattr(lib, f"{name}_launch")
+        if route == "serial":
+            fn.argtypes = [vp] * 8 + [i] * 8 + [ll] * 12 + [vp]
+        else:
+            fn.argtypes = [vp] * 10 + [i] * 7 + [ll] * 12 + [i, vp]
+        fn.restype = i
+        _libs[route] = lib
+    return _libs[route]
+
+
+def _aligned16(*ts) -> bool:
+    """Base pointers and the strides of all but the last dim on 16-byte
+    boundaries (cp.async's rule)."""
+    return all(t.data_ptr() % 16 == 0 and all(
+        s * t.element_size() % 16 == 0 for s in t.stride()[:-1])
+        for t in ts)
+
+
+def route_of(x, B_in, C_in, initial_state=None) -> str:
+    """The route ``mamba2_scan`` takes for CUDA tensors."""
+    Bb, _, H, P = x.shape
+    extra = () if initial_state is None else (initial_state,)
+    return plan.choose_route(x.dtype, B_in.shape[3], P, Bb * H,
+                             aligned=_aligned16(x, B_in, C_in, *extra))
 
 
 def _check(x, dt, A, B_in, C_in, initial_state):
@@ -116,25 +141,112 @@ def mamba2_scan(x, dt, A, B_in, C_in, *, chunk: int,
         return ref.ssd_chunked(x, dt, A, B_in, C_in, chunk,
                                initial_state=initial_state)
     _check(x, dt, A, B_in, C_in, initial_state)
-    Bb, S, H, P = x.shape
-    G, N = B_in.shape[2], B_in.shape[3]
+    return _run(route_of(x, B_in, C_in, initial_state), x, dt, A, B_in,
+                C_in, chunk, initial_state)
+
+
+def _launch(route, x, dt, A, B_in, C_in, *, chunk: int, initial_state=None):
+    """Check CUDA tensors, launch ``route``'s kernels and count the call.
+    ``chip_smoke.py`` and the card tests call it to run both routes on
+    one input; ``mamba2_scan`` picks the route itself."""
+    _check(x, dt, A, B_in, C_in, initial_state)
+    return _run(route, x, dt, A, B_in, C_in, chunk, initial_state)
+
+
+def _chunk_len(chunk, S):
     L = min(int(chunk), S)
     if not 1 <= L <= MAX_CHUNK:
         raise ValueError(f"mamba2_scan takes chunks of 1 to {MAX_CHUNK}, "
                          f"got {chunk}")
+    return L
+
+
+def _run(route, x, dt, A, B_in, C_in, chunk, initial_state):
+    Bb, S, H, P = x.shape
+    G, N = B_in.shape[2], B_in.shape[3]
+    L = _chunk_len(chunk, S)
     y = torch.empty((Bb, S, H, P), dtype=x.dtype, device=x.device)
     state = torch.empty((Bb, H, N, P), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _library().mamba2_scan_launch(
+    init = None if initial_state is None else initial_state.data_ptr()
+    if route == "serial":
+        err = _library(route).mamba2_scan_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_in.data_ptr(),
+            C_in.data_ptr(), init, y.data_ptr(), state.data_ptr(),
+            DTYPES[x.dtype], Bb, S, H, P, G, N, L,
+            *x.stride()[:3], *dt.stride(), *B_in.stride()[:3],
+            *C_in.stride()[:3], torch.cuda.current_stream(
+                x.device).cuda_stream)
+    elif route == "chunked":
+        if route_of(x, B_in, C_in, initial_state) != "chunked":
+            raise ValueError(
+                f"the chunked route takes bf16 with N and P multiples of "
+                f"16 up to {plan.CHUNKED_MAX_DIM} and 16-byte aligned "
+                f"tensors, got {x.dtype}, N {N}, P {P}")
+        scratch = _chunked_scratch(Bb, H, -(-S // L), N, P, x.device)
+        err = _chunked(3, x, dt, A, B_in, C_in, initial_state, y, *scratch,
+                       state, L)
+    else:
+        raise ValueError(f"unknown scan route {route!r}")
+    if err:
+        raise RuntimeError(f"mamba2_scan {route} launch failed: "
+                           f"cudaError {err}")
+    with _count_lock:
+        launch_counts["mamba2_scan"] += 1
+        launch_counts[f"mamba2_scan.{route}"] += 1
+    return y, state
+
+
+def _chunked_scratch(Bb, H, nc, N, P, device):
+    """f32 chunk states (Bb, H, nc, N, P) and totals (Bb, H, nc)."""
+    return (torch.empty((Bb, H, nc, N, P), dtype=torch.float32,
+                        device=device),
+            torch.empty((Bb, H, nc), dtype=torch.float32, device=device))
+
+
+def _chunked(stage, x, dt, A, B_in, C_in, initial_state, y, states, totals,
+             final, L):
+    """Launch stage 0 (chunk states), 1 (state passing), 2 (chunk
+    outputs) or 3 (all three) of the chunked route."""
+    Bb, S, H, P = x.shape
+    G, N = B_in.shape[2], B_in.shape[3]
+    return _library("chunked").mamba2_scan_chunked_launch(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_in.data_ptr(),
         C_in.data_ptr(),
         None if initial_state is None else initial_state.data_ptr(),
-        y.data_ptr(), state.data_ptr(),
-        DTYPES[x.dtype], Bb, S, H, P, G, N, L,
-        *x.stride()[:3], *dt.stride(), *B_in.stride()[:3],
-        *C_in.stride()[:3], stream)
+        y.data_ptr(), states.data_ptr(), totals.data_ptr(), final.data_ptr(),
+        Bb, S, H, P, G, N, L, *x.stride()[:3], *dt.stride(),
+        *B_in.stride()[:3], *C_in.stride()[:3], stage,
+        torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def chunked_stage(stage: str, x, dt, A, B_in, C_in, *, chunk: int,
+                  states=None, totals=None, initial_state=None):
+    """One kernel of the chunked route on CUDA tensors, for the card
+    tests to hold it against its plain stage function:
+
+      "states":  -> (states, totals)             (ref.ssd_chunk_states)
+      "passing": states, totals -> (incoming, final); ``states`` is
+                 overwritten with the incoming states (ref.ssd_state_passing)
+      "output":  states = the incoming states -> y (ref.ssd_chunk_output)
+
+    Uncounted: it is a probe, not a path."""
+    _check(x, dt, A, B_in, C_in, initial_state)
+    if route_of(x, B_in, C_in, initial_state) != "chunked":
+        raise ValueError("chunked_stage takes what the chunked route takes")
+    Bb, S, H, P = x.shape
+    N = B_in.shape[3]
+    L = _chunk_len(chunk, S)
+    y = torch.empty((Bb, S, H, P), dtype=x.dtype, device=x.device)
+    final = torch.empty((Bb, H, N, P), dtype=torch.float32, device=x.device)
+    if stage == "states":
+        states, totals = _chunked_scratch(Bb, H, -(-S // L), N, P, x.device)
+    else:
+        states, totals = states.contiguous(), totals.contiguous()
+    code = {"states": 0, "passing": 1, "output": 2}[stage]
+    err = _chunked(code, x, dt, A, B_in, C_in, initial_state, y, states,
+                   totals, final, L)
     if err:
-        raise RuntimeError(f"mamba2_scan launch failed: cudaError {err}")
-    with _count_lock:
-        launch_counts["mamba2_scan"] += 1
-    return y, state
+        raise RuntimeError(f"mamba2_scan chunked stage {stage} failed: "
+                           f"cudaError {err}")
+    return {"states": (states, totals), "passing": (states, final),
+            "output": y}[stage]

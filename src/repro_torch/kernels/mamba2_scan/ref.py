@@ -6,7 +6,9 @@ product with a triangle of ones, since ``torch.cumsum`` refuses CUDA
 tensors in deterministic mode.
 
 The CPU runs it through the wrapper in ``ops.py``; ``chip_smoke.py``
-holds the CUDA kernel against it on the card.
+holds the CUDA kernels against it on the card.  The chunk-parallel
+stage functions below are the plain versions of the ``chunked`` route's
+three kernels, one each.
 """
 from __future__ import annotations
 
@@ -81,3 +83,98 @@ def ssd_chunked(x, dt, A, B_in, C_in, chunk: int, initial_state=None):
 
     y = torch.stack(ys, dim=1).reshape(Bb, nc * L, H, P)[:, :S]
     return y.to(x.dtype), s
+
+
+# ---------------------------------------------------------------------------
+# The chunk-parallel decomposition the ``chunked`` route runs as three
+# launches (csrc/mamba2_scan_chunked.cu): the chunks' own states, the
+# state passing across chunks, and each chunk's output.  Chained, they
+# compute what ``ssd_chunked`` computes.  Layouts are the kernels':
+# states (B, H, nc, N, P) and totals (B, H, nc), in f32.
+# ---------------------------------------------------------------------------
+
+def _chunks(x, dt, B_in, C_in, chunk):
+    """The inputs padded to whole chunks, in f32, per head: x (B, nc, L,
+    H, P), dt (B, nc, L, H), B and C (B, nc, L, H, N); and L."""
+    Bb, S, H, P = x.shape
+    G, N = B_in.shape[2], B_in.shape[3]
+    L = min(chunk, S)
+    nc = -(-S // L)
+    pad = nc * L - S
+
+    def padded(a):
+        if pad:
+            a = F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad))
+        return a.to(torch.float32)
+
+    xc = padded(x).reshape(Bb, nc, L, H, P)
+    dtc = padded(dt).reshape(Bb, nc, L, H)
+    Bh = padded(B_in).reshape(Bb, nc, L, G, N).repeat_interleave(H // G, 3)
+    Ch = padded(C_in).reshape(Bb, nc, L, G, N).repeat_interleave(H // G, 3)
+    return xc, dtc, Bh, Ch, L
+
+
+def _cum(dtc, A, L):
+    """Inclusive prefix sums of dt A inside each chunk (B, nc, L, H), as a
+    product with a triangle of ones (deterministic on the card)."""
+    upper = torch.triu(torch.ones((L, L), dtype=torch.float32,
+                                  device=dtc.device))      # [k, i] = k <= i
+    return torch.einsum("bckh,ki->bcih", dtc * A.to(torch.float32), upper)
+
+
+def ssd_chunk_states(x, dt, A, B_in, chunk: int):
+    """Stage (a): each chunk's own state, from a zero state,
+    s_c = sum_j exp(cum_L - cum_j) dt_j B_j^T x_j, and cum_L.
+    Returns (states (B, H, nc, N, P), totals (B, H, nc)), f32."""
+    xc, dtc, Bh, _, L = _chunks(x, dt, B_in, B_in, chunk)
+    cum = _cum(dtc, A, L)
+    total = cum[:, :, -1]                                   # (B, nc, H)
+    w = torch.exp(total[:, :, None] - cum) * dtc            # (B, nc, L, H)
+    states = torch.einsum("bclh,bclhn,bclhp->bhcnp", w, Bh, xc)
+    return states.contiguous(), total.permute(0, 2, 1).contiguous()
+
+
+def ssd_state_passing(states, totals, initial_state=None):
+    """Stage (b): S_c = exp(total_c) S_{c-1} + s_c over the chunks in
+    order, from ``initial_state`` (zeros when None).  Returns (each
+    chunk's incoming state S_{c-1} (B, H, nc, N, P), the final state
+    (B, H, N, P)), f32."""
+    Bb, H, nc, N, P = states.shape
+    s = (torch.zeros((Bb, H, N, P), dtype=torch.float32,
+                     device=states.device) if initial_state is None
+         else initial_state.to(torch.float32))
+    incoming = []
+    for c in range(nc):
+        incoming.append(s)
+        s = torch.exp(totals[:, :, c])[..., None, None] * s + states[:, :, c]
+    return torch.stack(incoming, 2), s
+
+
+def ssd_chunk_output(x, dt, A, B_in, C_in, incoming, chunk: int):
+    """Stage (c): y_i = sum_{j <= i} (C_i . B_j) exp(cum_i - cum_j) dt_j
+    x_j + exp(cum_i) C_i S_{c-1} for every chunk at once, the mask before
+    the exp.  Returns y (B, S, H, P) in x's dtype."""
+    Bb, S, H, P = x.shape
+    xc, dtc, Bh, Ch, L = _chunks(x, dt, B_in, C_in, chunk)
+    cum = _cum(dtc, A, L)                                   # (B, nc, L, H)
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+    diff = cum[:, :, :, None] - cum[:, :, None]             # (B,nc,i,j,H)
+    Ldec = torch.exp(torch.where(mask[None, None, :, :, None], diff,
+                                 torch.full_like(diff, -torch.inf)))
+    scores = torch.einsum("bcihn,bcjhn->bcijh", Ch, Bh)
+    M = scores * Ldec * dtc[:, :, None]
+    y = torch.einsum("bcijh,bcjhp->bcihp", M, xc)
+    y = y + torch.einsum("bcihn,bhcnp->bcihp",
+                         Ch * torch.exp(cum)[..., None], incoming)
+    nc = xc.shape[1]
+    return y.reshape(Bb, nc * L, H, P)[:, :S].to(x.dtype)
+
+
+def ssd_chunk_parallel(x, dt, A, B_in, C_in, chunk: int,
+                       initial_state=None):
+    """The three stages chained: what the ``chunked`` route computes.
+    Returns (y (B, S, H, P) in x's dtype, final_state (B, H, N, P) f32),
+    as ``ssd_chunked``."""
+    states, totals = ssd_chunk_states(x, dt, A, B_in, chunk)
+    incoming, final = ssd_state_passing(states, totals, initial_state)
+    return ssd_chunk_output(x, dt, A, B_in, C_in, incoming, chunk), final

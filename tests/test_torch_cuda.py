@@ -124,6 +124,20 @@ ROUTE_CASES = [
 ]
 
 
+# calls in which some query row sees no key (the reference gives such a
+# row the mean of V over all Skv keys): kv_len 0, a local window wholly
+# past kv_len, and windows that leave only the last rows empty; decode
+# for at most 64 rows per kv head, else tc in bf16 and fma in f32
+EMPTY_ROW_CASES = [
+    (2, 1, 96, 6, 2, 64, "causal", 0, 0.0, 40, 0),
+    (1, 1, 80, 4, 4, 32, "local", 8, 0.0, 90, 60),
+    (1, 16, 130, 4, 2, 64, "local", 8, 0.0, 100, 105),
+    (1, 128, 200, 4, 2, 64, "local", 16, 0.0, 40, 100),
+    (2, 100, 150, 4, 4, 64, "causal", 0, 10.0, 0, 0),
+    (1, 80, 96, 2, 2, 32, "bidir", 0, 0.0, 0, 0),
+]
+
+
 # the reference's cut-fusion cases (tests/test_kernels.py CUT_CASES):
 # P, T, k, d, combine
 CUT_CASES = [
@@ -260,6 +274,33 @@ def test_attention_kernel_matches_plain_on_card(cuda_device, case, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", EMPTY_ROW_CASES)
+def test_attention_routes_on_rows_with_no_key_on_card(cuda_device, case,
+                                                      dtype):
+    """On the card: a row that sees no key gets the plain version's (and
+    the reference's) mean of V on each of decode, tc and fma, and the
+    rows that see keys are unchanged."""
+    B, Sq, Skv, nh, nkv, hd, kind, window, cap, q_offset, kv_len = case
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+               for a in attn_inputs(B, Sq, Skv, nh, nkv, hd))
+    kw = dict(kind=kind, window=window, softcap=cap, q_offset=q_offset,
+              kv_len=kv_len)
+    assert attn_plan.has_empty_row(Sq, kind, window, q_offset,
+                                   min(kv_len, Skv))
+    want = attn_kernel.attention_ref(q, k, v, **kw)
+    for route in attn_plan.ROUTES:
+        if route == "decode" and Sq * nh // nkv > attn_plan.DECODE_MAX_ROWS:
+            continue
+        if route == "tc" and dtype != torch.bfloat16:
+            continue
+        got = attn_kernel.ops._launch(route, q, k, v, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **attn_tol(dtype))
+
+
+@pytest.mark.cuda
 def test_attention_wrapper_refuses_what_the_kernel_does_not_take(
         cuda_device):
     q = torch.zeros((1, 4, 2, 64), device=cuda_device)
@@ -380,6 +421,104 @@ def test_scan_kernel_matches_plain_on_card(cuda_device, case, dtype, init):
     torch.testing.assert_close(st, sr, **attn_tol(dtype))
 
 
+def _scan_case(case, dtype, device, init, seed=0):
+    B, S, H, P, G, N, chunk = case
+    x, dt, A, Bi, Ci = scan_inputs(B, S, H, P, G, N, seed)
+    xv, bv, cv = conv_out_views(x, Bi, Ci, dtype, device)
+    dt, A = (torch.from_numpy(a).to(device) for a in (dt, A))
+    s0 = None
+    if init:
+        s0 = torch.from_numpy(np.random.default_rng(1).normal(
+            size=(B, H, N, P)).astype(np.float32)).to(device)
+    return xv, dt, A, bv, cv, s0
+
+
+# the bf16 cases the chunked route takes: the SSD cases with N and P
+# multiples of 16, a ragged last chunk of one row, a chunk not a
+# multiple of the 64-row tile, and the zamba2 prefills
+CHUNKED_CASES = [c for c in SSD_CASES if c[3] % 16 == 0 and c[5] % 16 == 0
+                 ] + [(2, 257, 4, 64, 1, 64, 256), (1, 500, 3, 48, 3, 32, 100),
+                      (4, 512, 80, 64, 1, 64, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CHUNKED_CASES)
+@pytest.mark.parametrize("init", [False, True], ids=["zero", "state"])
+def test_chunked_scan_matches_serial_and_plain_on_card(cuda_device, case,
+                                                       init):
+    """bf16: the chunked route against the plain version and against the
+    serial route on the same inputs, ragged last chunks and an initial
+    state included; the route counters sum to the call counter."""
+    xv, dt, A, bv, cv, s0 = _scan_case(case, torch.bfloat16, cuda_device,
+                                       init)
+    chunk = case[-1]
+    assert scan_kernel.route_of(xv, bv, cv, s0) == "chunked"
+    n0 = dict(scan_kernel.launch_counts)
+    y, st = scan_kernel.mamba2_scan(xv, dt, A, bv, cv, chunk=chunk,
+                                    initial_state=s0)
+    ys, ss = scan_kernel.ops._launch("serial", xv, dt, A, bv, cv,
+                                     chunk=chunk, initial_state=s0)
+    torch.cuda.synchronize()
+    n = {k: c - n0[k] for k, c in scan_kernel.launch_counts.items()}
+    assert n == {"mamba2_scan": 2, "mamba2_scan.chunked": 1,
+                 "mamba2_scan.serial": 1}
+    yr, sr = scan_kernel.ssd_chunked(xv, dt, A, bv, cv, chunk,
+                                     initial_state=s0)
+    tol = attn_tol(torch.bfloat16)
+    torch.testing.assert_close(y.float(), yr.float(), **tol)
+    torch.testing.assert_close(st, sr, **tol)
+    torch.testing.assert_close(y.float(), ys.float(), **tol)
+    torch.testing.assert_close(st, ss, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CHUNKED_CASES)
+def test_chunked_scan_stages_match_their_plain_stages_on_card(cuda_device,
+                                                              case):
+    """Each kernel of the chunked route against its plain stage function
+    on the same inputs: (a) chunk states and totals, (b) incoming states
+    and the final state, (c) the chunk outputs."""
+    from repro_torch.kernels.mamba2_scan import ref
+    xv, dt, A, bv, cv, s0 = _scan_case(case, torch.bfloat16, cuda_device,
+                                       True)
+    chunk = case[-1]
+    tol = attn_tol(torch.bfloat16)
+    states, totals = scan_kernel.ops.chunked_stage(
+        "states", xv, dt, A, bv, cv, chunk=chunk)
+    pst, ptot = ref.ssd_chunk_states(xv, dt, A, bv, chunk)
+    torch.testing.assert_close(states, pst, **tol)
+    torch.testing.assert_close(totals, ptot, atol=1e-5, rtol=1e-5)
+    # (b) and (c) from the plain stages' inputs, so each stage is held
+    # alone
+    incoming, final = scan_kernel.ops.chunked_stage(
+        "passing", xv, dt, A, bv, cv, chunk=chunk, states=pst.clone(),
+        totals=ptot, initial_state=s0)
+    pin, pfin = ref.ssd_state_passing(pst, ptot, s0)
+    torch.testing.assert_close(incoming, pin, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(final, pfin, atol=1e-5, rtol=1e-5)
+    y = scan_kernel.ops.chunked_stage("output", xv, dt, A, bv, cv,
+                                      chunk=chunk, states=pin.contiguous(),
+                                      totals=ptot)
+    torch.testing.assert_close(
+        y.float(), ref.ssd_chunk_output(xv, dt, A, bv, cv, pin,
+                                        chunk).float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["chunked", "serial"])
+def test_scan_routes_are_deterministic_on_card(cuda_device, route):
+    """Two calls on the same inputs give the same bits (no atomics, a
+    fixed order for every sum)."""
+    xv, dt, A, bv, cv, s0 = _scan_case((4, 1024, 80, 64, 1, 64, 256),
+                                       torch.bfloat16, cuda_device, True)
+    a = scan_kernel.ops._launch(route, xv, dt, A, bv, cv, chunk=256,
+                                initial_state=s0)
+    b = scan_kernel.ops._launch(route, xv, dt, A, bv, cv, chunk=256,
+                                initial_state=s0)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
 @pytest.mark.cuda
 def test_scan_kernel_is_chunk_independent_on_card(cuda_device):
     x, dt, A, Bi, Ci = (torch.from_numpy(a).to(cuda_device) for a in
@@ -456,6 +595,7 @@ def test_zamba2_serving_never_reaches_the_plain_scan(cuda_device,
     rng = np.random.default_rng(0)
     for _ in range(3):
         eng.submit(rng.integers(0, cfg.vocab, 128))
+    n0 = dict(scan_kernel.launch_counts)
     n_scan = scan_kernel.launch_counts["mamba2_scan"]
     n_attn = attn_kernel.launch_counts["block_attention"]
     out = eng.run()
@@ -463,6 +603,9 @@ def test_zamba2_serving_never_reaches_the_plain_scan(cuda_device,
     # 2 owners x 2 head units + 1 trunk unit, 5 mamba2 blocks and one
     # shared attention block each; two waves of a prefill + 3 decode ticks
     assert scan_kernel.launch_counts["mamba2_scan"] - n_scan == 2 * 5 * 5
+    assert sum(scan_kernel.launch_counts[f"mamba2_scan.{r}"]
+               - n0[f"mamba2_scan.{r}"] for r in scan_kernel.ops.plan.ROUTES) \
+        == 2 * 5 * 5
     assert attn_kernel.launch_counts["block_attention"] - n_attn == \
         2 * 5 * 4
 
@@ -491,6 +634,73 @@ def test_cut_fusion_kernel_matches_plain_on_card(cuda_device, case, dtype):
     # deterministic: the same bits on every call
     assert torch.equal(cf.cut_fusion(z, w, combine),
                        cf.cut_fusion(z, w, combine))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cut_fusion_rows_do_not_depend_on_T_on_card(cuda_device, dtype):
+    """A row's bits do not depend on T or the tile plan: the first 32 rows
+    of a call equal a call on those 32 rows, bit for bit (f32: fma route,
+    bf16 at an aligned width: tc route), at the training path's width and
+    the benchmark's."""
+    from repro_torch.kernels import cut_fusion as cf
+    for P, T, K, D in ((2, 242, 64, 512), (2, 4096, 512, 1024)):
+        z, w = (torch.from_numpy(a).to(cuda_device, dtype)
+                for a in cut_inputs(P, T, K, D))
+        for combine in ("concat", "sum", "mean"):
+            full = cf.cut_fusion(z, w, combine)
+            head = cf.cut_fusion(z[:, :32].contiguous(), w, combine)
+            torch.cuda.synchronize()
+            assert cf.route_of(z, w, combine) == (
+                "tc" if dtype == torch.bfloat16 else "fma")
+            assert torch.equal(head, full[:32])
+
+
+# bf16 on the tc route with ragged T, k and d (multiples of 8 that are
+# not of the 128 x 64 boxes), one and several owners
+TC_CASES = [(2, 100, 72, 136, "concat"), (3, 129, 8, 8, "concat"),
+            (1, 300, 520, 264, "concat"), (2, 257, 40, 200, "sum"),
+            (4, 70, 64, 128, "mean")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TC_CASES)
+def test_cut_fusion_tc_route_on_ragged_shapes_on_card(cuda_device, case):
+    """The tensor-core route against the plain version and against the
+    fma route on the same bf16 inputs, and repeatable bit for bit."""
+    from repro_torch.kernels import cut_fusion as cf
+    P, T, K, D, combine = case
+    z, w = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+            for a in cut_inputs(P, T, K, D))
+    assert cf.route_of(z, w, combine) == "tc"
+    n0 = dict(cf.launch_counts)
+    got = cf.cut_fusion(z, w, combine)
+    fma = cf.ops._launch("fma", z, w, combine)
+    torch.cuda.synchronize()
+    n = {k: c - n0[k] for k, c in cf.launch_counts.items()}
+    assert n == {"cut_fusion": 2, "cut_fusion.tc": 1, "cut_fusion.fma": 1}
+    want = cf.cut_fusion_ref(z, w, combine=combine)
+    tol = attn_tol(torch.bfloat16)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    torch.testing.assert_close(got.float(), fma.float(), **tol)
+    assert torch.equal(got, cf.cut_fusion(z, w, combine))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,dtype", [("fma", torch.float32),
+                                         ("fma", torch.bfloat16),
+                                         ("tc", torch.bfloat16)])
+def test_cut_fusion_routes_are_deterministic_on_card(cuda_device, route,
+                                                     dtype):
+    """The benchmark shape, twice: the same bits (fixed (p, k) order, no
+    split-K or atomics)."""
+    from repro_torch.kernels import cut_fusion as cf
+    z, w = (torch.from_numpy(a).to(cuda_device, dtype)
+            for a in cut_inputs(2, 4096, 512, 1024))
+    a = cf.ops._launch(route, z, w)
+    b = cf.ops._launch(route, z, w)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
