@@ -138,6 +138,11 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
   constexpr int ZF = BM * LDZ, WF = BK * BN;  // floats per z and w tile
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, tx = tid % NTX, ty = tid / NTX;
+  // the tile column of a thread's j-th output: runs of 4 (16-byte loads
+  // of the w tile) when TN allows, else every NTX-th
+  auto col = [](int tx, int j) {
+    return TN % 4 == 0 ? (j / 4) * NTX * 4 + tx * 4 + j % 4 : tx + j * NTX;
+  };
   const int nd = (D + BN - 1) / BN;
   const int t0 = (blockIdx.x / nd) * BM, d0 = (blockIdx.x % nd) * BN;
   const bool concat = combine == kConcat;
@@ -195,8 +200,20 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         float b[TN];
+        if constexpr (TN % 4 == 0) {     // 16-byte loads of 4 columns
 #pragma unroll
-        for (int j = 0; j < TN; ++j) b[j] = ws[(kk + u) * BN + tx + j * NTX];
+          for (int j4 = 0; j4 < TN / 4; ++j4) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                ws + (kk + u) * BN + col(tx, 4 * j4));
+            b[4 * j4] = v.x;
+            b[4 * j4 + 1] = v.y;
+            b[4 * j4 + 2] = v.z;
+            b[4 * j4 + 3] = v.w;
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < TN; ++j) b[j] = ws[(kk + u) * BN + col(tx, j)];
+        }
 #pragma unroll
         for (int i = 0; i < TM; ++i) {
           const float av = u == 0 ? a[i].x : u == 1 ? a[i].y
@@ -216,7 +233,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
     if (t >= Tn) continue;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
-      const int d = d0 + tx + j * NTX;
+      const int d = d0 + col(tx, j);
       if (d < D) store(out + (long long)t * D + d, acc[i][j]);
     }
   }

@@ -39,10 +39,17 @@
 //
 // What bounds it: at the serving shapes (L = 256, N = P = 64) the work is
 // about 49 flops per byte moved, below the card's bf16 ridge, so a kernel
-// at the card's limit would be bound by bytes.  This first design runs f32
-// FMAs on the CUDA cores (no wgmma, no TMA), reloads the B and x tiles
-// once per i tile (from L2) and computes whole diagonal tiles: it is bound
-// by its FMA issue rate, far from either limit.
+// at the card's limit would be bound by bytes.  This design runs f32 FMAs
+// on the CUDA cores (no tensor cores), walks the chunks one after another
+// in 320 blocks at zamba2's trunk prefill (2.4 waves on 132 SMs), reloads
+// the B and x tiles once per i tile (from L2) and computes whole diagonal
+// tiles: it is bound by its FMA issue rate and the serial chunk walk, far
+// from either limit (~13 TFLOP/s).  It is the `serial` route of
+// mamba2_scan/ops.py: f32 calls (the 2e-4 tolerance rules out bf16
+// operands) and widths or alignments the chunked route does not take.
+// bf16 calls with N and P multiples of 16 up to 64 — every prefill scan of
+// zamba2-2.7b — take csrc/mamba2_scan_chunked.cu, which runs the chunks in
+// parallel on the tensor cores.
 
 #include <cstdint>
 #include <cuda_bf16.h>

@@ -30,15 +30,17 @@
 //   (b) ssd_state_pass, elementwise over (batch x head, N x P),
 //       sequential over the chunks only:
 //         S_c = exp(total_c) S_{c-1} + s_c,  S_{-1} = initial_state
-//       overwriting each s_c with the chunk's incoming state S_{c-1},
-//       and writing the final state.
+//       writing each chunk's incoming state S_{c-1} (as bf16 hi and lo
+//       planes) and the final state.
 //   (c) ssd_chunk_out, one block per (64-row i tile, chunk, batch x
 //       head), heavier i tiles first:
 //         y_i = sum_{j <= i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j
 //             + exp(cum_i) C_i S_{c-1}
 //       j tiles above the diagonal skipped, the mask applied before the
-//       exp (j > i would overflow), the next j tile's B and x loaded by
-//       cp.async while the current one is multiplied.
+//       exp (j > i would overflow), the decay exp(cum_i - cum_j) by the
+//       SFU's ex2.approx (an accurate expf per score took a quarter of
+//       the kernel's time), the next j tile's B and x loaded by cp.async
+//       while the current one is multiplied.
 //
 // Rounding: three f32 operands feed the bf16 products: (1) B_j
 // exp(cum_L - cum_j) dt_j in (a); (2) the incoming state S_{c-1} in (c);
@@ -52,12 +54,14 @@
 // Every sum is f32, in a fixed order; no atomics, so equal inputs give
 // equal bits.
 //
-// Bytes: the f32 chunk states add 2 x B x H x (S / L) x N x P x 4 bytes
-// (written by (a), read and rewritten by (b), read by (c)): ~21 MB at the
-// trunk prefill (4 x 80 x 4 chunks x 16 KB), beside ~42 MB each of bf16
-// x and y; the bound (chip_smoke.py::scan_bound) counts the inputs and
-// outputs only.  Tiles are padded to N = P = 64 in shared memory (zeros),
-// rows past the sequence are zeros, so every product is whole.
+// Bytes: the chunk states add B x H x (S / L) x N x P x 4 bytes twice:
+// s_c in f32 (written by (a), read by (b)) and S_{c-1} as hi and lo
+// (written by (b), read by every i tile of (c)): ~21 MB each at the trunk
+// prefill (4 x 80 x 4 chunks x 16 KB), beside ~42 MB each of bf16 x
+// (read by (a) and by (c)) and y; the bound (chip_smoke.py::scan_bound)
+// counts the inputs and outputs once.  Tiles are padded to N = P = 64 in
+// shared memory (zeros), rows past the sequence are zeros, so every
+// product is whole.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -83,7 +87,8 @@ struct Params {
   const bf16* C;
   const float* init;               // (Bb, H, N, P) f32, or null for zeros
   bf16* y;                         // (Bb, S, H, P) contiguous
-  float* states;                   // (Bb, H, nc, N, P): s_c, then S_{c-1}
+  float* states;                   // (Bb, H, nc, N, P): s_c
+  bf16* incoming;                  // (Bb, H, nc, 2, N, P): S_{c-1} hi, lo
   float* totals;                   // (Bb, H, nc): cum_L of each chunk
   float* final_state;              // (Bb, H, N, P)
   int S, H, P, G, N, L, nc;
@@ -92,6 +97,14 @@ struct Params {
   long long bs_b, bs_s, bs_g;
   long long cs_b, cs_s, cs_g;
 };
+
+// e^x by the SFU: 2^(x log2 e) with ex2.approx (about 2 ulp, far inside
+// the bf16 tolerance; x <= 0 here, and a masked entry is never taken).
+__device__ __forceinline__ float fast_exp(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
 
 // v as hi + lo, two bf16 pairs: hi = bf16(v), lo = bf16(v - hi).
 __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
@@ -186,13 +199,19 @@ __device__ __forceinline__ void frag_b_nk(uint32_t (&b)[4], uint32_t tile,
 }
 
 // (a) one block per (chunk, batch x head); warp w computes rows
-// [16 w, 16 w + 16) of s_c (n) over all 64 (padded) columns p.
+// [16 w, 16 w + 16) of s_c (n) over all 64 (padded) columns p.  B and x
+// come in 64-row tiles through a two-stage cp.async ring (the first
+// tile's loads in flight during the prefix sums); each B tile is scaled
+// and split into hi and lo in shared memory before its products.
 __global__ void __launch_bounds__(kThreads) ssd_chunk_state(Params p) {
   extern __shared__ __align__(16) uint8_t smem[];
-  bf16* sB = reinterpret_cast<bf16*>(smem);                // [j][n], scaled:
-  bf16* sBl = reinterpret_cast<bf16*>(smem + kTileBytes);  //   hi, lo
-  bf16* sX = reinterpret_cast<bf16*>(smem + 2 * kTileBytes);   // [j][p]
-  float* sCum = reinterpret_cast<float*>(smem + 3 * kTileBytes);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t tB = base, tBl = base + kTileBytes;   // scaled B: hi, lo
+  const uint32_t tR0 = base + 2 * kTileBytes;          // raw B [2][j][n]
+  const uint32_t tX0 = base + 4 * kTileBytes;          // x [2][j][p]
+  bf16* sB = reinterpret_cast<bf16*>(smem);
+  bf16* sBl = reinterpret_cast<bf16*>(smem + kTileBytes);
+  float* sCum = reinterpret_cast<float*>(smem + 6 * kTileBytes);
   float* sDt = sCum + p.L;
   __shared__ float sWarp[kThreads / 32];
 
@@ -200,8 +219,12 @@ __global__ void __launch_bounds__(kThreads) ssd_chunk_state(Params p) {
   const int b = bh / p.H, h = bh % p.H, g = h / (p.H / p.G);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int row0 = c * p.L, live = min(p.L, p.S - row0);
+  const int nj = (live + kT - 1) / kT;
   const bf16* X = p.x + b * p.xs_b + h * p.xs_h + (long long)row0 * p.xs_s;
   const bf16* Bm = p.B + b * p.bs_b + g * p.bs_g + (long long)row0 * p.bs_s;
+  tile_async(tR0, Bm, p.bs_s, 0, live, p.N);
+  tile_async(tX0, X, p.xs_s, 0, live, p.P);
+  cp_async_commit();
   chunk_prefix(sCum, sDt, sWarp, p.dt + b * p.ds_b + h * p.ds_h +
                                      (long long)row0 * p.ds_s,
                p.ds_s, p.A[h], live, p.L);
@@ -211,37 +234,42 @@ __global__ void __launch_bounds__(kThreads) ssd_chunk_state(Params p) {
   float acc[8][4];
 #pragma unroll
   for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
-  const uint32_t tB = smem_u32(sB), tBl = smem_u32(sBl), tX = smem_u32(sX);
 
-  for (int j0 = 0; j0 < live; j0 += kT) {
-    __syncthreads();               // the last tile's fragments are read
-    // B_j exp(cum_L - cum_j) dt_j as hi + lo bf16 (operand 1); x_j as
-    // it is; 8 columns per 16-byte load
-    for (int i = tid; i < kT * (kT / 8); i += kThreads) {
-      const int r = i / (kT / 8), col = (i % (kT / 8)) * 8, j = j0 + r;
-      uint4 bv = make_uint4(0, 0, 0, 0), bl = bv, xv = bv;
-      if (j < live && col < p.N) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(
-            Bm + (long long)j * p.bs_s + col);
-        const float w = expf(total - sCum[j]) * sDt[j];
-        const uint32_t in[4] = {raw.x, raw.y, raw.z, raw.w};
-        uint32_t hi[4], lo[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(&in[e]));
-          split_bf16(f.x * w, f.y * w, hi[e], lo[e]);
-        }
-        bv = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-        bl = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-      }
-      if (j < live && col < p.P)
-        xv = *reinterpret_cast<const uint4*>(X + (long long)j * p.xs_s + col);
-      *reinterpret_cast<uint4*>(sB + r * kLd + col) = bv;
-      *reinterpret_cast<uint4*>(sBl + r * kLd + col) = bl;
-      *reinterpret_cast<uint4*>(sX + r * kLd + col) = xv;
+  for (int t = 0; t < nj; ++t) {
+    const int j0 = t * kT;
+    if (t + 1 < nj) {              // the next tile, into the other buffer
+      const uint32_t nb = ((t + 1) & 1) * kTileBytes;
+      tile_async(tR0 + nb, Bm, p.bs_s, j0 + kT, live, p.N);
+      tile_async(tX0 + nb, X, p.xs_s, j0 + kT, live, p.P);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    // B_j exp(cum_L - cum_j) dt_j as hi + lo bf16 (operand 1), 8 columns
+    // at a time
+    const bf16* raw = reinterpret_cast<const bf16*>(
+        smem + 2 * kTileBytes + (t & 1) * kTileBytes);
+    for (int i = tid; i < kT * (kT / 8); i += kThreads) {
+      const int r = i / (kT / 8), col = (i % (kT / 8)) * 8, j = j0 + r;
+      const float w = j < live ? expf(total - sCum[j]) * sDt[j] : 0.0f;
+      const uint4 rv = *reinterpret_cast<const uint4*>(raw + r * kLd + col);
+      const uint32_t in[4] = {rv.x, rv.y, rv.z, rv.w};
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&in[e]));
+        split_bf16(f.x * w, f.y * w, hi[e], lo[e]);
+      }
+      *reinterpret_cast<uint4*>(sB + r * kLd + col) =
+          make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(sBl + r * kLd + col) =
+          make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+    __syncthreads();
+    const uint32_t tX = tX0 + (t & 1) * kTileBytes;
 #pragma unroll
     for (int kk = 0; kk < kT / 16; ++kk) {
       uint32_t a[4], al[4];
@@ -257,6 +285,7 @@ __global__ void __launch_bounds__(kThreads) ssd_chunk_state(Params p) {
         mma_bf16(acc[nt + 1], al, bb[2], bb[3]);
       }
     }
+    __syncthreads();               // both buffers of tile t are free
   }
 
   // acc[nt][e]: row n = 16 warp + lane / 4 + 8 (e >> 1), column
@@ -276,8 +305,12 @@ __global__ void __launch_bounds__(kThreads) ssd_chunk_state(Params p) {
 }
 
 // (b) four consecutive (n, p) entries of one (batch, head) per thread,
-// the chunks in order.
+// the chunks in order; the loads of up to 8 chunks are issued before
+// their chain of FMAs, so one memory latency covers them.  Each chunk's
+// incoming state is written as bf16 hi and lo planes, the form (c)
+// multiplies, so (c) copies it with cp.async.
 __global__ void __launch_bounds__(kThreads) ssd_state_pass(Params p) {
+  constexpr int kBatch = 8;
   const int bh = blockIdx.y;
   const int np = p.N * p.P;
   const int e = (blockIdx.x * kThreads + threadIdx.x) * 4;
@@ -285,14 +318,31 @@ __global__ void __launch_bounds__(kThreads) ssd_state_pass(Params p) {
   float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   if (p.init != nullptr)
     s = *reinterpret_cast<const float4*>(p.init + (long long)bh * np + e);
-  for (int c = 0; c < p.nc; ++c) {
-    float4* at = reinterpret_cast<float4*>(
-        p.states + ((long long)bh * p.nc + c) * np + e);
-    const float4 sc = *at;
-    *at = s;                       // the chunk's incoming state
-    const float et = expf(p.totals[(long long)bh * p.nc + c]);
-    s = make_float4(fmaf(et, s.x, sc.x), fmaf(et, s.y, sc.y),
-                    fmaf(et, s.z, sc.z), fmaf(et, s.w, sc.w));
+  const float4* st = reinterpret_cast<const float4*>(
+      p.states + (long long)bh * p.nc * np + e);
+  const float* tot = p.totals + (long long)bh * p.nc;
+  for (int c0 = 0; c0 < p.nc; c0 += kBatch) {
+    float4 sc[kBatch];
+    float et[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k)
+      if (c0 + k < p.nc) {
+        sc[k] = st[(long long)(c0 + k) * (np / 4)];
+        et[k] = expf(tot[c0 + k]);
+      }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k)
+      if (c0 + k < p.nc) {
+        // the chunk's incoming state as hi and lo planes (operand 2)
+        bf16* in = p.incoming + ((long long)bh * p.nc + c0 + k) * 2 * np + e;
+        uint32_t h0, l0, h1, l1;
+        split_bf16(s.x, s.y, h0, l0);
+        split_bf16(s.z, s.w, h1, l1);
+        *reinterpret_cast<uint2*>(in) = make_uint2(h0, h1);
+        *reinterpret_cast<uint2*>(in + np) = make_uint2(l0, l1);
+        s = make_float4(fmaf(et[k], s.x, sc[k].x), fmaf(et[k], s.y, sc[k].y),
+                        fmaf(et[k], s.z, sc[k].z), fmaf(et[k], s.w, sc[k].w));
+      }
   }
   *reinterpret_cast<float4*>(p.final_state + (long long)bh * np + e) = s;
 }
@@ -306,8 +356,6 @@ __global__ void __launch_bounds__(kThreads) ssd_chunk_out(Params p) {
   const uint32_t tSl = base + 2 * kTileBytes;
   const uint32_t tB0 = base + 3 * kTileBytes;          // [2][j][n]
   const uint32_t tX0 = base + 5 * kTileBytes;          // [2][j][p]
-  bf16* sS = reinterpret_cast<bf16*>(smem + kTileBytes);
-  bf16* sSl = reinterpret_cast<bf16*>(smem + 2 * kTileBytes);
   float* sCum = reinterpret_cast<float*>(smem + 7 * kTileBytes);
   float* sDt = sCum + p.L;
   __shared__ float sWarp[kThreads / 32];
@@ -325,26 +373,15 @@ __global__ void __launch_bounds__(kThreads) ssd_chunk_out(Params p) {
   const bf16* Bm = p.B + b * p.bs_b + g * p.bs_g + (long long)row0 * p.bs_s;
   const bf16* Cm = p.C + b * p.cs_b + g * p.cs_g + (long long)row0 * p.cs_s;
 
-  // C of the i tile and the first j tile's B and x, in flight while the
-  // state is staged and the prefix sums are computed
+  // C of the i tile, the incoming state's hi and lo planes and the first
+  // j tile's B and x, in flight while the prefix sums are computed
+  const bf16* Sin = p.incoming + ((long long)bh * p.nc + c) * 2 * p.N * p.P;
   tile_async(tC, Cm, p.cs_s, i0, live, p.N);
+  tile_async(tS, Sin, p.P, 0, p.N, p.P);
+  tile_async(tSl, Sin + p.N * p.P, p.P, 0, p.N, p.P);
   tile_async(tB0, Bm, p.bs_s, 0, live, p.N);
   tile_async(tX0, X, p.xs_s, 0, live, p.P);
   cp_async_commit();
-
-  // the incoming state S_{c-1} as hi + lo bf16 (operand 2)
-  const float* Sin = p.states + ((long long)bh * p.nc + c) * p.N * p.P;
-  for (int i = tid; i < kT * (kT / 4); i += kThreads) {
-    const int n = i / (kT / 4), col = (i % (kT / 4)) * 4;
-    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (n < p.N && col < p.P)
-      v = *reinterpret_cast<const float4*>(Sin + n * p.P + col);
-    uint32_t h0, l0, h1, l1;
-    split_bf16(v.x, v.y, h0, l0);
-    split_bf16(v.z, v.w, h1, l1);
-    *reinterpret_cast<uint2*>(sS + n * kLd + col) = make_uint2(h0, h1);
-    *reinterpret_cast<uint2*>(sSl + n * kLd + col) = make_uint2(l0, l1);
-  }
   chunk_prefix(sCum, sDt, sWarp, p.dt + b * p.ds_b + h * p.ds_h +
                                      (long long)row0 * p.ds_s,
                p.ds_s, p.A[h], live, i_end);
@@ -417,7 +454,7 @@ __global__ void __launch_bounds__(kThreads) ssd_chunk_out(Params p) {
         const int i = (e & 2) ? r1 : r0;
         const int j = j0 + 8 * jt + 2 * (lane & 3) + (e & 1);
         m[e] = (j <= i && i < i_end)
-                   ? sc[jt][e] * expf(sCum[i] - sCum[j]) * sDt[j]
+                   ? sc[jt][e] * fast_exp(sCum[i] - sCum[j]) * sDt[j]
                    : 0.0f;
       }
       split_bf16(m[0], m[1], ma[jt >> 1][(jt & 1) * 2],
@@ -460,7 +497,7 @@ __global__ void __launch_bounds__(kThreads) ssd_chunk_out(Params p) {
   }
 }
 
-int smem_state(int L) { return 3 * kTileBytes + 8 * L; }
+int smem_state(int L) { return 6 * kTileBytes + 8 * L; }
 int smem_out(int L) { return 7 * kTileBytes + 8 * L; }
 
 }  // namespace
@@ -468,15 +505,16 @@ int smem_out(int L) { return 7 * kTileBytes + 8 * L; }
 // Each stage launches on `stream` and returns the CUDA error code (0 when
 // the launch was accepted).  x, B, C bf16 with the last dimension
 // contiguous, 16-byte aligned rows and pointers; dt, A f32; strides in
-// elements.  states (Bb, H, nc, N, P), totals (Bb, H, nc), y
+// elements.  states (Bb, H, nc, N, P) f32, incoming (Bb, H, nc, 2, N, P)
+// bf16, totals (Bb, H, nc), y
 // (Bb, S, H, P), init and final_state (Bb, H, N, P) contiguous; init may
 // be null (zeros).  The wrapper checks N, P multiples of 16 up to 64,
 // H % G == 0, Bb * H <= 65535 and 1 <= L <= 8192.  stage 0 = (a), 1 =
 // (b), 2 = (c); stage 3 runs all three in order.
 extern "C" int mamba2_scan_chunked_launch(
     const void* x, const float* dt, const float* A, const void* B,
-    const void* C, const float* init, void* y, float* states, float* totals,
-    float* final_state, int Bb, int S, int H, int P, int G, int N, int L,
+    const void* C, const float* init, void* y, float* states, void* incoming,
+    float* totals, float* final_state, int Bb, int S, int H, int P, int G, int N, int L,
     long long xs_b, long long xs_s, long long xs_h, long long ds_b,
     long long ds_s, long long ds_h, long long bs_b, long long bs_s,
     long long bs_g, long long cs_b, long long cs_s, long long cs_g,
@@ -485,7 +523,8 @@ extern "C" int mamba2_scan_chunked_launch(
   const int nc = (S + L - 1) / L;
   Params p{static_cast<const bf16*>(x), dt, A, static_cast<const bf16*>(B),
            static_cast<const bf16*>(C), init, static_cast<bf16*>(y),
-           states, totals, final_state, S, H, P, G, N, L, nc,
+           states, static_cast<bf16*>(incoming), totals, final_state, S, H,
+           P, G, N, L, nc,
            xs_b, xs_s, xs_h, ds_b, ds_s, ds_h, bs_b, bs_s, bs_g,
            cs_b, cs_s, cs_g};
   cudaStream_t st = (cudaStream_t)stream;

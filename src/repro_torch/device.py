@@ -11,6 +11,7 @@ and joint training paths stay bitwise equal (cuBLAS needs
 """
 from __future__ import annotations
 
+import functools
 import os
 
 import torch
@@ -38,3 +39,15 @@ def resolve_device(device=None) -> torch.device:
                 "port on the CPU explicitly")
         configure_cuda()
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of a CUDA device (the kernels' tile and split
+    plans size their grids by it)."""
+    return _sm_count_of(device.index if device.index is not None
+                        else torch.cuda.current_device())

@@ -19,6 +19,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.device import sm_count
 from repro_torch.kernels import build
 from repro_torch.kernels.block_attention import plan, ref
 
@@ -42,7 +43,6 @@ def reset_launch_counts() -> None:
 
 
 _libs: Dict[str, ctypes.CDLL] = {}
-_n_sm: Dict[int, int] = {}
 
 
 def _library(route: str) -> ctypes.CDLL:
@@ -64,14 +64,6 @@ def _library(route: str) -> ctypes.CDLL:
         fn.restype = i
         _libs[route] = lib
     return _libs[route]
-
-
-def _sm_count(device) -> int:
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if idx not in _n_sm:
-        _n_sm[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _n_sm[idx]
 
 
 def _aligned16(*ts) -> bool:
@@ -166,7 +158,7 @@ def _run(route, q, k, v, kind, window, softcap, q_offset, kv_len, scale):
         k_begin, k_end = plan.live_range(Sq, kind, int(window),
                                          int(q_offset), kv_lim, Skv)
         split_len, n_split = plan.split_plan(k_begin, k_end, B * nkv,
-                                             _sm_count(q.device))
+                                             sm_count(q.device))
         # f32 scratch: the partial accumulators, then (m, l) per row
         n = max(1, n_split * B * nkv * rows)
         scratch = torch.empty(n * (hd + 2), dtype=torch.float32,

@@ -18,6 +18,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.device import sm_count
 from repro_torch.kernels import build
 from repro_torch.kernels.cut_fusion import plan, ref
 
@@ -74,15 +75,6 @@ def _check(z: torch.Tensor, w: torch.Tensor, combine: str) -> None:
                          f"{tuple(w.shape)}")
 
 
-_n_sm: Dict[int, int] = {}
-
-
-def _sm_count(device) -> int:
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if idx not in _n_sm:
-        _n_sm[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _n_sm[idx]
 
 
 def _aligned16(*ts) -> bool:
@@ -134,7 +126,7 @@ def _run(route, z, w, combine):
         tile, stages, vec = 0, plan.tc_stages(P, combine), 0
     elif route == "fma":
         name, stages = plan.fma_plan(T, K, D, P, combine,
-                                     _sm_count(z.device))
+                                     sm_count(z.device))
         tile = plan.TILE_CODES[name]
         vec = int(z.dtype == torch.float32 and K % 4 == 0 and D % 4 == 0
                   and _aligned16(z, w))

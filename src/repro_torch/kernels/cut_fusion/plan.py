@@ -41,11 +41,6 @@ TC_BM, TC_BN, TC_BK = 128, 128, 64  # tc tile: rows, columns, k box
 TC_MIN_STAGES = 2
 
 
-def threads(tile: str) -> int:
-    BM, BN, TM, TN, _ = TILES[tile]
-    return (BM // TM) * (BN // TN)
-
-
 def n_blocks(T: int, D: int, tile: str) -> int:
     BM, BN = TILES[tile][:2]
     return -(-T // BM) * -(-D // BN)

@@ -56,7 +56,7 @@ def _library(route: str) -> ctypes.CDLL:
         if route == "serial":
             fn.argtypes = [vp] * 8 + [i] * 8 + [ll] * 12 + [vp]
         else:
-            fn.argtypes = [vp] * 10 + [i] * 7 + [ll] * 12 + [i, vp]
+            fn.argtypes = [vp] * 11 + [i] * 7 + [ll] * 12 + [i, vp]
         fn.restype = i
         _libs[route] = lib
     return _libs[route]
@@ -197,14 +197,26 @@ def _run(route, x, dt, A, B_in, C_in, chunk, initial_state):
 
 
 def _chunked_scratch(Bb, H, nc, N, P, device):
-    """f32 chunk states (Bb, H, nc, N, P) and totals (Bb, H, nc)."""
+    """f32 chunk states (Bb, H, nc, N, P), the incoming states as bf16 hi
+    and lo planes (Bb, H, nc, 2, N, P), and f32 totals (Bb, H, nc)."""
     return (torch.empty((Bb, H, nc, N, P), dtype=torch.float32,
+                        device=device),
+            torch.empty((Bb, H, nc, 2, N, P), dtype=torch.bfloat16,
                         device=device),
             torch.empty((Bb, H, nc), dtype=torch.float32, device=device))
 
 
-def _chunked(stage, x, dt, A, B_in, C_in, initial_state, y, states, totals,
-             final, L):
+def split_hi_lo(s: torch.Tensor) -> torch.Tensor:
+    """f32 states (..., N, P) as the chunked route's bf16 hi and lo planes
+    (..., 2, N, P): hi = bf16(s), lo = bf16(s - hi), both rounded to
+    nearest even, as the state-passing kernel writes them."""
+    hi = s.to(torch.bfloat16)
+    lo = (s - hi.to(torch.float32)).to(torch.bfloat16)
+    return torch.stack([hi, lo], dim=-3).contiguous()
+
+
+def _chunked(stage, x, dt, A, B_in, C_in, initial_state, y, states,
+             incoming, totals, final, L):
     """Launch stage 0 (chunk states), 1 (state passing), 2 (chunk
     outputs) or 3 (all three) of the chunked route."""
     Bb, S, H, P = x.shape
@@ -213,21 +225,25 @@ def _chunked(stage, x, dt, A, B_in, C_in, initial_state, y, states, totals,
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_in.data_ptr(),
         C_in.data_ptr(),
         None if initial_state is None else initial_state.data_ptr(),
-        y.data_ptr(), states.data_ptr(), totals.data_ptr(), final.data_ptr(),
-        Bb, S, H, P, G, N, L, *x.stride()[:3], *dt.stride(),
-        *B_in.stride()[:3], *C_in.stride()[:3], stage,
+        y.data_ptr(), states.data_ptr(), incoming.data_ptr(),
+        totals.data_ptr(), final.data_ptr(), Bb, S, H, P, G, N, L,
+        *x.stride()[:3], *dt.stride(), *B_in.stride()[:3],
+        *C_in.stride()[:3], stage,
         torch.cuda.current_stream(x.device).cuda_stream)
 
 
 def chunked_stage(stage: str, x, dt, A, B_in, C_in, *, chunk: int,
-                  states=None, totals=None, initial_state=None):
+                  states=None, totals=None, incoming=None,
+                  initial_state=None):
     """One kernel of the chunked route on CUDA tensors, for the card
     tests to hold it against its plain stage function:
 
-      "states":  -> (states, totals)             (ref.ssd_chunk_states)
-      "passing": states, totals -> (incoming, final); ``states`` is
-                 overwritten with the incoming states (ref.ssd_state_passing)
-      "output":  states = the incoming states -> y (ref.ssd_chunk_output)
+      "states":  -> (states, totals) f32           (ref.ssd_chunk_states)
+      "passing": states, totals -> (incoming as hi and lo planes, the
+                 final state)    (ref.ssd_state_passing; hi + lo is the
+                 incoming state)
+      "output":  incoming (hi and lo planes, ``split_hi_lo``) -> y
+                                                   (ref.ssd_chunk_output)
 
     Uncounted: it is a probe, not a path."""
     _check(x, dt, A, B_in, C_in, initial_state)
@@ -238,15 +254,15 @@ def chunked_stage(stage: str, x, dt, A, B_in, C_in, *, chunk: int,
     L = _chunk_len(chunk, S)
     y = torch.empty((Bb, S, H, P), dtype=x.dtype, device=x.device)
     final = torch.empty((Bb, H, N, P), dtype=torch.float32, device=x.device)
-    if stage == "states":
-        states, totals = _chunked_scratch(Bb, H, -(-S // L), N, P, x.device)
-    else:
-        states, totals = states.contiguous(), totals.contiguous()
+    scratch = _chunked_scratch(Bb, H, -(-S // L), N, P, x.device)
+    states = scratch[0] if states is None else states.contiguous()
+    incoming = scratch[1] if incoming is None else incoming.contiguous()
+    totals = scratch[2] if totals is None else totals.contiguous()
     code = {"states": 0, "passing": 1, "output": 2}[stage]
     err = _chunked(code, x, dt, A, B_in, C_in, initial_state, y, states,
-                   totals, final, L)
+                   incoming, totals, final, L)
     if err:
         raise RuntimeError(f"mamba2_scan chunked stage {stage} failed: "
                            f"cudaError {err}")
-    return {"states": (states, totals), "passing": (states, final),
+    return {"states": (states, totals), "passing": (incoming, final),
             "output": y}[stage]

@@ -489,16 +489,18 @@ def test_chunked_scan_stages_match_their_plain_stages_on_card(cuda_device,
     torch.testing.assert_close(states, pst, **tol)
     torch.testing.assert_close(totals, ptot, atol=1e-5, rtol=1e-5)
     # (b) and (c) from the plain stages' inputs, so each stage is held
-    # alone
-    incoming, final = scan_kernel.ops.chunked_stage(
-        "passing", xv, dt, A, bv, cv, chunk=chunk, states=pst.clone(),
+    # alone; (b) writes each incoming state as bf16 hi and lo planes,
+    # exactly the split of the f32 state it carries
+    split, final = scan_kernel.ops.chunked_stage(
+        "passing", xv, dt, A, bv, cv, chunk=chunk, states=pst,
         totals=ptot, initial_state=s0)
     pin, pfin = ref.ssd_state_passing(pst, ptot, s0)
-    torch.testing.assert_close(incoming, pin, atol=1e-5, rtol=1e-5)
+    hi, lo = split.float().unbind(-3)
+    torch.testing.assert_close(hi + lo, pin, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(final, pfin, atol=1e-5, rtol=1e-5)
-    y = scan_kernel.ops.chunked_stage("output", xv, dt, A, bv, cv,
-                                      chunk=chunk, states=pin.contiguous(),
-                                      totals=ptot)
+    y = scan_kernel.ops.chunked_stage(
+        "output", xv, dt, A, bv, cv, chunk=chunk, totals=ptot,
+        incoming=scan_kernel.ops.split_hi_lo(pin))
     torch.testing.assert_close(
         y.float(), ref.ssd_chunk_output(xv, dt, A, bv, cv, pin,
                                         chunk).float(), **tol)

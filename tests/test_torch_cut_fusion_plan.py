@@ -51,13 +51,16 @@ def _covers(T, D, tile):
     nd = -(-D // BN)
     for bx in range(plan.n_blocks(T, D, tile)):
         t0, d0 = (bx // nd) * BM, (bx % nd) * BN
-        # thread (tx, ty) owns rows ty + i * (BM / TM), cols tx + j * (BN / TN)
+        # thread (tx, ty) owns rows ty + i * (BM / TM) and columns in
+        # runs of 4 (TN % 4 == 0) or every (BN / TN)-th (the kernel's col)
+        NTX = BN // TN
         for ty in range(BM // TM):
-            for tx in range(BN // TN):
+            for tx in range(NTX):
                 for i in range(TM):
                     for j in range(TN):
                         t = t0 + ty + i * (BM // TM)
-                        d = d0 + tx + j * (BN // TN)
+                        d = d0 + ((j // 4) * NTX * 4 + tx * 4 + j % 4
+                                  if TN % 4 == 0 else tx + j * NTX)
                         if t < T and d < D:
                             seen[t, d] += 1
     return bool((seen == 1).all())
@@ -86,7 +89,8 @@ def test_fma_plan_fills_the_card_and_fits(case):
     assert 1 <= stages <= min(plan.MAX_STAGES, chunks)
     assert stages * plan.fma_stage_bytes(tile, P, combine) <= \
         plan.SMEM_BYTES
-    assert plan.threads(tile) in (128, 256)
+    BM, BN, TM, TN, _ = plan.TILES[tile]
+    assert (BM // TM) * (BN // TN) in (128, 256)       # threads per block
 
 
 def test_plan_at_the_training_path():
