@@ -935,8 +935,10 @@ def profile_wave(model, params, kw, ctxs):
         e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::")))
     print(f"  host: {top} top-level aten ops in the wave = {top / NEW:.0f} "
           f"per forward (prefill or decode tick)")
-    for tag in ("attn_tc", "decode_split", "decode_combine", "attn_fwd",
-                "ssd_scan", "quantize_rows"):
+    # the port's kernels on the serving path: attention (tc, decode_mma
+    # and its merge), the chunked scan's three launches, int8
+    for tag in ("attn_tc", "decode_mma", "decode_combine", "ssd_chunk_state",
+                "ssd_state_pass", "ssd_chunk_out", "quantize_rows"):
         ours = [e for e in kernels if tag in e.key]
         us = sum(e.self_device_time_total for e in ours)
         print(f"  {tag}: {us:.1f} us over {sum(e.count for e in ours)} "
