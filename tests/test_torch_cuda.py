@@ -13,8 +13,10 @@ card:
 ``attn_inputs`` with ``test_torch_attention.py``; ``ROUTE_CASES`` with
 ``test_torch_attention_routes.py``; ``SSD_CASES``,
 ``scan_inputs`` and ``attn_tol`` (the reference's kernel tolerances)
-with ``test_torch_ssm.py``; ``CUT_CASES`` and ``cut_inputs`` with
-``test_torch_cut_fusion.py``.
+with ``test_torch_ssm.py`` and ``test_torch_scan_routes.py``;
+``CUT_CASES`` and ``cut_inputs`` with ``test_torch_cut_fusion.py``;
+``EMPTY_ROW_CASES`` with ``test_torch_attention_empty_rows.py``;
+``CUT_PATH_CASES`` with ``test_torch_cut_fusion_plan.py``.
 """
 import numpy as np
 import pytest
