@@ -8,9 +8,13 @@ Phases, in order; any failure raises and exits non-zero:
 
   1. the card's name and power limit, as ``nvidia-smi`` reports them;
   2. build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a);
-  3. each kernel against its plain PyTorch version on the card, byte for
-     byte, at the training path's shape and at edge shapes, with times
-     (CUDA events) beside the bytes-over-bandwidth bound;
+  3. the quantize kernel against its plain PyTorch version on the card,
+     byte for byte, at the training path's shape, edge shapes and the
+     serving paths' cuts, f32 and bf16, with NaN, ±inf and subnormal
+     rows; the first 32 rows of a call against a call on them alone; the
+     row plan of each call, and times (CUDA events) beside an empty
+     kernel launched on the same grid (the launch floor) and the
+     bytes-over-bandwidth bound;
   4. the main path at full width: PSI -> the paper's dual-headed MNIST
      SplitNN -> one split epoch over the queue transport with the int8
      cut codec -> evaluate, with the exact kernel launch counts read
@@ -92,10 +96,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 CARD_PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
               "H200": (4.8e12, 67e12), "H100": (3.35e12, 67e12)}
 # the kernel's shapes: the path's, a ragged block, one row, odd K with
-# an unaligned scale, a large one, and the serving path's llama3.2-3b
-# cuts (a prefill owner slice of 4 x 512 rows, a decode tick's 4 rows)
+# an unaligned scale, a large one, and the serving paths' cuts (a
+# prefill owner slice of 4 x 512 rows, a decode tick's 4 rows) of
+# llama3.2-3b (d 3072) and zamba2-2.7b (d 2560); each in f32 and bf16
 SHAPES = [(128, 64), (130, 64), (1, 128), (257, 10), (65536, 64),
-          (2048, 3072), (4, 3072)]
+          (2048, 3072), (4, 3072), (2048, 2560), (4, 2560)]
 PATH_SHAPE = (128, 64)
 OPS_PER_ELEMENT = 6     # abs, max, divide, round, two clamps
 
@@ -107,9 +112,11 @@ def peaks(name):
     raise RuntimeError(f"no published peaks on record for {name!r}")
 
 
-def inputs(shape, seed=0):
+def inputs(shape, seed=0, specials=True):
     """Normal rows with the edge cases planted: an all-zero row, exact
-    half-way values (absmax 127 -> scale 1), and a ±absmax tie."""
+    half-way values (absmax 127 -> scale 1), a ±absmax tie, then (with
+    ``specials``) a row with a NaN, one with +inf, one with -inf and a
+    subnormal row."""
     import numpy as np
     rng = np.random.default_rng(seed)
     x = (rng.normal(size=shape) * 3.0).astype(np.float32)
@@ -120,6 +127,14 @@ def inputs(shape, seed=0):
         x[1, 0] = 127.0
     if T > 2:
         x[2, 0], x[2, -1] = 4.0, -4.0
+    if not specials:
+        return x
+    for row, col, v in ((3, K // 2, np.nan), (4, 0, np.inf),
+                        (5, K - 1, -np.inf)):
+        if T > row:
+            x[row, col] = v
+    if T > 6:
+        x[6] = (rng.normal(size=K) * 1e-39).astype(np.float32)
     return x
 
 
@@ -162,10 +177,29 @@ def _median_ms(fn, reps, rounds):
     return sorted(times)[len(times) // 2]
 
 
-def phase_kernels(bw, flops):
-    """Phase 3: both entry points vs their plain versions, byte for byte."""
+def same_bytes(got, want):
+    """Outputs equal byte for byte (f32 scales compared as bits)."""
     import torch
-    from repro_torch.kernels.quantize import (quantize_int8,
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if not torch.equal(a, b):
+            return False
+    return True
+
+
+def phase_kernels(bw, flops):
+    """Phase 3: both entry points vs their plain versions, byte for
+    byte, on f32 and bf16 rows (the plain version on x.float()), with
+    the row plan, and rows [0, 32) of a call against a call on those
+    rows alone.  Times are taken on the same shapes without the NaN,
+    inf and subnormal rows (the exact division's slow path on those
+    rows would set a small call's time), beside an empty kernel
+    launched on the same grid (the launch floor)."""
+    import torch
+    from repro_torch.kernels.quantize import (ops, quantize_int8,
                                               quantize_int8_ref,
                                               quantize_pack_int8,
                                               quantize_pack_int8_ref)
@@ -174,40 +208,65 @@ def phase_kernels(bw, flops):
             ("quantize_pack_int8", quantize_pack_int8,
              quantize_pack_int8_ref),
             ("quantize_int8", quantize_int8, quantize_int8_ref)):
-        err, rows = 0.0, []
+        rows = []
         for shape in SHAPES:
-            x = torch.from_numpy(inputs(shape)).cuda()
-            got, want = kern(x), plain(x)
-            torch.cuda.synchronize()
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            for a, b in zip(got, want):
-                if a.dtype == torch.float32:        # scales: bitwise
-                    a, b = a.view(torch.int32), b.view(torch.int32)
-                if not torch.equal(a, b):
-                    raise AssertionError(f"{name}{shape}: kernel bytes "
-                                         "differ from the plain version")
-                err = max(err, (a.double() - b.double()).abs().max().item())
-            T, K = shape
-            nbytes = 4 * T * K + (T * (K + 4) if name == "quantize_pack_int8"
-                                  else T * K + 4 * T)
-            bytes_ms = 1e3 * nbytes / bw
-            ops_ms = 1e3 * OPS_PER_ELEMENT * T * K / flops
-            row = {"shape": list(shape),
-                   "ms": device_ms(lambda: kern(x)),
-                   "plain_ms": device_ms(lambda: plain(x)),
-                   "eager_ms": eager_ms(lambda: kern(x)),
-                   "plain_eager_ms": eager_ms(lambda: plain(x)),
-                   "bound_ms": max(bytes_ms, ops_ms),
-                   "bound_by": "bytes" if bytes_ms >= ops_ms
-                   else "operations"}
-            rows.append(row)
-            print(f"  {name}{shape}: identical; kernel {row['ms']:.6f} ms "
-                  f"(eager {row['eager_ms']:.6f}), plain "
-                  f"{row['plain_ms']:.6f} ms (eager "
-                  f"{row['plain_eager_ms']:.6f}), bound "
-                  f"{row['bound_ms']:.8f} ms ({row['bound_by']})")
-        out[name] = {"max_abs_err": err, "rows": rows}
+            x32 = torch.from_numpy(inputs(shape)).cuda()
+            t32 = torch.from_numpy(inputs(shape, specials=False)).cuda()
+            for dtype in (torch.float32, torch.bfloat16):
+                x, xt = x32.to(dtype), t32.to(dtype)
+                got, want = kern(x), plain(x.float())
+                torch.cuda.synchronize()
+                if not same_bytes(got, want):
+                    raise AssertionError(f"{name}{shape} {dtype}: kernel "
+                                         "bytes differ from the plain "
+                                         "version")
+                T, K = shape
+                sliced = ""
+                if T > 32:          # a row's bytes do not depend on T
+                    part = x[:32].clone()
+                    full, alone = kern(x), kern(part)
+                    torch.cuda.synchronize()
+                    head = tuple(t[:32] for t in full) if isinstance(
+                        full, tuple) else full[:32]
+                    if not same_bytes(head, alone):
+                        raise AssertionError(
+                            f"{name}{shape} {dtype}: rows 0..31 differ "
+                            f"from a call on them alone")
+                    sliced = (f"; rows 0..31 == a call on them "
+                              f"[plan {tuple(ops.plan_of(part))}], bitwise")
+                p = ops.plan_of(x)
+                nbytes = x.element_size() * T * K + (
+                    T * (K + 4) if name == "quantize_pack_int8"
+                    else T * K + 4 * T)
+                bytes_ms = 1e3 * nbytes / bw
+                ops_ms = 1e3 * OPS_PER_ELEMENT * T * K / flops
+                row = {"shape": list(shape), "dtype": str(dtype)[6:],
+                       "plan": p._asdict(),
+                       "ms": device_ms(lambda: kern(xt)),
+                       "plain_ms": device_ms(lambda: plain(xt)),
+                       "floor_ms": device_ms(lambda: ops.launch_floor(xt)),
+                       "eager_ms": eager_ms(lambda: kern(xt)),
+                       "plain_eager_ms": eager_ms(lambda: plain(xt)),
+                       "floor_eager_ms": eager_ms(
+                           lambda: ops.launch_floor(xt)),
+                       "bound_ms": max(bytes_ms, ops_ms),
+                       "bound_by": "bytes" if bytes_ms >= ops_ms
+                       else "operations"}
+                row["share"] = row["bound_ms"] / row["ms"]
+                rows.append(row)
+                print(f"  {name}{shape} {row['dtype']}: identical{sliced}"
+                      f"\n    plan tpr {p.tpr} rpb {p.rpb} vpt {p.vpt} "
+                      f"vector {int(p.vector)} wide {int(p.wide)} ("
+                      f"{p.blocks(T)} blocks of {p.threads}); kernel "
+                      f"{row['ms']:.6f} ms (eager {row['eager_ms']:.6f}), "
+                      f"launch floor {row['floor_ms']:.6f} ms (eager "
+                      f"{row['floor_eager_ms']:.6f}), plain "
+                      f"{row['plain_ms']:.6f} ms (eager "
+                      f"{row['plain_eager_ms']:.6f}), bound "
+                      f"{row['bound_ms']:.8f} ms ({row['bound_by']}; "
+                      f"share {row['share']:.4f})")
+        # every output equalled the plain version's byte for byte
+        out[name] = {"max_abs_err": 0.0, "rows": rows}
     return out
 
 
@@ -1347,7 +1406,8 @@ def main():
                 "quantize_int8": f"{tpu}:19"}          # _quantize_kernel
     entries = []
     for kname, res in kern.items():
-        row = next(r for r in res["rows"] if tuple(r["shape"]) == PATH_SHAPE)
+        row = next(r for r in res["rows"] if tuple(r["shape"]) == PATH_SHAPE
+                   and r["dtype"] == "float32")
         entries.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": replaces[kname], "launches": counts[kname],
@@ -1357,6 +1417,7 @@ def main():
             "bound_by": row["bound_by"], "library_ms": None,
             "shape": row["shape"], "eager_ms": row["eager_ms"],
             "plain_eager_ms": row["plain_eager_ms"],
+            "launch_floor_ms": row["floor_ms"],
             "all_shapes": res["rows"]})
     # the attention kernel's three routes, each at its headline shape:
     # tc at llama's trunk prefill, decode at llama's trunk decode, and the

@@ -288,13 +288,18 @@ class Int8Codec(Codec):
     quantized and wire-packed in one kernel pass
     (``repro_torch.kernels.quantize.quantize_pack_int8``): the payload is
     one ``(rows, K+4)`` uint8 frame — K int8 values plus the
-    little-endian f32 scale in the trailing 4 bytes of each row."""
+    little-endian f32 scale in the trailing 4 bytes of each row.  An f32
+    or bf16 cut goes to the kernel as it is (bf16 is upcast exactly in
+    its registers: the reference's frame of ``astype(float32)``); other
+    dtypes are cast to f32 first."""
 
     name = "int8"
 
     def encode(self, t):
         from repro_torch.kernels.quantize import quantize_pack_int8
-        a = t.detach().to(torch.float32)
+        a = t.detach()
+        if a.dtype not in (torch.float32, torch.bfloat16):
+            a = a.to(torch.float32)
         packed = quantize_pack_int8(a.reshape(-1, a.shape[-1]).contiguous())
         return {"qp": packed.reshape(a.shape[:-1] + (packed.shape[-1],))}
 

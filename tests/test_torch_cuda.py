@@ -33,12 +33,16 @@ from repro_torch.kernels.quantize import (launch_counts, quantize_int8,
 # the training path's (128, 64), a ragged block, one row, odd K with an
 # unaligned scale
 SHAPES = [(128, 64), (130, 64), (1, 128), (257, 10)]
+# the serving paths' cuts: llama3.2-3b's prefill owner slice and decode
+# tick, zamba2-2.7b's
+SERVING_SHAPES = [(2048, 3072), (4, 3072), (2048, 2560), (4, 2560)]
 
 
-def edge_inputs(shape, seed=0):
+def edge_inputs(shape, seed=0, specials=False):
     """Normal rows with the kernel's edge cases planted: an all-zero
     row, exact half-way values (absmax 127 -> scale 1, so k + 0.5 sits
-    exactly between two integers), and ±absmax ties."""
+    exactly between two integers), and ±absmax ties; with ``specials``,
+    rows 3-6 hold a NaN, a +inf, a -inf and subnormal values."""
     rng = np.random.default_rng(seed)
     x = (rng.normal(size=shape) * 3.0).astype(np.float32)
     T, K = shape
@@ -48,6 +52,13 @@ def edge_inputs(shape, seed=0):
         x[1, 0] = 127.0                       # scale = 1: halves are exact
     if T > 2:
         x[2, 0], x[2, -1] = 4.0, -4.0         # ±absmax tie
+    if specials:
+        for row, col, v in ((3, K // 2, np.nan), (4, 0, np.inf),
+                            (5, K - 1, -np.inf)):
+            if T > row:
+                x[row, col] = v
+        if T > 6:                             # below 2^-126: subnormal
+            x[6] = (rng.normal(size=K) * 1e-39).astype(np.float32)
     return x
 
 
@@ -201,26 +212,98 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES + [(65536, 64)])
-def test_kernel_matches_plain_on_card(cuda_device, shape):
-    """On the card: the CUDA kernel's bytes equal the plain version's,
-    scales bit for bit, and each call is one counted launch."""
-    x = torch.from_numpy(edge_inputs(shape)).to(cuda_device)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES + [(65536, 64)] + SERVING_SHAPES)
+def test_kernel_matches_plain_on_card(cuda_device, shape, dtype):
+    """On the card: the CUDA kernel's bytes equal the plain version's on
+    x.float(), scales bit for bit (NaN, ±inf and subnormal rows too),
+    and each call is one counted launch."""
+    x = torch.from_numpy(edge_inputs(shape, specials=True)).to(
+        cuda_device, dtype)
     n0 = launch_counts["quantize_pack_int8"]
     packed = quantize_pack_int8(x)
     torch.cuda.synchronize()
     assert launch_counts["quantize_pack_int8"] == n0 + 1
-    assert torch.equal(packed, quantize_pack_int8_ref(x))
+    assert torch.equal(packed, quantize_pack_int8_ref(x.float()))
     q, s = quantize_int8(x)
-    qr, sr = quantize_int8_ref(x)
+    qr, sr = quantize_int8_ref(x.float())
     assert torch.equal(q, qr) and torch.equal(s.view(torch.int32),
                                               sr.view(torch.int32))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(128, 64), (257, 10), (65536, 64)]
+                         + SERVING_SHAPES[::2])
+def test_quantize_rows_do_not_depend_on_T_on_card(cuda_device, shape,
+                                                  dtype):
+    """Rows [0, 32) of a call equal a call on those rows alone, byte for
+    byte, whatever plan each call runs."""
+    x = torch.from_numpy(edge_inputs(shape, specials=True)).to(
+        cuda_device, dtype)
+    part = x[:32].clone()
+    full, alone = quantize_pack_int8(x), quantize_pack_int8(part)
+    q, s = quantize_int8(x)
+    qa, sa = quantize_int8(part)
+    torch.cuda.synchronize()
+    assert torch.equal(full[:32], alone)
+    assert torch.equal(q[:32], qa) and torch.equal(
+        s[:32].view(torch.int32), sa.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [64, 3072, 40000, 70000, 10, 3071])
+def test_quantize_unaligned_and_wide_rows_on_card(cuda_device, K):
+    """Scalar loads (a base pointer off 16 bytes, or K not a multiple of
+    the vector) and wide rows (read twice) give the plain version's
+    bytes, f32 and bf16."""
+    from repro_torch.kernels.quantize import ops
+    for dtype in (torch.float32, torch.bfloat16):
+        buf = torch.from_numpy(edge_inputs((9, K + 1), specials=True)).to(
+            cuda_device, dtype).reshape(-1)
+        for x in (buf[:9 * K].view(9, K), buf[1:9 * K + 1].view(9, K)):
+            p = ops.plan_of(x)
+            assert not p.vector or (x.data_ptr() % 16 == 0
+                                    and K % (16 // x.element_size()) == 0)
+            assert torch.equal(quantize_pack_int8(x),
+                               quantize_pack_int8_ref(x.float()))
+            q, s = quantize_int8(x)
+            qr, sr = quantize_int8_ref(x.float())
+            assert torch.equal(q, qr) and torch.equal(
+                s.view(torch.int32), sr.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_int8_codec_sends_a_bf16_cut_to_the_kernel_uncast(cuda_device,
+                                                          monkeypatch):
+    """A bf16 cut on the card reaches the kernel as bf16 (no cast
+    launch), one counted launch per message; f32 goes as it is too."""
+    from repro_torch.federation.transport import get_codec
+    from repro_torch.kernels import quantize
+    seen = []
+    real = quantize.quantize_pack_int8
+
+    def spy(x):
+        seen.append(x.dtype)
+        return real(x)
+    monkeypatch.setattr(quantize, "quantize_pack_int8", spy)
+    codec = get_codec("int8", cuda_device)
+    x = torch.from_numpy(edge_inputs((8, 3072))).to(cuda_device)
+    for dtype in (torch.bfloat16, torch.float32):
+        n0 = launch_counts["quantize_pack_int8"]
+        a = x.to(dtype).reshape(2, 4, 3072)
+        frame = codec.encode(a)["qp"]
+        torch.cuda.synchronize()
+        assert launch_counts["quantize_pack_int8"] == n0 + 1
+        assert torch.equal(frame.reshape(8, -1),
+                           quantize_pack_int8_ref(a.float().reshape(8, -1)))
+    assert seen == [torch.bfloat16, torch.float32]
+
+
+@pytest.mark.cuda
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     x = torch.zeros((4, 8), device=cuda_device)
-    for bad in (x.double(), x.t(), x[None]):
+    for bad in (x.double(), x.half(), x.t(), x[None]):
         with pytest.raises(ValueError, match="contiguous 2-D float32"):
             quantize_pack_int8(bad)
 

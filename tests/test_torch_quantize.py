@@ -157,3 +157,77 @@ def test_int8_codec_frames_equal_reference(shape):
     np.testing.assert_allclose(
         dec.numpy(), ref_transport.get_codec("int8").decode({"qp": b}),
         rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(7, 3072)])
+def test_quantize_plain_special_rows_match_reference_oracle(shape):
+    """NaN, +inf, -inf and subnormal rows: the plain version's frame and
+    unpacked values and scales equal the reference's eager oracle byte
+    for byte (a NaN row: NaN scale, codes 0; an inf row: inf scale,
+    codes 0; a subnormal row: the 1e-12 floor's scale, codes 0)."""
+    x = edge_inputs(shape, seed=3, specials=True)
+    ours = quantize_pack_int8(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(ours, np.asarray(ref_pack_oracle(x)))
+    q, s = quantize_int8(torch.from_numpy(x))
+    rq, rs = ref_q8_oracle(x)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(rq))
+    np.testing.assert_array_equal(s.numpy().view(np.uint32),
+                                  np.asarray(rs).view(np.uint32))
+    T, k = shape
+    scale = ours[:, k:].copy().view("<f4")[:, 0]
+    if T > 3:
+        assert np.isnan(scale[3]) and not ours[3, :k].any()
+    for row in (4, 5):
+        if T > row:
+            assert scale[row] == np.inf and not ours[row, :k].any()
+    if T > 6:
+        assert scale[6] == np.float32(np.float32(1e-12) / np.float32(127))
+        assert not ours[6, :k].any()
+
+
+@pytest.mark.parametrize("shape", [(64, 64), (3, 10), (7, 3072)])
+def test_int8_codec_bf16_frames_equal_reference(shape):
+    """A bf16 cut: the port's frame (the plain version's upcast in place
+    of the kernel's) equals the reference codec's frame for the same
+    bf16 values, which it casts with ``astype(float32)``: int8 values
+    identical, scales to the jit tolerance, decoded values within it."""
+    import jax.numpy as jnp
+    x = edge_inputs(shape, seed=4, specials=True)
+    # one rounding to bf16, whose bits both packages get (each package's
+    # own conversion may give the NaN another payload)
+    jb = jnp.asarray(x).astype(jnp.bfloat16)
+    xb = torch.from_numpy(np.array(jb).view(np.int16)).view(torch.bfloat16)
+    ours = pt_transport._pack(pt_transport.get_codec("int8").encode(xb))
+    ref = ref_transport._pack(ref_transport.get_codec("int8").encode(jb))
+    assert len(ours) == len(ref)
+    a, b = pt_transport._unpack(ours)["qp"], ref_transport._unpack(ref)["qp"]
+    assert a.dtype == b.dtype == np.uint8 and a.shape == b.shape
+    k = shape[1]
+    _assert_matches_jitted_reference(a[:, :k], a[:, k:].copy().view("<f4"),
+                                     b[:, :k], b[:, k:].copy().view("<f4"))
+    # and byte for byte to the reference's eager oracle on the f32 upcast
+    np.testing.assert_array_equal(
+        a, np.asarray(ref_pack_oracle(xb.float().numpy())))
+
+
+def test_int8_codec_sends_bf16_and_f32_cuts_uncast(monkeypatch):
+    """The codec hands an f32 or bf16 cut to the quantizer as it is (on
+    the card the kernel upcasts bf16 in registers: no cast launch) and
+    casts any other dtype to f32 first."""
+    from repro_torch.kernels import quantize
+    seen = []
+    real = quantize.quantize_pack_int8
+
+    def spy(x):
+        seen.append(x.dtype)
+        return real(x)
+    monkeypatch.setattr(quantize, "quantize_pack_int8", spy)
+    codec = pt_transport.get_codec("int8")
+    x = torch.from_numpy(edge_inputs((6, 16), seed=5))
+    frames = [codec.encode(x.to(dt).reshape(2, 3, 16))["qp"]
+              for dt in (torch.bfloat16, torch.float32, torch.float16)]
+    assert seen == [torch.bfloat16, torch.float32, torch.float32]
+    assert frames[0].shape == (2, 3, 20)
+    np.testing.assert_array_equal(
+        frames[0].reshape(6, 20).numpy(),
+        quantize_pack_int8_ref(x.to(torch.bfloat16).float()).numpy())
