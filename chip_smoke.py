@@ -112,14 +112,16 @@ def peaks(name):
     raise RuntimeError(f"no published peaks on record for {name!r}")
 
 
-def inputs(shape, seed=0, specials=True):
-    """Normal rows with the edge cases planted: an all-zero row, exact
-    half-way values (absmax 127 -> scale 1), a ±absmax tie, then (with
-    ``specials``) a row with a NaN, one with +inf, one with -inf and a
-    subnormal row."""
+def inputs(shape, seed=0, specials=True, planted=True):
+    """Normal rows with the edge cases planted (unless not ``planted``):
+    an all-zero row, exact half-way values (absmax 127 -> scale 1), a
+    ±absmax tie, then (with ``specials``) a row with a NaN, one with
+    +inf, one with -inf and a subnormal row."""
     import numpy as np
     rng = np.random.default_rng(seed)
     x = (rng.normal(size=shape) * 3.0).astype(np.float32)
+    if not planted:
+        return x
     T, K = shape
     x[0] = 0.0
     if T > 1:
@@ -177,17 +179,27 @@ def _median_ms(fn, reps, rounds):
     return sorted(times)[len(times) // 2]
 
 
-def same_bytes(got, want):
-    """Outputs equal byte for byte (f32 scales compared as bits)."""
+def _as_bits(got, want):
+    """Output pairs, f32 scales viewed as their int32 bits."""
     import torch
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     for a, b in zip(got, want):
         if a.dtype == torch.float32:
             a, b = a.view(torch.int32), b.view(torch.int32)
-        if not torch.equal(a, b):
-            return False
-    return True
+        yield a, b
+
+
+def same_bytes(got, want):
+    """Outputs equal byte for byte (f32 scales compared as bits)."""
+    import torch
+    return all(torch.equal(a, b) for a, b in _as_bits(got, want))
+
+
+def max_bits_diff(got, want):
+    """Largest |a - b| over the outputs (f32 scales as int32 bits)."""
+    return max((a.double() - b.double()).abs().max().item()
+               for a, b in _as_bits(got, want))
 
 
 def phase_kernels(bw, flops):
@@ -197,7 +209,10 @@ def phase_kernels(bw, flops):
     rows alone.  Times are taken on the same shapes without the NaN,
     inf and subnormal rows (the exact division's slow path on those
     rows would set a small call's time), beside an empty kernel
-    launched on the same grid (the launch floor)."""
+    launched on the same grid (the launch floor), and again on dense
+    normal rows with nothing planted (``dense_ms``: a zero dividend
+    takes the division's slow path too, so at a few rows the all-zero
+    row sets the call's time; a serving cut has no such row)."""
     import torch
     from repro_torch.kernels.quantize import (ops, quantize_int8,
                                               quantize_int8_ref,
@@ -208,18 +223,20 @@ def phase_kernels(bw, flops):
             ("quantize_pack_int8", quantize_pack_int8,
              quantize_pack_int8_ref),
             ("quantize_int8", quantize_int8, quantize_int8_ref)):
-        rows = []
+        err, rows = 0.0, []
         for shape in SHAPES:
             x32 = torch.from_numpy(inputs(shape)).cuda()
             t32 = torch.from_numpy(inputs(shape, specials=False)).cuda()
+            d32 = torch.from_numpy(inputs(shape, planted=False)).cuda()
             for dtype in (torch.float32, torch.bfloat16):
-                x, xt = x32.to(dtype), t32.to(dtype)
+                x, xt, xd = x32.to(dtype), t32.to(dtype), d32.to(dtype)
                 got, want = kern(x), plain(x.float())
                 torch.cuda.synchronize()
                 if not same_bytes(got, want):
                     raise AssertionError(f"{name}{shape} {dtype}: kernel "
                                          "bytes differ from the plain "
                                          "version")
+                err = max(err, max_bits_diff(got, want))
                 T, K = shape
                 sliced = ""
                 if T > 32:          # a row's bytes do not depend on T
@@ -243,6 +260,7 @@ def phase_kernels(bw, flops):
                 row = {"shape": list(shape), "dtype": str(dtype)[6:],
                        "plan": p._asdict(),
                        "ms": device_ms(lambda: kern(xt)),
+                       "dense_ms": device_ms(lambda: kern(xd)),
                        "plain_ms": device_ms(lambda: plain(xt)),
                        "floor_ms": device_ms(lambda: ops.launch_floor(xt)),
                        "eager_ms": eager_ms(lambda: kern(xt)),
@@ -258,15 +276,15 @@ def phase_kernels(bw, flops):
                       f"\n    plan tpr {p.tpr} rpb {p.rpb} vpt {p.vpt} "
                       f"vector {int(p.vector)} wide {int(p.wide)} ("
                       f"{p.blocks(T)} blocks of {p.threads}); kernel "
-                      f"{row['ms']:.6f} ms (eager {row['eager_ms']:.6f}), "
+                      f"{row['ms']:.6f} ms (eager {row['eager_ms']:.6f}; "
+                      f"dense rows {row['dense_ms']:.6f}), "
                       f"launch floor {row['floor_ms']:.6f} ms (eager "
                       f"{row['floor_eager_ms']:.6f}), plain "
                       f"{row['plain_ms']:.6f} ms (eager "
                       f"{row['plain_eager_ms']:.6f}), bound "
                       f"{row['bound_ms']:.8f} ms ({row['bound_by']}; "
                       f"share {row['share']:.4f})")
-        # every output equalled the plain version's byte for byte
-        out[name] = {"max_abs_err": 0.0, "rows": rows}
+        out[name] = {"max_abs_err": err, "rows": rows}
     return out
 
 
@@ -373,8 +391,42 @@ def phase_main_path():
     print(f"  loss trail vs the CPU run: max |diff| {gap:.3e} (limit 2e-2)")
     if gap > 2e-2 or abs(ev["accuracy"] - cpu.evaluate()["accuracy"]) > 0.02:
         raise AssertionError("card and CPU int8 runs disagree")
+    cut = path_cut_timing(session)
     profile_epoch(session)
-    return counts, ts
+    return counts, ts, cut
+
+
+def path_cut_timing(session):
+    """The int8 kernel on the training path's own traffic: owner 0's cut
+    (its ReLU head on the first batch of subjects, at the fit's
+    weights), its share of zeros, and its time beside dense normal rows
+    of the same shape and the launch floor, all in this call."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.quantize import (ops, quantize_pack_int8,
+                                              quantize_pack_int8_ref)
+    head_fwd, _ = session.adapter.owner_programs(0)
+    hp = session.adapter.owner_param_slice(session.params, 0)
+    feats = session.owners[0]._features[:PATH_SHAPE[0]]
+    cut = head_fwd(hp, torch.from_numpy(np.ascontiguousarray(
+        feats, np.float32)).cuda()).contiguous()
+    if tuple(cut.shape) != PATH_SHAPE:
+        raise AssertionError(f"owner cut {tuple(cut.shape)}, expected "
+                             f"{PATH_SHAPE}")
+    if not same_bytes(quantize_pack_int8(cut), quantize_pack_int8_ref(cut)):
+        raise AssertionError("kernel bytes differ from the plain version "
+                             "on the path's cut")
+    dense = torch.from_numpy(inputs(PATH_SHAPE, planted=False)).cuda()
+    res = {"shape": list(PATH_SHAPE),
+           "zero_share": (cut == 0).double().mean().item(),
+           "ms": device_ms(lambda: quantize_pack_int8(cut)),
+           "dense_ms": device_ms(lambda: quantize_pack_int8(dense)),
+           "floor_ms": device_ms(lambda: ops.launch_floor(cut))}
+    print(f"  the path's cut {PATH_SHAPE} (owner 0's ReLU head): zero share "
+          f"{res['zero_share']:.4f}; kernel {res['ms']:.6f} ms, on dense "
+          f"rows {res['dense_ms']:.6f} ms, launch floor "
+          f"{res['floor_ms']:.6f} ms")
+    return res
 
 
 def profile_epoch(session):
@@ -1355,7 +1407,7 @@ def main():
     print("== 3. kernels vs plain versions on the card")
     kern = phase_kernels(bw, flops)
     print("== 4. main path: PSI -> SplitNN -> split int8 fit -> evaluate")
-    counts, _ = phase_main_path()
+    counts, _, path_cut = phase_main_path()
     print("== 5. split == joint on the card")
     phase_split_equals_joint()
     t = time.time()
@@ -1418,6 +1470,7 @@ def main():
             "shape": row["shape"], "eager_ms": row["eager_ms"],
             "plain_eager_ms": row["plain_eager_ms"],
             "launch_floor_ms": row["floor_ms"],
+            "path_cut": path_cut if kname == "quantize_pack_int8" else None,
             "all_shapes": res["rows"]})
     # the attention kernel's three routes, each at its headline shape:
     # tc at llama's trunk prefill, decode at llama's trunk decode, and the

@@ -36,9 +36,6 @@
 //     4-byte stores of 4 codes, and the scale as one 4-byte store when
 //     the frame's row stride K+4 allows it; else one element per load
 //     and byte stores;
-//   * a zero divides the scale by itself and is coded 0 by a select
-//     (see code()): the exact division's check sends a zero dividend
-//     down its slow path, and ReLU cuts are about half zeros;
 //   * rows longer than 1024 threads x 8 loads (off every path) walk
 //     the row twice in one block, reading x twice, with the same bytes.
 // No cluster, TMA or tensor cores: a row's reduction is a few KB with
@@ -124,16 +121,10 @@ struct Loader<true, false> {            // bf16, one element
   }
 };
 
-// A zero codes to 0 whatever the scale (0 / s is ±0 or NaN, both coded
-// 0).  The division's range check sends a zero dividend down its slow
-// path, and a ReLU head's cut is about half zeros, so a zero divides
-// the scale by itself instead (the fast path) and is coded 0 by a
-// select: no branch, the divisions of a thread stay interleaved.
 __device__ __forceinline__ uint8_t code(float v, float scale) {
-  const bool zero = v == 0.0f;
-  const float r = rintf(__fdiv_rn(zero ? scale : v, scale));
+  const float r = rintf(__fdiv_rn(v, scale));
   // NaN test before the clip: fminf/fmaxf would turn NaN into a bound
-  return zero || isnan(r)
+  return isnan(r)
              ? uint8_t(0)
              : static_cast<uint8_t>(static_cast<int8_t>(
                    static_cast<int>(fminf(fmaxf(r, -127.0f), 127.0f))));

@@ -7,8 +7,7 @@ prefill.  The kernel itself runs on the card (``test_torch_cuda.py``,
 import numpy as np
 import pytest
 import torch
-from hypothesis import given, settings, strategies as st
-
+from repro.testing.hypo import given, settings, strategies as st
 from repro_torch.kernels.quantize import plan
 from test_torch_cuda import SHAPES
 
