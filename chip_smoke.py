@@ -63,7 +63,8 @@ Phases, in order; any failure raises and exits non-zero:
  12. the cut-fusion kernel against its plain version on the card, on the
      reference's kernel cases and the training path's shapes (the
      batch, a microbatch chunk, a ragged evaluation batch, sum and
-     mean) and the reference benchmark's shape, f32 and bf16, on both
+     mean, the masked trunk's one owner plane (1, 128, 64) x (1, 64,
+     500) sum) and the reference benchmark's shape, f32 and bf16, on both
      routes where both apply (fma: CUDA-core f32 FMAs; tc: wgmma and
      TMA on bf16), with times beside the bound and beside one PyTorch
      call; and a row's bits independent of T (the first 32 rows of a
@@ -74,8 +75,21 @@ Phases, in order; any failure raises and exits non-zero:
      for bit (lossless, then int8), each with exact launch counts; and
      the concat, sum and mean trunks each through a joint fit, card
      against CPU;
- 14. a ``{"kernels": [...]}`` JSON line, then the ``{"ok": true, ...}``
-     JSON line last.
+ 15. secure forward aggregation and the cut-layer defences at full width
+     with the sum trunk: one masked split int8 epoch over the queue with
+     exact launch counts (cut fusion on every trunk forward, the int8
+     codec on gradient messages only), masked split == the masked joint
+     oracle bit for bit (lossless), process == queue (int8) bit for bit,
+     card == CPU masked joint within rel 1e-4, the host time of one
+     owner's mask and the forward bytes per owner; then one split int8
+     epoch per defence (NoPeek, cut noise, unit and sign gradients,
+     gradient noise), each with a finite trail and a warmup that leaves
+     the built params bitwise, NoPeek split against NoPeek joint within
+     rel 1e-4, and every steady step time beside the undefended sum
+     run's;
+ 14. the results, last (after phase 15): a ``{"privacy": ...}`` JSON line
+     with phase 15's numbers, a ``{"kernels": [...]}`` JSON line, then
+     the ``{"ok": true, ...}`` JSON line last.
 
 Without a CUDA device it prints nothing and exits 2.  It imports only
 ``repro_torch`` (never JAX or the JAX package ``repro``).
@@ -288,7 +302,9 @@ def phase_kernels(bw, flops):
     return out
 
 
-def mnist_session(device, n=2000, combine="concat"):
+def mnist_session(device, n=2000, combine="concat", **split):
+    """The paper's config at full width with ``combine`` and any other
+    ``SplitConfig`` fields (the privacy defences) replaced."""
     import dataclasses
     from repro_torch.configs import CONFIG
     from repro_torch.data import make_vertical_mnist_parties
@@ -297,7 +313,7 @@ def mnist_session(device, n=2000, combine="concat"):
         n, seed=0, keep_frac=0.9)), device=device)
     stats = s.resolve(group="modp512")
     s.build(dataclasses.replace(CONFIG, split=dataclasses.replace(
-        CONFIG.split, combine=combine)))
+        CONFIG.split, combine=combine, **split)))
     return s, stats
 
 
@@ -325,8 +341,9 @@ def trunk_forwards(session, schedule="pipelined", microbatches=1,
     trunk forward.  Pipelined split: cut gradient and weight gradient,
     two per chunk, for every step and for the warmup chunks; sequential
     split: one fused step per step and warmup; the microbatched joint
-    oracle: two per chunk, no warmup; the joint step: one per step.
-    Each ``evaluate`` adds one per batch of 512 held-out rows."""
+    oracle (and the masked oracle, at any M): two per chunk, no warmup;
+    the joint step: one per step.  Each ``evaluate`` adds one per batch
+    of 512 held-out rows."""
     steps = len(session.history["loss_trail"])
     per_eval = -(-len(session._eval_idx) // 512)
     M = microbatches
@@ -336,6 +353,8 @@ def trunk_forwards(session, schedule="pipelined", microbatches=1,
         n = steps + 1
     elif schedule == "joint":
         n = 2 * M * steps if M > 1 else steps
+    elif schedule == "oracle":
+        n = 2 * M * steps
     return n + evaluates * per_eval
 
 
@@ -1127,7 +1146,8 @@ def phase_lm_checks(model, params, small_cfg, small_ctx):
 # the reference's kernel cases (tests/test_kernels.py CUT_CASES), then the
 # training path's calls (2 owners, k 64, trunk width 500): the batch of
 # 128, a microbatch chunk of 32 (microbatches=4), phase 4's evaluation
-# batch of 242 rows, sum and mean with W's one block row; then the
+# batch of 242 rows, sum and mean with W's one block row, the masked
+# trunk's dequantized ring sum as one owner plane (phase 15); then the
 # reference benchmark's shape (benchmarks/kernels_bench.py):
 # P, T, k, d, combine, rows of W
 CUT_CASES = [(2, 128, 64, 128, "concat", 2), (4, 256, 64, 96, "concat", 4),
@@ -1138,6 +1158,7 @@ CUT_PATH_CASES = {"batch": (2, 128, 64, 500, "concat", 2),
                   "eval": (2, 242, 64, 500, "concat", 2),
                   "sum": (2, 128, 64, 500, "sum", 1),
                   "mean": (2, 128, 64, 500, "mean", 1),
+                  "masked": (1, 128, 64, 500, "sum", 1),
                   "bench": (2, 4096, 512, 1024, "concat", 2)}
 
 
@@ -1168,6 +1189,8 @@ def cut_library_call(z, w, combine):
     import torch
     if combine == "concat":
         return lambda: torch.einsum("ptk,pkd->td", z, w)
+    if z.shape[0] == 1:                 # one owner plane: a plain product
+        return lambda: torch.matmul(z[0], w[0])
     if combine == "sum":
         return lambda: torch.matmul(z.sum(0), w[0])
     return lambda: torch.matmul(z.mean(0), w[0])
@@ -1373,6 +1396,157 @@ def phase_schedules():
             raise AssertionError(f"card and CPU joint ({combine}) disagree")
 
 
+def mask_build_ms(reps=200):
+    """Host time of one owner's mask for a (128, 64) message (two owners:
+    one Philox stream of 8192 uint32 words), and of the whole masked
+    encode of a cut on the card (lift, copy to the host, mask, ring
+    add), medians of ``reps`` calls on the host clock."""
+    import torch
+    from repro_torch.core import masking
+    cut = torch.randn(PATH_SHAPE, device="cuda").relu()
+    agg = masking.MaskedAggregator(0, 0, 2)
+    out = {}
+    for key, fn in (
+            ("mask_ms", lambda i: masking.pairwise_mask(
+                0, 0, 2, f"s{i}", PATH_SHAPE)),
+            ("encode_ms", lambda i: agg.encode(cut, f"s{i}"))):
+        times = []
+        for i in range(reps):
+            t = time.perf_counter()
+            fn(i)
+            times.append(1e3 * (time.perf_counter() - t))
+        out[key] = sorted(times)[reps // 2]
+    return out
+
+
+def phase_privacy():
+    """Phase 15: secure forward aggregation and the cut-layer defences on
+    the paper's path at full width with the sum trunk.  Masked: one split
+    int8 epoch over the queue with exact launch counts (cut fusion on
+    every trunk forward; the int8 codec on gradient messages only, the
+    ring-coded forward bypasses it), masked split == the masked joint
+    oracle (lossless: the oracle has no codec), process == queue (int8)
+    bitwise, card == CPU oracle.  Defended: one split int8 epoch per
+    defence with a finite trail, the warmup alone (``steps=0``) leaving
+    the built params bitwise, and NoPeek split (lossless) against NoPeek
+    joint.  Step times beside the undefended sum run's, all in this
+    call."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    kw = dict(epochs=1, batch_size=128, eval_frac=0.15, verbose=False)
+    int8 = dict(kw, mode="split", compression="int8", backend="queue")
+    base, _ = mnist_session("cuda", combine="sum")
+    base.fit(**int8)
+    bts = base.transport_stats
+    steps, owners = bts["steps"], len(base.owners)
+    int8_cut = {n: o["cut_payload_bytes"] // steps
+                for n, o in bts["per_owner"].items()}
+    print(f"  undefended sum (split int8 queue): steady_step_ms "
+          f"{bts['steady_step_ms']:.3f}; forward bytes per owner per step "
+          f"{int8_cut}")
+    res = {"base_steady_step_ms": bts["steady_step_ms"]}
+
+    # ---- masked: the main drive, counts read around it
+    masked, _ = mnist_session("cuda", combine="sum")
+    reset_counts()
+    hm = masked.fit(**int8, aggregation="masked_sum")
+    counts = read_counts()
+    n_cut = trunk_forwards(masked)
+    check_counts(counts, {
+        "quantize_pack_int8": owners * (steps + 1), "cut_fusion": n_cut,
+        "cut_fusion.fma": n_cut, "cut_fusion.tc": 0},
+        "the masked split int8 fit")
+    mts = masked.transport_stats
+    fwd = {n: o["cut_payload_bytes"] // steps
+           for n, o in mts["per_owner"].items()}
+    if set(fwd.values()) != {PATH_SHAPE[0] * PATH_SHAPE[1] * 4} or \
+            mts["aggregation"] != "masked_sum":
+        raise AssertionError(f"masked forward bytes {fwd}")
+    if not all(math.isfinite(v) for v in hm["loss_trail"]):
+        raise AssertionError(f"masked trail {hm['loss_trail']}")
+    print(f"  masked (split int8 queue): {steps} steps, steady_step_ms "
+          f"{mts['steady_step_ms']:.3f} (undefended "
+          f"{bts['steady_step_ms']:.3f}); forward bytes per owner per step "
+          f"{fwd} (ring words, against {int8_cut} int8-coded)")
+    res.update(counts=counts, masked_steady_step_ms=mts["steady_step_ms"],
+               masked_fwd_bytes=fwd, int8_fwd_bytes=int8_cut)
+
+    oracle, _ = mnist_session("cuda", combine="sum")
+    reset_counts()
+    ho = oracle.fit(**kw, aggregation="masked_sum")
+    check_counts(read_counts(), {"cut_fusion": trunk_forwards(
+        oracle, "oracle")}, "the masked joint oracle")
+    lossless, _ = mnist_session("cuda", combine="sum")
+    hl = lossless.fit(**kw, mode="split", backend="queue",
+                      aggregation="masked_sum")
+    if not same_params(oracle, lossless) or \
+            hl["loss_trail"] != ho["loss_trail"]:
+        raise AssertionError("masked split != the masked joint oracle")
+    print(f"  masked split (lossless) == the masked joint oracle: params "
+          f"and loss trail bitwise equal over {len(ho['loss_trail'])} steps")
+    proc, _ = mnist_session("cuda", combine="sum")
+    t = time.time()
+    hp = proc.fit(**dict(int8, backend="process"), aggregation="masked_sum")
+    if not same_params(masked, proc) or hp["loss_trail"] != hm["loss_trail"]:
+        raise AssertionError("masked process != masked queue")
+    print(f"  masked process == queue (int8): params and loss trail bitwise "
+          f"equal; fit wall {time.time() - t:.2f} s (workers' start-up "
+          f"included), steady_step_ms "
+          f"{proc.transport_stats['steady_step_ms']:.3f}")
+    cpu, _ = mnist_session("cpu", combine="sum")
+    hc = cpu.fit(**kw, aggregation="masked_sum")
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(ho["loss_trail"], hc["loss_trail"]))
+    pdiff = max((a.cpu() - b).abs().max().item() for a, b in
+                zip(tree_leaves(oracle.params), tree_leaves(cpu.params)))
+    print(f"  masked joint card vs CPU: loss trail max rel {rel:.3e} (limit "
+          f"1e-4), params max |diff| {pdiff:.3e}")
+    if rel > 1e-4:
+        raise AssertionError("card and CPU masked joint runs disagree")
+    res.update(mask_build_ms(), card_cpu_rel=rel)
+    print(f"  host time for one owner's mask of a {PATH_SHAPE} message: "
+          f"{res['mask_ms']:.4f} ms; the whole masked encode of a cut on "
+          f"the card: {res['encode_ms']:.4f} ms (medians of 200)")
+
+    # ---- the defences, each one split int8 epoch
+    defences = {"nopeek": dict(nopeek_weight=0.3),
+                "cut_noise": dict(cut_noise_std=2.0),
+                "grad_unit": dict(grad_norm_mode="unit"),
+                "grad_sign": dict(grad_norm_mode="sign"),
+                "grad_noise": dict(grad_noise_std=0.05)}
+    res["defended_steady_step_ms"] = {}
+    for name, split in defences.items():
+        warm, _ = mnist_session("cuda", combine="sum", **split)
+        built = [t.clone() for t in tree_leaves(warm.params)]
+        warm.fit(**dict(int8, epochs=None, eval_frac=0.0), steps=0)
+        if not all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(warm.params), built)):
+            raise AssertionError(f"{name}: the warmup moved the params")
+        s, _ = mnist_session("cuda", combine="sum", **split)
+        h = s.fit(**int8)
+        trail = h["loss_trail"]
+        if len(trail) != steps or not all(math.isfinite(v) for v in trail):
+            raise AssertionError(f"{name}: bad loss trail {trail}")
+        ms = s.transport_stats["steady_step_ms"]
+        res["defended_steady_step_ms"][name] = ms
+        print(f"  {name} {split} (split int8 queue): finite trail, final "
+              f"loss {trail[-1]:.5f}; warmup left the params bitwise as "
+              f"built; steady_step_ms {ms:.3f} (undefended "
+              f"{bts['steady_step_ms']:.3f})")
+    nj, _ = mnist_session("cuda", combine="sum", nopeek_weight=0.3)
+    hj = nj.fit(**kw)
+    ns, _ = mnist_session("cuda", combine="sum", nopeek_weight=0.3)
+    hs = ns.fit(**kw, mode="split", backend="queue")
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(hs["loss_trail"], hj["loss_trail"]))
+    print(f"  NoPeek split (lossless) vs NoPeek joint on the card: loss "
+          f"trail max rel {rel:.3e} (limit 1e-4)")
+    if rel > 1e-4 or not all(math.isfinite(v) for v in hs["loss_trail"]):
+        raise AssertionError("NoPeek split and joint disagree")
+    res["nopeek_split_joint_rel"] = rel
+    return res
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1450,6 +1624,10 @@ def main():
           "microbatches, worker processes, combines")
     phase_schedules()
     print(f"  phase wall {time.time() - t:.2f} s")
+    t = time.time()
+    print("== 15. secure forward aggregation and the cut-layer defences")
+    priv = phase_privacy()
+    print(f"  phase wall {time.time() - t:.2f} s")
 
     print("== 14. results")
     src = "src/repro_torch/csrc/quantize.cu"
@@ -1471,6 +1649,7 @@ def main():
             "plain_eager_ms": row["plain_eager_ms"],
             "launch_floor_ms": row["floor_ms"],
             "path_cut": path_cut if kname == "quantize_pack_int8" else None,
+            "masked_launches": priv["counts"][kname],
             "all_shapes": res["rows"]})
     # the attention kernel's three routes, each at its headline shape:
     # tc at llama's trunk prefill, decode at llama's trunk decode, and the
@@ -1533,10 +1712,15 @@ def main():
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": shape,
             "eager_ms": row["eager_ms"],
+            "masked_launches": priv["counts"][name_],
+            "masked_shape": (cut["rows"]["masked:float32"]
+                             if croute == "fma" else None),
             "all_shapes": cut["rows"] if croute == "fma" else None})
     entries[0]["serving_launches"] = \
         serving["counts"]["quantize_pack_int8"]
     entries[0]["zamba2_launches"] = zamba["counts"]["quantize_pack_int8"]
+    print(json.dumps({"privacy": {k: v for k, v in priv.items()
+                                  if k != "counts"}}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -5,9 +5,9 @@
 the inputs of the same data subjects.  Each owner runs ``cut_layer``
 blocks (its head segment) locally; the data scientist combines head
 outputs at the cut layer and runs the remaining blocks (the trunk
-segment).  The privacy fields are kept so a reference config converts
-field for field; the port runs only with them at their defaults (NoPeek,
-cut noise and the gradient defenses are queued in ROADMAP.md).
+segment).  The privacy fields (NoPeek, cut noise, the cut-gradient
+defences) train on the MLP SplitNN; the LM refuses ``cut_dim`` and cut
+noise (ROADMAP.md, item 15).
 
 ``ArchConfig``: one architecture, field for field as in the reference.
 The port builds the dense attention family and the Mamba2 hybrid

@@ -15,9 +15,11 @@
    pass through heads + combine + trunk, then per-segment updates
    (owners' lr != scientist's lr).
 3. The per-segment programs that split execution runs over the
-   transport: the owner's head forward/backward and the scientist's
-   trunk step, fused or split into cut-gradient and weight-gradient
-   halves.
+   transport: the owner's head forward/backward (with the NoPeek
+   penalty's gradient when it is on) and the scientist's trunk step,
+   fused or split into cut-gradient and weight-gradient halves; and the
+   masked-sum trunk programs (``fit(aggregation="masked_sum")``), which
+   take the int32 ring sum of the owners' quantized cuts.
 
 Split vs. joint stays bitwise inside the port because both paths run
 the same functions at the same shapes: the joint step computes each
@@ -37,6 +39,8 @@ from typing import Callable, Dict
 import torch
 
 from repro_torch.configs.pyvertical_mnist import MLPSplitConfig
+from repro_torch.core import masking
+from repro_torch.core.privacy import distance_correlation, nopeek_penalty
 from repro_torch.kernels.cut_fusion import cut_fusion_fn
 from repro_torch.optim import apply_updates
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -75,11 +79,6 @@ class MLPSplitNN:
             raise NotImplementedError(
                 "imbalanced owner feature widths are not ported yet "
                 "(ROADMAP.md, port queue)")
-        if (sp.nopeek_weight or sp.cut_noise_std or sp.grad_noise_std
-                or sp.grad_norm_mode != "none"):
-            raise NotImplementedError(
-                "NoPeek, cut noise and gradient defenses are not ported "
-                "yet (ROADMAP.md, port queue: masked_sum and privacy)")
         if sp.combine not in ("concat", "sum", "mean", "max"):
             raise ValueError(sp.combine)
         if cfg.n_features % self.P:
@@ -149,8 +148,19 @@ class MLPSplitNN:
             params["heads"], x_slices))              # logits (B, 10)
 
     def loss_fn(self, params, batch):
-        logits = self.forward(params, batch["x_slices"])
-        return nll_parts(logits, batch["labels"], float(logits.shape[0]))
+        """``(objective, metrics)``: the NLL plus, with NoPeek on, the
+        per-owner ``weight * dcor(raw slice, cut)`` summed over owners;
+        ``metrics["loss"]`` stays the bare NLL, so trails compare across
+        weights."""
+        xs = batch["x_slices"]
+        cut = self.heads_forward(params["heads"], xs)
+        logits = self.trunk_apply(params["trunk"], cut)
+        loss, metrics = nll_parts(logits, batch["labels"],
+                                  float(logits.shape[0]))
+        w = float(self.cfg.split.nopeek_weight)
+        if w > 0.0:
+            return loss + nopeek_penalty(xs, cut, w), metrics
+        return loss, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -170,15 +180,16 @@ def _leaf(t):
 
 def make_split_train_step(loss_fn: Callable, optimizer) -> Callable:
     """The joint step ``step(params, opt_state, batch, step_idx) ->
-    (params, opt_state, metrics)``: one autograd pass, then the
+    (params, opt_state, metrics)``: one autograd pass of the objective
+    (``loss_fn``'s first return: the NLL plus any NoPeek term), then the
     ``multi_segment`` optimizer (heads and trunk get their own rules,
     mirroring the paper's independent per-party updates)."""
 
     def step(params, opt_state, batch, step_idx):
         with torch.enable_grad():
             leaves = tree_map(_leaf, params)
-            _, metrics = loss_fn(leaves, batch)
-            grads = _grad(metrics["loss"], leaves)
+            objective, metrics = loss_fn(leaves, batch)
+            grads = _grad(objective, leaves)
         with torch.no_grad():
             updates, opt_state = optimizer.update(grads, opt_state, params,
                                                   step_idx)
@@ -193,21 +204,33 @@ def make_split_train_step(loss_fn: Callable, optimizer) -> Callable:
 # ---------------------------------------------------------------------------
 
 
-def make_mlp_head_programs(model: MLPSplitNN):
+def make_mlp_head_programs(model: MLPSplitNN, nopeek_weight: float = 0.0):
     """Owner-side programs for one MLP head: ``head_fwd(hp, x) -> cut``;
-    ``head_bwd(hp, x, cut_grad) -> head_grads`` (recompute-forward
-    backward seeded with the received cut gradient)."""
+    ``head_bwd(hp, x, cut_grad, nopeek=True) -> head_grads``
+    (recompute-forward backward seeded with the received cut gradient).
+
+    ``nopeek_weight > 0`` adds the gradient of the owner-local NoPeek
+    term ``weight * dcor(x, head(x))``; ``nopeek=False`` leaves it out
+    (the warmup, whose zero cut gradient must leave params unchanged).
+    Weight 0 runs exactly the undefended backward."""
+    w = float(nopeek_weight)
 
     def head_fwd(hp, x):
         with torch.no_grad():
             return model.head_apply(hp, x)
 
-    def head_bwd(hp, x, g):
+    def head_bwd(hp, x, g, nopeek=True):
         with torch.enable_grad():
             leaves = tree_map(_leaf, hp)
             out = model.head_apply(leaves, x)
-            return tree_unflatten(leaves, list(torch.autograd.grad(
-                out, tree_leaves(leaves), g)))
+            penalised = w > 0.0 and nopeek
+            grads = torch.autograd.grad(out, tree_leaves(leaves), g,
+                                        retain_graph=penalised)
+            if penalised:
+                pen = torch.autograd.grad(w * distance_correlation(x, out),
+                                          tree_leaves(leaves))
+                grads = [a + b for a, b in zip(grads, pen)]
+            return tree_unflatten(leaves, list(grads))
 
     return head_fwd, head_bwd
 
@@ -261,6 +284,64 @@ def make_mlp_trunk_microbatch_programs(model: MLPSplitNN):
         with torch.enable_grad():
             tl = tree_map(_leaf, tp)
             loss, _ = _chunk_loss(model, tl, cuts, labels, denom)
+            return _grad(loss, tl)
+
+    return cutgrad, weightgrad
+
+
+# ---------------------------------------------------------------------------
+# Secure forward aggregation (masked-sum combine, Cai et al. 2207.00165)
+# ---------------------------------------------------------------------------
+#
+# The scientist's programs for ``fit(aggregation="masked_sum")``: they take
+# the int32 ring sum of the owners' quantized cuts (masked on the wire,
+# ``core/masking.py``; the masks cancel in the fold), dequantize it and
+# enter the trunk through ``trunk_apply`` as one owner plane (1, B, k) of
+# the sum combine, so the cut-fusion kernel stays the only way into the
+# trunk.  The cut gradient is ``dL/dz``, the same for every owner.
+
+
+def _masked_chunk_loss(model, tp, z, labels, denom):
+    return nll_parts(model.trunk_apply(tp, z[None]), labels, denom)
+
+
+def make_mlp_masked_trunk_program(model: MLPSplitNN):
+    """The fused masked-sum scientist step (sequential schedule):
+    ``trunk_step(tp, zsum (B, k) int32, labels) -> (metrics, trunk_grads,
+    z_grad (B, k))``."""
+
+    def trunk_step(tp, zsum, labels):
+        with torch.enable_grad():
+            tl = tree_map(_leaf, tp)
+            z = _leaf(masking.dequantize(zsum))
+            loss, parts = _masked_chunk_loss(model, tl, z, labels,
+                                             float(labels.shape[0]))
+            grads = torch.autograd.grad(loss, tree_leaves(tl) + [z])
+        return (_detached(parts), tree_unflatten(tl, list(grads[:-1])),
+                grads[-1])
+
+    return trunk_step
+
+
+def make_mlp_masked_trunk_microbatch_programs(model: MLPSplitNN):
+    """The per-chunk masked-sum programs, the masked counterparts of
+    :func:`make_mlp_trunk_microbatch_programs` (the same ``sum / denom``
+    seeding; the chunk's int32 ring sum in place of the cuts):
+    ``cutgrad(tp, zsum, labels, denom) -> (z_grad, parts)`` and
+    ``weightgrad(tp, zsum, labels, denom) -> trunk_grads``."""
+
+    def cutgrad(tp, zsum, labels, denom):
+        with torch.enable_grad():
+            z = _leaf(masking.dequantize(zsum))
+            loss, parts = _masked_chunk_loss(model, tp, z, labels, denom)
+            return torch.autograd.grad(loss, [z])[0], _detached(parts)
+
+    def weightgrad(tp, zsum, labels, denom):
+        with torch.enable_grad():
+            tl = tree_map(_leaf, tp)
+            loss, _ = _masked_chunk_loss(model, tl,
+                                         masking.dequantize(zsum), labels,
+                                         denom)
             return _grad(loss, tl)
 
     return cutgrad, weightgrad

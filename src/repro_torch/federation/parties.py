@@ -19,6 +19,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.privacy import deterministic_cut_noise
 from repro_torch.core.psi import PSIClient, PSIServer
 from repro_torch.core.resolution import VerticalDataset
 from repro_torch.tree import tree_add, tree_leaves
@@ -143,10 +144,10 @@ class OwnerComputeEndpoint:
                          optimizer update, then the staged step-t+1
                          forward if its request already arrived.
       ``warmup``         pre-training handshake: one forward per chunk,
-                         one backward of a zero gradient per chunk and
-                         one update, through both codec directions (a
-                         zero gradient leaves SGD params bitwise
-                         unchanged).
+                         one backward of a zero gradient per chunk
+                         (without the NoPeek term) and one update,
+                         through both codec directions: params and
+                         optimizer state stay bitwise unchanged.
       ``barrier``        flush marker, acked once every prior message is
                          processed.
       ``pull_params``    the head params as numbered numpy leaves
@@ -160,16 +161,29 @@ class OwnerComputeEndpoint:
     op runs on the session's device; the host copy at the wire boundary
     synchronises, so the loop takes no explicit device sync.  ``run``
     is the thread target (and the spawned worker's loop,
-    ``federation/runtime.py``).  The reference's fused owner tail,
-    masking, fault and supervision hooks are queued in ROADMAP.md.
+    ``federation/runtime.py``).
+
+    Cuts ship codec-encoded, or with ``masker`` (a
+    :class:`~repro_torch.core.masking.MaskedAggregator`) quantized and
+    ring-masked as ``{"mq": uint32}``, bypassing the codec.  Without a
+    masker, ``cut_noise_std`` adds the owner's deterministic Gaussian
+    noise (keyed on ``noise_seed`` and ``s{seq}``) to every steady-state
+    cut before the codec; under masking it is ignored, as in the
+    reference.  The reference's fused owner tail, fault and supervision
+    hooks are queued in ROADMAP.md.
     """
 
     def __init__(self, owner: DataOwner, endpoint, head_fwd, head_bwd, *,
                  update, params, opt_state, codec, device,
-                 ack_steps: bool = False, microbatches: int = 1):
+                 ack_steps: bool = False, microbatches: int = 1,
+                 masker=None, cut_noise_std: float = 0.0,
+                 noise_seed: int = 0):
         self.owner = owner
         self.endpoint = endpoint
         self.head_fwd, self.head_bwd = head_fwd, head_bwd
+        self.masker = masker
+        self.cut_noise_std = float(cut_noise_std)
+        self.noise_seed = int(noise_seed)
         self._update = update
         self.params = params
         self.opt_state = opt_state
@@ -193,25 +207,39 @@ class OwnerComputeEndpoint:
         bm = x.shape[0] // self.micro
         return [x[m * bm:(m + 1) * bm] for m in range(self.micro)]
 
+    def _ship_cut(self, cut: torch.Tensor, seq: int,
+                  kind: str = "cut_activations") -> None:
+        if self.masker is not None:
+            # {"mq": uint32 ring element}: uniform ring words, 4 bytes
+            # each like the f32 cut, so no codec applies
+            tag = (self.masker.step_tag(seq) if kind == "cut_activations"
+                   else self.masker.warmup_tag(seq))
+            payload = self.masker.encode(cut, tag)
+        else:
+            if self.cut_noise_std > 0.0 and kind == "cut_activations":
+                cut = torch.from_numpy(deterministic_cut_noise(
+                    cut.cpu().numpy(), self.cut_noise_std, self.noise_seed,
+                    f"s{seq}")).to(self.device)
+            payload = self.codec.encode(cut)
+        self.endpoint.send(kind, payload, seq=seq)
+
     def _run_fwd(self, step: int) -> None:
         for m, x in enumerate(self._plan.pop(step)):
             seq = step * self.micro + m
             self._inflight[seq] = x
-            self.endpoint.send(
-                "cut_activations",
-                self.codec.encode(self.head_fwd(self.params, x)), seq=seq)
+            self._ship_cut(self.head_fwd(self.params, x), seq)
 
     def _warmup(self, msg) -> None:
         chunks = self._stage(msg.payload["idx"])
         for m, x in enumerate(chunks):
-            self.endpoint.send(
-                "warmup_cuts",
-                self.codec.encode(self.head_fwd(self.params, x)), seq=m)
+            self._ship_cut(self.head_fwd(self.params, x), m, "warmup_cuts")
         for x in chunks:
             g = self.codec.decode(
                 self.endpoint.recv_kind("warmup_grads").payload)
-            self._grad_acc = tree_add(self._grad_acc,
-                                      self.head_bwd(self.params, x, g * 0.0))
+            # no NoPeek term: on the warmup's batch of one repeated row
+            # its gradient is not finite, and any term would move params
+            self._grad_acc = tree_add(self._grad_acc, self.head_bwd(
+                self.params, x, g * 0.0, nopeek=False))
         self.params, self.opt_state = self._update(
             self.params, self.opt_state, self._grad_acc, 0)
         self._grad_acc = None

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.pyvertical_mnist import MLPSplitConfig
-from repro_torch.core import splitnn
+from repro_torch.core import masking, splitnn
 from repro_torch.federation import batching
 from repro_torch.optim import apply_updates, multi_segment, sgd
 
@@ -37,6 +37,8 @@ class MLPAdapter:
     #: ``fit(microbatches=M)``: the trunk's per-chunk programs take the
     #: full batch as ``denom``, so M chunks accumulate to the batch step
     supports_microbatch = True
+    #: ``SplitConfig.nopeek_weight``: the head backward adds the penalty
+    supports_nopeek = True
 
     def __init__(self, cfg: MLPSplitConfig):
         self.cfg = cfg
@@ -79,9 +81,12 @@ class MLPAdapter:
 
     # ------------------------------------------------- split execution
     def owner_programs(self, owner_index: int):
-        """(head_fwd, head_bwd) — one pair serves every owner."""
+        """(head_fwd, head_bwd): one pair serves every owner; the NoPeek
+        weight is part of the backward, so it keys the cache."""
+        w = float(self.cfg.split.nopeek_weight)
         return self._cached(
-            "head_progs", lambda: splitnn.make_mlp_head_programs(self.model))
+            ("head_progs", w),
+            lambda: splitnn.make_mlp_head_programs(self.model, w))
 
     def trunk_program(self):
         return self._cached(
@@ -91,6 +96,28 @@ class MLPAdapter:
         return self._cached(
             "trunk_micro",
             lambda: splitnn.make_mlp_trunk_microbatch_programs(self.model))
+
+    # ------------------------------------- secure forward aggregation
+    @property
+    def supports_masked(self) -> bool:
+        """masked_sum rides the sum combine: the scientist only ever
+        needs ``sum_p cut_p``, which the ring fold reconstructs."""
+        return self.cfg.split.combine == "sum"
+
+    def quant_program(self):
+        """The fixed-point lift the owners and the masked oracle share."""
+        return masking.quantize
+
+    def masked_trunk_program(self):
+        return self._cached(
+            "masked_trunk_prog",
+            lambda: splitnn.make_mlp_masked_trunk_program(self.model))
+
+    def masked_trunk_microbatch_programs(self):
+        return self._cached(
+            "masked_trunk_micro",
+            lambda: splitnn.make_mlp_masked_trunk_microbatch_programs(
+                self.model))
 
     def owner_param_slice(self, params, p: int):
         return splitnn.head_slice(params["heads"], p)

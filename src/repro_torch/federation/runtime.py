@@ -51,7 +51,12 @@ class OwnerWorkerSpec:
     structure of a freshly initialised slice, so no structure crosses);
     ``device`` the explicit device string the worker resolves;
     ``num_threads`` the worker's intra-op CPU threads (None: torch's
-    default)."""
+    default).  ``aggregation="masked_sum"`` makes the worker build its
+    :class:`~repro_torch.core.masking.MaskedAggregator` over
+    ``n_owners`` owners, with the root seed from the environment
+    (``REPRO_MASK_SEED``, inherited from the session) and ``noise_seed``
+    as its default: the spec never carries the root.  ``cut_noise_std``
+    and ``noise_seed`` are the owner's cut-noise defence."""
 
     name: str
     ids: List[str]
@@ -65,6 +70,10 @@ class OwnerWorkerSpec:
     ack_steps: bool = False
     owner_lr: Optional[float] = None
     num_threads: Optional[int] = None
+    aggregation: Optional[str] = None
+    n_owners: int = 0
+    cut_noise_std: float = 0.0
+    noise_seed: int = 0
 
 
 def _owner_body(spec: OwnerWorkerSpec, ep: ProcessEndpoint) -> None:
@@ -89,12 +98,20 @@ def _owner_body(spec: OwnerWorkerSpec, ep: ProcessEndpoint) -> None:
         for leaf in spec.param_leaves])
     owner_opt, owner_update = adapter.owner_update_rule(spec.owner_lr)
     head_fwd, head_bwd = adapter.owner_programs(p)
+    masker = None
+    if spec.aggregation == "masked_sum":
+        from repro_torch.core import masking
+        masker = masking.MaskedAggregator(
+            masking.mask_root_from_env(spec.noise_seed), p, spec.n_owners,
+            adapter.quant_program())
     worker = OwnerComputeEndpoint(
         DataOwner(spec.name, spec.ids, spec.features), ep, head_fwd,
         head_bwd, update=owner_update, params=params,
         opt_state=owner_opt.init(params),
         codec=get_codec(spec.codec, device), device=device,
-        ack_steps=spec.ack_steps, microbatches=spec.microbatches)
+        ack_steps=spec.ack_steps, microbatches=spec.microbatches,
+        masker=masker, cut_noise_std=spec.cut_noise_std,
+        noise_seed=spec.noise_seed)
     worker.run()
     if worker.error is not None:
         raise worker.error

@@ -38,9 +38,26 @@ Training modes:
     bit-for-bit oracle (per-chunk programs, gradients summed in chunk
     order, one update per step).
 
+Privacy (``SplitConfig`` and ``fit(aggregation=...)``):
+
+  * ``aggregation="masked_sum"`` (sum combine, >= 2 owners): secure
+    forward aggregation (``core/masking.py``).  Each owner ships its cut
+    quantized and ring-masked with pairwise-cancelling masks (root seed
+    over the ``REPRO_MASK_SEED`` environment variable), so the scientist
+    reconstructs only the owners' sum.  ``mode="joint"`` with it runs
+    the masked joint oracle (the same quantize -> ring sum ->
+    dequantize, without masks) through the microbatched loop, even at
+    M = 1; masked split execution reproduces it bit for bit.
+  * ``nopeek_weight``: the NoPeek term in the objective (joint) or in
+    each owner's head backward (split).
+  * ``cut_noise_std``: the owners' deterministic noise on every
+    steady-state cut they ship (split).
+  * ``grad_norm_mode`` / ``grad_noise_std``: the scientist's
+    obfuscation of every cut-gradient chunk it ships (split).
+
 The scientist's trunk takes the owners' cuts through the cut-fusion
 kernel (``MLPSplitNN.trunk_apply``) on every path: joint, split,
-microbatched and evaluation.
+microbatched, masked (the ring sum as one owner plane) and evaluation.
 
 Party-visibility contract: owners never see labels, the scientist never
 receives raw feature arrays; every cross-party message the session
@@ -48,10 +65,11 @@ mediates is appended to ``session.transcript``.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
 item): PSI bloom/hidden modes, the worker pool and the wire backends;
-``supervise``, ``aggregation``, checkpointing and serving.
+``supervise``, checkpointing and serving.
 """
 from __future__ import annotations
 
+import os
 import queue as _queue
 import sys
 import threading
@@ -64,6 +82,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import not_ported
+from repro_torch.core import masking, privacy
 from repro_torch.core.psi import DEFAULT_CHUNK, psi_round
 from repro_torch.core.splitnn import cut_layer_traffic, make_split_train_step
 from repro_torch.device import resolve_device
@@ -76,7 +95,8 @@ from repro_torch.tree import tree_add, tree_leaves, tree_map, tree_unflatten
 
 
 def _scalars(m):
-    return {k: float(v) for k, v in m.items()}
+    return {k: v if k in ("epoch", "step") else float(v)
+            for k, v in m.items()}
 
 
 class VerticalSession:
@@ -102,6 +122,7 @@ class VerticalSession:
         self.transport_stats: Optional[dict] = None
         self.adapter = None
         self.config = None
+        self._init_seed = seed
         self.params = None
         self.history: Optional[dict] = None
         self._resolved = False
@@ -202,10 +223,12 @@ class VerticalSession:
         with ``seed`` (default: the session seed)."""
         self.adapter = build_adapter(config)
         self.config = config
+        # the init seed also keys the wire defences' noise and, unless the
+        # environment sets one, the mask root
+        self._init_seed = self.seed if seed is None else seed
         if params is None:
-            gen = torch.Generator().manual_seed(
-                self.seed if seed is None else seed)
-            params = self.adapter.init(gen)
+            params = self.adapter.init(
+                torch.Generator().manual_seed(self._init_seed))
         self.params = tree_map(
             lambda t: torch.as_tensor(t, dtype=torch.float32).to(
                 self.device).clone(), params)
@@ -213,7 +236,8 @@ class VerticalSession:
 
     # ---------------------------------------------------------------- 3. fit
 
-    def fit(self, *, epochs: int, batch_size: int = 128,
+    def fit(self, *, epochs: Optional[int] = None,
+            steps: Optional[int] = None, batch_size: int = 128,
             eval_frac: float = 0.0, owner_lr: Optional[float] = None,
             scientist_lr: Optional[float] = None,
             shuffle_seed: Optional[int] = None, verbose: bool = True,
@@ -222,10 +246,13 @@ class VerticalSession:
             backend: str = "queue", timeout: float = 120.0,
             supervise: bool = False, aggregation: Optional[str] = None,
             ckpt_dir: Optional[str] = None) -> dict:
-        """The SplitNN training loop over ``epochs`` epochs of full
-        batches.  ``eval_frac`` holds out the last fraction of aligned
-        rows; per-epoch eval metrics land in ``history["eval"]`` and the
-        per-step loss in ``history["loss_trail"]``.
+        """The SplitNN training loop over exactly one of ``epochs``
+        epochs of full batches or ``steps`` steps (a fresh permutation
+        whenever the rest cannot fill a batch).  ``eval_frac`` holds out
+        the last fraction of aligned rows; eval metrics land in
+        ``history["eval"]`` (per epoch, or once after ``steps``), and the
+        per-step loss in ``history["loss_trail"]``.  ``steps=0`` runs
+        only the split warmup handshake.
 
         ``mode="joint"`` runs the single autograd step (with
         ``microbatches=M > 1``: the microbatched joint oracle).
@@ -239,16 +266,28 @@ class VerticalSession:
         handoff, "process" = each owner in a spawned worker process over
         an OS pipe), ``timeout`` (seconds a receive from an owner may
         wait; warmup receives wait at least 120 s, for worker start-up).
-        Both modes draw batches from one index stream, so they see the
-        same batches in the same order."""
+        ``aggregation`` (None | "masked_sum"): secure forward aggregation,
+        see the module docstring.  Both modes draw batches from one index
+        stream, so they see the same batches in the same order."""
         self._require(resolved=True, built=True, labels=True)
+        if (epochs is None) == (steps is None):
+            raise ValueError("pass exactly one of epochs= or steps=")
         if mode not in ("joint", "split"):
             raise ValueError(f"mode must be 'joint' or 'split': {mode!r}")
         if supervise:
             raise not_ported("supervise=True", "supervise/recovery")
-        if aggregation is not None:
-            raise not_ported(f"aggregation={aggregation!r}",
-                              "masked_sum and privacy")
+        if aggregation not in (None, "masked_sum"):
+            raise ValueError(f"unknown aggregation {aggregation!r} "
+                             "(None | 'masked_sum')")
+        if aggregation == "masked_sum":
+            if not getattr(self.adapter, "supports_masked", False):
+                raise ValueError(
+                    f"{type(self.adapter).__name__} does not support "
+                    "masked_sum aggregation (needs combine='sum')")
+            if len(self.owners) < 2:
+                raise ValueError(
+                    "masked_sum needs >= 2 owners: a single owner's "
+                    "masked payload would expose its activations")
         M = int(microbatches)
         if M < 1:
             raise ValueError(f"microbatches must be >= 1: {M}")
@@ -269,40 +308,66 @@ class VerticalSession:
         self._eval_idx = np.arange(n_train, n)
         rng = np.random.default_rng(self.seed if shuffle_seed is None
                                     else shuffle_seed)
-        stream = self._index_stream(rng, n_train, batch_size, epochs)
-        steps_per_epoch = (n_train - batch_size) // batch_size + 1
+        if epochs is not None:
+            steps_per_epoch = (n_train - batch_size) // batch_size + 1
+            total_steps = epochs * steps_per_epoch
+        else:
+            steps_per_epoch, total_steps = None, int(steps)
+        loop = dict(stream=self._index_stream(rng, n_train, batch_size,
+                                              epochs, steps),
+                    total_steps=total_steps,
+                    steps_per_epoch=steps_per_epoch, batch_size=batch_size,
+                    owner_lr=owner_lr, scientist_lr=scientist_lr,
+                    verbose=verbose)
         if mode == "split":
             return self._fit_split(
-                stream, epochs=epochs, steps_per_epoch=steps_per_epoch,
-                batch_size=batch_size, owner_lr=owner_lr,
-                scientist_lr=scientist_lr, verbose=verbose,
-                schedule=schedule, microbatches=M, compression=compression,
-                backend=backend, timeout=timeout)
-        if M > 1:
+                **loop, schedule=schedule, microbatches=M,
+                compression=compression, backend=backend, timeout=timeout,
+                aggregation=aggregation)
+        if M > 1 or aggregation is not None:
             return self._fit_joint_microbatched(
-                stream, epochs=epochs, steps_per_epoch=steps_per_epoch,
-                batch_size=batch_size, owner_lr=owner_lr,
-                scientist_lr=scientist_lr, verbose=verbose, microbatches=M)
-        return self._fit_joint(stream, epochs=epochs,
-                               steps_per_epoch=steps_per_epoch,
-                               batch_size=batch_size, owner_lr=owner_lr,
-                               scientist_lr=scientist_lr, verbose=verbose)
+                **loop, microbatches=M, aggregation=aggregation)
+        return self._fit_joint(**loop)
 
-    def _index_stream(self, rng, n_train, batch_size, epochs):
+    def _index_stream(self, rng, n_train, batch_size, epochs, steps):
         """The batch-index stream — one generator shared by the joint
-        and split loops (a fresh permutation per epoch, full batches)."""
-        for _ in range(epochs):
-            order = rng.permutation(self._train_idx)
-            for s in range(0, n_train - batch_size + 1, batch_size):
-                yield order[s:s + batch_size]
+        and split loops.  Epochs: a fresh permutation per epoch, full
+        batches; steps: a fresh permutation whenever the rest of the
+        current one cannot fill a batch."""
+        if epochs is not None:
+            for _ in range(epochs):
+                order = rng.permutation(self._train_idx)
+                for s in range(0, n_train - batch_size + 1, batch_size):
+                    yield order[s:s + batch_size]
+            return
+        order = rng.permutation(self._train_idx)
+        cursor = 0
+        for _ in range(steps):
+            if cursor + batch_size > n_train:
+                order = rng.permutation(self._train_idx)
+                cursor = 0
+            yield order[cursor:cursor + batch_size]
+            cursor += batch_size
 
     def _labels(self, idx) -> torch.Tensor:
         return torch.from_numpy(self.scientist.labels[idx].astype(
             np.int64)).to(self.device)
 
+    def _after_step(self, t, metrics, history, t0, *, steps_per_epoch,
+                    verbose, sync):
+        """Step ``t``'s bookkeeping, shared by every loop.  Epochs: at
+        each epoch's end its record, eval and print (``sync`` makes
+        ``self.params`` current first).  Steps: the step's record, whose
+        tensors ``_finish`` reads, so a step takes no host sync."""
+        if steps_per_epoch is None:
+            history["train"].append({"step": t, **metrics})
+        elif (t + 1) % steps_per_epoch == 0:
+            self._end_epoch((t + 1) // steps_per_epoch - 1, metrics,
+                            history, t0, verbose=verbose, sync=sync)
+
     def _end_epoch(self, ep, metrics, history, t0, *, verbose, sync):
-        """Per-epoch history, eval and print, shared by both loops.
-        ``sync`` makes ``self.params`` current before eval reads them."""
+        """Per-epoch history, eval and print.  ``sync`` makes
+        ``self.params`` current before eval reads them."""
         rec = {"epoch": ep, **_scalars(metrics)}
         history["train"].append(rec)
         if len(self._eval_idx):
@@ -316,22 +381,33 @@ class VerticalSession:
                 f"{k}={v:.4f}" for k, v in rec.items() if k != "epoch")
                 + extra + f" ({time.time() - t0:.1f}s)")
 
-    def _finish(self, history, losses):
+    def _finish(self, history, losses, *, steps_mode, verbose):
+        """The run's history; ``self.params`` must be current.  A steps
+        run gets its records' scalars and one eval here."""
         history["loss_trail"] = torch.stack(losses).tolist() if losses \
             else []
+        if steps_mode:
+            history["train"] = [_scalars(r) for r in history["train"]]
+            if len(self._eval_idx):
+                history["eval"].append({"step": len(losses),
+                                        **self.evaluate()})
+            if verbose and history["train"]:
+                print(" ".join(f"{k}={v:.4f}" if k != "step"
+                               else f"step {v:5d}"
+                               for k, v in history["train"][-1].items()))
         final = dict(history["train"][-1]) if history["train"] else {}
         if history["eval"]:
             final.update({f"val_{k}": v
                           for k, v in history["eval"][-1].items()
-                          if k != "epoch"})
+                          if k not in ("epoch", "step")})
         history["final"] = final
         self.history = history
         return history
 
     # ------------------------------------------------------- 3a. joint
 
-    def _fit_joint(self, stream, *, epochs, steps_per_epoch, batch_size,
-                   owner_lr, scientist_lr, verbose) -> dict:
+    def _fit_joint(self, stream, *, total_steps, steps_per_epoch,
+                   batch_size, owner_lr, scientist_lr, verbose) -> dict:
         adapter = self.adapter
         opt = adapter.default_optimizer(owner_lr, scientist_lr)
         state = opt.init(self.params)
@@ -347,24 +423,25 @@ class VerticalSession:
         history: dict = {"train": [], "eval": []}
         losses: list = []
         t0 = time.time()
-        t = 0
-        for ep in range(epochs):
-            for _ in range(steps_per_epoch):
-                batch = adapter.make_batch(owner_arrays, labels,
-                                           next(stream), device=self.device)
-                self.params, state, metrics = step_fn(self.params, state,
-                                                      batch, t)
-                losses.append(metrics["loss"])
-                t += 1
-            self._end_epoch(ep, metrics, history, t0, verbose=verbose,
-                            sync=lambda: None)
-        return self._finish(history, losses)
+        for t in range(total_steps):
+            batch = adapter.make_batch(owner_arrays, labels, next(stream),
+                                       device=self.device)
+            self.params, state, metrics = step_fn(self.params, state,
+                                                  batch, t)
+            losses.append(metrics["loss"])
+            self._after_step(t, metrics, history, t0,
+                             steps_per_epoch=steps_per_epoch,
+                             verbose=verbose, sync=lambda: None)
+        return self._finish(history, losses,
+                            steps_mode=steps_per_epoch is None,
+                            verbose=verbose)
 
     # ------------------------------------- 3a'. microbatched joint oracle
 
-    def _fit_joint_microbatched(self, stream, *, epochs, steps_per_epoch,
-                                batch_size, owner_lr, scientist_lr, verbose,
-                                microbatches) -> dict:
+    def _fit_joint_microbatched(self, stream, *, total_steps,
+                                steps_per_epoch, batch_size, owner_lr,
+                                scientist_lr, verbose, microbatches,
+                                aggregation=None) -> dict:
         """The GPipe oracle of ``fit(mode="split", microbatches=M)``: the
         same cached per-segment programs in the same order.  Per chunk,
         the owners' head forwards, the trunk's cut gradient and the
@@ -372,7 +449,13 @@ class VerticalSession:
         params; then one update per owner, the trunk's weight gradient
         per chunk, summed in chunk order, and one trunk update.  Each
         chunk's loss is ``sum / batch``, so the chunks add up to the
-        batch step.  The split run reproduces it bit for bit."""
+        batch step.  The split run reproduces it bit for bit.
+
+        With ``aggregation="masked_sum"`` this is the masked joint
+        oracle: each owner's cut is quantized, the ints are ring-summed
+        on the host (``masking.fold_quantized``, bitwise the wire's fold
+        once the masks cancel), the masked trunk programs take the int32
+        sum, and every owner's head backward takes the one ``dL/dz``."""
         adapter = self.adapter
         M = microbatches
         bm = batch_size // M
@@ -383,7 +466,12 @@ class VerticalSession:
                   for p in range(P)]
         ostates = [owner_opt.init(s) for s in slices]
         trunk_opt, trunk_update = adapter.trunk_update_rule(scientist_lr)
-        cutgrad, weightgrad = adapter.trunk_microbatch_programs()
+        masked = aggregation == "masked_sum"
+        if masked:
+            quant = adapter.quant_program()
+            cutgrad, weightgrad = adapter.masked_trunk_microbatch_programs()
+        else:
+            cutgrad, weightgrad = adapter.trunk_microbatch_programs()
         tp = self.params["trunk"]
         ts = trunk_opt.init(tp)
         denom = float(batch_size)
@@ -398,40 +486,51 @@ class VerticalSession:
         history: dict = {"train": [], "eval": []}
         losses: list = []
         t0 = time.time()
-        t = 0
-        for ep in range(epochs):
-            for _ in range(steps_per_epoch):
-                idx = next(stream)
-                rows = torch.from_numpy(np.asarray(idx, np.int64)).to(
-                    self.device)
-                xs = [f[rows] for f in feats]
-                lab = self._labels(idx)
-                hg: list = [None] * P
-                metrics, cache = None, []
-                for m in range(M):
-                    sl = slice(m * bm, (m + 1) * bm)
-                    chunks = [x[sl] for x in xs]
-                    cuts = tuple(head_progs[p][0](slices[p], chunks[p])
-                                 for p in range(P))
+        for t in range(total_steps):
+            idx = next(stream)
+            rows = torch.from_numpy(np.asarray(idx, np.int64)).to(
+                self.device)
+            xs = [f[rows] for f in feats]
+            lab = self._labels(idx)
+            hg: list = [None] * P
+            metrics, cache = None, []
+            for m in range(M):
+                sl = slice(m * bm, (m + 1) * bm)
+                chunks = [x[sl] for x in xs]
+                cuts = tuple(head_progs[p][0](slices[p], chunks[p])
+                             for p in range(P))
+                if masked:
+                    # no masks: they would cancel in the fold anyway
+                    cuts = self._to_device(masking.fold_quantized(
+                        [quant(c).cpu().numpy() for c in cuts]))
+                    zg, parts = cutgrad(tp, cuts, lab[sl], denom)
+                    cg = [zg] * P
+                else:
                     cg, parts = cutgrad(tp, cuts, lab[sl], denom)
-                    for p in range(P):
-                        g = head_progs[p][1](slices[p], chunks[p], cg[p])
-                        hg[p] = tree_add(hg[p], g)
-                    metrics = tree_add(metrics, parts)
-                    cache.append((cuts, lab[sl]))
                 for p in range(P):
-                    slices[p], ostates[p] = owner_update(
-                        slices[p], ostates[p], hg[p], t)
-                tg = None
-                for cuts, lab_m in cache:
-                    tg = tree_add(tg, weightgrad(tp, cuts, lab_m, denom))
-                tp, ts = trunk_update(tp, ts, tg, t)
-                losses.append(metrics["loss"])
-                t += 1
-            self._end_epoch(ep, metrics, history, t0, verbose=verbose,
-                            sync=reassemble)
+                    g = head_progs[p][1](slices[p], chunks[p], cg[p])
+                    hg[p] = tree_add(hg[p], g)
+                metrics = tree_add(metrics, parts)
+                cache.append((cuts, lab[sl]))
+            for p in range(P):
+                slices[p], ostates[p] = owner_update(
+                    slices[p], ostates[p], hg[p], t)
+            tg = None
+            for cuts, lab_m in cache:
+                tg = tree_add(tg, weightgrad(tp, cuts, lab_m, denom))
+            tp, ts = trunk_update(tp, ts, tg, t)
+            losses.append(metrics["loss"])
+            self._after_step(t, metrics, history, t0,
+                             steps_per_epoch=steps_per_epoch,
+                             verbose=verbose, sync=reassemble)
         reassemble()
-        return self._finish(history, losses)
+        return self._finish(history, losses,
+                            steps_mode=steps_per_epoch is None,
+                            verbose=verbose)
+
+    def _to_device(self, ints: np.ndarray) -> torch.Tensor:
+        """A host int32 ring sum as a tensor on the session's device."""
+        return torch.from_numpy(ints).to(self.device)
 
     # ------------------------------------------------- 3b. split execution
 
@@ -481,13 +580,19 @@ class VerticalSession:
                        "trunk": trunk_params}
 
     def _start_owners(self, workers, eps, threads, backend, *, codec,
-                      compression, owner_lr, sequential, microbatches):
+                      compression, owner_lr, sequential, microbatches,
+                      aggregation):
         """One owner worker per owner, appended to ``workers`` (with its
         scientist endpoint to ``eps``) as it starts, so that a failure
         half way leaves every started one to the caller's clean-up: a
         thread behind a channel pair (queue, direct; also appended to
-        ``threads``) or a spawned process behind a pipe."""
+        ``threads``) or a spawned process behind a pipe.  Masked owners
+        take the mask root from the environment, as a spawned worker
+        does."""
         adapter = self.adapter
+        P = len(self.owners)
+        noise = dict(cut_noise_std=self.config.split.cut_noise_std,
+                     noise_seed=self._init_seed)
         if backend == "process":
             from repro_torch.federation import runtime
             if self.device.type == "cuda" and compression == "int8":
@@ -505,7 +610,8 @@ class VerticalSession:
                     codec=compression, microbatches=microbatches,
                     ack_steps=sequential, owner_lr=owner_lr,
                     num_threads=(torch.get_num_threads()
-                                 if self.device.type == "cpu" else None))
+                                 if self.device.type == "cpu" else None),
+                    aggregation=aggregation, n_owners=P, **noise)
                 handle = runtime.spawn_owner_worker(spec, owner=owner)
                 workers.append(handle)
                 eps.append(handle.endpoint)
@@ -516,11 +622,16 @@ class VerticalSession:
                 "scientist", owner.name, backend=backend)
             head_fwd, head_bwd = adapter.owner_programs(p)
             hp = adapter.owner_param_slice(self.params, p)
+            masker = None
+            if aggregation == "masked_sum":
+                masker = masking.MaskedAggregator(
+                    masking.mask_root_from_env(self._init_seed), p, P,
+                    adapter.quant_program())
             w = OwnerComputeEndpoint(
                 owner, ep_own, head_fwd, head_bwd, update=owner_update,
                 params=hp, opt_state=owner_opt.init(hp), codec=codec,
                 device=self.device, ack_steps=sequential,
-                microbatches=microbatches)
+                microbatches=microbatches, masker=masker, **noise)
             th = threading.Thread(target=w.run, daemon=True,
                                   name=f"owner-{owner.name}")
             th.start()
@@ -528,9 +639,10 @@ class VerticalSession:
             eps.append(ep_sci)
             threads.append(th)
 
-    def _fit_split(self, stream, *, epochs, steps_per_epoch, batch_size,
-                   owner_lr, scientist_lr, verbose, schedule, microbatches,
-                   compression, backend, timeout) -> dict:
+    def _fit_split(self, stream, *, total_steps, steps_per_epoch,
+                   batch_size, owner_lr, scientist_lr, verbose, schedule,
+                   microbatches, compression, backend, timeout,
+                   aggregation) -> dict:
         """True split execution over the transport (paper Fig. 2).
 
         Per step t the wire carries ``head_fwd`` (batch row indices),
@@ -544,7 +656,14 @@ class VerticalSession:
         gradients and update run afterwards, while the gradients are on
         the wire.  A warmup round runs every program and both codec
         directions once per chunk before the timed region; with
-        ``backend="process"`` it also absorbs the workers' start-up."""
+        ``backend="process"`` it also absorbs the workers' start-up.
+
+        Masked runs fold each chunk's ring payloads into the int32 sum
+        (``masking.reconstruct``) and ship the one ``dL/dz`` to every
+        owner.  The gradient defences (``grad_norm_mode``,
+        ``grad_noise_std``) apply to every cut-gradient chunk, keyed on
+        ``g{seq}o{owner}``; the warmup's zero gradients are sent as they
+        are."""
         adapter = self.adapter
         if backend not in ("queue", "direct", "process"):
             raise ValueError(f"unknown fit backend {backend!r}")
@@ -558,16 +677,21 @@ class VerticalSession:
                              "baseline)")
         bm = batch_size // M
         codec = transport.get_codec(compression, self.device)
-        total_steps = epochs * steps_per_epoch
         denom = float(batch_size)
+        masked = aggregation == "masked_sum"
 
         trunk_opt, trunk_update = adapter.trunk_update_rule(scientist_lr)
         tp = self.params["trunk"]
         ts = trunk_opt.init(tp)
         if sequential:
-            trunk_step = adapter.trunk_program()
+            trunk_step = (adapter.masked_trunk_program() if masked
+                          else adapter.trunk_program())
         else:
-            cutgrad, weightgrad = adapter.trunk_microbatch_programs()
+            cutgrad, weightgrad = (
+                adapter.masked_trunk_microbatch_programs() if masked
+                else adapter.trunk_microbatch_programs())
+        sp = self.config.split
+        defend_on = sp.grad_noise_std > 0.0 or sp.grad_norm_mode != "none"
 
         workers, eps, threads = [], [], []
         inflight: deque = deque()
@@ -580,18 +704,37 @@ class VerticalSession:
             inflight.append(idx)
 
         def recv_cuts(kind, seq, wait):
-            cuts = []
+            """One chunk from every owner: the decoded cuts, or (masked)
+            the int32 ring sum of their payloads, so the scientist never
+            holds an owner's cut."""
+            payloads = []
             for ep, w in zip(eps, workers):
                 m = self._recv_from_owner(ep, w, kind, wait)
                 if m.seq != seq:
                     raise RuntimeError(f"protocol desync: {kind} seq "
                                        f"{m.seq} != expected {seq}")
-                cuts.append(codec.decode(m.payload))
-            return tuple(cuts)
+                payloads.append(m.payload)
+            if masked:
+                return self._to_device(masking.reconstruct(payloads))
+            return tuple(codec.decode(pl) for pl in payloads)
 
-        def send_grads(kind, grads, seq):
-            for g, ep in zip(grads, eps):
-                ep.send(kind, codec.encode(g), seq=seq)
+        def to_owners(cg):
+            """The trunk's cut gradient as one tensor per owner (masked:
+            the same ``dL/dz`` for all)."""
+            return [cg] * len(eps) if masked else cg
+
+        def defend(g, seq, p):
+            if not defend_on:
+                return g
+            return torch.from_numpy(privacy.obfuscate_cut_gradient(
+                g.cpu().numpy(), noise_std=sp.grad_noise_std,
+                norm_mode=sp.grad_norm_mode, seed=self._init_seed,
+                tag=f"g{seq}o{p}")).to(self.device)
+
+        def send_grads(grads, seq):
+            for p, (g, ep) in enumerate(zip(grads, eps)):
+                ep.send("cut_gradients", codec.encode(defend(g, seq, p)),
+                        seq=seq)
 
         def sync():
             self._sync_split_params(workers, eps, tp, timeout)
@@ -601,11 +744,18 @@ class VerticalSession:
         old_switch = sys.getswitchinterval()
         sys.setswitchinterval(5e-4)
         clean = False
+        # the mask root goes over the environment, which spawned workers
+        # inherit; a value the caller set (the deployment's secret) is
+        # kept, else the init seed is published for this fit
+        mask_env_set = masked and not os.environ.get(masking.MASK_ENV)
         try:
+            if mask_env_set:
+                os.environ[masking.MASK_ENV] = str(self._init_seed)
             self._start_owners(
                 workers, eps, threads, backend, codec=codec,
                 compression=compression, owner_lr=owner_lr,
-                sequential=sequential, microbatches=M)
+                sequential=sequential, microbatches=M,
+                aggregation=aggregation)
             # ---------------- warmup: every program once per chunk shape,
             # before the clock
             widx = np.zeros(batch_size, np.int32)
@@ -621,8 +771,9 @@ class VerticalSession:
                 else:
                     cg, _ = cutgrad(tp, cuts, lab_m, denom)
                     weightgrad(tp, cuts, lab_m, denom)
-                send_grads("warmup_grads",
-                           [torch.zeros_like(cg[0])] * len(eps), m)
+                zero = torch.zeros_like(to_owners(cg)[0])
+                for ep in eps:
+                    ep.send("warmup_grads", codec.encode(zero), seq=m)
             tp, ts = trunk_update(tp, ts, tree_map(torch.zeros_like, tp), 0)
             for ep, w in zip(eps, workers):
                 self._recv_from_owner(ep, w, "warmup_done", wait)
@@ -646,7 +797,7 @@ class VerticalSession:
                     cuts = recv_cuts("cut_activations", t, timeout)
                     metrics, tg, cg = trunk_step(tp, cuts, lab_t)
                     tp, ts = trunk_update(tp, ts, tg, t)
-                    send_grads("cut_gradients", cg, t)
+                    send_grads(to_owners(cg), t)
                     for ep, w in zip(eps, workers):
                         self._recv_from_owner(ep, w, "step_done", timeout)
                 else:
@@ -656,7 +807,7 @@ class VerticalSession:
                         lab_m = lab_t[m * bm:(m + 1) * bm]
                         cuts = recv_cuts("cut_activations", seq, timeout)
                         cg, parts = cutgrad(tp, cuts, lab_m, denom)
-                        send_grads("cut_gradients", cg, seq)
+                        send_grads(to_owners(cg), seq)
                         metrics = tree_add(metrics, parts)
                         cache.append((cuts, lab_m))
                     tg = None
@@ -666,16 +817,18 @@ class VerticalSession:
                 losses.append(metrics["loss"])
                 if t == 0:
                     t_warm = time.time()
-                if (t + 1) % steps_per_epoch == 0:
-                    tb = time.time()
-                    self._end_epoch((t + 1) // steps_per_epoch - 1, metrics,
-                                    history, t0, verbose=verbose, sync=sync)
-                    overhead_s += time.time() - tb
+                tb = time.time()
+                self._after_step(t, metrics, history, t0,
+                                 steps_per_epoch=steps_per_epoch,
+                                 verbose=verbose, sync=sync)
+                overhead_s += time.time() - tb
             wall_s = time.time() - t0
             sync()
             clean = True
         finally:
             sys.setswitchinterval(old_switch)
+            if mask_env_set:
+                os.environ.pop(masking.MASK_ENV, None)
             for ep in eps:
                 try:
                     ep.send("stop", {})
@@ -694,6 +847,7 @@ class VerticalSession:
 
 
         # ------------------------------------- measured traffic accounting
+        n_div = max(total_steps, 1)        # steps=0 runs only the warmup
         per_owner: Dict[str, dict] = {}
         by_kind: Dict[str, dict] = {}      # both directions, all owners
         tot_payload = tot_wire = 0
@@ -718,20 +872,21 @@ class VerticalSession:
             tot_wire += cut_k["wire_bytes"] + grad_k["wire_bytes"]
             self._log(owner.name, "scientist", "cut_activations",
                       bytes=cut_k["payload_bytes"], measured=True,
-                      per_step_bytes=cut_k["payload_bytes"] // total_steps,
+                      per_step_bytes=cut_k["payload_bytes"] // n_div,
                       width=adapter.cut_shape(
                           batch_size, owner.feature_shape)[-1])
             self._log("scientist", owner.name, "cut_gradients",
                       bytes=grad_k["payload_bytes"], measured=True,
-                      per_step_bytes=grad_k["payload_bytes"] // total_steps)
+                      per_step_bytes=grad_k["payload_bytes"] // n_div)
         step_s = wall_s - overhead_s
         self.transport_stats = {
             "mode": "split", "schedule": schedule, "microbatches": M,
+            "aggregation": aggregation or "none",
             "compression": compression or "none", "backend": backend,
             "device": str(self.device),
             "steps": total_steps, "wall_s": wall_s,
             # per-step cost excludes eval/sync bookkeeping ...
-            "step_ms": 1e3 * step_s / total_steps,
+            "step_ms": 1e3 * step_s / n_div,
             # ... and, steady-state, the step-0 pipeline fill too
             "steady_step_ms": (1e3 * (t0 + step_s - t_warm)
                                / (total_steps - 1) if total_steps > 1
@@ -740,12 +895,14 @@ class VerticalSession:
             "wire_by_kind": by_kind,
             "cut_payload_bytes_per_step": sum(
                 o["cut_payload_bytes"] for o in per_owner.values())
-            // total_steps,
+            // n_div,
             "total_payload_bytes": tot_payload,
             "total_wire_bytes": tot_wire,
-            "total_payload_bytes_per_step": tot_payload // total_steps,
+            "total_payload_bytes_per_step": tot_payload // n_div,
         }
-        history = self._finish(history, losses)
+        history = self._finish(history, losses,
+                               steps_mode=steps_per_epoch is None,
+                               verbose=verbose)
         history["transport"] = self.transport_stats
         return history
 

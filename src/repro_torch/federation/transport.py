@@ -149,9 +149,14 @@ class Channel:
     edge (an owner applies the step-``t`` gradient before it runs the
     step-``t+1`` forward)."""
 
-    def __init__(self, sender: str, receiver: str, *, serialize: bool):
+    def __init__(self, sender: str, receiver: str, *, serialize: bool,
+                 tap=None):
         self.sender, self.receiver = sender, receiver
         self.serialize = serialize
+        # observation hook: ``tap(msg, blob)`` on every send, with the
+        # serialized frame (None on the direct backend); the privacy
+        # tests capture transcripts through it
+        self.tap = tap
         self._q: "queue.Queue[Message]" = queue.Queue()
         self.stats: Dict[str, object] = {
             "messages": 0, "payload_bytes": 0, "wire_bytes": 0,
@@ -172,6 +177,7 @@ class Channel:
     def send(self, kind: str, payload: Dict[str, object], *,
              seq: int = 0) -> Message:
         pb = sum(_nbytes(a) for a in payload.values())
+        blob = None
         if self.serialize:
             blob = _pack(payload)
             wb = len(blob)
@@ -180,6 +186,8 @@ class Channel:
             wb = pb                                # by-reference handoff
         msg = Message(self.sender, self.receiver, kind, payload, seq=seq,
                       payload_bytes=pb, wire_bytes=wb)
+        if self.tap is not None:
+            self.tap(msg, blob)
         self._account(kind, pb, wb)
         self._q.put(msg)
         return msg
@@ -237,15 +245,16 @@ class Endpoint:
         return self.inbox.stats
 
 
-def channel_pair(a: str, b: str, *, backend: str = "queue"
+def channel_pair(a: str, b: str, *, backend: str = "queue", tap=None
                  ) -> Tuple[Endpoint, Endpoint]:
     """The duplex boundary between parties ``a`` and ``b``:
-    ``(endpoint_a, endpoint_b)``."""
+    ``(endpoint_a, endpoint_b)``.  ``tap`` observes every send in both
+    directions (see :class:`Channel`)."""
     if backend not in ("queue", "direct"):
         raise ValueError(f"unknown transport backend {backend!r}")
     ser = backend == "queue"
-    ab = Channel(a, b, serialize=ser)
-    ba = Channel(b, a, serialize=ser)
+    ab = Channel(a, b, serialize=ser, tap=tap)
+    ba = Channel(b, a, serialize=ser, tap=tap)
     return Endpoint(a, b, ab, ba), Endpoint(b, a, ba, ab)
 
 

@@ -45,8 +45,9 @@ class SplitModel:
             raise not_ported(f"the {cfg.modality} modality / enc-dec",
                              "item 8, the other architecture families")
         if cfg.split.cut_dim > 0 or cfg.split.cut_noise_std > 0.0:
-            raise not_ported("cut-dim bottlenecks and cut noise",
-                             "item 3, masking and privacy")
+            raise not_ported("cut-dim bottlenecks and cut noise on the LM",
+                             "item 15, the LM's cut bottleneck and cut "
+                             "noise")
         if cfg.param_dtype != "float32":
             raise ValueError("the port keeps params in float32")
         self.cfg = cfg

@@ -162,13 +162,15 @@ CUT_CASES = [
 ]
 # the training path's calls (2 owners, k 64, trunk width 500): the
 # batch of 128, a chunk of 32 (microbatches=4), an evaluation batch of
-# 242 rows (ragged), and sum / mean with one block row of W
+# 242 rows (ragged), sum / mean with one block row of W, and the masked
+# trunk's dequantized ring sum as one owner plane
 CUT_PATH_CASES = [
     (2, 128, 64, 500, "concat"),
     (2, 32, 64, 500, "concat"),
     (2, 242, 64, 500, "concat"),
     (2, 128, 64, 500, "sum"),
     (2, 128, 64, 500, "mean"),
+    (1, 128, 64, 500, "sum"),
 ]
 
 
@@ -741,6 +743,68 @@ def test_cut_fusion_rows_do_not_depend_on_T_on_card(cuda_device, dtype):
             assert cf.route_of(z, w, combine) == (
                 "tc" if dtype == torch.bfloat16 else "fma")
             assert torch.equal(head, full[:32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [128, 32, 242, 1])
+def test_masked_trunk_cut_fusion_matches_plain_on_card(cuda_device, T):
+    """The masked-sum trunk's call: the dequantized ring sum as one owner
+    plane, (1, T, 64) x (1, 64, 500) sum, on the fma route, against the
+    plain version at the f32 tolerance, one counted launch per call."""
+    from repro_torch.kernels import cut_fusion as cf
+    z, w = (torch.from_numpy(a).to(cuda_device)
+            for a in cut_inputs(1, T, 64, 500))
+    assert cf.route_of(z, w, "sum") == "fma"
+    n0 = cf.launch_counts["cut_fusion.fma"]
+    got = cf.cut_fusion(z, w, "sum")
+    torch.cuda.synchronize()
+    assert cf.launch_counts["cut_fusion.fma"] == n0 + 1
+    torch.testing.assert_close(got, cf.cut_fusion_ref(z, w, combine="sum"),
+                               **attn_tol(torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 2])
+def test_masked_split_equals_masked_oracle_on_card(cuda_device, M):
+    """On the card, masked split execution (queue backend) reproduces
+    the masked joint oracle bit for bit, every trunk forward through the
+    cut-fusion kernel; the int8 codec runs on the gradient leg only."""
+    import dataclasses
+    from repro_torch.configs import CONFIG
+    from repro_torch.data import make_vertical_mnist_parties
+    from repro_torch.federation import VerticalSession, feature_parties
+    from repro_torch.kernels import cut_fusion as cf
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(CONFIG, split=dataclasses.replace(
+        CONFIG.split, combine="sum"))
+    runs = []
+    for mode in ("joint", "split"):
+        s = VerticalSession(*feature_parties(*make_vertical_mnist_parties(
+            400, seed=0, keep_frac=0.9)))
+        s.resolve(group="modp512")
+        s.build(cfg)
+        n0 = cf.launch_counts["cut_fusion.fma"]
+        h = s.fit(steps=4, batch_size=64, verbose=False, mode=mode,
+                  microbatches=M, aggregation="masked_sum")
+        torch.cuda.synchronize()
+        extra = 1 if mode == "split" else 0        # the warmup step
+        assert cf.launch_counts["cut_fusion.fma"] - n0 == \
+            2 * M * (4 + extra)
+        runs.append((s, h))
+    (j, hj), (sp, hs) = runs
+    assert hs["loss_trail"] == hj["loss_trail"]
+    assert all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(sp.params), tree_leaves(j.params)))
+    s = VerticalSession(*feature_parties(*make_vertical_mnist_parties(
+        400, seed=0, keep_frac=0.9)))
+    s.resolve(group="modp512")
+    s.build(cfg)
+    n0 = launch_counts["quantize_pack_int8"]
+    h = s.fit(steps=4, batch_size=64, verbose=False, mode="split",
+              microbatches=M, aggregation="masked_sum", compression="int8")
+    # two owners x M gradient chunks per step, the warmup's included
+    assert launch_counts["quantize_pack_int8"] - n0 == 2 * M * 5
+    assert all(np.isfinite(h["loss_trail"]))
 
 
 # bf16 on the tc route with ragged T, k and d (multiples of 8 that are

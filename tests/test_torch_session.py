@@ -162,7 +162,6 @@ def test_session_without_device_needs_a_card():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(supervise=True), "supervise"),
-    (dict(aggregation="masked_sum"), "masked_sum"),
     (dict(ckpt_dir="x"), "checkpointing")])
 def test_unported_fit_options_raise(kw, item):
     s = _session(120)
