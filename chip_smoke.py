@@ -85,8 +85,9 @@ Phases, in order; any failure raises and exits non-zero:
      epoch per defence (NoPeek, cut noise, unit and sign gradients,
      gradient noise), each with a finite trail and a warmup that leaves
      the built params bitwise, NoPeek split against NoPeek joint within
-     rel 1e-4, and every steady step time beside the undefended sum
-     run's;
+     rel 1e-4 while NoPeek moves it past that limit from weight 0 (its
+     heads ten times closer to NoPeek joint's than to weight 0's), and
+     every steady step time beside the undefended sum run's;
  14. the results, last (after phase 15): a ``{"privacy": ...}`` JSON line
      with phase 15's numbers, a ``{"kernels": [...]}`` JSON line, then
      the ``{"ok": true, ...}`` JSON line last.
@@ -1429,7 +1430,8 @@ def phase_privacy():
     bitwise, card == CPU oracle.  Defended: one split int8 epoch per
     defence with a finite trail, the warmup alone (``steps=0``) leaving
     the built params bitwise, and NoPeek split (lossless) against NoPeek
-    joint.  Step times beside the undefended sum run's, all in this
+    joint, with NoPeek moving the run past that comparison's limit from
+    weight 0.  Step times beside the undefended sum run's, all in this
     call."""
     import torch
     from repro_torch.tree import tree_leaves
@@ -1543,7 +1545,28 @@ def phase_privacy():
           f"trail max rel {rel:.3e} (limit 1e-4)")
     if rel > 1e-4 or not all(math.isfinite(v) for v in hs["loss_trail"]):
         raise AssertionError("NoPeek split and joint disagree")
-    res["nopeek_split_joint_rel"] = rel
+    # the comparison above shows NoPeek reached split training only if
+    # the term moves the run by more than its limit: weight 0 beside it
+    plain, _ = mnist_session("cuda", combine="sum")
+    h0 = plain.fit(**kw)
+    gap = max(abs(a - b) / abs(b) for a, b in
+              zip(hs["loss_trail"], h0["loss_trail"]))
+
+    def heads(sess):
+        return torch.cat([t.double().flatten()
+                          for t in tree_leaves(sess.params["heads"])])
+
+    moved = torch.linalg.norm(heads(ns) - heads(plain)).item()
+    off = torch.linalg.norm(heads(ns) - heads(nj)).item()
+    print(f"  NoPeek split vs weight-0 joint: loss trail max rel {gap:.3e} "
+          f"(must exceed the 1e-4 limit); heads' distance {moved:.4e} "
+          f"from weight 0's, {off:.4e} from NoPeek joint's (must be ten "
+          f"times closer)")
+    if not gap > 1e-4 or not 10 * off <= moved:
+        raise AssertionError("NoPeek does not move split training past "
+                             "the split-vs-joint limit")
+    res.update(nopeek_split_joint_rel=rel, nopeek_weight0_rel=gap,
+               nopeek_heads_moved=moved, nopeek_heads_off=off)
     return res
 
 

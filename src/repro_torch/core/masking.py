@@ -27,10 +27,11 @@ cancel in an integer ring instead:
 
 A message's mask is a pure function of ``(root seed, pair, tag)``, with
 no stream state, so all owners agree without talking to each other and
-a replayed step re-derives its masks.  The root seed travels over the
-environment (``REPRO_MASK_SEED``, inherited by spawned owner workers),
-standing in for the owners' out-of-band key agreement; the scientist's
-code never derives a mask.
+a replayed step re-derives its masks.  The root seed is
+``REPRO_MASK_SEED`` where the caller's environment sets it (spawned
+owner workers inherit it), standing in for the owners' out-of-band key
+agreement; without it every owner falls back to the session's init
+seed.  The scientist's code never derives a mask.
 
 The ring arithmetic runs on the host in numpy uint32, as in the
 reference: the owner's frame is host numpy anyway.  Everything but
@@ -41,7 +42,7 @@ from __future__ import annotations
 
 import hashlib
 import os
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -119,11 +120,9 @@ class MaskedAggregator:
     ``generation`` scopes the warmup tags (a restarted worker's warmup
     stream stays apart from the one it replaced); steady tags are the
     global chunk seq ``s{seq}``, the same in every generation, so
-    replayed steps' masks still cancel against the other owners'.
-    ``quant_program`` is the lift (default :func:`quantize`)."""
+    replayed steps' masks still cancel against the other owners'."""
 
-    def __init__(self, root: int, owner_index: int, n_owners: int,
-                 quant_program: Optional[Callable] = None, *,
+    def __init__(self, root: int, owner_index: int, n_owners: int, *,
                  generation: int = 0):
         if n_owners < 2:
             raise ValueError(
@@ -133,7 +132,6 @@ class MaskedAggregator:
         self.owner_index = int(owner_index)
         self.n_owners = int(n_owners)
         self.generation = int(generation)
-        self._quant = quant_program or quantize
 
     def warmup_tag(self, m: int) -> str:
         return f"w{m}g{self.generation}"
@@ -143,7 +141,7 @@ class MaskedAggregator:
         return f"s{seq}"
 
     def encode(self, cut, tag: str) -> Dict[str, np.ndarray]:
-        q = self._quant(cut)
+        q = quantize(cut)
         q = q.detach().cpu().numpy() if isinstance(q, torch.Tensor) \
             else np.asarray(q)
         mask = pairwise_mask(self.root, self.owner_index, self.n_owners,

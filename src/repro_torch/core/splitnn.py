@@ -17,9 +17,10 @@
 3. The per-segment programs that split execution runs over the
    transport: the owner's head forward/backward (with the NoPeek
    penalty's gradient when it is on) and the scientist's trunk step,
-   fused or split into cut-gradient and weight-gradient halves; and the
-   masked-sum trunk programs (``fit(aggregation="masked_sum")``), which
-   take the int32 ring sum of the owners' quantized cuts.
+   fused or split into cut-gradient and weight-gradient halves.  With
+   ``fit(aggregation="masked_sum")`` the same trunk programs take the
+   dequantized int32 ring sum of the owners' quantized cuts as one
+   owner plane of the sum combine.
 
 Split vs. joint stays bitwise inside the port because both paths run
 the same functions at the same shapes: the joint step computes each
@@ -39,7 +40,6 @@ from typing import Callable, Dict
 import torch
 
 from repro_torch.configs.pyvertical_mnist import MLPSplitConfig
-from repro_torch.core import masking
 from repro_torch.core.privacy import distance_correlation, nopeek_penalty
 from repro_torch.kernels.cut_fusion import cut_fusion_fn
 from repro_torch.optim import apply_updates
@@ -284,64 +284,6 @@ def make_mlp_trunk_microbatch_programs(model: MLPSplitNN):
         with torch.enable_grad():
             tl = tree_map(_leaf, tp)
             loss, _ = _chunk_loss(model, tl, cuts, labels, denom)
-            return _grad(loss, tl)
-
-    return cutgrad, weightgrad
-
-
-# ---------------------------------------------------------------------------
-# Secure forward aggregation (masked-sum combine, Cai et al. 2207.00165)
-# ---------------------------------------------------------------------------
-#
-# The scientist's programs for ``fit(aggregation="masked_sum")``: they take
-# the int32 ring sum of the owners' quantized cuts (masked on the wire,
-# ``core/masking.py``; the masks cancel in the fold), dequantize it and
-# enter the trunk through ``trunk_apply`` as one owner plane (1, B, k) of
-# the sum combine, so the cut-fusion kernel stays the only way into the
-# trunk.  The cut gradient is ``dL/dz``, the same for every owner.
-
-
-def _masked_chunk_loss(model, tp, z, labels, denom):
-    return nll_parts(model.trunk_apply(tp, z[None]), labels, denom)
-
-
-def make_mlp_masked_trunk_program(model: MLPSplitNN):
-    """The fused masked-sum scientist step (sequential schedule):
-    ``trunk_step(tp, zsum (B, k) int32, labels) -> (metrics, trunk_grads,
-    z_grad (B, k))``."""
-
-    def trunk_step(tp, zsum, labels):
-        with torch.enable_grad():
-            tl = tree_map(_leaf, tp)
-            z = _leaf(masking.dequantize(zsum))
-            loss, parts = _masked_chunk_loss(model, tl, z, labels,
-                                             float(labels.shape[0]))
-            grads = torch.autograd.grad(loss, tree_leaves(tl) + [z])
-        return (_detached(parts), tree_unflatten(tl, list(grads[:-1])),
-                grads[-1])
-
-    return trunk_step
-
-
-def make_mlp_masked_trunk_microbatch_programs(model: MLPSplitNN):
-    """The per-chunk masked-sum programs, the masked counterparts of
-    :func:`make_mlp_trunk_microbatch_programs` (the same ``sum / denom``
-    seeding; the chunk's int32 ring sum in place of the cuts):
-    ``cutgrad(tp, zsum, labels, denom) -> (z_grad, parts)`` and
-    ``weightgrad(tp, zsum, labels, denom) -> trunk_grads``."""
-
-    def cutgrad(tp, zsum, labels, denom):
-        with torch.enable_grad():
-            z = _leaf(masking.dequantize(zsum))
-            loss, parts = _masked_chunk_loss(model, tp, z, labels, denom)
-            return torch.autograd.grad(loss, [z])[0], _detached(parts)
-
-    def weightgrad(tp, zsum, labels, denom):
-        with torch.enable_grad():
-            tl = tree_map(_leaf, tp)
-            loss, _ = _masked_chunk_loss(model, tl,
-                                         masking.dequantize(zsum), labels,
-                                         denom)
             return _grad(loss, tl)
 
     return cutgrad, weightgrad

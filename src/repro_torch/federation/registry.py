@@ -37,8 +37,6 @@ class MLPAdapter:
     #: ``fit(microbatches=M)``: the trunk's per-chunk programs take the
     #: full batch as ``denom``, so M chunks accumulate to the batch step
     supports_microbatch = True
-    #: ``SplitConfig.nopeek_weight``: the head backward adds the penalty
-    supports_nopeek = True
 
     def __init__(self, cfg: MLPSplitConfig):
         self.cfg = cfg
@@ -103,21 +101,6 @@ class MLPAdapter:
         """masked_sum rides the sum combine: the scientist only ever
         needs ``sum_p cut_p``, which the ring fold reconstructs."""
         return self.cfg.split.combine == "sum"
-
-    def quant_program(self):
-        """The fixed-point lift the owners and the masked oracle share."""
-        return masking.quantize
-
-    def masked_trunk_program(self):
-        return self._cached(
-            "masked_trunk_prog",
-            lambda: splitnn.make_mlp_masked_trunk_program(self.model))
-
-    def masked_trunk_microbatch_programs(self):
-        return self._cached(
-            "masked_trunk_micro",
-            lambda: splitnn.make_mlp_masked_trunk_microbatch_programs(
-                self.model))
 
     def owner_param_slice(self, params, p: int):
         return splitnn.head_slice(params["heads"], p)

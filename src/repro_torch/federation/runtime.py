@@ -53,10 +53,11 @@ class OwnerWorkerSpec:
     ``num_threads`` the worker's intra-op CPU threads (None: torch's
     default).  ``aggregation="masked_sum"`` makes the worker build its
     :class:`~repro_torch.core.masking.MaskedAggregator` over
-    ``n_owners`` owners, with the root seed from the environment
-    (``REPRO_MASK_SEED``, inherited from the session) and ``noise_seed``
-    as its default: the spec never carries the root.  ``cut_noise_std``
-    and ``noise_seed`` are the owner's cut-noise defence."""
+    ``n_owners`` owners.  Its root seed is ``REPRO_MASK_SEED`` where the
+    environment sets it (a spawned worker inherits the caller's), else
+    ``noise_seed``, the session's init seed, which the session's own
+    owner threads fall back to as well.  ``cut_noise_std`` and
+    ``noise_seed`` are the owner's cut-noise defence."""
 
     name: str
     ids: List[str]
@@ -102,8 +103,7 @@ def _owner_body(spec: OwnerWorkerSpec, ep: ProcessEndpoint) -> None:
     if spec.aggregation == "masked_sum":
         from repro_torch.core import masking
         masker = masking.MaskedAggregator(
-            masking.mask_root_from_env(spec.noise_seed), p, spec.n_owners,
-            adapter.quant_program())
+            masking.mask_root_from_env(spec.noise_seed), p, spec.n_owners)
     worker = OwnerComputeEndpoint(
         DataOwner(spec.name, spec.ids, spec.features), ep, head_fwd,
         head_bwd, update=owner_update, params=params,

@@ -43,8 +43,9 @@ Privacy (``SplitConfig`` and ``fit(aggregation=...)``):
   * ``aggregation="masked_sum"`` (sum combine, >= 2 owners): secure
     forward aggregation (``core/masking.py``).  Each owner ships its cut
     quantized and ring-masked with pairwise-cancelling masks (root seed
-    over the ``REPRO_MASK_SEED`` environment variable), so the scientist
-    reconstructs only the owners' sum.  ``mode="joint"`` with it runs
+    ``REPRO_MASK_SEED`` where the environment sets it, else the init
+    seed), so the scientist reconstructs only the owners' sum, which
+    enters the usual trunk programs as one owner plane.  ``mode="joint"`` with it runs
     the masked joint oracle (the same quantize -> ring sum ->
     dequantize, without masks) through the microbatched loop, even at
     M = 1; masked split execution reproduces it bit for bit.
@@ -69,7 +70,6 @@ item): PSI bloom/hidden modes, the worker pool and the wire backends;
 """
 from __future__ import annotations
 
-import os
 import queue as _queue
 import sys
 import threading
@@ -454,8 +454,9 @@ class VerticalSession:
         With ``aggregation="masked_sum"`` this is the masked joint
         oracle: each owner's cut is quantized, the ints are ring-summed
         on the host (``masking.fold_quantized``, bitwise the wire's fold
-        once the masks cancel), the masked trunk programs take the int32
-        sum, and every owner's head backward takes the one ``dL/dz``."""
+        once the masks cancel), the trunk programs take its dequantized
+        value as one owner plane, and every owner's head backward takes
+        the one ``dL/dz``."""
         adapter = self.adapter
         M = microbatches
         bm = batch_size // M
@@ -467,11 +468,7 @@ class VerticalSession:
         ostates = [owner_opt.init(s) for s in slices]
         trunk_opt, trunk_update = adapter.trunk_update_rule(scientist_lr)
         masked = aggregation == "masked_sum"
-        if masked:
-            quant = adapter.quant_program()
-            cutgrad, weightgrad = adapter.masked_trunk_microbatch_programs()
-        else:
-            cutgrad, weightgrad = adapter.trunk_microbatch_programs()
+        cutgrad, weightgrad = adapter.trunk_microbatch_programs()
         tp = self.params["trunk"]
         ts = trunk_opt.init(tp)
         denom = float(batch_size)
@@ -501,12 +498,12 @@ class VerticalSession:
                              for p in range(P))
                 if masked:
                     # no masks: they would cancel in the fold anyway
-                    cuts = self._to_device(masking.fold_quantized(
-                        [quant(c).cpu().numpy() for c in cuts]))
-                    zg, parts = cutgrad(tp, cuts, lab[sl], denom)
-                    cg = [zg] * P
-                else:
-                    cg, parts = cutgrad(tp, cuts, lab[sl], denom)
+                    cuts = (self._dequantized(masking.fold_quantized(
+                        [masking.quantize(c).cpu().numpy()
+                         for c in cuts])),)
+                cg, parts = cutgrad(tp, cuts, lab[sl], denom)
+                if masked:
+                    cg = [cg[0]] * P
                 for p in range(P):
                     g = head_progs[p][1](slices[p], chunks[p], cg[p])
                     hg[p] = tree_add(hg[p], g)
@@ -528,9 +525,9 @@ class VerticalSession:
                             steps_mode=steps_per_epoch is None,
                             verbose=verbose)
 
-    def _to_device(self, ints: np.ndarray) -> torch.Tensor:
-        """A host int32 ring sum as a tensor on the session's device."""
-        return torch.from_numpy(ints).to(self.device)
+    def _dequantized(self, ints: np.ndarray) -> torch.Tensor:
+        """A host int32 ring sum, dequantized on the session's device."""
+        return masking.dequantize(torch.from_numpy(ints).to(self.device))
 
     # ------------------------------------------------- 3b. split execution
 
@@ -586,9 +583,9 @@ class VerticalSession:
         scientist endpoint to ``eps``) as it starts, so that a failure
         half way leaves every started one to the caller's clean-up: a
         thread behind a channel pair (queue, direct; also appended to
-        ``threads``) or a spawned process behind a pipe.  Masked owners
-        take the mask root from the environment, as a spawned worker
-        does."""
+        ``threads``) or a spawned process behind a pipe.  Masked owners,
+        threads and processes alike, take the mask root from
+        ``REPRO_MASK_SEED`` where it is set, else the init seed."""
         adapter = self.adapter
         P = len(self.owners)
         noise = dict(cut_noise_std=self.config.split.cut_noise_std,
@@ -625,8 +622,7 @@ class VerticalSession:
             masker = None
             if aggregation == "masked_sum":
                 masker = masking.MaskedAggregator(
-                    masking.mask_root_from_env(self._init_seed), p, P,
-                    adapter.quant_program())
+                    masking.mask_root_from_env(self._init_seed), p, P)
             w = OwnerComputeEndpoint(
                 owner, ep_own, head_fwd, head_bwd, update=owner_update,
                 params=hp, opt_state=owner_opt.init(hp), codec=codec,
@@ -684,12 +680,9 @@ class VerticalSession:
         tp = self.params["trunk"]
         ts = trunk_opt.init(tp)
         if sequential:
-            trunk_step = (adapter.masked_trunk_program() if masked
-                          else adapter.trunk_program())
+            trunk_step = adapter.trunk_program()
         else:
-            cutgrad, weightgrad = (
-                adapter.masked_trunk_microbatch_programs() if masked
-                else adapter.trunk_microbatch_programs())
+            cutgrad, weightgrad = adapter.trunk_microbatch_programs()
         sp = self.config.split
         defend_on = sp.grad_noise_std > 0.0 or sp.grad_norm_mode != "none"
 
@@ -705,8 +698,8 @@ class VerticalSession:
 
         def recv_cuts(kind, seq, wait):
             """One chunk from every owner: the decoded cuts, or (masked)
-            the int32 ring sum of their payloads, so the scientist never
-            holds an owner's cut."""
+            the dequantized ring sum of their payloads as one owner
+            plane, so the scientist never holds an owner's cut."""
             payloads = []
             for ep, w in zip(eps, workers):
                 m = self._recv_from_owner(ep, w, kind, wait)
@@ -715,13 +708,13 @@ class VerticalSession:
                                        f"{m.seq} != expected {seq}")
                 payloads.append(m.payload)
             if masked:
-                return self._to_device(masking.reconstruct(payloads))
+                return (self._dequantized(masking.reconstruct(payloads)),)
             return tuple(codec.decode(pl) for pl in payloads)
 
         def to_owners(cg):
             """The trunk's cut gradient as one tensor per owner (masked:
             the same ``dL/dz`` for all)."""
-            return [cg] * len(eps) if masked else cg
+            return [cg[0]] * len(eps) if masked else cg
 
         def defend(g, seq, p):
             if not defend_on:
@@ -744,13 +737,7 @@ class VerticalSession:
         old_switch = sys.getswitchinterval()
         sys.setswitchinterval(5e-4)
         clean = False
-        # the mask root goes over the environment, which spawned workers
-        # inherit; a value the caller set (the deployment's secret) is
-        # kept, else the init seed is published for this fit
-        mask_env_set = masked and not os.environ.get(masking.MASK_ENV)
         try:
-            if mask_env_set:
-                os.environ[masking.MASK_ENV] = str(self._init_seed)
             self._start_owners(
                 workers, eps, threads, backend, codec=codec,
                 compression=compression, owner_lr=owner_lr,
@@ -827,8 +814,6 @@ class VerticalSession:
             clean = True
         finally:
             sys.setswitchinterval(old_switch)
-            if mask_env_set:
-                os.environ.pop(masking.MASK_ENV, None)
             for ep in eps:
                 try:
                     ep.send("stop", {})

@@ -13,8 +13,8 @@ outputs at fixed inputs:
   than the reference: the dcor gradient and the NoPeek head backward on
   a batch with distinct rows; the joint NoPeek and defended split fits
   from shared params within rtol 1e-4 in loss;
-* within the port: the split NoPeek fit is finite, moves away from
-  weight 0 and tracks the joint NoPeek fit (rtol 1e-4), and the warmup
+* within the port: the split NoPeek fit is finite, moves its heads ten
+  times farther from weight 0's than from its oracle's, and tracks the joint NoPeek fit (rtol 1e-4), and the warmup
   leaves params bitwise unchanged with NoPeek on.
 
 Inputs are made with numpy from fixed seeds (no hypothesis deadline).
@@ -233,6 +233,34 @@ def test_label_inference_auc_matches_reference(seed):
 # ---------------------------------------------------------------------------
 
 
+#: the rtol within which a fit is held to its oracle's loss trail
+RTOL = 1e-4
+#: a wire defence must move the loss trail by ten times that, so that a
+#: path that lost the defence could not pass the comparison by rounding
+MOVED = 10 * RTOL
+
+
+def _max_rel_gap(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+def _heads(params):
+    """The owners' head params as one f64 vector."""
+    return torch.cat([torch.from_numpy(np.array(t, np.float64)).flatten()
+                      for t in tree_leaves(params["heads"])])
+
+
+def _assert_nopeek_reached_heads(nopeek, plain, oracle):
+    """Over 4 steps NoPeek moves the loss trail by only a few times
+    RTOL, so the trail alone cannot show that the penalty reached the
+    heads.  The head params can: the NoPeek run must lie at least ten
+    times closer to its oracle than to the weight-0 run."""
+    moved = torch.linalg.norm(_heads(nopeek) - _heads(plain))
+    off = torch.linalg.norm(_heads(nopeek) - _heads(oracle))
+    assert 10 * off <= moved, (off.item(), moved.item())
+
+
 def _ref_session(**split):
     s = RefSession(*ref_feature_parties(*ref_parties(N, seed=0,
                                                      keep_frac=0.9)))
@@ -261,37 +289,44 @@ def _joint_nopeek(ref_params):
     if not _JOINT_NOPEEK:
         s = _session(from_reference(ref_params), nopeek_weight=0.3)
         _JOINT_NOPEEK["h"] = s.fit(**FIT, eval_frac=0.1)
-    return _JOINT_NOPEEK["h"]
+        _JOINT_NOPEEK["params"] = s.params
+    return _JOINT_NOPEEK["h"], _JOINT_NOPEEK["params"]
 
 
 def test_joint_nopeek_fit_matches_reference(ref_params):
     """The joint NoPeek fit (the objective's gradient, not the bare
     NLL's) against the reference's, which is finite: train and eval
-    losses within rtol 1e-4; and the NoPeek term changes the trail."""
-    hr = _ref_session(nopeek_weight=0.3).fit(**FIT, eval_frac=0.1)
-    h = _joint_nopeek(ref_params)
+    losses within rtol 1e-4; the NoPeek term moves the trail by more
+    than that, and the heads ten times farther than the reference's."""
+    ref = _ref_session(nopeek_weight=0.3)
+    hr = ref.fit(**FIT, eval_frac=0.1)
+    h, params = _joint_nopeek(ref_params)
     np.testing.assert_allclose(h["loss_trail"],
-                               [r["loss"] for r in hr["train"]], rtol=1e-4)
+                               [r["loss"] for r in hr["train"]], rtol=RTOL)
     np.testing.assert_allclose([r["loss"] for r in h["eval"]],
-                               [r["loss"] for r in hr["eval"]], rtol=1e-4)
-    h0 = _session(from_reference(ref_params)).fit(**FIT, eval_frac=0.1)
-    assert h0["loss_trail"][1:] != h["loss_trail"][1:]
+                               [r["loss"] for r in hr["eval"]], rtol=RTOL)
+    plain = _session(from_reference(ref_params))
+    h0 = plain.fit(**FIT, eval_frac=0.1)
+    assert _max_rel_gap(h["loss_trail"], h0["loss_trail"]) > RTOL
+    _assert_nopeek_reached_heads(params, plain.params, ref.params)
 
 
 @pytest.mark.parametrize("backend", ["queue", "direct"])
 def test_split_nopeek_fit_is_finite_and_tracks_joint(ref_params, backend):
     """The reference's split NoPeek trail is NaN (its warmup); the
-    port's is finite, differs from weight 0 and tracks the port's joint
-    NoPeek fit within rtol 1e-4."""
-    hj = _joint_nopeek(ref_params)
+    port's is finite, tracks the port's joint NoPeek fit within rtol
+    1e-4 while moving farther than that from weight 0, and its heads lie
+    ten times closer to the joint NoPeek run's than to weight 0's."""
+    hj, joint = _joint_nopeek(ref_params)
     s = _session(from_reference(ref_params), nopeek_weight=0.3)
     h = s.fit(**FIT, eval_frac=0.1, mode="split", backend=backend)
     assert all(np.isfinite(h["loss_trail"]))
     assert all(torch.isfinite(t).all() for t in tree_leaves(s.params))
-    np.testing.assert_allclose(h["loss_trail"], hj["loss_trail"], rtol=1e-4)
-    h0 = _session(from_reference(ref_params)).fit(
-        **FIT, eval_frac=0.1, mode="split", backend=backend)
-    assert h0["loss_trail"][1:] != h["loss_trail"][1:]
+    np.testing.assert_allclose(h["loss_trail"], hj["loss_trail"], rtol=RTOL)
+    plain = _session(from_reference(ref_params))
+    h0 = plain.fit(**FIT, eval_frac=0.1, mode="split", backend=backend)
+    assert _max_rel_gap(h["loss_trail"], h0["loss_trail"]) > RTOL
+    _assert_nopeek_reached_heads(s.params, plain.params, joint)
 
 
 @pytest.mark.parametrize("backend", ["queue", "process"])
@@ -314,7 +349,7 @@ def test_warmup_is_a_bitwise_noop_with_nopeek(backend):
 def test_defended_split_fit_matches_reference(ref_params, defence):
     """The wire defences are the reference's bytes, so a defended split
     fit from shared params tracks the reference's: losses within rtol
-    1e-4, and the defence changes the trail."""
+    1e-4, and the defence moves the trail by ten times that."""
     kw = dict(FIT, mode="split", backend="queue")
     hr = _ref_session(**defence).fit(**kw)
     s = _session(from_reference(ref_params), **defence)
@@ -322,7 +357,7 @@ def test_defended_split_fit_matches_reference(ref_params, defence):
     np.testing.assert_allclose(h["loss_trail"],
                                [r["loss"] for r in hr["train"]], rtol=1e-4)
     plain = _session(from_reference(ref_params)).fit(**kw)
-    assert plain["loss_trail"][1:] != h["loss_trail"][1:]
+    assert _max_rel_gap(h["loss_trail"], plain["loss_trail"]) >= MOVED
 
 
 def test_cut_noise_is_ignored_under_masking(ref_params):
