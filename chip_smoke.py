@@ -88,9 +88,23 @@ Phases, in order; any failure raises and exits non-zero:
      rel 1e-4 while NoPeek moves it past that limit from weight 0 (its
      heads ten times closer to NoPeek joint's than to weight 0's), and
      every steady step time beside the undefended sum run's;
- 14. the results, last (after phase 15): a ``{"privacy": ...}`` JSON line
-     with phase 15's numbers, a ``{"kernels": [...]}`` JSON line, then
-     the ``{"ok": true, ...}`` JSON line last.
+ 16. supervised crash recovery (``fit(supervise=True)``) at phase 4's
+     width and depth, split int8: the fault-free supervised run ==
+     the unsupervised one bit for bit on the queue, with both steady
+     steps (the snapshot and heartbeat cost); a crash at step 3 and a
+     corrupt cut frame on the queue and the process backend, and a
+     wedge on the process backend, each == its backend's fault-free
+     supervised run bit for bit, with its recovery event and wall time
+     beside the fault-free one; a masked-sum crash on the queue == its
+     fault-free masked run; exact launch counts in every run, replays
+     and the respawn's warmup included, from the run's own record; no
+     recovery without a plan; "restart budget exhausted" for a crash in
+     every generation;
+ 14. the results, last (after phases 15 and 16): a ``{"privacy": ...}``
+     JSON line with phase 15's numbers, a ``{"recovery": ...}`` line with
+     phase 16's, a ``{"kernels": [...]}`` JSON line (each entry with its
+     ``recovery_launches`` in the queue crash run), then the ``{"ok":
+     true, ...}`` JSON line last.
 
 Without a CUDA device it prints nothing and exits 2.  It imports only
 ``repro_torch`` (never JAX or the JAX package ``repro``).
@@ -1570,6 +1584,204 @@ def phase_privacy():
     return res
 
 
+def without(obj, key):
+    """``obj`` with ``key`` left out of every dict in it."""
+    if isinstance(obj, dict):
+        return {k: without(v, key) for k, v in obj.items() if k != key}
+    return obj
+
+
+def chaos_fit(session, fault=None, **kw):
+    """``session.fit(**kw)`` under a one-fault plan (``federation.faults``
+    keywords) set in ``REPRO_CHAOS_PARTY`` for this fit alone."""
+    from repro_torch.federation import faults
+    if fault:
+        os.environ[faults.CHAOS_ENV] = faults.FaultPlan(
+            [faults.Fault(**fault)]).to_env()
+    try:
+        return session.fit(**kw)
+    finally:
+        os.environ.pop(faults.CHAOS_ENV, None)
+
+
+def frames(session, kinds):
+    """Frames of ``kinds`` in the fit's record (every endpoint, a
+    replaced owner's included)."""
+    wk = session.transport_stats["wire_by_kind"]
+    return sum(wk.get(k, {"count": 0})["count"] for k in kinds)
+
+
+def recovery_counts(session, backend, masked=False):
+    """The launches a supervised split int8 fit (M = 1) implies, from its
+    own record.  G = cut-gradient frames (one per owner per step whose
+    cut gradient ran: G / P = steps + replayed steps).  Cut fusion: two
+    trunk forwards per such step and two for the warmup, plus one per
+    evaluation batch.  The int8 kernel, in the scientist's process: one
+    launch per cut-gradient and warmup-gradient frame (a respawn's
+    warmup included); with thread owners (queue) also one per
+    cut-activation and warmup-cut frame the owners sent, those of a dead
+    owner's generation included, unless masked (the ring-coded cut
+    bypasses the codec).  Worker processes count their own launches."""
+    P = len(session.owners)
+    G = frames(session, ["cut_gradients"])
+    n_cut = 2 * (G // P + 1) + -(-len(session._eval_idx) // 512)
+    q = frames(session, ["cut_gradients", "warmup_grads"])
+    if backend == "queue" and not masked:
+        q += frames(session, ["cut_activations", "warmup_cuts"])
+    return {"quantize_pack_int8": q, "cut_fusion": n_cut,
+            "cut_fusion.fma": n_cut, "cut_fusion.tc": 0}, G // P
+
+
+# the chaos runs: a fault, the step at which the scientist notices it, and
+# the recovery it must give (party, action, marker); faults at step 3 are
+# noticed at step 3 and replay from marker 2, the corrupt fifth cut of
+# owner0 (step 4) rolls back to marker 4
+RECOVERY_FAULTS = {
+    "crash": (dict(party="owner0", action="crash", kind="head_fwd",
+                   occurrence=None, step=3), 3, ("owner0", "respawn", 2)),
+    "corrupt": (dict(party="owner0", action="corrupt_frame",
+                     kind="cut_activations", occurrence=4), 4,
+                ("owner0", "rollback", 4)),
+    "wedge": (dict(party="owner0", action="wedge", kind="head_fwd",
+                   occurrence=None, step=3), 3, ("owner0", "respawn", 2)),
+}
+
+
+def phase_recovery():
+    """Phase 16: supervised crash recovery (``fit(supervise=True)``) on
+    the paper's path at full width, phase 4's session (2000 subjects, two
+    owners, split int8, one epoch of 10 steps).  Fault-free supervised ==
+    unsupervised bitwise on the queue, steady steps side by side (the
+    snapshot and heartbeat cost), two of each in turns.  Then crash (owner0 on ``head_fwd`` at
+    step 3) and corrupt frame (owner0's fifth ``cut_activations``) on the
+    queue and the process backend, and a wedge (``head_fwd`` at step 3,
+    a 5 s timeout) on the process backend: each run equals its backend's
+    fault-free supervised run bit for bit, with its recovery event and
+    the wall time beside the fault-free one.  The sum trunk with
+    ``aggregation="masked_sum"`` crashed at step 3 on the queue == its
+    fault-free masked supervised run.  Exact launch counts in every run
+    from its own record (``recovery_counts``): with P owners, G
+    cut-gradient frames and E evaluation batches, cut fusion 2 (G / P +
+    1) + E, and G / P = steps + (the step the fault is noticed at − the
+    event's marker); the int8 kernel once per frame that the scientist's
+    process encodes.  No recovery event in a run without a plan; a crash
+    in every generation with ``max_restarts=1`` ends in "restart budget
+    exhausted"."""
+    from repro_torch.federation import faults
+    if os.environ.get(faults.CHAOS_ENV):
+        raise AssertionError(f"{faults.CHAOS_ENV} is set before the phase")
+    kw = dict(epochs=1, batch_size=128, eval_frac=0.15, verbose=False,
+              mode="split", compression="int8")
+    out = {}
+
+    def run(backend, fault=None, masked=False, **extra):
+        s, _ = mnist_session("cuda", combine="sum" if masked else "concat")
+        reset_counts()
+        t = time.time()
+        h = chaos_fit(s, fault, **kw, backend=backend, **extra,
+                      **(dict(aggregation="masked_sum") if masked else {}))
+        wall = time.time() - t
+        counts = read_counts()
+        return s, h, wall, counts
+
+    def check_run(what, s, counts, backend, masked=False, expect=None):
+        """Exact counts; the recovery record against ``expect``
+        ((noticed at, (party, action, marker))) or none."""
+        need, stepped = recovery_counts(s, backend, masked)
+        steps = s.transport_stats["steps"]
+        ev = [(e["party"], e["action"], e["step"])
+              for e in s.recovery_events]
+        replayed = 0 if expect is None else expect[0] - expect[1][2]
+        if ev != ([] if expect is None else [expect[1]]) or \
+                stepped != steps + replayed:
+            raise AssertionError(f"{what}: events {ev}, {stepped} steps "
+                                 f"run, expected {expect}")
+        check_counts(counts, need, what)
+        return {"counts": {k: counts[k] for k in need}, "events": ev,
+                "replayed_steps": replayed, "all_counts": counts}
+
+    # ---- fault-free: supervised == unsupervised, and the supervision's
+    # cost, in turns (unsupervised, supervised, supervised, unsupervised)
+    base, steady = {}, {False: [], True: []}
+    for sup in (False, True, True, False):
+        s, h, wall, counts = run("queue", supervise=sup)
+        steady[sup].append(s.transport_stats["steady_step_ms"])
+        if sup in base:
+            if not same_params(base[sup][0], s) or \
+                    h["loss_trail"] != base[sup][1]["loss_trail"]:
+                raise AssertionError("two fault-free runs differ")
+            continue
+        base[sup] = (s, h, wall)
+        if sup:
+            res = check_run("the supervised queue fit", s, counts, "queue")
+            check_counts(counts, {"quantize_pack_int8": 2 * len(s.owners) * (
+                s.transport_stats["steps"] + 1)}, "the same, phase 4's form")
+    (u, hu, _), (q, hq, q_wall) = base[False], base[True]
+    if not same_params(u, q) or hu["loss_trail"] != hq["loss_trail"]:
+        raise AssertionError("supervised != unsupervised")
+    print(f"  queue fault-free: supervised == unsupervised (params and loss "
+          f"trail bitwise); steady_step_ms in turns: unsupervised "
+          f"{steady[False][0]:.3f}, supervised {steady[True][0]:.3f}, "
+          f"{steady[True][1]:.3f}, unsupervised {steady[False][1]:.3f}; "
+          f"snapshot acks {frames(q, ['snapshot_ack'])}, heartbeats "
+          f"{q.transport_stats['supervisor']['heartbeats_sent']}; launches "
+          f"{res['counts']}")
+    out["queue"] = {"unsupervised_steady_step_ms": steady[False],
+                    "supervised_steady_step_ms": steady[True],
+                    "clean_wall_s": q_wall, "clean": res}
+
+    def chaos(backend, name, clean, masked=False, **extra):
+        fault, noticed, event = RECOVERY_FAULTS[name]
+        c, hc, c_wall = clean
+        s, h, wall, counts = run(backend, fault, masked, supervise=True,
+                                 **extra)
+        if not same_params(c, s) or h["loss_trail"] != hc["loss_trail"]:
+            raise AssertionError(f"{backend} {name}: != fault-free")
+        what = f"the {'masked ' if masked else ''}{backend} {name} fit"
+        r = check_run(what, s, counts, backend, masked, (noticed, event))
+        e = s.recovery_events[0]
+        print(f"  {backend} {'masked ' if masked else ''}{name}: == "
+              f"fault-free bitwise; event {r['events'][0]}, recovery "
+              f"{e['seconds']:.2f} s; fit wall {wall:.2f} s (fault-free "
+              f"{c_wall:.2f} s); replayed {r['replayed_steps']}; launches "
+              f"{r['counts']}")
+        return dict(r, wall_s=wall, clean_wall_s=c_wall,
+                    recover_s=e["seconds"])
+
+    for name in ("crash", "corrupt"):
+        out["queue"][name] = chaos("queue", name, base[True])
+    p_clean = run("process", supervise=True)
+    check_run("the supervised process fit", p_clean[0], p_clean[3],
+              "process")
+    if not same_params(q, p_clean[0]):
+        raise AssertionError("supervised process != supervised queue")
+    out["process"] = {"clean_wall_s": p_clean[2]}
+    for name in ("crash", "corrupt", "wedge"):
+        out["process"][name] = chaos(
+            "process", name, p_clean[:3],
+            **(dict(timeout=5.0) if name == "wedge" else {}))
+    m_clean = run("queue", masked=True, supervise=True)
+    check_run("the supervised masked queue fit", m_clean[0], m_clean[3],
+              "queue", masked=True)
+    out["masked"] = chaos("queue", "crash", m_clean[:3], masked=True)
+    out["masked"]["clean_wall_s"] = m_clean[2]
+
+    s, _ = mnist_session("cuda")
+    try:
+        chaos_fit(s, dict(RECOVERY_FAULTS["crash"][0], gen=None), **kw,
+                  backend="queue", supervise=True, max_restarts=1)
+    except RuntimeError as e:
+        if "restart budget exhausted" not in str(e):
+            raise
+        print(f"  a crash in every generation, max_restarts=1: {e}")
+    else:
+        raise AssertionError("a crash in every generation recovered")
+    if os.environ.get(faults.CHAOS_ENV):
+        raise AssertionError(f"{faults.CHAOS_ENV} left set")
+    out["budget_exhausted"] = True
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1650,6 +1862,12 @@ def main():
     t = time.time()
     print("== 15. secure forward aggregation and the cut-layer defences")
     priv = phase_privacy()
+    print(f"  phase wall {time.time() - t:.2f} s")
+
+    t = time.time()
+    print("== 16. supervised crash recovery: faults, rollback, respawn, "
+          "replay")
+    rec = phase_recovery()
     print(f"  phase wall {time.time() - t:.2f} s")
 
     print("== 14. results")
@@ -1742,8 +1960,14 @@ def main():
     entries[0]["serving_launches"] = \
         serving["counts"]["quantize_pack_int8"]
     entries[0]["zamba2_launches"] = zamba["counts"]["quantize_pack_int8"]
+    # every kernel's launches in the queue crash run (replays and the
+    # respawn's warmup included)
+    crash_counts = rec["queue"]["crash"]["all_counts"]
+    for e in entries:
+        e["recovery_launches"] = crash_counts.get(e["name"], 0)
     print(json.dumps({"privacy": {k: v for k, v in priv.items()
                                   if k != "counts"}}))
+    print(json.dumps({"recovery": without(rec, "all_counts")}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -153,6 +153,21 @@ class OwnerComputeEndpoint:
       ``pull_params``    the head params as numbered numpy leaves
                          (``params_dump``): across a process boundary the
                          session's only view of the owner's state.
+      ``heartbeat``      liveness probe (``federation/supervisor.py``),
+                         answered inline with ``heartbeat_ack``: a wedged
+                         owner stops answering.
+      ``snapshot``       step marker s (seq s): params and optimizer
+                         state are at step-s start by FIFO order.  The
+                         owner keeps them (by reference: updates build
+                         new tensors) for the 4 newest markers and acks
+                         their leaves as host numpy ``p{i}`` / ``o{i}``
+                         (``snapshot_ack``), from which the scientist
+                         can respawn it.
+      ``rollback``       another party failed: restore the step-s
+                         snapshot, drop the staged plan, the in-flight
+                         chunks and the gradient accumulator, and ack
+                         (``rollback_ack``); the scientist replays from
+                         step s.
       ``stop``           end of training.
 
     FIFO channel order is the only synchronization: every gradient of
@@ -169,15 +184,16 @@ class OwnerComputeEndpoint:
     masker, ``cut_noise_std`` adds the owner's deterministic Gaussian
     noise (keyed on ``noise_seed`` and ``s{seq}``) to every steady-state
     cut before the codec; under masking it is ignored, as in the
-    reference.  The reference's fused owner tail, fault and supervision
-    hooks are queued in ROADMAP.md.
+    reference.  ``opt_state`` and ``start_step`` let a respawned owner
+    resume a snapshot mid-run.  The reference's fused owner tail is
+    queued in ROADMAP.md.
     """
 
     def __init__(self, owner: DataOwner, endpoint, head_fwd, head_bwd, *,
                  update, params, opt_state, codec, device,
                  ack_steps: bool = False, microbatches: int = 1,
                  masker=None, cut_noise_std: float = 0.0,
-                 noise_seed: int = 0):
+                 noise_seed: int = 0, start_step: int = 0):
         self.owner = owner
         self.endpoint = endpoint
         self.head_fwd, self.head_bwd = head_fwd, head_bwd
@@ -191,8 +207,10 @@ class OwnerComputeEndpoint:
         self.device = torch.device(device)
         self.ack_steps = ack_steps
         self.micro = int(microbatches)
-        self.steps_done = 0
+        self.steps_done = int(start_step)
         self.error: Optional[BaseException] = None
+        # marker step -> (params, opt_state), for rollback
+        self._snaps: Dict[int, tuple] = {}
         self._inflight: Dict[int, torch.Tensor] = {}   # seq -> head input
         self._plan: Dict[int, List[torch.Tensor]] = {}  # step -> chunks
         self._grad_acc = None
@@ -279,6 +297,32 @@ class OwnerComputeEndpoint:
                     self._run_fwd(self.steps_done)
             if self.ack_steps:
                 self.endpoint.send("step_done", {}, seq=seq)
+        elif msg.kind == "heartbeat":
+            self.endpoint.send("heartbeat_ack", {}, seq=msg.seq)
+        elif msg.kind == "snapshot":
+            s = int(msg.seq)
+            self._snaps[s] = (self.params, self.opt_state)
+            # the 4 newest markers: with sparse markers the pipeline's
+            # lag still needs the one before the newest
+            for old in sorted(self._snaps)[:-4]:
+                del self._snaps[old]
+            payload = {f"p{i}": t for i, t in
+                       enumerate(tree_leaves(self.params))}
+            payload.update({f"o{i}": t for i, t in
+                            enumerate(tree_leaves(self.opt_state))})
+            self.endpoint.send("snapshot_ack", payload, seq=s)
+        elif msg.kind == "rollback":
+            s = int(msg.seq)
+            if s not in self._snaps:
+                raise RuntimeError(f"owner {self.owner.name}: no snapshot "
+                                   f"for step {s}")
+            self.params, self.opt_state = self._snaps[s]
+            self._snaps = {s: self._snaps[s]}
+            self._plan.clear()
+            self._inflight.clear()
+            self._grad_acc, self._grads_seen = None, 0
+            self.steps_done = s
+            self.endpoint.send("rollback_ack", {}, seq=s)
         else:
             raise RuntimeError(f"owner {self.owner.name}: unknown message "
                                f"kind {msg.kind!r}")

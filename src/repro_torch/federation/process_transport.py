@@ -26,10 +26,19 @@ so ``OwnerComputeEndpoint`` runs unchanged inside a spawned worker
     ``__worker_error__`` frame with its traceback; the peer's next
     receive raises it as a ``RuntimeError``.  A death without that frame
     shows as a closed pipe, which raises too.
+  * **Checked frames.**  The header carries a CRC32 of the blob; a
+    mismatch raises ``transport.FrameCorrupt``, which ``recv_kind``
+    routes to the kind that owns the frame.  ``fault_hook`` drops,
+    corrupts (after the CRC) or delays a frame (``federation/
+    faults.py``); a delay rides the header as a ``not_before`` deadline
+    that the receiver waits out (``time.monotonic`` is system-wide on
+    Linux, so it holds across processes).
+  * **Two waiting threads.**  The stash is locked and ``recv_kind``
+    polls the pipe briefly under the lock, so the step loop and the
+    supervisor's heartbeat thread may wait on one endpoint at once.
 
-Latency and bandwidth injection, the transport tap, frame checksums and
-duplicate dropping (the reference's fault and recovery machinery) are
-queued in ROADMAP.md.
+Latency and bandwidth injection, the transport tap and duplicate
+dropping are queued in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -41,16 +50,19 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.federation.transport import Message, _nbytes, _pack, \
-    _unpack
+from repro_torch.federation.transport import (FrameCorrupt, Message,
+                                              _nbytes, _pack, _unpack,
+                                              crc32, wait_until)
 
-__all__ = ["ProcessEndpoint", "process_endpoint_pair", "POISON_KIND"]
+__all__ = ["ProcessEndpoint", "process_endpoint_pair", "POISON_KIND",
+           "FrameCorrupt"]
 
 #: the frame a dying worker sends last
 POISON_KIND = "__worker_error__"
 
-#: transport header after the kind: [i64 seq][i64 payload_bytes]
-HEADER_FMT = "<qq"
+#: transport header after the kind:
+#: [i64 seq][f64 not_before][i64 payload_bytes][u32 crc32 of the blob]
+HEADER_FMT = "<qdqI"
 _HEADER_LEN = struct.calcsize(HEADER_FMT)
 
 _CLOSE = object()          # writer-thread shutdown sentinel
@@ -83,12 +95,18 @@ class ProcessEndpoint:
     def __init__(self, name: str, peer: str, conn):
         self.name, self.peer = name, peer
         self.conn = conn
+        # fault hook: ``fault_hook(kind, seq) -> (action, delay_s) | None``,
+        # installed by ``faults.arm_endpoint`` (drop, corrupt, delay)
+        self.fault_hook = None
         self.sent_stats = _new_stats()
         self.recv_stats = _new_stats()
         #: the peer's error frame, once seen
         self.peer_error: Optional[BaseException] = None
         self._stash: list = []
+        # corrupt frames routed to the kind that owns them (recv_kind)
+        self._corrupt: Dict[str, FrameCorrupt] = {}
         self._lock = threading.Lock()
+        self._rlock = threading.RLock()
         self._outq: "_queue.SimpleQueue" = _queue.SimpleQueue()
         self._send_error: Optional[BaseException] = None
         self._closed = False
@@ -118,13 +136,34 @@ class ProcessEndpoint:
                 f"{self.name}: endpoint to {self.peer} is closed")
         pb = sum(_nbytes(a) for a in payload.values())
         blob = _pack(payload)
+        crc = crc32(blob)
+        msg = Message(self.name, self.peer, kind, {"__blob__": blob},
+                      seq=seq, payload_bytes=pb, wire_bytes=len(blob),
+                      crc=crc)
+        fault = (self.fault_hook(kind, seq)
+                 if self.fault_hook is not None else None)
         with self._lock:
             _account(self.sent_stats, kind, pb, len(blob))
+        if fault is not None:
+            action, delay_s = fault
+            if action == "drop_frame":
+                with self._lock:
+                    self.sent_stats["dropped_frames"] = \
+                        self.sent_stats.get("dropped_frames", 0) + 1
+                return msg                     # lost on the wire
+            if action == "delay":
+                msg.not_before = time.monotonic() + delay_s
+            if action == "corrupt_frame":
+                # one blob byte flipped after the crc was taken: the far
+                # side's check raises FrameCorrupt
+                bad = bytearray(blob)
+                bad[len(bad) // 2] ^= 0xFF
+                blob = bytes(bad)
         kb = kind.encode()
         self._outq.put(struct.pack("<H", len(kb)) + kb
-                       + struct.pack(HEADER_FMT, seq, pb) + blob)
-        return Message(self.name, self.peer, kind, {"__blob__": blob},
-                       seq=seq, payload_bytes=pb, wire_bytes=len(blob))
+                       + struct.pack(HEADER_FMT, seq, msg.not_before, pb,
+                                     crc) + blob)
+        return msg
 
     def send_error(self, exc: BaseException, tb: str = "") -> None:
         """Ship the worker's terminal exception and traceback as the last
@@ -150,7 +189,8 @@ class ProcessEndpoint:
                     self.peer_error if self.peer_error is not None else e)
         (klen,) = struct.unpack_from("<H", frame, 0)
         kind = frame[2:2 + klen].decode()
-        seq, pb = struct.unpack_from(HEADER_FMT, frame, 2 + klen)
+        seq, not_before, pb, crc = struct.unpack_from(HEADER_FMT, frame,
+                                                      2 + klen)
         blob = frame[2 + klen + _HEADER_LEN:]
         if kind == POISON_KIND:
             pl = _unpack(blob)
@@ -160,42 +200,66 @@ class ProcessEndpoint:
                 f"party {self.peer!r} died: {err}"
                 + (f"\n--- remote traceback ---\n{tb}" if tb else ""))
             raise self.peer_error
+        if crc32(blob) != crc:
+            raise FrameCorrupt(kind, int(seq), self.peer, self.name)
         with self._lock:
             _account(self.recv_stats, kind, int(pb), len(blob))
+        if not_before:
+            wait_until(not_before)
         return Message(self.peer, self.name, kind, _unpack(blob),
                        seq=int(seq), payload_bytes=int(pb),
-                       wire_bytes=len(blob))
+                       wire_bytes=len(blob), not_before=not_before,
+                       crc=int(crc))
 
     def recv(self, timeout: Optional[float] = None) -> Message:
-        if self._stash:
-            return self._stash.pop(0)
-        if self.peer_error is not None:
-            raise self.peer_error
-        return self._recv_frame(timeout)
+        with self._rlock:
+            if self._stash:
+                return self._stash.pop(0)
+            if self.peer_error is not None:
+                raise self.peer_error
+            return self._recv_frame(timeout)
 
     def recv_kind(self, kind: str, timeout: Optional[float] = None
                   ) -> Message:
         """The next message of ``kind``; other kinds that arrive first
-        are stashed for later.  Raises ``queue.Empty`` when ``timeout``
-        elapses first."""
-        for i, m in enumerate(self._stash):
-            if m.kind == kind:
-                return self._stash.pop(i)
-        if self.peer_error is not None:
-            raise self.peer_error
+        are stashed for later, a corrupt frame of another kind is kept
+        for that kind's receiver.  Raises ``queue.Empty`` when
+        ``timeout`` elapses first."""
         deadline = None if timeout is None else time.monotonic() + timeout
         while True:
-            left = (self._POLL_S if deadline is None else
-                    min(self._POLL_S, max(0.0, deadline - time.monotonic())))
-            try:
-                msg = self._recv_frame(left)
-            except _queue.Empty:
-                if deadline is not None and time.monotonic() >= deadline:
-                    raise
-                continue
-            if msg.kind == kind:
-                return msg
-            self._stash.append(msg)
+            with self._rlock:
+                if kind in self._corrupt:
+                    raise self._corrupt.pop(kind)
+                for i, m in enumerate(self._stash):
+                    if m.kind == kind:
+                        return self._stash.pop(i)
+                if self.peer_error is not None:
+                    raise self.peer_error
+                poll = self._POLL_S if deadline is None else min(
+                    self._POLL_S, max(0.0, deadline - time.monotonic()))
+                try:
+                    msg = self._recv_frame(poll)
+                except _queue.Empty:
+                    msg = None
+                except FrameCorrupt as e:
+                    if e.kind == kind:
+                        raise
+                    self._corrupt[e.kind] = e    # another kind's frame
+                    continue
+                if msg is not None:
+                    if msg.kind == kind:
+                        return msg
+                    self._stash.append(msg)
+                    continue
+            if deadline is not None and time.monotonic() >= deadline:
+                raise _queue.Empty
+
+    def flush_pending(self) -> None:
+        """Discard stashed messages and routed corrupt markers (see
+        ``transport.Endpoint.flush_pending``)."""
+        with self._rlock:
+            self._stash.clear()
+            self._corrupt.clear()
 
     # -- lifecycle ---------------------------------------------------------
     def close(self, drain_s: float = 5.0) -> None:

@@ -23,8 +23,16 @@ pipe, before the timed region) -> the step protocol -> ``stop`` ->
 drain, exit 0.  A worker that throws ships one error frame with its
 traceback and exits 1.  Kernel launch counts are per process: a
 worker's launches (the int8 codec on its cuts) are counted in the
-worker, not in the parent.  PSI workers and chaos hooks are queued in
-ROADMAP.md.
+worker, not in the parent.
+
+Supervised recovery respawns a worker from a snapshot: the spec then
+carries the optimizer-state leaves, the step to resume at and the
+worker's generation.  Chaos: ``REPRO_CHAOS_PARTY`` carries a
+``federation.faults`` plan, which a spawned worker inherits with the
+caller's environment; the worker arms its actor (crash, wedge) and its
+endpoint (drop, corrupt, delay) from it at its generation, so a
+generation-0 fault does not fire again in a respawn.  PSI workers are
+queued in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from repro_torch.federation import faults
 from repro_torch.federation.process_transport import ProcessEndpoint
 
 __all__ = ["OwnerWorkerSpec", "WorkerHandle", "owner_worker_main",
@@ -57,7 +66,11 @@ class OwnerWorkerSpec:
     environment sets it (a spawned worker inherits the caller's), else
     ``noise_seed``, the session's init seed, which the session's own
     owner threads fall back to as well.  ``cut_noise_std`` and
-    ``noise_seed`` are the owner's cut-noise defence."""
+    ``noise_seed`` are the owner's cut-noise defence.  A respawn gives
+    ``opt_state_leaves`` (the snapshot's optimizer state; None: a fresh
+    state from the params), ``start_step`` (the step to resume at) and
+    ``generation`` (0 for the first start, one more per respawn: it
+    scopes the fault plan and the masked warmup's tags)."""
 
     name: str
     ids: List[str]
@@ -75,6 +88,9 @@ class OwnerWorkerSpec:
     n_owners: int = 0
     cut_noise_std: float = 0.0
     noise_seed: int = 0
+    opt_state_leaves: Optional[List[np.ndarray]] = None
+    start_step: int = 0
+    generation: int = 0
 
 
 def _owner_body(spec: OwnerWorkerSpec, ep: ProcessEndpoint) -> None:
@@ -98,20 +114,26 @@ def _owner_body(spec: OwnerWorkerSpec, ep: ProcessEndpoint) -> None:
         torch.from_numpy(np.array(leaf, np.float32)).to(device)
         for leaf in spec.param_leaves])
     owner_opt, owner_update = adapter.owner_update_rule(spec.owner_lr)
+    opt_state = owner_opt.init(params)
+    if spec.opt_state_leaves is not None:
+        opt_state = tree_unflatten(opt_state, [
+            torch.from_numpy(np.array(leaf)).to(device)
+            for leaf in spec.opt_state_leaves])
     head_fwd, head_bwd = adapter.owner_programs(p)
     masker = None
     if spec.aggregation == "masked_sum":
         from repro_torch.core import masking
         masker = masking.MaskedAggregator(
-            masking.mask_root_from_env(spec.noise_seed), p, spec.n_owners)
+            masking.mask_root_from_env(spec.noise_seed), p, spec.n_owners,
+            generation=spec.generation)
     worker = OwnerComputeEndpoint(
         DataOwner(spec.name, spec.ids, spec.features), ep, head_fwd,
-        head_bwd, update=owner_update, params=params,
-        opt_state=owner_opt.init(params),
+        head_bwd, update=owner_update, params=params, opt_state=opt_state,
         codec=get_codec(spec.codec, device), device=device,
         ack_steps=spec.ack_steps, microbatches=spec.microbatches,
         masker=masker, cut_noise_std=spec.cut_noise_std,
-        noise_seed=spec.noise_seed)
+        noise_seed=spec.noise_seed, start_step=spec.start_step)
+    faults.arm_actor(worker, spec.name, generation=spec.generation)
     worker.run()
     if worker.error is not None:
         raise worker.error
@@ -121,6 +143,8 @@ def owner_worker_main(spec: OwnerWorkerSpec, conn) -> None:
     """Spawn target of an owner worker: the endpoint up, the owner's
     loop, then a clean close (exit 0) — or the error frame and exit 1."""
     ep = ProcessEndpoint(spec.name, SCIENTIST, conn)
+    # wire faults (drop, corrupt, delay) on everything this worker sends
+    faults.arm_endpoint(ep, spec.name, generation=spec.generation)
     try:
         _owner_body(spec, ep)
     except BaseException as e:              # noqa: BLE001 — shipped to

@@ -64,9 +64,17 @@ Party-visibility contract: owners never see labels, the scientist never
 receives raw feature arrays; every cross-party message the session
 mediates is appended to ``session.transcript``.
 
+Supervised recovery (``fit(mode="split", supervise=True)``, queue or
+process backend): snapshot markers every ``resync_every`` steps,
+heartbeats (``federation/supervisor.py``), and on an owner's crash,
+wedge or corrupt frame a rollback to the newest marker, a respawn of the
+dead owner and a replay of the steps since, with the fault-free run's
+bits; each recovery lands in ``session.recovery_events``.  Faults are
+injected from a plan in ``REPRO_CHAOS_PARTY`` (``federation/faults.py``).
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
 item): PSI bloom/hidden modes, the worker pool and the wire backends;
-``supervise``, checkpointing and serving.
+checkpointing and serving.
 """
 from __future__ import annotations
 
@@ -86,11 +94,12 @@ from repro_torch.core import masking, privacy
 from repro_torch.core.psi import DEFAULT_CHUNK, psi_round
 from repro_torch.core.splitnn import cut_layer_traffic, make_split_train_step
 from repro_torch.device import resolve_device
-from repro_torch.federation import transport
+from repro_torch.federation import faults, transport
 from repro_torch.federation.parties import (DataOwner, DataScientist,
                                             OwnerComputeEndpoint,
                                             PrivacyError)
 from repro_torch.federation.registry import build_adapter
+from repro_torch.federation.supervisor import OwnerFailure, Supervisor
 from repro_torch.tree import tree_add, tree_leaves, tree_map, tree_unflatten
 
 
@@ -120,6 +129,11 @@ class VerticalSession:
         self.transcript: List[dict] = []
         self.resolve_stats: Optional[dict] = None
         self.transport_stats: Optional[dict] = None
+        #: one record per supervised recovery: ``party``, ``action``
+        #: ("respawn" | "rollback"), ``step`` (the marker replayed from),
+        #: ``error`` and ``seconds`` (the recovery's wall time, respawn
+        #: and its warmup included)
+        self.recovery_events: List[dict] = []
         self.adapter = None
         self.config = None
         self._init_seed = seed
@@ -244,7 +258,9 @@ class VerticalSession:
             mode: str = "joint", schedule: str = "pipelined",
             microbatches: int = 1, compression: Optional[str] = None,
             backend: str = "queue", timeout: float = 120.0,
-            supervise: bool = False, aggregation: Optional[str] = None,
+            supervise: bool = False, max_restarts: int = 2,
+            resync_every: int = 1, heartbeat_s: float = 0.5,
+            aggregation: Optional[str] = None,
             ckpt_dir: Optional[str] = None) -> dict:
         """The SplitNN training loop over exactly one of ``epochs``
         epochs of full batches or ``steps`` steps (a fresh permutation
@@ -268,14 +284,24 @@ class VerticalSession:
         wait; warmup receives wait at least 120 s, for worker start-up).
         ``aggregation`` (None | "masked_sum"): secure forward aggregation,
         see the module docstring.  Both modes draw batches from one index
-        stream, so they see the same batches in the same order."""
+        stream, so they see the same batches in the same order.
+
+        ``supervise=True`` (split mode, queue or process backend) turns
+        on crash recovery: a ``snapshot`` marker every ``resync_every``
+        steps (each owner acks its step-start leaves), heartbeats every
+        ``heartbeat_s`` seconds, and on an owner's failure (crash, error
+        frame, a receive past ``timeout``) or a corrupt frame a rollback
+        of every party to the newest consistent marker, a respawn of a
+        dead owner from its snapshot (bounded backoff, at most
+        ``max_restarts`` per owner, then "restart budget exhausted"), and
+        a replay of the steps since.  The final params and loss trail
+        equal the fault-free run's bit for bit.  Any other error
+        propagates as it would unsupervised."""
         self._require(resolved=True, built=True, labels=True)
         if (epochs is None) == (steps is None):
             raise ValueError("pass exactly one of epochs= or steps=")
         if mode not in ("joint", "split"):
             raise ValueError(f"mode must be 'joint' or 'split': {mode!r}")
-        if supervise:
-            raise not_ported("supervise=True", "supervise/recovery")
         if aggregation not in (None, "masked_sum"):
             raise ValueError(f"unknown aggregation {aggregation!r} "
                              "(None | 'masked_sum')")
@@ -298,6 +324,16 @@ class VerticalSession:
             if not getattr(self.adapter, "supports_microbatch", False):
                 raise ValueError(f"{type(self.adapter).__name__} does not "
                                  "support microbatched training")
+        if supervise:
+            if mode != "split":
+                raise ValueError("supervise=True requires mode='split' "
+                                 "(recovery is a wire protocol)")
+            if backend == "direct":
+                raise ValueError("supervise=True requires a wire "
+                                 "backend ('queue' or 'process')")
+            if int(resync_every) < 1:
+                raise ValueError(
+                    f"resync_every must be >= 1: {resync_every}")
         if ckpt_dir is not None:
             raise not_ported("checkpointing", "checkpointing")
         n = len(self.scientist.ids)
@@ -323,7 +359,9 @@ class VerticalSession:
             return self._fit_split(
                 **loop, schedule=schedule, microbatches=M,
                 compression=compression, backend=backend, timeout=timeout,
-                aggregation=aggregation)
+                aggregation=aggregation, supervise=supervise,
+                max_restarts=max_restarts, resync_every=int(resync_every),
+                heartbeat_s=heartbeat_s)
         if M > 1 or aggregation is not None:
             return self._fit_joint_microbatched(
                 **loop, microbatches=M, aggregation=aggregation)
@@ -535,24 +573,29 @@ class VerticalSession:
         """Receive ``kind`` from one owner, surfacing a dead owner within
         a second instead of after the full timeout.  A worker process
         can also fail through the receive itself (its error frame, or a
-        closed pipe): that too is raised as the owner's failure."""
+        closed pipe): that too is raised as the owner's failure.  Every
+        failure is an :class:`OwnerFailure` naming the owner, so the
+        supervised fit knows whom to restart; a corrupt frame
+        (``transport.FrameCorrupt``) passes through as it is: its owner
+        is alive and is rolled back, not restarted."""
+        name = worker.owner.name
         deadline = time.monotonic() + timeout
         while True:
             try:
                 return ep.recv_kind(kind, timeout=1.0)
             except _queue.Empty:
                 if worker.error is not None:
-                    raise RuntimeError(
-                        f"owner worker {worker.owner.name!r} failed"
-                    ) from worker.error
+                    raise OwnerFailure(f"owner worker {name!r} failed",
+                                       party=name) from worker.error
                 if time.monotonic() > deadline:
-                    raise RuntimeError(
-                        f"timed out waiting for {kind!r} from "
-                        f"{worker.owner.name!r}") from None
+                    raise OwnerFailure(
+                        f"timed out waiting for {kind!r} from {name!r}",
+                        party=name) from None
+            except transport.FrameCorrupt:
+                raise
             except RuntimeError as e:
-                raise RuntimeError(
-                    f"owner worker {worker.owner.name!r} failed"
-                ) from (worker.error or e)
+                raise OwnerFailure(f"owner worker {name!r} failed",
+                                   party=name) from (worker.error or e)
 
     def _sync_split_params(self, workers, eps, trunk_params, timeout):
         """Flush every owner's queue (barrier), then reassemble the
@@ -576,69 +619,96 @@ class VerticalSession:
         self.params = {"heads": self.adapter.stack_head_params(slices),
                        "trunk": trunk_params}
 
-    def _start_owners(self, workers, eps, threads, backend, *, codec,
-                      compression, owner_lr, sequential, microbatches,
-                      aggregation):
-        """One owner worker per owner, appended to ``workers`` (with its
-        scientist endpoint to ``eps``) as it starts, so that a failure
-        half way leaves every started one to the caller's clean-up: a
-        thread behind a channel pair (queue, direct; also appended to
-        ``threads``) or a spawned process behind a pipe.  Masked owners,
-        threads and processes alike, take the mask root from
-        ``REPRO_MASK_SEED`` where it is set, else the init seed."""
+    def _start_owners(self, workers, eps, threads, backend, **kw):
+        """One owner worker per owner (:meth:`_start_owner`), appended to
+        ``workers`` (with its scientist endpoint to ``eps``, and a thread
+        to ``threads``) as it starts, so that a failure half way leaves
+        every started one to the caller's clean-up."""
+        if backend == "process" and self.device.type == "cuda" \
+                and kw["compression"] == "int8":
+            # build before spawning: the workers (respawns too) load what
+            # is built
+            from repro_torch.kernels import build
+            build.build(["quantize"])
+        for p in range(len(self.owners)):
+            w, ep, th = self._start_owner(p, backend, **kw)
+            workers.append(w)
+            eps.append(ep)
+            if th is not None:
+                threads.append(th)
+
+    def _start_owner(self, p, backend, *, codec, compression, owner_lr,
+                     sequential, microbatches, aggregation, leaves=None,
+                     opt_leaves=None, start_step=0, generation=0):
+        """Start owner ``p``: a thread behind a channel pair (queue,
+        direct) or a spawned process behind a pipe; returns ``(worker,
+        scientist endpoint, thread or None)``.  The first start takes the
+        owner's slice of the session's params and a fresh optimizer
+        state; a respawn gives the snapshot's ``leaves`` and
+        ``opt_leaves`` (host numpy), the ``start_step`` to resume at and
+        its ``generation``.  Owners are armed from the env fault plan at
+        their generation.  Masked owners, threads and processes alike,
+        take the mask root from ``REPRO_MASK_SEED`` where it is set, else
+        the init seed."""
         adapter = self.adapter
+        owner = self.owners[p]
         P = len(self.owners)
         noise = dict(cut_noise_std=self.config.split.cut_noise_std,
                      noise_seed=self._init_seed)
+        template = adapter.owner_param_slice(self.params, p)
         if backend == "process":
             from repro_torch.federation import runtime
-            if self.device.type == "cuda" and compression == "int8":
-                # build before spawning: the workers load what is built
-                from repro_torch.kernels import build
-                build.build(["quantize"])
-            for p, owner in enumerate(self.owners):
-                spec = runtime.OwnerWorkerSpec(
-                    name=owner.name, ids=list(owner.ids),
-                    features=np.asarray(owner._features), owner_index=p,
-                    config=self.config, device=str(self.device),
-                    param_leaves=[t.detach().cpu().numpy() for t in
-                                  tree_leaves(adapter.owner_param_slice(
-                                      self.params, p))],
-                    codec=compression, microbatches=microbatches,
-                    ack_steps=sequential, owner_lr=owner_lr,
-                    num_threads=(torch.get_num_threads()
-                                 if self.device.type == "cpu" else None),
-                    aggregation=aggregation, n_owners=P, **noise)
-                handle = runtime.spawn_owner_worker(spec, owner=owner)
-                workers.append(handle)
-                eps.append(handle.endpoint)
-            return
+            if leaves is None:
+                leaves = [t.detach().cpu().numpy()
+                          for t in tree_leaves(template)]
+            spec = runtime.OwnerWorkerSpec(
+                name=owner.name, ids=list(owner.ids),
+                features=np.asarray(owner._features), owner_index=p,
+                config=self.config, device=str(self.device),
+                param_leaves=list(leaves), codec=compression,
+                microbatches=microbatches, ack_steps=sequential,
+                owner_lr=owner_lr,
+                num_threads=(torch.get_num_threads()
+                             if self.device.type == "cpu" else None),
+                aggregation=aggregation, n_owners=P,
+                opt_state_leaves=opt_leaves, start_step=start_step,
+                generation=generation, **noise)
+            handle = runtime.spawn_owner_worker(spec, owner=owner)
+            return handle, handle.endpoint, None
         owner_opt, owner_update = adapter.owner_update_rule(owner_lr)
-        for p, owner in enumerate(self.owners):
-            ep_sci, ep_own = transport.channel_pair(
-                "scientist", owner.name, backend=backend)
-            head_fwd, head_bwd = adapter.owner_programs(p)
-            hp = adapter.owner_param_slice(self.params, p)
-            masker = None
-            if aggregation == "masked_sum":
-                masker = masking.MaskedAggregator(
-                    masking.mask_root_from_env(self._init_seed), p, P)
-            w = OwnerComputeEndpoint(
-                owner, ep_own, head_fwd, head_bwd, update=owner_update,
-                params=hp, opt_state=owner_opt.init(hp), codec=codec,
-                device=self.device, ack_steps=sequential,
-                microbatches=microbatches, masker=masker, **noise)
-            th = threading.Thread(target=w.run, daemon=True,
-                                  name=f"owner-{owner.name}")
-            th.start()
-            workers.append(w)
-            eps.append(ep_sci)
-            threads.append(th)
+        hp = template if leaves is None else tree_unflatten(
+            template, [transport.to_tensor(a, self.device) for a in leaves])
+        opt_state = owner_opt.init(hp)
+        if opt_leaves is not None:
+            opt_state = tree_unflatten(opt_state, [
+                transport.to_tensor(a, self.device) for a in opt_leaves])
+        ep_sci, ep_own = transport.channel_pair(
+            "scientist", owner.name, backend=backend)
+        head_fwd, head_bwd = adapter.owner_programs(p)
+        masker = None
+        if aggregation == "masked_sum":
+            masker = masking.MaskedAggregator(
+                masking.mask_root_from_env(self._init_seed), p, P,
+                generation=generation)
+        w = OwnerComputeEndpoint(
+            owner, ep_own, head_fwd, head_bwd, update=owner_update,
+            params=hp, opt_state=opt_state, codec=codec,
+            device=self.device, ack_steps=sequential,
+            microbatches=microbatches, masker=masker,
+            start_step=start_step, **noise)
+        faults.arm_actor(w, owner.name, generation=generation)
+        if backend == "queue":
+            faults.arm_endpoint(ep_own, owner.name, generation=generation)
+        th = threading.Thread(target=w.run, daemon=True,
+                              name=f"owner-{owner.name}")
+        th.start()
+        return w, ep_sci, th
 
     def _fit_split(self, stream, *, total_steps, steps_per_epoch,
                    batch_size, owner_lr, scientist_lr, verbose, schedule,
                    microbatches, compression, backend, timeout,
-                   aggregation) -> dict:
+                   aggregation, supervise=False, max_restarts=2,
+                   resync_every=1, heartbeat_s=0.5) -> dict:
         """True split execution over the transport (paper Fig. 2).
 
         Per step t the wire carries ``head_fwd`` (batch row indices),
@@ -659,7 +729,21 @@ class VerticalSession:
         owner.  The gradient defences (``grad_norm_mode``,
         ``grad_noise_std``) apply to every cut-gradient chunk, keyed on
         ``g{seq}o{owner}``; the warmup's zero gradients are sent as they
-        are."""
+        are.
+
+        ``supervise``: every ``resync_every`` steps a ``snapshot`` marker
+        s goes to every owner (each acks its step-s-start leaves) and the
+        trunk's step-s state is kept by reference; a
+        :class:`~repro_torch.federation.supervisor.Supervisor` sends
+        heartbeats beside the step loop.  On an :class:`OwnerFailure`
+        (crash, error frame, timeout) the dead owner is respawned from
+        the newest marker it acked, on a ``FrameCorrupt`` every owner
+        rolls back to the newest marker; the survivors roll back, the
+        trunk and the history return to the marker, and the steps from
+        it are replayed from the batch-index log (the stream is read
+        once, so a replay sees the same batches).  Batch indices, masks,
+        cut noise and gradient defences are all keyed by step or seq, so
+        the replay gives the first run's bits."""
         adapter = self.adapter
         if backend not in ("queue", "direct", "process"):
             raise ValueError(f"unknown fit backend {backend!r}")
@@ -686,11 +770,22 @@ class VerticalSession:
         sp = self.config.split
         defend_on = sp.grad_noise_std > 0.0 or sp.grad_norm_mode != "none"
 
+        owner_kw = dict(codec=codec, compression=compression,
+                        owner_lr=owner_lr, sequential=sequential,
+                        microbatches=M, aggregation=aggregation)
         workers, eps, threads = [], [], []
+        # replaced owners: (owner index, endpoint) for the accounting, and
+        # their threads (a wedged one never ends)
+        retired, retired_threads = [], []
         inflight: deque = deque()
+        # the batch-index log: a replay re-sends step s's exact indices
+        # without reading the stream (and its rng) again
+        idx_log: list = []
 
         def send_fwd(seq):
-            idx = next(stream)
+            while len(idx_log) <= seq:
+                idx_log.append(next(stream))
+            idx = idx_log[seq]
             for ep in eps:
                 ep.send("head_fwd", {"idx": np.asarray(idx, np.int32)},
                         seq=seq)
@@ -732,17 +827,158 @@ class VerticalSession:
         def sync():
             self._sync_split_params(workers, eps, tp, timeout)
 
+        # ---------------- supervision: markers, snapshots, recovery
+        sup = None
+        KEEP = 4                       # markers kept (> the pipeline's lag)
+        trunk_snaps: dict = {}         # marker -> (trunk params, state)
+        hist_marks: dict = {}          # marker -> history lengths
+        snap_acks: Dict[int, dict] = {p: {} for p in range(len(self.owners))}
+        marker = {"last": None, "pending": False}
+
+        def collect_acks(s):
+            for p, (ep, w) in enumerate(zip(eps, workers)):
+                m = self._recv_from_owner(ep, w, "snapshot_ack", timeout)
+                if int(m.seq) != s:
+                    name = self.owners[p].name
+                    raise OwnerFailure(
+                        f"snapshot ack desync from {name!r}: seq {m.seq} "
+                        f"!= {s}", party=name)
+                snap_acks[p][s] = m.payload
+                for old in sorted(snap_acks[p])[:-KEEP]:
+                    del snap_acks[p][old]
+
+        def mark(s):
+            # the previous marker's acks have been on the wire since its
+            # step: collect them now, then ship marker s (each owner is at
+            # step-s start by FIFO order) and keep the trunk's step-s
+            # state by reference (updates build new tensors)
+            if marker["pending"]:
+                collect_acks(marker["last"])
+            for ep in eps:
+                ep.send("snapshot", {}, seq=s)
+            trunk_snaps[s] = (tp, ts)
+            hist_marks[s] = (len(history["train"]), len(history["eval"]),
+                             len(losses))
+            for old in sorted(trunk_snaps)[:-KEEP]:
+                del trunk_snaps[old]
+                del hist_marks[old]
+            marker["last"], marker["pending"] = s, True
+
+        def respawn(p, s):
+            """Start owner ``p`` again from the marker-``s`` leaves it
+            acked, at its next generation (generation-0 faults stay
+            fired)."""
+            name = self.owners[p].name
+            ack = snap_acks[p][s]
+            n_p = sum(k.startswith("p") for k in ack)
+            w, ep, th = self._start_owner(
+                p, backend, **owner_kw,
+                leaves=[ack[f"p{i}"] for i in range(n_p)],
+                opt_leaves=[ack[f"o{i}"] for i in range(len(ack) - n_p)],
+                start_step=s, generation=sup.restarts(name))
+            retired.append((p, eps[p]))
+            if th is not None:
+                retired_threads.append(threads[p])
+                threads[p] = th
+            workers[p], eps[p] = w, ep
+
+        def rewarm(p):
+            """The respawned owner's warmup handshake (its zero-gradient
+            update leaves params and state bitwise as they are)."""
+            ep, w = eps[p], workers[p]
+            ep.send("warmup", {"idx": widx}, seq=-1)
+            for m in range(M):
+                self._recv_from_owner(ep, w, "warmup_cuts", wait)
+                ep.send("warmup_grads", codec.encode(wzero), seq=m)
+            self._recv_from_owner(ep, w, "warmup_done", wait)
+
+        def recover(exc):
+            """Roll every party back to the newest consistent marker s,
+            respawn a dead owner from its acked snapshot, and return s,
+            the step to replay from."""
+            nonlocal tp, ts
+            t_fail = time.time()
+            crashed = isinstance(exc, OwnerFailure)
+            party = exc.party if crashed else exc.sender
+            sup.failed.setdefault(party, exc)
+            sup.plan_restart(party)          # the budget, and the backoff
+            p_dead = None
+            s_star = marker["last"]
+            if crashed:
+                p_dead = next(i for i, o in enumerate(self.owners)
+                              if o.name == party)
+                sup.detach(party)
+                # snapshot acks the dead owner sent before it died
+                try:
+                    while True:
+                        m = eps[p_dead].recv_kind("snapshot_ack",
+                                                  timeout=0.5)
+                        snap_acks[p_dead][int(m.seq)] = m.payload
+                except Exception:   # noqa: BLE001 — the channel is dead
+                    pass
+                if not isinstance(workers[p_dead], OwnerComputeEndpoint):
+                    workers[p_dead].shutdown(timeout=1.0)
+                acked = sorted(s for s in snap_acks[p_dead]
+                               if s in trunk_snaps)
+                if not acked:
+                    raise OwnerFailure(
+                        f"party {party!r} failed with no recoverable "
+                        "snapshot", party=party) from exc
+                s_star = acked[-1]
+            for i, ep in enumerate(eps):
+                if i != p_dead:
+                    ep.send("rollback", {}, seq=s_star)
+            for i, (ep, w) in enumerate(zip(eps, workers)):
+                if i == p_dead:
+                    continue
+                while int(self._recv_from_owner(
+                        ep, w, "rollback_ack", timeout).seq) != s_star:
+                    pass
+                # everything the owner sent before its ack is stale
+                ep.flush_pending()
+            if crashed:
+                while True:
+                    respawn(p_dead, s_star)
+                    try:
+                        rewarm(p_dead)
+                        break
+                    except OwnerFailure as again:
+                        # the new worker failed too: charge the budget
+                        if not isinstance(workers[p_dead],
+                                          OwnerComputeEndpoint):
+                            workers[p_dead].shutdown(timeout=1.0)
+                        sup.failed[party] = again
+                        sup.plan_restart(party)
+                sup.attach(party, eps[p_dead], workers[p_dead])
+            tp, ts = trunk_snaps[s_star]
+            n_tr, n_ev, n_loss = hist_marks[s_star]
+            del history["train"][n_tr:]
+            del history["eval"][n_ev:]
+            del losses[n_loss:]
+            trunk_snaps.clear()
+            hist_marks.clear()
+            for acks in snap_acks.values():
+                acks.clear()
+            marker["last"], marker["pending"] = None, False
+            # every owner (a respawned one too) snapshots its restored
+            # state at once, so a second failure before the next marker
+            # is covered
+            mark(s_star)
+            collect_acks(s_star)
+            marker["pending"] = False
+            self.recovery_events.append({
+                "party": party, "step": int(s_star),
+                "action": "respawn" if crashed else "rollback",
+                "error": str(exc), "seconds": time.time() - t_fail})
+            return s_star
+
         # party threads trade sub-millisecond messages; the default 5 ms
         # switch interval would let one party stall another's dispatch
         old_switch = sys.getswitchinterval()
         sys.setswitchinterval(5e-4)
         clean = False
         try:
-            self._start_owners(
-                workers, eps, threads, backend, codec=codec,
-                compression=compression, owner_lr=owner_lr,
-                sequential=sequential, microbatches=M,
-                aggregation=aggregation)
+            self._start_owners(workers, eps, threads, backend, **owner_kw)
             # ---------------- warmup: every program once per chunk shape,
             # before the clock
             widx = np.zeros(batch_size, np.int32)
@@ -758,12 +994,18 @@ class VerticalSession:
                 else:
                     cg, _ = cutgrad(tp, cuts, lab_m, denom)
                     weightgrad(tp, cuts, lab_m, denom)
-                zero = torch.zeros_like(to_owners(cg)[0])
+                wzero = torch.zeros_like(to_owners(cg)[0])
                 for ep in eps:
-                    ep.send("warmup_grads", codec.encode(zero), seq=m)
+                    ep.send("warmup_grads", codec.encode(wzero), seq=m)
             tp, ts = trunk_update(tp, ts, tree_map(torch.zeros_like, tp), 0)
             for ep, w in zip(eps, workers):
                 self._recv_from_owner(ep, w, "warmup_done", wait)
+            if supervise:
+                sup = Supervisor(max_restarts=max_restarts,
+                                 heartbeat_s=heartbeat_s)
+                for owner, ep, w in zip(self.owners, eps, workers):
+                    sup.attach(owner.name, ep, w)
+                sup.start()
 
             # ---------------- the timed training region
             history: dict = {"train": [], "eval": []}
@@ -771,73 +1013,92 @@ class VerticalSession:
             t0 = time.time()
             t_warm = None
             overhead_s = 0.0
-            fwd_next = 0
-            for t in range(total_steps):
-                if fwd_next == t:
-                    send_fwd(t)
-                    fwd_next = t + 1
-                if not sequential and fwd_next == t + 1 < total_steps:
-                    send_fwd(t + 1)
-                    fwd_next = t + 2
-                lab_t = self._labels(inflight.popleft())
-                if sequential:
-                    cuts = recv_cuts("cut_activations", t, timeout)
-                    metrics, tg, cg = trunk_step(tp, cuts, lab_t)
-                    tp, ts = trunk_update(tp, ts, tg, t)
-                    send_grads(to_owners(cg), t)
-                    for ep, w in zip(eps, workers):
-                        self._recv_from_owner(ep, w, "step_done", timeout)
-                else:
-                    metrics, cache = None, []
-                    for m in range(M):
-                        seq = t * M + m
-                        lab_m = lab_t[m * bm:(m + 1) * bm]
-                        cuts = recv_cuts("cut_activations", seq, timeout)
-                        cg, parts = cutgrad(tp, cuts, lab_m, denom)
-                        send_grads(to_owners(cg), seq)
-                        metrics = tree_add(metrics, parts)
-                        cache.append((cuts, lab_m))
-                    tg = None
-                    for cuts, lab_m in cache:
-                        tg = tree_add(tg, weightgrad(tp, cuts, lab_m, denom))
-                    tp, ts = trunk_update(tp, ts, tg, t)
-                losses.append(metrics["loss"])
-                if t == 0:
-                    t_warm = time.time()
-                tb = time.time()
-                self._after_step(t, metrics, history, t0,
-                                 steps_per_epoch=steps_per_epoch,
-                                 verbose=verbose, sync=sync)
-                overhead_s += time.time() - tb
+            t = fwd_next = 0
+            while t < total_steps:
+                try:
+                    if supervise and t % resync_every == 0 \
+                            and marker["last"] != t:
+                        mark(t)
+                    if fwd_next == t:
+                        send_fwd(t)
+                        fwd_next = t + 1
+                    if not sequential and fwd_next == t + 1 < total_steps:
+                        send_fwd(t + 1)
+                        fwd_next = t + 2
+                    lab_t = self._labels(inflight.popleft())
+                    if sequential:
+                        cuts = recv_cuts("cut_activations", t, timeout)
+                        metrics, tg, cg = trunk_step(tp, cuts, lab_t)
+                        tp, ts = trunk_update(tp, ts, tg, t)
+                        send_grads(to_owners(cg), t)
+                        for ep, w in zip(eps, workers):
+                            self._recv_from_owner(ep, w, "step_done",
+                                                  timeout)
+                    else:
+                        metrics, cache = None, []
+                        for m in range(M):
+                            seq = t * M + m
+                            lab_m = lab_t[m * bm:(m + 1) * bm]
+                            cuts = recv_cuts("cut_activations", seq,
+                                             timeout)
+                            cg, parts = cutgrad(tp, cuts, lab_m, denom)
+                            send_grads(to_owners(cg), seq)
+                            metrics = tree_add(metrics, parts)
+                            cache.append((cuts, lab_m))
+                        tg = None
+                        for cuts, lab_m in cache:
+                            tg = tree_add(tg, weightgrad(tp, cuts, lab_m,
+                                                         denom))
+                        tp, ts = trunk_update(tp, ts, tg, t)
+                    losses.append(metrics["loss"])
+                    if t == 0:
+                        t_warm = time.time()
+                    tb = time.time()
+                    self._after_step(t, metrics, history, t0,
+                                     steps_per_epoch=steps_per_epoch,
+                                     verbose=verbose, sync=sync)
+                    overhead_s += time.time() - tb
+                    t += 1
+                except (OwnerFailure, transport.FrameCorrupt) as e:
+                    if not supervise:
+                        raise
+                    t = recover(e)
+                    inflight.clear()
+                    fwd_next = t
             wall_s = time.time() - t0
             sync()
             clean = True
         finally:
             sys.setswitchinterval(old_switch)
+            if sup is not None:
+                sup.stop()
             for ep in eps:
                 try:
                     ep.send("stop", {})
                 except RuntimeError:        # a worker process already gone
                     pass
-            for th in threads:
-                th.join(timeout=10.0)
+            # a replaced owner's thread is not waited for long: a wedged
+            # one never returns
+            for th, limit in [(th, 10.0) for th in threads] + \
+                    [(th, 1.0) for th in retired_threads]:
+                th.join(timeout=limit)
                 if th.is_alive():
                     warnings.warn(f"fit(split): {th.name} still running "
-                                  "10 s after stop", RuntimeWarning)
+                                  f"{limit:g} s after stop", RuntimeWarning)
             for w in workers:
                 if not isinstance(w, OwnerComputeEndpoint):
                     # after a failure a survivor may wait on a message
                     # that never comes: terminate it soon
                     w.shutdown(timeout=10.0 if clean else 1.0)
 
-
         # ------------------------------------- measured traffic accounting
+        # every endpoint, replaced owners' included: the frames that
+        # crossed, replays and all
         n_div = max(total_steps, 1)        # steps=0 runs only the warmup
         per_owner: Dict[str, dict] = {}
         by_kind: Dict[str, dict] = {}      # both directions, all owners
-        tot_payload = tot_wire = 0
         zero = {"payload_bytes": 0, "wire_bytes": 0}
-        for owner, ep in zip(self.owners, eps):
+        for p, ep in list(enumerate(eps)) + retired:
             sent, rcvd = ep.sent_stats, ep.recv_stats
             for st in (sent, rcvd):
                 for kind, v in st["by_kind"].items():
@@ -846,23 +1107,28 @@ class VerticalSession:
                         acc[k] += v[k]
             cut_k = rcvd["by_kind"].get("cut_activations", zero)
             grad_k = sent["by_kind"].get("cut_gradients", zero)
-            per_owner[owner.name] = {
-                "cut_payload_bytes": cut_k["payload_bytes"],
-                "cut_wire_bytes": cut_k["wire_bytes"],
-                "grad_payload_bytes": grad_k["payload_bytes"],
-                "grad_wire_bytes": grad_k["wire_bytes"],
-                "messages": sent["messages"] + rcvd["messages"],
-            }
-            tot_payload += cut_k["payload_bytes"] + grad_k["payload_bytes"]
-            tot_wire += cut_k["wire_bytes"] + grad_k["wire_bytes"]
+            o = per_owner.setdefault(self.owners[p].name, {
+                "cut_payload_bytes": 0, "cut_wire_bytes": 0,
+                "grad_payload_bytes": 0, "grad_wire_bytes": 0,
+                "messages": 0})
+            o["cut_payload_bytes"] += cut_k["payload_bytes"]
+            o["cut_wire_bytes"] += cut_k["wire_bytes"]
+            o["grad_payload_bytes"] += grad_k["payload_bytes"]
+            o["grad_wire_bytes"] += grad_k["wire_bytes"]
+            o["messages"] += sent["messages"] + rcvd["messages"]
+        tot_payload = tot_wire = 0
+        for owner in self.owners:
+            o = per_owner[owner.name]
+            tot_payload += o["cut_payload_bytes"] + o["grad_payload_bytes"]
+            tot_wire += o["cut_wire_bytes"] + o["grad_wire_bytes"]
             self._log(owner.name, "scientist", "cut_activations",
-                      bytes=cut_k["payload_bytes"], measured=True,
-                      per_step_bytes=cut_k["payload_bytes"] // n_div,
+                      bytes=o["cut_payload_bytes"], measured=True,
+                      per_step_bytes=o["cut_payload_bytes"] // n_div,
                       width=adapter.cut_shape(
                           batch_size, owner.feature_shape)[-1])
             self._log("scientist", owner.name, "cut_gradients",
-                      bytes=grad_k["payload_bytes"], measured=True,
-                      per_step_bytes=grad_k["payload_bytes"] // n_div)
+                      bytes=o["grad_payload_bytes"], measured=True,
+                      per_step_bytes=o["grad_payload_bytes"] // n_div)
         step_s = wall_s - overhead_s
         self.transport_stats = {
             "mode": "split", "schedule": schedule, "microbatches": M,
@@ -884,6 +1150,8 @@ class VerticalSession:
             "total_payload_bytes": tot_payload,
             "total_wire_bytes": tot_wire,
             "total_payload_bytes_per_step": tot_payload // n_div,
+            "recoveries": len(self.recovery_events),
+            "supervisor": dict(sup.stats) if sup is not None else None,
         }
         history = self._finish(history, losses,
                                steps_mode=steps_per_epoch is None,

@@ -14,6 +14,12 @@ Two backends:
     reference's; bf16 crosses as its raw words under the name
     ``bfloat16``.
 
+Every serialized frame carries a CRC32 of its blob, checked on receipt
+(:class:`FrameCorrupt`); a channel's ``fault_hook`` can drop, corrupt or
+delay a frame (``federation/faults.py``), and a delayed frame carries a
+``not_before`` deadline that the receiver waits out.  The CRC is not
+counted in the wire bytes, so byte counts stay the reference's.
+
 Cut-payload codecs live here too (``get_codec``): the only tensors that
 cross the boundary are cut activations and cut gradients.  ``fp16`` is a
 plain down-cast; ``int8`` is per-row symmetric quantization fused with
@@ -25,7 +31,9 @@ from __future__ import annotations
 
 import queue
 import struct
+import threading
 import time
+import zlib
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -33,7 +41,35 @@ import numpy as np
 import torch
 
 __all__ = ["Message", "Channel", "Endpoint", "channel_pair", "Codec",
-           "FP16Codec", "Int8Codec", "get_codec"]
+           "FP16Codec", "Int8Codec", "get_codec", "FrameCorrupt"]
+
+
+class FrameCorrupt(RuntimeError):
+    """A serialized frame failed its CRC32 check.  Raised by the receive
+    path of the queue and process backends; carries the frame's protocol
+    ``kind`` and ``seq`` and its ``sender``, so a receiver can route the
+    failure to the kind that owns the frame and the session knows which
+    party's frame it was."""
+
+    def __init__(self, kind: str, seq: int, sender: str, receiver: str):
+        super().__init__(
+            f"frame corrupt: {kind!r} seq {seq} from {sender!r} to "
+            f"{receiver!r} (crc32 mismatch)")
+        self.kind, self.seq = kind, seq
+        self.sender, self.receiver = sender, receiver
+
+
+def crc32(blob: bytes) -> int:
+    return zlib.crc32(blob) & 0xFFFFFFFF
+
+
+def wait_until(deadline: float) -> None:
+    """Sleep until ``time.monotonic()`` reaches ``deadline`` (a frame's
+    ``not_before``; the clock is system-wide, so a deadline stamped in
+    another process holds here too)."""
+    left = deadline - time.monotonic()
+    if left > 0.0:
+        time.sleep(left)
 
 
 # ---------------------------------------------------------------------------
@@ -141,13 +177,17 @@ class Message:
     seq: int = 0
     payload_bytes: int = 0         # sum of array buffers (the protocol data)
     wire_bytes: int = 0            # serialized blob incl. headers (queue)
+    not_before: float = 0.0        # delivery deadline (an injected delay)
+    crc: Optional[int] = None      # crc32 of the blob (serialized backends)
 
 
 class Channel:
     """One direction of a party boundary, with measured byte accounting.
     A thread-safe FIFO: message order is the protocol's happens-before
     edge (an owner applies the step-``t`` gradient before it runs the
-    step-``t+1`` forward)."""
+    step-``t+1`` forward).  Several threads may send on one channel (the
+    supervisor's heartbeats beside the step loop), so the accounting
+    takes a lock."""
 
     def __init__(self, sender: str, receiver: str, *, serialize: bool,
                  tap=None):
@@ -157,45 +197,73 @@ class Channel:
         # serialized frame (None on the direct backend); the privacy
         # tests capture transcripts through it
         self.tap = tap
+        # fault hook: ``fault_hook(kind, seq) -> (action, delay_s) | None``,
+        # installed by ``faults.arm_endpoint`` (drop, corrupt, delay)
+        self.fault_hook = None
         self._q: "queue.Queue[Message]" = queue.Queue()
+        self._lock = threading.Lock()
         self.stats: Dict[str, object] = {
             "messages": 0, "payload_bytes": 0, "wire_bytes": 0,
             "by_kind": {}}
 
     def _account(self, kind: str, payload_bytes: int, wire_bytes: int):
-        # one sender thread per channel: no lock needed
-        st = self.stats
-        st["messages"] += 1
-        st["payload_bytes"] += payload_bytes
-        st["wire_bytes"] += wire_bytes
-        k = st["by_kind"].setdefault(
-            kind, {"count": 0, "payload_bytes": 0, "wire_bytes": 0})
-        k["count"] += 1
-        k["payload_bytes"] += payload_bytes
-        k["wire_bytes"] += wire_bytes
+        with self._lock:
+            st = self.stats
+            st["messages"] += 1
+            st["payload_bytes"] += payload_bytes
+            st["wire_bytes"] += wire_bytes
+            k = st["by_kind"].setdefault(
+                kind, {"count": 0, "payload_bytes": 0, "wire_bytes": 0})
+            k["count"] += 1
+            k["payload_bytes"] += payload_bytes
+            k["wire_bytes"] += wire_bytes
 
     def send(self, kind: str, payload: Dict[str, object], *,
              seq: int = 0) -> Message:
         pb = sum(_nbytes(a) for a in payload.values())
-        blob = None
+        blob = crc = None
         if self.serialize:
             blob = _pack(payload)
             wb = len(blob)
+            crc = crc32(blob)
             payload = {"__blob__": blob}           # only bytes travel
         else:
             wb = pb                                # by-reference handoff
         msg = Message(self.sender, self.receiver, kind, payload, seq=seq,
-                      payload_bytes=pb, wire_bytes=wb)
+                      payload_bytes=pb, wire_bytes=wb, crc=crc)
         if self.tap is not None:
             self.tap(msg, blob)
+        fault = (self.fault_hook(kind, seq)
+                 if self.fault_hook is not None else None)
         self._account(kind, pb, wb)
+        if fault is not None:
+            action, delay_s = fault
+            if action == "drop_frame":
+                with self._lock:
+                    self.stats["dropped_frames"] = self.stats.get(
+                        "dropped_frames", 0) + 1
+                return msg                         # lost on the wire
+            if action == "delay":
+                msg.not_before = time.monotonic() + delay_s
+            if action == "corrupt_frame" and blob is not None:
+                # one byte flipped after the crc was taken: the
+                # receiver's check fails loudly (FrameCorrupt)
+                bad = bytearray(blob)
+                bad[len(bad) // 2] ^= 0xFF
+                msg.payload = {"__blob__": bytes(bad)}
         self._q.put(msg)
         return msg
 
     def recv(self, timeout: Optional[float] = None) -> Message:
         msg = self._q.get(timeout=timeout)
+        if msg.not_before:
+            wait_until(msg.not_before)
         if self.serialize:
-            msg.payload = _unpack(msg.payload["__blob__"])
+            blob = msg.payload["__blob__"]
+            if msg.crc is not None and crc32(blob) != msg.crc:
+                raise FrameCorrupt(msg.kind, msg.seq, self.sender,
+                                   self.receiver)
+            msg.payload = _unpack(blob)
         return msg
 
 
@@ -203,38 +271,73 @@ class Endpoint:
     """A party's end of a duplex boundary: an outbox + an inbox channel.
     ``recv_kind`` keeps messages of other kinds for later instead of
     dropping them (in a pipelined schedule the next step's cuts can
-    arrive while the scientist waits for an ack)."""
+    arrive while the scientist waits for an ack).  The stash is locked
+    and the receive loop polls briefly under the lock, so two threads
+    may wait on one endpoint at once (the step loop on a cut, the
+    supervisor on a heartbeat ack): whichever drains a frame returns it
+    or stashes it for the other."""
+
+    _POLL_S = 0.05
 
     def __init__(self, name: str, peer: str, outbox: Channel,
                  inbox: Channel):
         self.name, self.peer = name, peer
         self.outbox, self.inbox = outbox, inbox
         self._stash: list = []
+        # corrupt frames routed to the kind that owns them: a receiver of
+        # one kind must not fail on another kind's corruption
+        self._corrupt: Dict[str, FrameCorrupt] = {}
+        self._rlock = threading.RLock()
 
     def send(self, kind: str, payload: Dict[str, object], *,
              seq: int = 0) -> Message:
         return self.outbox.send(kind, payload, seq=seq)
 
     def recv(self, timeout: Optional[float] = None) -> Message:
-        if self._stash:
-            return self._stash.pop(0)
+        with self._rlock:
+            if self._stash:
+                return self._stash.pop(0)
         return self.inbox.recv(timeout=timeout)
 
     def recv_kind(self, kind: str, timeout: Optional[float] = None
                   ) -> Message:
         """The next message of protocol kind ``kind``; raises
-        ``queue.Empty`` when ``timeout`` elapses first."""
-        for i, m in enumerate(self._stash):
-            if m.kind == kind:
-                return self._stash.pop(i)
+        ``queue.Empty`` when ``timeout`` elapses first, and
+        ``FrameCorrupt`` when a frame of ``kind`` failed its check."""
         deadline = None if timeout is None else time.monotonic() + timeout
         while True:
-            left = (None if deadline is None
-                    else max(0.0, deadline - time.monotonic()))
-            msg = self.inbox.recv(timeout=left)
-            if msg.kind == kind:
-                return msg
-            self._stash.append(msg)
+            with self._rlock:
+                if kind in self._corrupt:
+                    raise self._corrupt.pop(kind)
+                for i, m in enumerate(self._stash):
+                    if m.kind == kind:
+                        return self._stash.pop(i)
+                poll = self._POLL_S if deadline is None else min(
+                    self._POLL_S, max(0.0, deadline - time.monotonic()))
+                try:
+                    msg = self.inbox.recv(timeout=poll)
+                except queue.Empty:
+                    msg = None
+                except FrameCorrupt as e:
+                    if e.kind == kind:
+                        raise
+                    self._corrupt[e.kind] = e    # another kind's frame
+                    continue
+                if msg is not None:
+                    if msg.kind == kind:
+                        return msg
+                    self._stash.append(msg)
+                    continue
+            if deadline is not None and time.monotonic() >= deadline:
+                raise queue.Empty
+
+    def flush_pending(self) -> None:
+        """Discard every stashed message and routed corrupt marker.  The
+        supervised fit calls it after a party's ``rollback_ack``: by FIFO
+        order everything that party sent before the ack is stale."""
+        with self._rlock:
+            self._stash.clear()
+            self._corrupt.clear()
 
     @property
     def sent_stats(self) -> Dict[str, object]:

@@ -1,7 +1,7 @@
 """The port on the card: the CUDA quantize, attention, SSD scan and
 cut-fusion kernels against their plain versions, and the training and
 serving paths through them (the microbatched and process-backend
-schedules included).
+schedules and a supervised crash recovery included).
 Every test here needs an NVIDIA GPU and skips without one; the file
 imports only ``repro_torch`` (no JAX), so it runs on a machine with a
 card:
@@ -953,3 +953,45 @@ def test_process_equals_queue_on_card(cuda_device, compression):
     wq = q.transport_stats["wire_by_kind"]
     wp = p.transport_stats["wire_by_kind"]
     assert {k: wp[k] for k in wq} == wq
+
+
+@pytest.mark.cuda
+def test_queue_int8_crash_recovers_bitwise_on_card(cuda_device, monkeypatch):
+    """On the card at the paper's width (2000 subjects, heads 392 -> 64,
+    one epoch of 128-row steps): owner0 crashes on ``head_fwd`` at step 3
+    of a supervised split int8 fit on the queue; the respawned owner and
+    the replay give the fault-free supervised run's params and loss
+    trail bit for bit, with exact launches from the run's record: cut
+    fusion two per step run (replays included) and two for the warmup,
+    plus one per evaluation batch; the int8 kernel one per cut, cut
+    gradient and warmup frame, the dead owner's and the respawn's
+    warmup included."""
+    from repro_torch.federation import faults
+    from repro_torch.kernels import cut_fusion as cf
+    from repro_torch.kernels import quantize as qz
+    kw = dict(epochs=1, batch_size=128, eval_frac=0.15, verbose=False,
+              mode="split", compression="int8", backend="queue",
+              supervise=True)
+    monkeypatch.delenv(faults.CHAOS_ENV, raising=False)
+    clean = _mnist_session(cuda_device, n=2000)
+    hc = clean.fit(**kw)
+    monkeypatch.setenv(faults.CHAOS_ENV, faults.FaultPlan([faults.Fault(
+        "owner0", "crash", "head_fwd", occurrence=None, step=3)]).to_env())
+    s = _mnist_session(cuda_device, n=2000)
+    n_cf = cf.launch_counts["cut_fusion.fma"]
+    n_q = qz.launch_counts["quantize_pack_int8"]
+    h = s.fit(**kw)
+    torch.cuda.synchronize()
+    monkeypatch.delenv(faults.CHAOS_ENV)
+    assert [(e["party"], e["action"], e["step"])
+            for e in s.recovery_events] == [("owner0", "respawn", 2)]
+    assert _same_params(clean, s) and h["loss_trail"] == hc["loss_trail"]
+    wk = s.transport_stats["wire_by_kind"]
+    steps_run = wk["cut_gradients"]["count"] // 2
+    assert steps_run == s.transport_stats["steps"] + 1     # step 2 again
+    evals = -(-len(s._eval_idx) // 512)
+    assert cf.launch_counts["cut_fusion.fma"] - n_cf == \
+        2 * (steps_run + 1) + evals
+    assert qz.launch_counts["quantize_pack_int8"] - n_q == sum(
+        wk[k]["count"] for k in ("cut_activations", "warmup_cuts",
+                                 "cut_gradients", "warmup_grads"))

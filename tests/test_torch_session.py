@@ -161,7 +161,6 @@ def test_session_without_device_needs_a_card():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(supervise=True), "supervise"),
     (dict(ckpt_dir="x"), "checkpointing")])
 def test_unported_fit_options_raise(kw, item):
     s = _session(120)
@@ -332,12 +331,15 @@ def test_process_worker_exception_surfaces_in_parent():
 
 
 def test_spawned_owner_workers_import_no_jax_and_no_reference():
-    """A process-backend fit in a fresh interpreter: neither the session
-    nor either spawned owner worker imports jax or any ``repro`` module
-    (``-X importtime`` passes to the spawned children, and every
-    process's imports land on the shared stderr)."""
+    """A process-backend fit in a fresh interpreter, then a supervised
+    one whose owner0 crashes at step 3 and is respawned: neither the
+    session nor any spawned owner worker, the respawned one included,
+    imports jax or any ``repro`` module (``-X importtime`` passes to
+    the spawned children, and every process's imports land on the
+    shared stderr)."""
     root = pathlib.Path(__file__).resolve().parents[1]
     code = (
+        "import os\n"
         "import torch\n"
         "torch.set_num_threads(1)\n"        # the workers take the same
         "from repro_torch.configs import CONFIG\n"
@@ -350,20 +352,30 @@ def test_spawned_owner_workers_import_no_jax_and_no_reference():
         "s.build(CONFIG)\n"
         "s.fit(epochs=1, batch_size=32, mode='split', backend='process', "
         "verbose=False)\n"
-        "print('steps', s.transport_stats['steps'])\n")
+        "print('steps', s.transport_stats['steps'])\n"
+        "from repro_torch.federation import faults\n"
+        "os.environ[faults.CHAOS_ENV] = faults.FaultPlan([faults.Fault("
+        "'owner0', 'crash', 'head_fwd', occurrence=None, step=3)]).to_env()\n"
+        "s.fit(steps=6, batch_size=32, mode='split', backend='process', "
+        "verbose=False, supervise=True)\n"
+        "print('events', [(e['party'], e['action'], e['step']) "
+        "for e in s.recovery_events])\n")
     env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+    env.pop("REPRO_CHAOS_PARTY", None)
     out = subprocess.run([sys.executable, "-X", "importtime", "-c", code],
                          cwd=root, env=env, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.startswith("steps")
+    assert "events [('owner0', 'respawn', 2)]" in out.stdout
     mods = [line.rsplit("|", 1)[-1].strip()
             for line in out.stderr.splitlines()
             if line.startswith("import time:")]
     bad = sorted({m for m in mods if m.split(".")[0] in ("jax", "repro")})
     assert not bad, bad
-    # the parent and both workers imported the worker's module
-    assert mods.count("repro_torch.federation.runtime") == 3
+    # the parent, both workers of each fit and the respawned worker
+    # imported the worker's module
+    assert mods.count("repro_torch.federation.runtime") == 6
 
 
 def test_process_endpoint_error_frame_and_closed_pipe():
