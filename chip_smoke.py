@@ -90,10 +90,11 @@ Phases, in order; any failure raises and exits non-zero:
      every steady step time beside the undefended sum run's;
  16. supervised crash recovery (``fit(supervise=True)``) at phase 4's
      width and depth, split int8: the fault-free supervised run ==
-     the unsupervised one bit for bit on the queue, with both steady
-     steps (the snapshot and heartbeat cost); a crash at step 3 and a
-     corrupt cut frame on the queue and the process backend, and a
-     wedge on the process backend, each == its backend's fault-free
+     the unsupervised one bit for bit on the queue; the snapshot and
+     heartbeat cost as five alternating pairs of 50-step fits, every
+     steady step printed; a crash at step 3 and a corrupt cut frame on
+     the queue and the process backend, and a wedge on the process
+     backend caught by the heartbeats, each == its backend's fault-free
      supervised run bit for bit, with its recovery event and wall time
      beside the fault-free one; a masked-sum crash on the queue == its
      fault-free masked run; exact launch counts in every run, replays
@@ -115,6 +116,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -351,15 +353,17 @@ def read_counts():
 
 
 def trunk_forwards(session, schedule="pipelined", microbatches=1,
-                   evaluates=1):
+                   evaluates=1, steps=None):
     """The cut-fusion launches a fit of ``session`` implies: one per
     trunk forward.  Pipelined split: cut gradient and weight gradient,
     two per chunk, for every step and for the warmup chunks; sequential
     split: one fused step per step and warmup; the microbatched joint
     oracle (and the masked oracle, at any M): two per chunk, no warmup;
     the joint step: one per step.  Each ``evaluate`` adds one per batch
-    of 512 held-out rows."""
-    steps = len(session.history["loss_trail"])
+    of 512 held-out rows.  ``steps``: the steps run (replays included),
+    by default the loss trail's length."""
+    if steps is None:
+        steps = len(session.history["loss_trail"])
     per_eval = -(-len(session._eval_idx) // 512)
     M = microbatches
     if schedule == "pipelined":
@@ -1614,9 +1618,9 @@ def frames(session, kinds):
 def recovery_counts(session, backend, masked=False):
     """The launches a supervised split int8 fit (M = 1) implies, from its
     own record.  G = cut-gradient frames (one per owner per step whose
-    cut gradient ran: G / P = steps + replayed steps).  Cut fusion: two
-    trunk forwards per such step and two for the warmup, plus one per
-    evaluation batch.  The int8 kernel, in the scientist's process: one
+    cut gradient ran: G / P = steps + replayed steps).  Cut fusion:
+    ``trunk_forwards`` over those G / P steps.  The int8 kernel, in the
+    scientist's process: one
     launch per cut-gradient and warmup-gradient frame (a respawn's
     warmup included); with thread owners (queue) also one per
     cut-activation and warmup-cut frame the owners sent, those of a dead
@@ -1624,7 +1628,7 @@ def recovery_counts(session, backend, masked=False):
     bypasses the codec).  Worker processes count their own launches."""
     P = len(session.owners)
     G = frames(session, ["cut_gradients"])
-    n_cut = 2 * (G // P + 1) + -(-len(session._eval_idx) // 512)
+    n_cut = trunk_forwards(session, steps=G // P)
     q = frames(session, ["cut_gradients", "warmup_grads"])
     if backend == "queue" and not masked:
         q += frames(session, ["cut_activations", "warmup_cuts"])
@@ -1651,11 +1655,15 @@ def phase_recovery():
     """Phase 16: supervised crash recovery (``fit(supervise=True)``) on
     the paper's path at full width, phase 4's session (2000 subjects, two
     owners, split int8, one epoch of 10 steps).  Fault-free supervised ==
-    unsupervised bitwise on the queue, steady steps side by side (the
-    snapshot and heartbeat cost), two of each in turns.  Then crash (owner0 on ``head_fwd`` at
+    unsupervised bitwise on the queue.  The snapshot and heartbeat cost:
+    five pairs of 5-epoch queue fits (50 steps), unsupervised and
+    supervised in alternating order, heartbeats every 50 ms (ten times
+    the default rate, so that they fire inside a fit), every steady step
+    printed.  Then crash (owner0 on ``head_fwd`` at
     step 3) and corrupt frame (owner0's fifth ``cut_activations``) on the
     queue and the process backend, and a wedge (``head_fwd`` at step 3,
-    a 5 s timeout) on the process backend: each run equals its backend's
+    the default 120 s timeout: the heartbeats must catch it) on the
+    process backend: each run equals its backend's
     fault-free supervised run bit for bit, with its recovery event and
     the wall time beside the fault-free one.  The sum trunk with
     ``aggregation="masked_sum"`` crashed at step 3 on the queue == its
@@ -1674,11 +1682,15 @@ def phase_recovery():
               mode="split", compression="int8")
     out = {}
 
-    def run(backend, fault=None, masked=False, **extra):
-        s, _ = mnist_session("cuda", combine="sum" if masked else "concat")
+    def run(backend, fault=None, masked=False, session=None, **extra):
+        if session is None:
+            s, _ = mnist_session("cuda",
+                                 combine="sum" if masked else "concat")
+        else:                      # resolved once; params drawn again
+            s = session.build(session.config)
         reset_counts()
         t = time.time()
-        h = chaos_fit(s, fault, **kw, backend=backend, **extra,
+        h = chaos_fit(s, fault, **{**kw, **extra}, backend=backend,
                       **(dict(aggregation="masked_sum") if masked else {}))
         wall = time.time() - t
         counts = read_counts()
@@ -1700,17 +1712,10 @@ def phase_recovery():
         return {"counts": {k: counts[k] for k in need}, "events": ev,
                 "replayed_steps": replayed, "all_counts": counts}
 
-    # ---- fault-free: supervised == unsupervised, and the supervision's
-    # cost, in turns (unsupervised, supervised, supervised, unsupervised)
-    base, steady = {}, {False: [], True: []}
-    for sup in (False, True, True, False):
+    # ---- fault-free: supervised == unsupervised
+    base = {}
+    for sup in (False, True):
         s, h, wall, counts = run("queue", supervise=sup)
-        steady[sup].append(s.transport_stats["steady_step_ms"])
-        if sup in base:
-            if not same_params(base[sup][0], s) or \
-                    h["loss_trail"] != base[sup][1]["loss_trail"]:
-                raise AssertionError("two fault-free runs differ")
-            continue
         base[sup] = (s, h, wall)
         if sup:
             res = check_run("the supervised queue fit", s, counts, "queue")
@@ -1720,14 +1725,43 @@ def phase_recovery():
     if not same_params(u, q) or hu["loss_trail"] != hq["loss_trail"]:
         raise AssertionError("supervised != unsupervised")
     print(f"  queue fault-free: supervised == unsupervised (params and loss "
-          f"trail bitwise); steady_step_ms in turns: unsupervised "
-          f"{steady[False][0]:.3f}, supervised {steady[True][0]:.3f}, "
-          f"{steady[True][1]:.3f}, unsupervised {steady[False][1]:.3f}; "
-          f"snapshot acks {frames(q, ['snapshot_ack'])}, heartbeats "
-          f"{q.transport_stats['supervisor']['heartbeats_sent']}; launches "
-          f"{res['counts']}")
-    out["queue"] = {"unsupervised_steady_step_ms": steady[False],
-                    "supervised_steady_step_ms": steady[True],
+          f"trail bitwise); snapshot acks {frames(q, ['snapshot_ack'])}; "
+          f"launches {res['counts']}")
+
+    # ---- the supervision's cost: alternating pairs of longer fits, with
+    # heartbeats that fire; all runs bitwise equal, none suspected
+    steady, acks, first = {False: [], True: []}, [], None
+    cost_session, _ = mnist_session("cuda")
+    for i in range(5):
+        for sup in ((False, True) if i % 2 == 0 else (True, False)):
+            s, h, _, _ = run("queue", session=cost_session, supervise=sup,
+                             epochs=5,
+                             **(dict(heartbeat_s=0.05) if sup else {}))
+            steady[sup].append(s.transport_stats["steady_step_ms"])
+            if sup:
+                st = s.transport_stats["supervisor"]
+                if s.recovery_events or st["suspected"] or \
+                        not st["heartbeat_acks"]:
+                    raise AssertionError(f"cost run: events "
+                                         f"{s.recovery_events}, {st}")
+                acks.append(st["heartbeat_acks"])
+            if first is None:
+                # the tree, not the session (rebuilt for the next run)
+                first = (types.SimpleNamespace(params=s.params), h)
+            elif not same_params(first[0], s) or \
+                    h["loss_trail"] != first[1]["loss_trail"]:
+                raise AssertionError("two 5-epoch fault-free runs differ")
+    med = {k: sorted(v)[len(v) // 2] for k, v in steady.items()}
+    print(f"  supervision cost, 5 pairs of 50-step queue fits in "
+          f"alternating order (all bitwise equal, heartbeats every 50 ms, "
+          f"acks {acks}): steady_step_ms unsupervised "
+          f"{[round(x, 3) for x in steady[False]]} (median "
+          f"{med[False]:.3f}), supervised "
+          f"{[round(x, 3) for x in steady[True]]} (median {med[True]:.3f})")
+    out["queue"] = {"cost": {"epochs": 5, "heartbeat_s": 0.05,
+                             "unsupervised_steady_step_ms": steady[False],
+                             "supervised_steady_step_ms": steady[True],
+                             "heartbeat_acks": acks},
                     "clean_wall_s": q_wall, "clean": res}
 
     def chaos(backend, name, clean, masked=False, **extra):
@@ -1740,6 +1774,9 @@ def phase_recovery():
         what = f"the {'masked ' if masked else ''}{backend} {name} fit"
         r = check_run(what, s, counts, backend, masked, (noticed, event))
         e = s.recovery_events[0]
+        if name == "wedge" and "unresponsive" not in e["error"]:
+            raise AssertionError(f"the wedge was not caught by the "
+                                 f"heartbeats: {e['error']}")
         print(f"  {backend} {'masked ' if masked else ''}{name}: == "
               f"fault-free bitwise; event {r['events'][0]}, recovery "
               f"{e['seconds']:.2f} s; fit wall {wall:.2f} s (fault-free "
@@ -1757,9 +1794,7 @@ def phase_recovery():
         raise AssertionError("supervised process != supervised queue")
     out["process"] = {"clean_wall_s": p_clean[2]}
     for name in ("crash", "corrupt", "wedge"):
-        out["process"][name] = chaos(
-            "process", name, p_clean[:3],
-            **(dict(timeout=5.0) if name == "wedge" else {}))
+        out["process"][name] = chaos("process", name, p_clean[:3])
     m_clean = run("queue", masked=True, supervise=True)
     check_run("the supervised masked queue fit", m_clean[0], m_clean[3],
               "queue", masked=True)

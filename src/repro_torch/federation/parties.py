@@ -24,6 +24,12 @@ from repro_torch.core.psi import PSIClient, PSIServer
 from repro_torch.core.resolution import VerticalDataset
 from repro_torch.tree import tree_add, tree_leaves
 
+# snapshot markers an owner (and the supervised fit, of its acks) keeps:
+# with sparse markers the pipeline's lag still needs the one before the
+# newest, and a rollback needs the scientist's newest acked marker still
+# held by every survivor
+SNAPSHOTS_KEPT = 4
+
 
 class PrivacyError(RuntimeError):
     """Raised when code crosses the party-visibility boundary."""
@@ -302,9 +308,7 @@ class OwnerComputeEndpoint:
         elif msg.kind == "snapshot":
             s = int(msg.seq)
             self._snaps[s] = (self.params, self.opt_state)
-            # the 4 newest markers: with sparse markers the pipeline's
-            # lag still needs the one before the newest
-            for old in sorted(self._snaps)[:-4]:
+            for old in sorted(self._snaps)[:-SNAPSHOTS_KEPT]:
                 del self._snaps[old]
             payload = {f"p{i}": t for i, t in
                        enumerate(tree_leaves(self.params))}

@@ -33,9 +33,10 @@ so ``OwnerComputeEndpoint`` runs unchanged inside a spawned worker
     faults.py``); a delay rides the header as a ``not_before`` deadline
     that the receiver waits out (``time.monotonic`` is system-wide on
     Linux, so it holds across processes).
-  * **Two waiting threads.**  The stash is locked and ``recv_kind``
-    polls the pipe briefly under the lock, so the step loop and the
-    supervisor's heartbeat thread may wait on one endpoint at once.
+  * **Two waiting threads.**  ``recv_kind`` is the queue endpoint's
+    (``transport.KindReceiver``): one waiter reads the pipe at a time
+    and hands on what it stashes, so the step loop and the supervisor's
+    heartbeat thread may wait on one endpoint at once.
 
 Latency and bandwidth injection, the transport tap and duplicate
 dropping are queued in ROADMAP.md.
@@ -50,9 +51,9 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.federation.transport import (FrameCorrupt, Message,
-                                              _nbytes, _pack, _unpack,
-                                              crc32, wait_until)
+from repro_torch.federation.transport import (FrameCorrupt, KindReceiver,
+                                              Message, _nbytes, _pack,
+                                              _unpack, crc32, wait_until)
 
 __all__ = ["ProcessEndpoint", "process_endpoint_pair", "POISON_KIND",
            "FrameCorrupt"]
@@ -85,12 +86,10 @@ def _account(stats: Dict[str, object], kind: str, payload_bytes: int,
     k["wire_bytes"] += wire_bytes
 
 
-class ProcessEndpoint:
+class ProcessEndpoint(KindReceiver):
     """One party's end of a duplex process boundary.  ``recv`` raises
     ``queue.Empty`` on timeout and ``RuntimeError`` once the peer died
     (its error frame, or a closed pipe)."""
-
-    _POLL_S = 0.05
 
     def __init__(self, name: str, peer: str, conn):
         self.name, self.peer = name, peer
@@ -102,11 +101,8 @@ class ProcessEndpoint:
         self.recv_stats = _new_stats()
         #: the peer's error frame, once seen
         self.peer_error: Optional[BaseException] = None
-        self._stash: list = []
-        # corrupt frames routed to the kind that owns them (recv_kind)
-        self._corrupt: Dict[str, FrameCorrupt] = {}
+        self._init_receiver()
         self._lock = threading.Lock()
-        self._rlock = threading.RLock()
         self._outq: "_queue.SimpleQueue" = _queue.SimpleQueue()
         self._send_error: Optional[BaseException] = None
         self._closed = False
@@ -212,54 +208,17 @@ class ProcessEndpoint:
                        crc=int(crc))
 
     def recv(self, timeout: Optional[float] = None) -> Message:
-        with self._rlock:
+        with self._cond:
             if self._stash:
                 return self._stash.pop(0)
-            if self.peer_error is not None:
-                raise self.peer_error
+            self._check_peer()
             return self._recv_frame(timeout)
 
-    def recv_kind(self, kind: str, timeout: Optional[float] = None
-                  ) -> Message:
-        """The next message of ``kind``; other kinds that arrive first
-        are stashed for later, a corrupt frame of another kind is kept
-        for that kind's receiver.  Raises ``queue.Empty`` when
-        ``timeout`` elapses first."""
-        deadline = None if timeout is None else time.monotonic() + timeout
-        while True:
-            with self._rlock:
-                if kind in self._corrupt:
-                    raise self._corrupt.pop(kind)
-                for i, m in enumerate(self._stash):
-                    if m.kind == kind:
-                        return self._stash.pop(i)
-                if self.peer_error is not None:
-                    raise self.peer_error
-                poll = self._POLL_S if deadline is None else min(
-                    self._POLL_S, max(0.0, deadline - time.monotonic()))
-                try:
-                    msg = self._recv_frame(poll)
-                except _queue.Empty:
-                    msg = None
-                except FrameCorrupt as e:
-                    if e.kind == kind:
-                        raise
-                    self._corrupt[e.kind] = e    # another kind's frame
-                    continue
-                if msg is not None:
-                    if msg.kind == kind:
-                        return msg
-                    self._stash.append(msg)
-                    continue
-            if deadline is not None and time.monotonic() >= deadline:
-                raise _queue.Empty
+    _read = _recv_frame
 
-    def flush_pending(self) -> None:
-        """Discard stashed messages and routed corrupt markers (see
-        ``transport.Endpoint.flush_pending``)."""
-        with self._rlock:
-            self._stash.clear()
-            self._corrupt.clear()
+    def _check_peer(self) -> None:
+        if self.peer_error is not None:
+            raise self.peer_error
 
     # -- lifecycle ---------------------------------------------------------
     def close(self, drain_s: float = 5.0) -> None:

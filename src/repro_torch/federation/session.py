@@ -66,8 +66,8 @@ mediates is appended to ``session.transcript``.
 
 Supervised recovery (``fit(mode="split", supervise=True)``, queue or
 process backend): snapshot markers every ``resync_every`` steps,
-heartbeats (``federation/supervisor.py``), and on an owner's crash,
-wedge or corrupt frame a rollback to the newest marker, a respawn of the
+heartbeats (``federation/supervisor.py``: 8 missed in a row fail the
+owner), and on an owner's crash, wedge or corrupt frame a rollback to the newest marker, a respawn of the
 dead owner and a replay of the steps since, with the fault-free run's
 bits; each recovery lands in ``session.recovery_events``.  Faults are
 injected from a plan in ``REPRO_CHAOS_PARTY`` (``federation/faults.py``).
@@ -95,7 +95,8 @@ from repro_torch.core.psi import DEFAULT_CHUNK, psi_round
 from repro_torch.core.splitnn import cut_layer_traffic, make_split_train_step
 from repro_torch.device import resolve_device
 from repro_torch.federation import faults, transport
-from repro_torch.federation.parties import (DataOwner, DataScientist,
+from repro_torch.federation.parties import (SNAPSHOTS_KEPT, DataOwner,
+                                            DataScientist,
                                             OwnerComputeEndpoint,
                                             PrivacyError)
 from repro_torch.federation.registry import build_adapter
@@ -290,7 +291,8 @@ class VerticalSession:
         on crash recovery: a ``snapshot`` marker every ``resync_every``
         steps (each owner acks its step-start leaves), heartbeats every
         ``heartbeat_s`` seconds, and on an owner's failure (crash, error
-        frame, a receive past ``timeout``) or a corrupt frame a rollback
+        frame, 8 heartbeats missed in a row, a receive past ``timeout``)
+        or a corrupt frame a rollback
         of every party to the newest consistent marker, a respawn of a
         dead owner from its snapshot (bounded backoff, at most
         ``max_restarts`` per owner, then "restart budget exhausted"), and
@@ -569,15 +571,18 @@ class VerticalSession:
 
     # ------------------------------------------------- 3b. split execution
 
-    def _recv_from_owner(self, ep, worker, kind, timeout: float):
+    def _recv_from_owner(self, ep, worker, kind, timeout: float,
+                         sup: Optional[Supervisor] = None):
         """Receive ``kind`` from one owner, surfacing a dead owner within
         a second instead of after the full timeout.  A worker process
         can also fail through the receive itself (its error frame, or a
-        closed pipe): that too is raised as the owner's failure.  Every
-        failure is an :class:`OwnerFailure` naming the owner, so the
-        supervised fit knows whom to restart; a corrupt frame
-        (``transport.FrameCorrupt``) passes through as it is: its owner
-        is alive and is rolled back, not restarted."""
+        closed pipe): that too is raised as the owner's failure.  With a
+        supervisor ``sup``, an owner it has condemned (no heartbeat ack
+        for ``miss_limit`` periods: a wedge) fails the receive too, long
+        before ``timeout``.  Every failure is an :class:`OwnerFailure`
+        naming the owner, so the supervised fit knows whom to restart; a
+        corrupt frame (``transport.FrameCorrupt``) passes through as it
+        is: its owner is alive and is rolled back, not restarted."""
         name = worker.owner.name
         deadline = time.monotonic() + timeout
         while True:
@@ -587,6 +592,9 @@ class VerticalSession:
                 if worker.error is not None:
                     raise OwnerFailure(f"owner worker {name!r} failed",
                                        party=name) from worker.error
+                why = sup.failed.get(name) if sup is not None else None
+                if why is not None:
+                    raise OwnerFailure(str(why), party=name) from why
                 if time.monotonic() > deadline:
                     raise OwnerFailure(
                         f"timed out waiting for {kind!r} from {name!r}",
@@ -597,7 +605,8 @@ class VerticalSession:
                 raise OwnerFailure(f"owner worker {name!r} failed",
                                    party=name) from (worker.error or e)
 
-    def _sync_split_params(self, workers, eps, trunk_params, timeout):
+    def _sync_split_params(self, workers, eps, trunk_params, timeout,
+                           sup=None):
         """Flush every owner's queue (barrier), then reassemble the
         session's param tree from the owners' live head segments: a
         thread worker's params directly, a worker process's through a
@@ -606,12 +615,12 @@ class VerticalSession:
             ep.send("barrier", {}, seq=-1)
         slices = []
         for p, (ep, w) in enumerate(zip(eps, workers)):
-            self._recv_from_owner(ep, w, "barrier_ack", timeout)
+            self._recv_from_owner(ep, w, "barrier_ack", timeout, sup)
             if isinstance(w, OwnerComputeEndpoint):
                 slices.append(w.params)
                 continue
             ep.send("pull_params", {}, seq=-1)
-            m = self._recv_from_owner(ep, w, "params_dump", timeout)
+            m = self._recv_from_owner(ep, w, "params_dump", timeout, sup)
             slices.append(tree_unflatten(
                 self.adapter.owner_param_slice(self.params, p),
                 [transport.to_tensor(m.payload[str(i)], self.device)
@@ -735,8 +744,9 @@ class VerticalSession:
         s goes to every owner (each acks its step-s-start leaves) and the
         trunk's step-s state is kept by reference; a
         :class:`~repro_torch.federation.supervisor.Supervisor` sends
-        heartbeats beside the step loop.  On an :class:`OwnerFailure`
-        (crash, error frame, timeout) the dead owner is respawned from
+        heartbeats beside the step loop, and every receive from an owner
+        reads its verdict.  On an :class:`OwnerFailure` (crash, error
+        frame, missed heartbeats, timeout) the dead owner is respawned from
         the newest marker it acked, on a ``FrameCorrupt`` every owner
         rolls back to the newest marker; the survivors roll back, the
         trunk and the history return to the marker, and the steps from
@@ -782,6 +792,10 @@ class VerticalSession:
         # without reading the stream (and its rng) again
         idx_log: list = []
 
+        def recv(ep, w, kind, wait):
+            # an owner the supervisor (once started) condemns fails here
+            return self._recv_from_owner(ep, w, kind, wait, sup)
+
         def send_fwd(seq):
             while len(idx_log) <= seq:
                 idx_log.append(next(stream))
@@ -797,7 +811,7 @@ class VerticalSession:
             plane, so the scientist never holds an owner's cut."""
             payloads = []
             for ep, w in zip(eps, workers):
-                m = self._recv_from_owner(ep, w, kind, wait)
+                m = recv(ep, w, kind, wait)
                 if m.seq != seq:
                     raise RuntimeError(f"protocol desync: {kind} seq "
                                        f"{m.seq} != expected {seq}")
@@ -825,11 +839,10 @@ class VerticalSession:
                         seq=seq)
 
         def sync():
-            self._sync_split_params(workers, eps, tp, timeout)
+            self._sync_split_params(workers, eps, tp, timeout, sup)
 
         # ---------------- supervision: markers, snapshots, recovery
         sup = None
-        KEEP = 4                       # markers kept (> the pipeline's lag)
         trunk_snaps: dict = {}         # marker -> (trunk params, state)
         hist_marks: dict = {}          # marker -> history lengths
         snap_acks: Dict[int, dict] = {p: {} for p in range(len(self.owners))}
@@ -837,14 +850,14 @@ class VerticalSession:
 
         def collect_acks(s):
             for p, (ep, w) in enumerate(zip(eps, workers)):
-                m = self._recv_from_owner(ep, w, "snapshot_ack", timeout)
+                m = recv(ep, w, "snapshot_ack", timeout)
                 if int(m.seq) != s:
                     name = self.owners[p].name
                     raise OwnerFailure(
                         f"snapshot ack desync from {name!r}: seq {m.seq} "
                         f"!= {s}", party=name)
                 snap_acks[p][s] = m.payload
-                for old in sorted(snap_acks[p])[:-KEEP]:
+                for old in sorted(snap_acks[p])[:-SNAPSHOTS_KEPT]:
                     del snap_acks[p][old]
 
         def mark(s):
@@ -859,7 +872,7 @@ class VerticalSession:
             trunk_snaps[s] = (tp, ts)
             hist_marks[s] = (len(history["train"]), len(history["eval"]),
                              len(losses))
-            for old in sorted(trunk_snaps)[:-KEEP]:
+            for old in sorted(trunk_snaps)[:-SNAPSHOTS_KEPT]:
                 del trunk_snaps[old]
                 del hist_marks[old]
             marker["last"], marker["pending"] = s, True
@@ -888,9 +901,9 @@ class VerticalSession:
             ep, w = eps[p], workers[p]
             ep.send("warmup", {"idx": widx}, seq=-1)
             for m in range(M):
-                self._recv_from_owner(ep, w, "warmup_cuts", wait)
+                recv(ep, w, "warmup_cuts", wait)
                 ep.send("warmup_grads", codec.encode(wzero), seq=m)
-            self._recv_from_owner(ep, w, "warmup_done", wait)
+            recv(ep, w, "warmup_done", wait)
 
         def recover(exc):
             """Roll every party back to the newest consistent marker s,
@@ -931,7 +944,7 @@ class VerticalSession:
             for i, (ep, w) in enumerate(zip(eps, workers)):
                 if i == p_dead:
                     continue
-                while int(self._recv_from_owner(
+                while int(recv(
                         ep, w, "rollback_ack", timeout).seq) != s_star:
                     pass
                 # everything the owner sent before its ack is stale
@@ -999,7 +1012,7 @@ class VerticalSession:
                     ep.send("warmup_grads", codec.encode(wzero), seq=m)
             tp, ts = trunk_update(tp, ts, tree_map(torch.zeros_like, tp), 0)
             for ep, w in zip(eps, workers):
-                self._recv_from_owner(ep, w, "warmup_done", wait)
+                recv(ep, w, "warmup_done", wait)
             if supervise:
                 sup = Supervisor(max_restarts=max_restarts,
                                  heartbeat_s=heartbeat_s)
@@ -1032,7 +1045,7 @@ class VerticalSession:
                         tp, ts = trunk_update(tp, ts, tg, t)
                         send_grads(to_owners(cg), t)
                         for ep, w in zip(eps, workers):
-                            self._recv_from_owner(ep, w, "step_done",
+                            recv(ep, w, "step_done",
                                                   timeout)
                     else:
                         metrics, cache = None, []

@@ -15,10 +15,12 @@ party is marked failed when
   * no ack lands for ``miss_limit`` consecutive periods (a wedged actor
     stops answering long before a protocol receive times out).
 
-Failures land in :attr:`Supervisor.failed`: detection only.  Recovery
-(rollback, respawn, replay: ``fit(supervise=True)``) is driven by the
-session, which charges :meth:`plan_restart` for the bounded-backoff,
-max-restart budget.
+Failures land in :attr:`Supervisor.failed`.  The supervised fit's
+receives from a party read that verdict while they wait, so a wedged
+party fails its receive after ``miss_limit * heartbeat_s`` seconds
+instead of the protocol timeout.  Recovery (rollback, respawn, replay:
+``fit(supervise=True)``) is driven by the session, which charges
+:meth:`plan_restart` for the bounded-backoff, max-restart budget.
 
 Heartbeats never touch model state, so a supervised run's arithmetic is
 the unsupervised run's bit for bit; the extra frames show only in the
@@ -84,6 +86,7 @@ class Supervisor:
         with self._lock:
             self._parties.pop(name, None)
             self._last_ack.pop(name, None)
+            self.failed.pop(name, None)
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> None:
@@ -101,26 +104,30 @@ class Supervisor:
             th.join(timeout=5.0)
 
     # -- the monitor -------------------------------------------------------
-    def _condemn(self, name: str, exc: BaseException) -> None:
-        if name not in self.failed:
-            self.failed[name] = exc
-            self.stats["suspected"] += 1
+    def _condemn(self, name: str, reg: tuple, exc: BaseException) -> None:
+        # only the registration the verdict was reached on: a tick that
+        # outlives a detach (a respawn) must not condemn the newcomer
+        with self._lock:
+            if self._parties.get(name) is reg and name not in self.failed:
+                self.failed[name] = exc
+                self.stats["suspected"] += 1
 
     def _tick(self, n: int) -> None:
         with self._lock:
             parties = list(self._parties.items())
-        for name, (ep, worker) in parties:
+        for name, reg in parties:
+            ep, worker = reg
             if name in self.failed:
                 continue
             err = getattr(worker, "error", None) if worker else None
             if err is not None:
-                self._condemn(name, err)
+                self._condemn(name, reg, err)
                 continue
             try:
                 ep.send("heartbeat", {}, seq=n)
                 self.stats["heartbeats_sent"] += 1
             except RuntimeError as e:
-                self._condemn(name, e)
+                self._condemn(name, reg, e)
                 continue
             try:
                 ep.recv_kind("heartbeat_ack", timeout=0.02)
@@ -131,7 +138,7 @@ class Supervisor:
             stale = time.monotonic() - self._last_ack.get(
                 name, time.monotonic())
             if stale > self.miss_limit * self.heartbeat_s:
-                self._condemn(name, RuntimeError(
+                self._condemn(name, reg, RuntimeError(
                     f"party {name!r} unresponsive: no heartbeat ack for "
                     f"{stale:.1f}s ({self.miss_limit} periods)"))
 
@@ -159,6 +166,7 @@ class Supervisor:
         self.stats["respawns"] += 1
         delay = min(self.backoff_base_s * (2 ** n), self.backoff_cap_s)
         time.sleep(delay)
-        self.failed.pop(name, None)
-        self._last_ack[name] = time.monotonic()
+        with self._lock:
+            self.failed.pop(name, None)
+            self._last_ack[name] = time.monotonic()
         return delay

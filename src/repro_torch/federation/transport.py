@@ -267,77 +267,111 @@ class Channel:
         return msg
 
 
-class Endpoint:
-    """A party's end of a duplex boundary: an outbox + an inbox channel.
-    ``recv_kind`` keeps messages of other kinds for later instead of
-    dropping them (in a pipelined schedule the next step's cuts can
-    arrive while the scientist waits for an ack).  The stash is locked
-    and the receive loop polls briefly under the lock, so two threads
-    may wait on one endpoint at once (the step loop on a cut, the
-    supervisor on a heartbeat ack): whichever drains a frame returns it
-    or stashes it for the other."""
+class KindReceiver:
+    """``recv_kind`` over one inbox that several threads may wait on at
+    once (the step loop on a cut, the supervisor on a heartbeat ack).
+    Messages of other kinds are stashed for later instead of dropped (in
+    a pipelined schedule the next step's cuts can arrive while the
+    scientist waits for an ack), and a corrupt frame is kept for the
+    kind that owns it.  One waiter at a time reads the inbox, in polls of
+    ``_POLL_S`` and without the lock; the others wait on the condition,
+    which the reader notifies after every read.  So a frame a reader
+    stashes reaches its waiter at once, and no waiter starves another of
+    the lock.  Subclasses give ``_read(timeout)``: one frame, or
+    ``queue.Empty``."""
 
     _POLL_S = 0.05
+
+    def _init_receiver(self) -> None:
+        self._stash: list = []
+        # corrupt frames routed to the kind that owns them: a receiver of
+        # one kind must not fail on another kind's corruption
+        self._corrupt: Dict[str, FrameCorrupt] = {}
+        self._cond = threading.Condition(threading.Lock())
+        self._reading = False
+
+    def _read(self, timeout: float) -> "Message":
+        raise NotImplementedError
+
+    def _check_peer(self) -> None:
+        """Raise the peer's terminal error, where one was seen."""
+
+    def recv_kind(self, kind: str, timeout: Optional[float] = None
+                  ) -> "Message":
+        """The next message of protocol kind ``kind``; raises
+        ``queue.Empty`` when ``timeout`` elapses first, and
+        ``FrameCorrupt`` when a frame of ``kind`` failed its check."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._cond:
+            while True:
+                if kind in self._corrupt:
+                    raise self._corrupt.pop(kind)
+                for i, m in enumerate(self._stash):
+                    if m.kind == kind:
+                        return self._stash.pop(i)
+                self._check_peer()
+                left = None if deadline is None else \
+                    deadline - time.monotonic()
+                if left is not None and left <= 0.0:
+                    raise queue.Empty
+                if self._reading:              # another waiter reads
+                    self._cond.wait(left)
+                    continue
+                self._reading = True
+                self._cond.release()
+                msg = bad = None
+                try:
+                    msg = self._read(self._POLL_S if left is None
+                                     else min(self._POLL_S, left))
+                except queue.Empty:
+                    pass
+                except FrameCorrupt as e:
+                    bad = e
+                finally:
+                    self._cond.acquire()
+                    self._reading = False
+                    self._cond.notify_all()
+                if bad is not None:
+                    if bad.kind == kind:
+                        raise bad
+                    self._corrupt[bad.kind] = bad    # another kind's frame
+                elif msg is not None:
+                    if msg.kind == kind:
+                        return msg
+                    self._stash.append(msg)
+
+    def flush_pending(self) -> None:
+        """Discard every stashed message and routed corrupt marker.  The
+        supervised fit calls it after a party's ``rollback_ack``: by FIFO
+        order everything that party sent before the ack is stale."""
+        with self._cond:
+            self._stash.clear()
+            self._corrupt.clear()
+
+
+class Endpoint(KindReceiver):
+    """A party's end of a duplex boundary: an outbox + an inbox channel,
+    received by kind (:class:`KindReceiver`)."""
 
     def __init__(self, name: str, peer: str, outbox: Channel,
                  inbox: Channel):
         self.name, self.peer = name, peer
         self.outbox, self.inbox = outbox, inbox
-        self._stash: list = []
-        # corrupt frames routed to the kind that owns them: a receiver of
-        # one kind must not fail on another kind's corruption
-        self._corrupt: Dict[str, FrameCorrupt] = {}
-        self._rlock = threading.RLock()
+        self._init_receiver()
 
     def send(self, kind: str, payload: Dict[str, object], *,
              seq: int = 0) -> Message:
         return self.outbox.send(kind, payload, seq=seq)
 
     def recv(self, timeout: Optional[float] = None) -> Message:
-        with self._rlock:
+        with self._cond:
             if self._stash:
                 return self._stash.pop(0)
         return self.inbox.recv(timeout=timeout)
 
-    def recv_kind(self, kind: str, timeout: Optional[float] = None
-                  ) -> Message:
-        """The next message of protocol kind ``kind``; raises
-        ``queue.Empty`` when ``timeout`` elapses first, and
-        ``FrameCorrupt`` when a frame of ``kind`` failed its check."""
-        deadline = None if timeout is None else time.monotonic() + timeout
-        while True:
-            with self._rlock:
-                if kind in self._corrupt:
-                    raise self._corrupt.pop(kind)
-                for i, m in enumerate(self._stash):
-                    if m.kind == kind:
-                        return self._stash.pop(i)
-                poll = self._POLL_S if deadline is None else min(
-                    self._POLL_S, max(0.0, deadline - time.monotonic()))
-                try:
-                    msg = self.inbox.recv(timeout=poll)
-                except queue.Empty:
-                    msg = None
-                except FrameCorrupt as e:
-                    if e.kind == kind:
-                        raise
-                    self._corrupt[e.kind] = e    # another kind's frame
-                    continue
-                if msg is not None:
-                    if msg.kind == kind:
-                        return msg
-                    self._stash.append(msg)
-                    continue
-            if deadline is not None and time.monotonic() >= deadline:
-                raise queue.Empty
+    def _read(self, timeout: float) -> Message:
+        return self.inbox.recv(timeout=timeout)
 
-    def flush_pending(self) -> None:
-        """Discard every stashed message and routed corrupt marker.  The
-        supervised fit calls it after a party's ``rollback_ack``: by FIFO
-        order everything that party sent before the ack is stale."""
-        with self._rlock:
-            self._stash.clear()
-            self._corrupt.clear()
 
     @property
     def sent_stats(self) -> Dict[str, object]:

@@ -68,15 +68,17 @@ def session(cfg=CONFIG, params=None):
 def fit(backend, env=None, *, cfg=CONFIG, supervise=True, timeout=15.0,
         **kw):
     """One split fit under the chaos plan ``env`` (set and cleared
-    here); returns the session and its loss trail."""
+    here); returns the session and its loss trail.  ``timeout=None``
+    leaves the fit's own default (120 s)."""
+    if timeout is not None:
+        kw["timeout"] = timeout
     with pytest.MonkeyPatch.context() as mp:
         if env:
             mp.setenv(faults.CHAOS_ENV, env)
         else:
             mp.delenv(faults.CHAOS_ENV, raising=False)
         s = session(cfg)
-        h = s.fit(**FIT, backend=backend, supervise=supervise,
-                  timeout=timeout, **kw)
+        h = s.fit(**FIT, backend=backend, supervise=supervise, **kw)
     assert faults.CHAOS_ENV not in os.environ
     return s, h["loss_trail"]
 
@@ -457,11 +459,11 @@ def test_supervisor_restart_budget_and_backoff():
 
 
 def test_fault_free_supervised_equals_unsupervised():
-    """Markers, snapshot acks and heartbeats (every 2 ms here, so they
+    """Markers, snapshot acks and heartbeats (every 10 ms here, so they
     interleave with the protocol) leave the arithmetic as it is: params
     and loss trail bit for bit, no recovery event."""
     unsup = fit("queue", supervise=False)
-    sup = fit("queue", heartbeat_s=0.002)
+    sup = fit("queue", heartbeat_s=0.01)
     same_run(sup, unsup)
     s = sup[0]
     assert s.recovery_events == []
@@ -491,6 +493,43 @@ def test_chaos_matrix_queue_recovers_bitwise(fault):
     same_run(got, ref)
     ts = s.transport_stats
     assert ts["recoveries"] == 1 and ts["supervisor"]["respawns"] == 1
+
+
+def test_wedge_is_caught_by_heartbeats_long_before_the_timeout():
+    """With the fit's default timeout (120 s) and heartbeat period
+    (0.5 s), the supervisor's verdict fails the receive from the wedged
+    owner after 8 missed periods: the owner is respawned in seconds, not
+    at the timeout, and the run equals the fault-free one."""
+    t = time.monotonic()
+    got = fit("queue", plan_env(FIT_FAULTS["wedge_fwd"]), timeout=None)
+    wall = time.monotonic() - t
+    s = got[0]
+    assert events(s) == [("owner0", "respawn", 2)]
+    assert "unresponsive" in s.recovery_events[0]["error"]
+    assert s.transport_stats["supervisor"]["suspected"] == 1
+    assert wall < 30.0
+    same_run(got, clean("queue"))
+
+
+def test_supervisor_verdict_is_tied_to_the_registration():
+    """A verdict reached on a party's old registration (a heartbeat tick
+    that outlives the detach of a dead owner) does not condemn the owner
+    that replaces it; a detach drops a pending verdict."""
+    class Dead:
+        error = RuntimeError("boom")
+
+    a, _ = transport.channel_pair("scientist", "owner0")
+    b, _ = transport.channel_pair("scientist", "owner0")
+    sup = Supervisor()
+    sup.attach("owner0", a, Dead())
+    old = sup._parties["owner0"]
+    sup._tick(1)
+    assert "owner0" in sup.failed
+    sup.detach("owner0")
+    assert "owner0" not in sup.failed
+    sup.attach("owner0", b, None)
+    sup._condemn("owner0", old, RuntimeError("stale"))
+    assert "owner0" not in sup.failed and sup.stats["suspected"] == 1
 
 
 @pytest.mark.parametrize("fault", ["crash_fwd", "corrupt_frame"])

@@ -27,13 +27,18 @@ def test_fault_free_supervised_process_equals_unsupervised():
 
 @pytest.mark.parametrize("fault", sorted(FIT_FAULTS))
 def test_chaos_matrix_process_recovers_bitwise(fault):
+    """The wedged worker runs under the fit's default timeout: the
+    supervisor's heartbeats catch it (the queue matrix's wedge is caught
+    by a short timeout instead)."""
     ref = clean("process")
     got = fit("process", plan_env(FIT_FAULTS[fault]),
-              timeout=3.0 if fault == "wedge_fwd" else 15.0)
+              timeout=None if fault == "wedge_fwd" else 15.0)
     s = got[0]
     assert events(s) == [("owner0", "rollback" if fault == "corrupt_frame"
                           else "respawn", 4 if fault == "corrupt_frame"
                           else 2)]
+    if fault == "wedge_fwd":
+        assert "unresponsive" in s.recovery_events[0]["error"]
     same_run(got, ref)
     ts = s.transport_stats
     assert ts["recoveries"] == 1 and ts["backend"] == "process"
