@@ -101,11 +101,27 @@ Phases, in order; any failure raises and exits non-zero:
      and the respawn's warmup included, from the run's own record; no
      recovery without a plan; "restart budget exhausted" for a crash in
      every generation;
- 14. the results, last (after phases 15 and 16): a ``{"privacy": ...}``
-     JSON line with phase 15's numbers, a ``{"recovery": ...}`` line with
-     phase 16's, a ``{"kernels": [...]}`` JSON line (each entry with its
-     ``recovery_launches`` in the queue crash run), then the ``{"ok":
-     true, ...}`` JSON line last.
+ 17. PSI entity resolution at phase 4's population (2000 subjects, two
+     owners), host compute beside the card: one resolve at the default
+     group modp2048 on the process backend with a pool of min(8, cpus)
+     modexp workers, equal to the serial direct modp512 resolve; every
+     mode (noinv, bloom, hidden) on every backend (direct, queue,
+     process) with and without the pool, rows bitwise equal within a
+     mode, every pool reporting the parallelism it asked for; ±1 % churn
+     of the scientist's rows, then delta rounds on queue and process
+     with the reference engine's O(Δ) modexp counts, and a hello-only
+     unchanged repeat; ``crash_psi`` and ``wedge_psi`` retried once on
+     queue and process; the split int8 fit over the queue on the hidden
+     alignment, with exact launch counts and its loss trail against the
+     CPU's; one resolve of 60000 subjects (wall, IDs/s, modexps, wire
+     bytes by kind);
+ 14. the results, last (after phases 15, 16 and 17): a ``{"privacy":
+     ...}`` JSON line with phase 15's numbers, a ``{"recovery": ...}``
+     line with phase 16's, a ``{"psi": ...}`` line with phase 17's, a
+     ``{"kernels": [...]}`` JSON line (each entry with its
+     ``recovery_launches`` in the queue crash run and its
+     ``psi_launches`` in phase 17's fit), then the ``{"ok": true,
+     ...}`` JSON line last.
 
 Without a CUDA device it prints nothing and exits 2.  It imports only
 ``repro_torch`` (never JAX or the JAX package ``repro``).
@@ -1817,6 +1833,280 @@ def phase_recovery():
     return out
 
 
+
+PSI_MODES = ("noinv", "bloom", "hidden")
+PSI_BACKENDS = ("direct", "queue", "process")
+# (a) and (b)'s chunk: 2000 IDs in 8 chunks, one task per pool worker (at
+# the default 4096 each leg is one task and the pool idles)
+PSI_CHUNK = 256
+
+
+def psi_session(device, n=2000):
+    """Phase 4's parties (``n`` subjects, two owners, keep_frac 0.9),
+    not yet resolved."""
+    from repro_torch.data import make_vertical_mnist_parties
+    from repro_torch.federation import VerticalSession, feature_parties
+    return VerticalSession(*feature_parties(*make_vertical_mnist_parties(
+        n, seed=0, keep_frac=0.9)), device=device)
+
+
+def timed_resolve(session, **kw):
+    t = time.time()
+    st = session.resolve(**kw)
+    return st, time.time() - t
+
+
+def aligned_view(session):
+    """The aligned IDs, label bytes and each owner's feature bytes."""
+    return (list(session.scientist.ids),
+            session.scientist.labels.tobytes(),
+            [o._features.tobytes() for o in session.owners])
+
+
+def wire_by_kind(session):
+    """Wire bytes and frames by PSI kind, both directions, every owner,
+    from the resolve's measured transcript entries."""
+    out = {}
+    for m in session.transcript:
+        if m.get("measured"):
+            k = out.setdefault(m["kind"], {"wire_bytes": 0, "frames": 0})
+            k["wire_bytes"] += m["wire_bytes"]
+            k["frames"] += m["chunks"]
+    return out
+
+
+def phase_psi():
+    """Phase 17: PSI entity resolution in every mode and backend, into
+    the paper's training path.  Phase 4's population (2000 subjects, two
+    owners, keep_frac 0.9); N = min(8, cpu count) modexp workers;
+    chunks of ``PSI_CHUNK`` IDs in (a) and (b).  (a) one resolve at the
+    default group modp2048 on the process backend with the pool, whose
+    IDs equal the serial direct modp512 resolve's;
+    (b) every mode on every backend with parallelism 0 and N at modp512:
+    within a mode the aligned IDs, labels and features bitwise equal,
+    noinv's IDs == bloom's, hidden's pseudonym rows equal across
+    backends, and every pool run reporting the N it asked for; then
+    noinv on each backend with parallelism 0 and N at resolve's default
+    chunk, the pool's speedup a caller who sets only ``parallelism``
+    sees; (c) ±1 %
+    churn of the scientist's rows (20 out, 20 in) through
+    ``update_rows``, then a resolve on queue and process: every round a
+    delta round, the client's splice 20 modexps, each owner's 20 and the
+    client's lift 0 (the reference engine's O(Δ) counts), the IDs of a
+    fresh resolve of the churned parties; then an unchanged repeat,
+    hello-only (0 blind bytes, 0 modexp); (d) ``crash_psi`` and
+    ``wedge_psi`` (``timeout=5``) with ``retries=1`` on queue and
+    process: one ``psi_retry`` event each, the fault-free IDs; (e) the
+    paper's split int8 fit over the queue on (b)'s hidden alignment,
+    then evaluate, with exact kernel launch counts (phase 4's form) and
+    a finite, falling loss trail within 2e-2 of the same run on the CPU;
+    (f) one resolve at MNIST's 60000 training subjects (modp512, noinv,
+    process, the pool): wall seconds, IDs/s, modexp ops, wire bytes by
+    kind.  Seconds are host wall time around each resolve."""
+    import numpy as np
+    from repro_torch.core.psi import DEFAULT_CHUNK, HIDDEN_PAD
+    from repro_torch.federation import faults
+    if os.environ.get(faults.CHAOS_ENV):
+        raise AssertionError(f"{faults.CHAOS_ENV} is set before the phase")
+    from repro_torch.core.modexp import HAVE_GMPY2
+    N = min(8, os.cpu_count() or 1)
+    out = {"host_cpus": os.cpu_count(), "pool": N, "subjects": 2000,
+           "chunk": PSI_CHUNK, "gmpy2": HAVE_GMPY2}
+
+    # ---- (a) the default group, on the process backend with the pool
+    ref = psi_session("cuda")
+    st, ref_s = timed_resolve(ref, group="modp512")
+    ref_ids = list(ref.scientist.ids)
+    s = psi_session("cuda")
+    st, sec = timed_resolve(s, group="modp2048", backend="process",
+                            parallelism=N, chunk_size=PSI_CHUNK)
+    if st["parallelism"] != N or list(s.scientist.ids) != ref_ids:
+        raise AssertionError(f"modp2048: parallelism {st['parallelism']}, "
+                             f"{len(s.scientist.ids)} IDs vs {len(ref_ids)}")
+    ops = sum(r["client_modexp_ops"] + r["server_modexp_ops"]
+              for r in st["rounds"])
+    print(f"  (a) modp2048, process, pool {N}: {len(ref_ids)} IDs == the "
+          f"serial direct modp512 resolve's; {sec:.3f} s, {ops} modexps "
+          f"({ops / sec:.1f}/s)")
+    out["modp2048"] = {"seconds": sec, "modexp_ops": ops,
+                       "parallelism": st["parallelism"]}
+
+    # ---- (b) modes x backends x parallelism
+    views, secs, hidden_queue = {}, {}, None
+    for mode in PSI_MODES:
+        for backend in PSI_BACKENDS:
+            for par in (0, N):
+                s = psi_session("cuda")
+                st, sec = timed_resolve(s, group="modp512", mode=mode,
+                                        backend=backend, parallelism=par,
+                                        chunk_size=PSI_CHUNK)
+                if st["parallelism"] != par:
+                    raise AssertionError(f"{mode} {backend}: pool of {par} "
+                                         f"reports {st['parallelism']}")
+                views[mode, backend, par] = aligned_view(s)
+                secs[f"{mode}/{backend}/{par}"] = sec
+                if (mode, backend, par) == ("hidden", "queue", 0):
+                    hidden_queue = s
+        first = views[mode, "direct", 0]
+        bad = [k for k, v in views.items() if k[0] == mode and v != first]
+        if bad:
+            raise AssertionError(f"{mode}: aligned rows differ in {bad}")
+    if views["noinv", "direct", 0][0] != views["bloom", "direct", 0][0]:
+        raise AssertionError("noinv and bloom align different IDs")
+    if views["noinv", "direct", 0][0] != ref_ids:
+        raise AssertionError("noinv differs from (a)'s serial resolve")
+    # hidden: the members and, from each owner, fewer than HIDDEN_PAD
+    # decoys (another owner's members among them)
+    hid = views["hidden", "direct", 0][0]
+    if not hid or any(not i.startswith("anon") for i in hid) or not \
+            len(ref_ids) <= len(hid) <= len(ref_ids) + 2 * (HIDDEN_PAD - 1):
+        raise AssertionError(f"hidden alignment: {len(hid)} rows")
+    print(f"  (b) 3 modes x 3 backends x parallelism 0 / {N}: rows bitwise "
+          f"equal within each mode, noinv == bloom IDs ({len(ref_ids)}), "
+          f"hidden {len(hid)} pseudonym rows on every backend")
+    for k, v in secs.items():
+        print(f"    {k}: {v:.3f} s")
+    out["round_seconds"] = secs
+    out["pool_speedup"] = {
+        f"{m}/{b}": secs[f"{m}/{b}/0"] / secs[f"{m}/{b}/{N}"]
+        for m in PSI_MODES for b in PSI_BACKENDS}
+    out["hidden_rows"] = len(hid)
+    # the pool at resolve's default chunk, as a caller who sets only
+    # ``parallelism`` gets it (2000 IDs: one task per leg)
+    dsecs = {}
+    for backend in PSI_BACKENDS:
+        for par in (0, N):
+            s = psi_session("cuda")
+            st, dsecs[par] = timed_resolve(s, group="modp512",
+                                           backend=backend, parallelism=par)
+            if st["parallelism"] != par or \
+                    list(s.scientist.ids) != ref_ids:
+                raise AssertionError(f"default chunk, {backend}, pool {par}")
+        out["pool_speedup"][f"noinv/{backend}/default_chunk"] = \
+            dsecs[0] / dsecs[N]
+        print(f"    noinv/{backend} at the default chunk {DEFAULT_CHUNK}: "
+              f"{dsecs[0]:.3f} s serial, {dsecs[N]:.3f} s pool "
+              f"({dsecs[0] / dsecs[N]:.2f}x)")
+
+    # ---- (c) ±1 % churn of the scientist's rows: delta rounds
+    out["churn"] = {}
+    for backend in ("queue", "process"):
+        s = psi_session("cuda")
+        s.resolve(group="modp512", backend=backend)
+        sci = s.scientist
+        cli = sci.psi_client("modp512")
+        ops0 = cli.ops
+        pop, data = list(sci._full.ids), sci._full.data
+        sci.update_rows(pop[20:] + [f"fresh-{i:02d}" for i in range(20)],
+                        np.concatenate([data[20:], data[:20]]))
+        st, sec = timed_resolve(s, group="modp512", backend=backend)
+        splice = cli.ops - ops0 - sum(r["client_modexp_ops"]
+                                      for r in st["rounds"])
+        for r in st["rounds"]:
+            if not (r["delta_used"] and r["server_leg_skipped"]) or \
+                    r["server_modexp_ops"] != 20 or \
+                    r["client_modexp_ops"] != 0 or r["upload_wire_bytes"]:
+                raise AssertionError(f"churn on {backend}: {r}")
+        if splice != 20:
+            raise AssertionError(f"churn on {backend}: splice {splice}")
+        fresh = psi_session("cuda")
+        fresh.scientist.update_rows(list(sci._full.ids), sci._full.data)
+        fresh.resolve(group="modp512")
+        if list(s.scientist.ids) != list(fresh.scientist.ids):
+            raise AssertionError(f"churn on {backend}: IDs differ")
+        st2, sec2 = timed_resolve(s, group="modp512", backend=backend)
+        for r in st2["rounds"]:
+            if not (r["upload_skipped"] and r["resp_skipped"]) or \
+                    r["upload_wire_bytes"] or r["client_modexp_ops"] or \
+                    r["server_modexp_ops"]:
+                raise AssertionError(f"repeat on {backend}: {r}")
+        down = [r["download_wire_bytes"] for r in st2["rounds"]]
+        print(f"  (c) {backend}: ±1 % churn -> delta rounds, splice 20 + "
+              f"20 per owner modexps, {sec:.3f} s; unchanged repeat "
+              f"hello-only (0 blind bytes, 0 modexp, {down} bytes down), "
+              f"{sec2:.3f} s")
+        out["churn"][backend] = {"delta_seconds": sec,
+                                 "repeat_seconds": sec2,
+                                 "repeat_download_bytes": down}
+
+    # ---- (d) PSI retries
+    out["retries"] = {}
+    for backend in ("queue", "process"):
+        for token, kw in (("crash_psi", {}), ("wedge_psi",
+                                              {"timeout": 5.0})):
+            s = psi_session("cuda")
+            os.environ[faults.CHAOS_ENV] = f"owner0:{token}"
+            try:
+                st, sec = timed_resolve(s, group="modp512", backend=backend,
+                                        retries=1, **kw)
+            finally:
+                os.environ.pop(faults.CHAOS_ENV, None)
+            ev = [(e["party"], e["action"]) for e in s.recovery_events]
+            if ev != [("owner0", "psi_retry")] or \
+                    list(s.scientist.ids) != ref_ids:
+                raise AssertionError(f"{token} on {backend}: {ev}")
+            print(f"  (d) {token} on {backend}, retries=1: one psi_retry, "
+                  f"the fault-free IDs; {sec:.3f} s")
+            out["retries"][f"{token}/{backend}"] = sec
+
+    # ---- (e) the paper's split int8 fit on the hidden alignment
+    from repro_torch.configs import CONFIG
+    kw = dict(epochs=1, batch_size=128, eval_frac=0.15, mode="split",
+              compression="int8", backend="queue", verbose=False)
+    s = hidden_queue.build(CONFIG)
+    reset_counts()
+    h = s.fit(**kw)
+    ev = s.evaluate()
+    counts = read_counts()
+    steps, trail = s.transport_stats["steps"], h["loss_trail"]
+    n_cut = trunk_forwards(s, evaluates=2)
+    check_counts(counts, {
+        "quantize_pack_int8": 2 * len(s.owners) * (steps + 1),
+        "cut_fusion": n_cut, "cut_fusion.fma": n_cut, "cut_fusion.tc": 0},
+        "the hidden-alignment fit")
+    if len(trail) != steps or not all(math.isfinite(v) for v in trail) or \
+            not sum(trail[-3:]) < sum(trail[:3]):
+        raise AssertionError(f"hidden fit: bad loss trail {trail}")
+    cpu = psi_session("cpu")
+    cpu.resolve(group="modp512", mode="hidden", backend="queue")
+    if aligned_view(cpu) != views["hidden", "queue", 0]:
+        raise AssertionError("hidden alignment differs on the CPU")
+    hc = cpu.build(CONFIG).fit(**kw)
+    gap = max(abs(a - b) for a, b in zip(trail, hc["loss_trail"]))
+    print(f"  (e) hidden alignment ({len(hid)} rows), split int8 fit: "
+          f"{steps} steps, trail {[round(v, 5) for v in trail]}, val {ev}; "
+          f"vs the CPU run max |diff| {gap:.3e} (limit 2e-2)")
+    if gap > 2e-2:
+        raise AssertionError("hidden fit: card and CPU disagree")
+    out["fit"] = {"steps": steps, "loss_trail": trail, "eval": ev,
+                  "cpu_gap": gap,
+                  "counts": {k: counts[k] for k in (
+                      "quantize_pack_int8", "cut_fusion", "cut_fusion.fma",
+                      "cut_fusion.tc")}}
+
+    # ---- (f) MNIST's 60000 training subjects
+    t = time.time()
+    s = psi_session("cuda", n=60000)
+    made = time.time() - t
+    st, sec = timed_resolve(s, group="modp512", backend="process",
+                            parallelism=N)
+    if st["parallelism"] != N:
+        raise AssertionError(f"60000: pool reports {st['parallelism']}")
+    ops = sum(r["client_modexp_ops"] + r["server_modexp_ops"]
+              for r in st["rounds"])
+    wire = wire_by_kind(s)
+    print(f"  (f) 60000 subjects (parties made in {made:.2f} s), noinv, "
+          f"process, pool {N}: {st['global_intersection']} shared, "
+          f"{sec:.3f} s, {60000 / sec:.1f} IDs/s, {ops} modexps; wire "
+          f"{json.dumps(wire)}")
+    out["scale"] = {"subjects": 60000, "seconds": sec, "ids_per_s":
+                    60000 / sec, "modexp_ops": ops, "shared":
+                    st["global_intersection"], "wire_by_kind": wire}
+    if os.environ.get(faults.CHAOS_ENV):
+        raise AssertionError(f"{faults.CHAOS_ENV} left set")
+    return out, out["fit"]["counts"]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1903,6 +2193,12 @@ def main():
     print("== 16. supervised crash recovery: faults, rollback, respawn, "
           "replay")
     rec = phase_recovery()
+    print(f"  phase wall {time.time() - t:.2f} s")
+
+    t = time.time()
+    print("== 17. PSI entity resolution: every mode and backend, the pool, "
+          "delta rounds, retries, into the split int8 fit")
+    psi_out, psi_counts = phase_psi()
     print(f"  phase wall {time.time() - t:.2f} s")
 
     print("== 14. results")
@@ -2000,9 +2296,12 @@ def main():
     crash_counts = rec["queue"]["crash"]["all_counts"]
     for e in entries:
         e["recovery_launches"] = crash_counts.get(e["name"], 0)
+        # and in phase 17's split int8 fit on the hidden alignment
+        e["psi_launches"] = psi_counts.get(e["name"], 0)
     print(json.dumps({"privacy": {k: v for k, v in priv.items()
                                   if k != "counts"}}))
     print(json.dumps({"recovery": without(rec, "all_counts")}))
+    print(json.dumps({"psi": psi_out}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.privacy import deterministic_cut_noise
-from repro_torch.core.psi import PSIClient, PSIServer
+from repro_torch.core.psi import DEFAULT_MODE, PSIClient, PSIServer
 from repro_torch.core.resolution import VerticalDataset
 from repro_torch.tree import tree_add, tree_leaves
 
@@ -45,7 +45,14 @@ class DataOwner:
         # the full population: ``_vd`` becomes the aligned training view
         # after a resolve, but PSI always runs against the population
         self._full = self._vd
-        self._psi_servers: Dict[str, PSIServer] = {}
+        self._psi_servers: Dict[tuple, PSIServer] = {}
+        # content-tag caches (client uploads / double-blind responses /
+        # hidden-mode lifts), keyed by (group, fp_rate): owned here so
+        # the byte and modexp savings survive actor re-creation, worker
+        # respawns and population churn
+        self._psi_blind_caches: Dict[tuple, dict] = {}
+        self._psi_resp_caches: Dict[tuple, dict] = {}
+        self._psi_lift_caches: Dict[tuple, dict] = {}
 
     @property
     def ids(self) -> List[str]:
@@ -70,13 +77,46 @@ class DataOwner:
         return (f"DataOwner({self.name!r}, rows={self.n_rows}, "
                 f"feature_shape={self.feature_shape})")
 
-    def psi_server(self, group: str) -> PSIServer:
-        """The owner's PSI endpoint for ``group`` (its β and blinded own
-        set persist across resolves of the same population)."""
-        srv = self._psi_servers.get(group)
-        if srv is None or srv.items != self._full.ids:
-            srv = self._psi_servers[group] = PSIServer(self._full.ids, group)
+    def psi_server(self, group: str, fp_rate: float = 1e-9) -> PSIServer:
+        """The owner's PSI endpoint, cached per (group, fp_rate): β and
+        the per-element blinded own set persist, so a resolve after ±Δ
+        row churn blinds only the Δ new elements
+        (``PSIServer.update_items``).  It syncs itself to the owner's
+        current population."""
+        key = (group, fp_rate)
+        pop = self._full.ids
+        srv = self._psi_servers.get(key)
+        if srv is None:
+            srv = self._psi_servers[key] = PSIServer(pop, fp_rate, group)
+        elif srv.items != pop:
+            srv.update_items(pop)
         return srv
+
+    def psi_endpoint(self, endpoint, group: str, fp_rate: float = 1e-9,
+                     pool=None):
+        """The owner's wire-native PSI actor on ``endpoint``: a
+        :class:`~repro_torch.federation.psi_transport.PSIServerEndpoint`
+        over the cached :meth:`psi_server`, with the owner's content-tag
+        caches, so repeat rounds skip the re-upload even across actor
+        re-creation.  ``pool`` feeds the actor's own-set chunk
+        kernels."""
+        from repro_torch.federation.psi_transport import PSIServerEndpoint
+        key = (group, fp_rate)
+        return PSIServerEndpoint(
+            self.name, self.psi_server(group, fp_rate), endpoint,
+            blind_cache=self._psi_blind_caches.setdefault(key, {}),
+            resp_cache=self._psi_resp_caches.setdefault(key, {}),
+            lift_cache=self._psi_lift_caches.setdefault(key, {}),
+            chunk_kernel_pool=pool)
+
+    def update_rows(self, ids: Sequence[str], features: np.ndarray
+                    ) -> None:
+        """Replace the owner's population in place.  PSI state is kept:
+        the cached server re-syncs on the next resolve (O(Δ) new
+        exponentiations for ±Δ churn), and the content-tag caches stay
+        valid because they are keyed by content."""
+        self._full = VerticalDataset(list(ids), np.asarray(features))
+        self._vd = self._full
 
     # -- owner-side surface (runs 'on the owner's device') -----------------
     @property
@@ -87,18 +127,33 @@ class DataOwner:
         """Discard non-shared rows and sort by ID (paper §3.1)."""
         self._vd = self._full.filter_and_sort(keep_ids)
 
+    def _align_hidden(self, rows: Sequence[int]) -> None:
+        """Membership-hiding alignment: keep exactly ``rows`` (indices
+        into the full population, decoys included) in that order, under
+        positional pseudonyms ``anon000000``, ... — the aligned order is
+        the only cross-party coordinate, so no party learns which raw
+        IDs matched."""
+        rows = list(rows)
+        self._vd = VerticalDataset(
+            [f"anon{k:06d}" for k in range(len(rows))],
+            self._full.data[np.asarray(rows, np.int64)]
+            if rows else self._full.data[:0])
+
 
 class DataScientist:
     """The data scientist: subject ids + labels.  Holds no features."""
 
     def __init__(self, ids: Sequence[str], labels: Optional[np.ndarray]):
+        self._set_rows(ids, labels)
+        self._psi_clients: Dict[tuple, PSIClient] = {}
+
+    def _set_rows(self, ids, labels) -> None:
         ids = list(ids)
         self._vd = VerticalDataset(
             ids, np.asarray(labels) if labels is not None
             else np.zeros(len(ids), np.int32))
         self.has_labels = labels is not None
         self._full = self._vd
-        self._psi_clients: Dict[str, PSIClient] = {}
 
     @property
     def ids(self) -> List[str]:
@@ -112,16 +167,45 @@ class DataScientist:
         return (f"DataScientist(rows={len(self._vd.ids)}, "
                 f"labels={self.has_labels})")
 
-    def psi_client(self, group: str) -> PSIClient:
-        """The scientist's PSI endpoint for ``group``: its blinded upload
-        is memoized and reused against every owner round."""
-        cli = self._psi_clients.get(group)
-        if cli is None or cli.items != self._full.ids:
-            cli = self._psi_clients[group] = PSIClient(self._full.ids, group)
+    def psi_client(self, group: str, mode: str = DEFAULT_MODE,
+                   pool=None) -> PSIClient:
+        """The scientist's PSI endpoint, cached per (group, mode): its
+        blinded upload is memoized and reused against every owner round.
+        It syncs itself to the scientist's current population through
+        ``PSIClient.update_items``: after ±Δ churn the upload is spliced
+        in O(Δ) modexp (``pool`` runs the new elements' chunks), which
+        arms the wire's delta round."""
+        key = (group, mode)
+        pop = self._full.ids
+        cli = self._psi_clients.get(key)
+        if cli is None:
+            cli = self._psi_clients[key] = PSIClient(pop, group, mode=mode)
+        elif cli.items != pop:
+            cli.update_items(pop, pool=pool)
         return cli
+
+    def update_rows(self, ids: Sequence[str],
+                    labels: Optional[np.ndarray]) -> None:
+        """Replace the scientist's population in place; cached PSI
+        clients re-sync on the next resolve (O(Δ) modexp and a delta
+        upload for ±Δ churn)."""
+        self._set_rows(ids, labels)
 
     def _align(self, keep_ids: Sequence[str]) -> None:
         self._vd = self._full.filter_and_sort(keep_ids)
+
+    def _align_hidden(self, positions: Sequence[int],
+                      client_items: Sequence[str]) -> None:
+        """Membership-hiding alignment: ``positions`` index the PSI
+        client's item order (members and decoys alike); each maps back
+        to the scientist's full-population row, under the owners'
+        positional pseudonyms."""
+        row_of = {it: i for i, it in enumerate(self._full.ids)}
+        rows = [row_of[client_items[p]] for p in positions]
+        self._vd = VerticalDataset(
+            [f"anon{k:06d}" for k in range(len(rows))],
+            self._full.data[np.asarray(rows, np.int64)]
+            if rows else self._full.data[:0])
 
 
 # ---------------------------------------------------------------------------

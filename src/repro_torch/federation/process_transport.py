@@ -1,13 +1,14 @@
 """The process boundary: the queue backend's semantics over a real OS
 pipe between party processes (the port's counterpart of
-``repro.federation.process_transport``, cut to what ``fit(backend=
-"process")`` uses).
+``repro.federation.process_transport``, cut to what the process
+backends of ``fit`` and ``resolve`` use).
 
-:class:`ProcessEndpoint` has the endpoint surface the session and the
-owner's compute loop use (``send`` / ``recv`` / ``recv_kind`` /
-``sent_stats`` / ``recv_stats``) over a ``multiprocessing`` connection,
-so ``OwnerComputeEndpoint`` runs unchanged inside a spawned worker
-(``federation/runtime.py``).
+:class:`ProcessEndpoint` has the endpoint surface the session, the
+owner's compute loop and the PSI actor use (``send`` / ``recv`` /
+``recv_kind`` / ``sent_stats`` / ``recv_stats``) over a
+``multiprocessing`` connection, so ``OwnerComputeEndpoint`` and
+``PSIServerEndpoint`` run unchanged inside spawned workers
+(``federation/runtime.py``).  Like ``transport``, it imports no torch.
 
   * **One pipe per party.**  Every protocol kind shares one duplex pipe;
     the kind and seq ride a small transport header in front of the
@@ -26,6 +27,9 @@ so ``OwnerComputeEndpoint`` runs unchanged inside a spawned worker
     ``__worker_error__`` frame with its traceback; the peer's next
     receive raises it as a ``RuntimeError``.  A death without that frame
     shows as a closed pipe, which raises too.
+  * **Latency across the boundary.**  The sender stamps a delivery
+    deadline (``latency_s + wire_bytes / bandwidth_bps`` past the send)
+    into the header and the receiver waits it out.
   * **Checked frames.**  The header carries a CRC32 of the blob; a
     mismatch raises ``transport.FrameCorrupt``, which ``recv_kind``
     routes to the kind that owns the frame.  ``fault_hook`` drops,
@@ -38,8 +42,7 @@ so ``OwnerComputeEndpoint`` runs unchanged inside a spawned worker
     and hands on what it stashes, so the step loop and the supervisor's
     heartbeat thread may wait on one endpoint at once.
 
-Latency and bandwidth injection, the transport tap and duplicate
-dropping are queued in ROADMAP.md.
+The transport tap and duplicate dropping are queued in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -91,9 +94,13 @@ class ProcessEndpoint(KindReceiver):
     ``queue.Empty`` on timeout and ``RuntimeError`` once the peer died
     (its error frame, or a closed pipe)."""
 
-    def __init__(self, name: str, peer: str, conn):
+    def __init__(self, name: str, peer: str, conn, *,
+                 latency_s: float = 0.0,
+                 bandwidth_bps: Optional[float] = None):
         self.name, self.peer = name, peer
         self.conn = conn
+        self.latency_s = latency_s
+        self.bandwidth_bps = bandwidth_bps
         # fault hook: ``fault_hook(kind, seq) -> (action, delay_s) | None``,
         # installed by ``faults.arm_endpoint`` (drop, corrupt, delay)
         self.fault_hook = None
@@ -138,17 +145,21 @@ class ProcessEndpoint(KindReceiver):
                       crc=crc)
         fault = (self.fault_hook(kind, seq)
                  if self.fault_hook is not None else None)
+        transit = self.latency_s + (len(blob) / self.bandwidth_bps
+                                    if self.bandwidth_bps else 0.0)
+        if fault is not None and fault[0] == "delay":
+            transit += fault[1]
+        if transit:
+            msg.not_before = time.monotonic() + transit
         with self._lock:
             _account(self.sent_stats, kind, pb, len(blob))
         if fault is not None:
-            action, delay_s = fault
+            action = fault[0]
             if action == "drop_frame":
                 with self._lock:
                     self.sent_stats["dropped_frames"] = \
                         self.sent_stats.get("dropped_frames", 0) + 1
                 return msg                     # lost on the wire
-            if action == "delay":
-                msg.not_before = time.monotonic() + delay_s
             if action == "corrupt_frame":
                 # one blob byte flipped after the crc was taken: the far
                 # side's check raises FrameCorrupt
@@ -234,11 +245,13 @@ class ProcessEndpoint(KindReceiver):
             pass
 
 
-def process_endpoint_pair(a: str, b: str
+def process_endpoint_pair(a: str, b: str, *, latency_s: float = 0.0,
+                          bandwidth_bps: Optional[float] = None
                           ) -> Tuple[ProcessEndpoint, ProcessEndpoint]:
     """Both ends of a process boundary in the current process (the
     worker spawn builds the far end inside the child; see
     ``federation/runtime.py``)."""
     import multiprocessing as mp
     c1, c2 = mp.Pipe(duplex=True)
-    return ProcessEndpoint(a, b, c1), ProcessEndpoint(b, a, c2)
+    kw = dict(latency_s=latency_s, bandwidth_bps=bandwidth_bps)
+    return ProcessEndpoint(a, b, c1, **kw), ProcessEndpoint(b, a, c2, **kw)

@@ -1,10 +1,10 @@
 """One OS process per data owner (the port's counterpart of
-``repro.federation.runtime``, owner side only).
+``repro.federation.runtime``).
 
-``fit(backend="process")`` spawns one worker per owner.  Each worker is
-a ``spawn``-started process (CUDA cannot be used again in a forked
-child) that rebuilds its owner's compute from a picklable spec and runs
-the very loop the thread backend runs:
+``fit(backend="process")`` and ``resolve(backend="process")`` spawn one
+worker per owner.  Each worker is a ``spawn``-started process (CUDA
+cannot be used again in a forked child) that rebuilds its party actor
+from a picklable spec and runs the very loop the thread backend runs:
 
   * :func:`owner_worker_main` — resolves the spec's device (on a card
     that configures the reference numerics in the worker's own CUDA
@@ -13,6 +13,15 @@ the very loop the thread backend runs:
     :class:`~repro_torch.federation.parties.OwnerComputeEndpoint` over
     a :class:`~repro_torch.federation.process_transport.ProcessEndpoint`.
     Only cut activations and cut gradients cross back.
+  * :func:`psi_worker_main` — a :class:`~repro_torch.federation.
+    psi_transport.PSIServerEndpoint` over the owner's IDs.  Its import
+    chain (this module, ``faults``, ``process_transport``,
+    ``transport``, ``psi_transport``, ``core.psi``, ``core.bloom``,
+    ``core.modexp``) loads no torch, so a PSI worker starts in well
+    under a second.  :func:`spawn_psi_worker` rehydrates the owner's
+    persistent PSI state into it — β, the blinded own set and its
+    shuffle, and the content-tag caches — so a fresh worker per round
+    (or per retry) ships the same bytes a long-lived owner would.
   * :class:`WorkerHandle` — the parent's view: the endpoint, the
     process, and the ``error`` the session's receive polls check (the
     worker's error frame, or a nonzero exit code for a death too sudden
@@ -31,8 +40,8 @@ worker's generation.  Chaos: ``REPRO_CHAOS_PARTY`` carries a
 ``federation.faults`` plan, which a spawned worker inherits with the
 caller's environment; the worker arms its actor (crash, wedge) and its
 endpoint (drop, corrupt, delay) from it at its generation, so a
-generation-0 fault does not fire again in a respawn.  PSI workers are
-queued in ROADMAP.md.
+generation-0 fault does not fire again in a respawn; a PSI worker is
+armed the same way, at the generation of its round's attempt.
 """
 from __future__ import annotations
 
@@ -42,11 +51,13 @@ from typing import List, Optional
 
 import numpy as np
 
+from repro_torch.core.psi import DEFAULT_CHUNK
 from repro_torch.federation import faults
 from repro_torch.federation.process_transport import ProcessEndpoint
 
-__all__ = ["OwnerWorkerSpec", "WorkerHandle", "owner_worker_main",
-           "spawn_owner_worker"]
+__all__ = ["OwnerWorkerSpec", "PSIWorkerSpec", "WorkerHandle",
+           "owner_worker_main", "psi_worker_main", "spawn_owner_worker",
+           "spawn_psi_worker"]
 
 SCIENTIST = "scientist"
 
@@ -93,6 +104,47 @@ class OwnerWorkerSpec:
     generation: int = 0
 
 
+@dataclass
+class PSIWorkerSpec:
+    """A PSI server actor's world: the owner's IDs and group geometry,
+    the wire's ``latency_s`` / ``bandwidth_bps``, the worker's
+    ``generation`` (the round's attempt), and the owner's persistent PSI
+    state: ``beta``, the three content-tag cache snapshots and the
+    precomputed response side (the packed blinded own set, its
+    shuffled-position -> row map and the per-item element cache)."""
+
+    name: str
+    ids: List[str]
+    group: str
+    fp_rate: float = 1e-9
+    latency_s: float = 0.0
+    bandwidth_bps: Optional[float] = None
+    generation: int = 0
+    beta: Optional[int] = None
+    blind_cache: Optional[dict] = None
+    resp_cache: Optional[dict] = None
+    lift_cache: Optional[dict] = None
+    own_packed: Optional[bytes] = None
+    own_rows: Optional[List[int]] = None
+    own_elems: Optional[dict] = None
+
+
+def _run_worker(spec, conn, body, **wire) -> None:
+    """A worker's scaffold: the endpoint up (``wire``: its latency and
+    bandwidth) and armed with the plan's wire faults, ``body``, then a
+    clean close (exit 0) — or the error frame and exit 1."""
+    ep = ProcessEndpoint(spec.name, SCIENTIST, conn, **wire)
+    # wire faults (drop, corrupt, delay) on everything this worker sends
+    faults.arm_endpoint(ep, spec.name, generation=spec.generation)
+    try:
+        body(spec, ep)
+    except BaseException as e:              # noqa: BLE001 — shipped to
+        ep.send_error(e, traceback.format_exc())   # the parent's poll
+        ep.close()
+        raise SystemExit(1)
+    ep.close()
+
+
 def _owner_body(spec: OwnerWorkerSpec, ep: ProcessEndpoint) -> None:
     import torch
 
@@ -100,7 +152,7 @@ def _owner_body(spec: OwnerWorkerSpec, ep: ProcessEndpoint) -> None:
     from repro_torch.federation.parties import (DataOwner,
                                                 OwnerComputeEndpoint)
     from repro_torch.federation.registry import build_adapter
-    from repro_torch.federation.transport import get_codec
+    from repro_torch.federation.cut_codec import get_codec
     from repro_torch.tree import tree_unflatten
 
     if spec.num_threads:
@@ -140,18 +192,33 @@ def _owner_body(spec: OwnerWorkerSpec, ep: ProcessEndpoint) -> None:
 
 
 def owner_worker_main(spec: OwnerWorkerSpec, conn) -> None:
-    """Spawn target of an owner worker: the endpoint up, the owner's
-    loop, then a clean close (exit 0) — or the error frame and exit 1."""
-    ep = ProcessEndpoint(spec.name, SCIENTIST, conn)
-    # wire faults (drop, corrupt, delay) on everything this worker sends
-    faults.arm_endpoint(ep, spec.name, generation=spec.generation)
-    try:
-        _owner_body(spec, ep)
-    except BaseException as e:              # noqa: BLE001 — shipped to
-        ep.send_error(e, traceback.format_exc())   # the parent's poll
-        ep.close()
-        raise SystemExit(1)
-    ep.close()
+    """Spawn target of an owner worker."""
+    _run_worker(spec, conn, _owner_body)
+
+
+def _psi_body(spec: PSIWorkerSpec, ep: ProcessEndpoint) -> None:
+    from repro_torch.core.psi import PSIServer
+    from repro_torch.federation.psi_transport import PSIServerEndpoint
+
+    server = PSIServer(spec.ids, spec.fp_rate, spec.group, beta=spec.beta)
+    if spec.own_packed is not None:
+        server._own_packed = spec.own_packed
+        server._own_rows = list(spec.own_rows or [])
+        server._own_elems = dict(spec.own_elems or {})
+    actor = PSIServerEndpoint(spec.name, server, ep,
+                              blind_cache=dict(spec.blind_cache or {}),
+                              resp_cache=dict(spec.resp_cache or {}),
+                              lift_cache=dict(spec.lift_cache or {}))
+    faults.arm_actor(actor, spec.name, generation=spec.generation)
+    actor.run()
+    if actor.error is not None:
+        raise actor.error
+
+
+def psi_worker_main(spec: PSIWorkerSpec, conn) -> None:
+    """Spawn target of a PSI server actor (no torch in its imports)."""
+    _run_worker(spec, conn, _psi_body, latency_s=spec.latency_s,
+                bandwidth_bps=spec.bandwidth_bps)
 
 
 class WorkerHandle:
@@ -174,7 +241,7 @@ class WorkerHandle:
         code = self.proc.exitcode
         if code not in (None, 0):
             return RuntimeError(
-                f"owner worker {self.name!r} exited with code {code}")
+                f"party worker {self.name!r} exited with code {code}")
         return None
 
     def shutdown(self, timeout: float = 10.0) -> None:
@@ -186,17 +253,50 @@ class WorkerHandle:
         self.endpoint.close()
 
 
+def _spawn(main, spec, *, owner=None, latency_s: float = 0.0,
+           bandwidth_bps: Optional[float] = None) -> WorkerHandle:
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    parent_conn, child_conn = ctx.Pipe(duplex=True)
+    proc = ctx.Process(target=main, args=(spec, child_conn), daemon=True,
+                       name=f"party-{spec.name}")
+    proc.start()
+    child_conn.close()          # the child owns its end now
+    ep = ProcessEndpoint(SCIENTIST, spec.name, parent_conn,
+                         latency_s=latency_s, bandwidth_bps=bandwidth_bps)
+    return WorkerHandle(spec.name, proc, ep, owner=owner)
+
+
 def spawn_owner_worker(spec: OwnerWorkerSpec, *, owner=None
                        ) -> WorkerHandle:
     """Start one owner worker; returns the parent's handle, whose
     ``endpoint`` is the scientist's end of the party boundary."""
-    import multiprocessing as mp
-    ctx = mp.get_context("spawn")
-    parent_conn, child_conn = ctx.Pipe(duplex=True)
-    proc = ctx.Process(target=owner_worker_main, args=(spec, child_conn),
-                       daemon=True, name=f"owner-{spec.name}")
-    proc.start()
-    child_conn.close()          # the child owns its end now
-    return WorkerHandle(spec.name, proc,
-                        ProcessEndpoint(SCIENTIST, spec.name, parent_conn),
-                        owner=owner)
+    return _spawn(owner_worker_main, spec, owner=owner)
+
+
+def spawn_psi_worker(owner, *, group: str, fp_rate: float = 1e-9,
+                     latency_s: float = 0.0,
+                     bandwidth_bps: Optional[float] = None,
+                     generation: int = 0, pool=None,
+                     chunk_size: int = DEFAULT_CHUNK) -> WorkerHandle:
+    """Start one PSI server actor for ``owner`` (a ``DataOwner``) at
+    ``generation`` (the round's attempt: a generation-0 fault does not
+    fire again in a retry).  The owner's persistent server blinds its
+    own set here, in the parent (``pool`` runs it in chunks of
+    ``chunk_size``, the round's: the bytes do not depend on it; O(Δ new
+    items) after churn), so retries never repeat it; the spec carries
+    that state and the owner's caches into the worker."""
+    key = (group, fp_rate)
+    srv = owner.psi_server(group, fp_rate)   # synced to the population
+    srv.own_blinded_packed(pool, chunk_size)
+    spec = PSIWorkerSpec(
+        name=owner.name, ids=list(srv.items), group=group, fp_rate=fp_rate,
+        latency_s=latency_s, bandwidth_bps=bandwidth_bps,
+        generation=generation, beta=srv._beta,
+        blind_cache=dict(owner._psi_blind_caches.setdefault(key, {})),
+        resp_cache=dict(owner._psi_resp_caches.setdefault(key, {})),
+        lift_cache=dict(owner._psi_lift_caches.setdefault(key, {})),
+        own_packed=srv._own_packed, own_rows=srv._own_rows,
+        own_elems=srv._own_elems)
+    return _spawn(psi_worker_main, spec, owner=owner, latency_s=latency_s,
+                  bandwidth_bps=bandwidth_bps)

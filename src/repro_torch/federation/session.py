@@ -72,9 +72,14 @@ dead owner and a replay of the steps since, with the fault-free run's
 bits; each recovery lands in ``session.recovery_events``.  Faults are
 injected from a plan in ``REPRO_CHAOS_PARTY`` (``federation/faults.py``).
 
+Entity resolution (``resolve``) takes every option of the reference's:
+the ``noinv``, ``bloom`` and membership-hiding ``hidden`` modes, the
+modexp worker pool, the ``direct`` / ``queue`` / ``process`` backends
+with latency and bandwidth, O(Δ) delta rounds after churn, and retries
+of a crashed or wedged owner round.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): PSI bloom/hidden modes, the worker pool and the wire backends;
-checkpointing and serving.
+item): checkpointing and serving.
 """
 from __future__ import annotations
 
@@ -91,10 +96,13 @@ import torch
 
 from repro_torch.configs.base import not_ported
 from repro_torch.core import masking, privacy
-from repro_torch.core.psi import DEFAULT_CHUNK, psi_round
+from repro_torch.core.modexp import ModexpPool
+from repro_torch.core.psi import (DEFAULT_CHUNK, DEFAULT_MODE, blind_tag,
+                                  psi_round)
 from repro_torch.core.splitnn import cut_layer_traffic, make_split_train_step
 from repro_torch.device import resolve_device
 from repro_torch.federation import faults, transport
+from repro_torch.federation.cut_codec import get_codec, to_tensor
 from repro_torch.federation.parties import (SNAPSHOTS_KEPT, DataOwner,
                                             DataScientist,
                                             OwnerComputeEndpoint,
@@ -107,6 +115,19 @@ from repro_torch.tree import tree_add, tree_leaves, tree_map, tree_unflatten
 def _scalars(m):
     return {k: v if k in ("epoch", "step") else float(v)
             for k, v in m.items()}
+
+
+def _join_or_warn(th: threading.Thread, limit: float, context: str) -> None:
+    """``th.join(limit)`` that surfaces a party thread still alive after
+    its deadline (a wedged actor, a stuck receive) as a loud
+    ``RuntimeWarning`` instead of letting it outlive the session
+    silently."""
+    th.join(timeout=limit)
+    if th.is_alive():
+        warnings.warn(
+            f"{context}: thread {th.name!r} still alive after "
+            f"{limit:.1f}s join — leaked (wedged actor?)",
+            RuntimeWarning, stacklevel=3)
 
 
 class VerticalSession:
@@ -133,7 +154,8 @@ class VerticalSession:
         #: one record per supervised recovery: ``party``, ``action``
         #: ("respawn" | "rollback"), ``step`` (the marker replayed from),
         #: ``error`` and ``seconds`` (the recovery's wall time, respawn
-        #: and its warmup included)
+        #: and its warmup included); and per PSI round retry: ``party``,
+        #: ``action`` "psi_retry", ``attempt`` and ``error``
         self.recovery_events: List[dict] = []
         self.adapter = None
         self.config = None
@@ -167,65 +189,303 @@ class VerticalSession:
 
     # ------------------------------------------------------------ 1. resolve
 
-    def resolve(self, *, group: str = "modp2048", mode: str = "noinv",
-                parallelism: int = 0, chunk_size: int = DEFAULT_CHUNK,
-                backend: str = "direct") -> dict:
+    def resolve(self, *, group: str = "modp2048",
+                fp_rate: float = 1e-9, mode: str = DEFAULT_MODE,
+                parallelism: int = 0,
+                chunk_size: int = DEFAULT_CHUNK,
+                backend: str = "direct", latency_s: float = 0.0,
+                bandwidth_bps: Optional[float] = None,
+                timeout: float = 120.0, retries: int = 0,
+                retry_backoff_s: float = 0.05) -> dict:
         """The paper's §3.1 protocol: the scientist runs DH-PSI pairwise
         with each owner (scientist = client, so only the scientist learns
         each intersection), intersects globally, broadcasts the shared
-        IDs, and every party filters and sorts.  The scientist blinds its
-        set once and reuses the upload for every owner round (logged as
-        ``psi_blind_reuse``).  Returns the stats dict."""
-        if mode != "noinv":
-            raise not_ported(f"PSI mode {mode!r}",
-                              "PSI bloom/hidden/delta and wire backends")
-        if parallelism:
-            raise not_ported("the PSI worker pool (parallelism > 0)",
-                              "PSI bloom/hidden/delta and wire backends")
-        if backend != "direct":
-            raise not_ported(f"resolve backend {backend!r}",
-                              "PSI bloom/hidden/delta and wire backends")
+        IDs, and every party filters and sorts.  Returns the stats dict.
+
+        ``mode``: ``"noinv"`` (default) and ``"bloom"`` reveal each
+        pairwise intersection to the scientist; ``"hidden"`` matches on
+        the owner's side and replies with a padded keep set (members and
+        deterministic decoys, alike in every frame), and every party
+        aligns on positional pseudonyms ``anon000000``, ..., so the
+        scientist never learns which raw IDs matched.  A repeat resolve
+        after ±Δ churn (``scientist.update_rows`` /
+        ``owner.update_rows``) costs O(Δ) modexp and, on a wire backend,
+        one ``psi_delta_chunk``; unchanged response legs are skipped by
+        content tag.
+
+        The scientist blinds its set once and reuses the upload for
+        every owner round (logged as ``psi_blind_reuse``); the delta and
+        cached-leg fast paths are logged as ``psi_delta_reuse``.
+        ``parallelism`` starts that many modexp workers shared by all
+        rounds (0: the serial engine; ``stats["parallelism"]`` is the
+        parallelism the pool really has); ``chunk_size`` bounds the
+        streamed chunks.  ``fp_rate`` sizes the bloom.
+
+        ``backend``: ``"direct"`` (party objects exchange chunks by
+        direct call, byte counts are protocol-data tallies), ``"queue"``
+        (each owner's ``PSIServerEndpoint`` on its own thread behind a
+        serialized channel, every leg a measured frame) or ``"process"``
+        (the same actor in a spawned worker, over an OS pipe).
+        ``latency_s`` / ``bandwidth_bps`` delay every frame (wire
+        backends only); ``timeout`` bounds each receive, so a wedged
+        owner fails the resolve.  The intersection is bit-identical
+        across backends, chunk sizes and parallelism.
+
+        ``retries`` reruns a failed owner round (crashed or wedged PSI
+        actor) up to that many extra times, ``retry_backoff_s * 2^k``
+        apart, with the actor restarted at generation ``attempt`` (a
+        generation-0 fault does not fire again); each retry lands in the
+        transcript (``psi_round_retry``) and in ``recovery_events``
+        (``psi_retry``)."""
+        if backend not in ("direct", "queue", "process"):
+            raise ValueError(f"unknown resolve backend {backend!r}")
+        if backend == "direct" and (latency_s or bandwidth_bps):
+            raise ValueError("latency_s/bandwidth_bps model the wire — "
+                             "they require a wire backend "
+                             "('queue' or 'process')")
         stats: dict = {"rounds": [], "global_intersection": 0,
-                       "mode": mode, "parallelism": 0,
+                       "mode": mode, "parallelism": parallelism,
                        "chunk_size": chunk_size, "backend": backend}
-        client = self.scientist.psi_client(group)
-        global_ids = set(client.items)
+        if backend != "direct":
+            stats["latency_s"] = latency_s
+            stats["per_party_wire"] = {}
+        hidden = mode == "hidden"
+        global_pos: Optional[set] = None        # hidden: keep positions
+        row_maps: Dict[str, dict] = {}          # hidden: pos -> owner row
+        with ModexpPool(parallelism) as pool:
+            # a cached client syncs to the scientist's population here:
+            # the O(Δ) splice after churn arms the wire's delta round
+            client = self.scientist.psi_client(group, mode, pool=pool)
+            global_ids = set(client.items)
+            for owner in self.owners:
+                for attempt in range(max(0, retries) + 1):
+                    try:
+                        if backend != "direct":
+                            inter, rstats = self._resolve_owner_wire(
+                                client, owner, backend=backend,
+                                group=group, fp_rate=fp_rate, pool=pool,
+                                chunk_size=chunk_size,
+                                latency_s=latency_s,
+                                bandwidth_bps=bandwidth_bps,
+                                timeout=timeout, stats=stats,
+                                generation=attempt)
+                        else:
+                            inter, rstats = self._resolve_owner_direct(
+                                client, owner, group=group,
+                                fp_rate=fp_rate, pool=pool,
+                                chunk_size=chunk_size)
+                        break
+                    except RuntimeError as e:
+                        # the client's upload is memoized: the rerun
+                        # ships only what the owner never cached
+                        if attempt >= retries:
+                            raise
+                        self._log("scientist", owner.name,
+                                  "psi_round_retry", attempt=attempt + 1,
+                                  error=str(e))
+                        self.recovery_events.append(
+                            {"party": owner.name, "action": "psi_retry",
+                             "attempt": attempt + 1, "error": str(e)})
+                        time.sleep(retry_backoff_s * (2 ** attempt))
+                # the engine's parallelism (0 where the pool degraded to
+                # serial), never merely the one asked for
+                stats["parallelism"] = rstats["parallelism"]
+                if rstats["blind_cached"] or rstats.get("upload_skipped"):
+                    self._log("scientist", owner.name, "psi_blind_reuse",
+                              reused_upload_bytes=
+                              rstats["client_upload_bytes"],
+                              recompute_skipped=rstats["blind_cached"],
+                              upload_skipped=bool(
+                                  rstats.get("upload_skipped", False)))
+                if rstats.get("delta_used") or rstats.get("resp_skipped") \
+                        or rstats.get("server_leg_skipped"):
+                    self._log("scientist", owner.name, "psi_delta_reuse",
+                              delta_used=bool(rstats.get("delta_used")),
+                              resp_skipped=bool(
+                                  rstats.get("resp_skipped")),
+                              server_leg_skipped=bool(
+                                  rstats.get("server_leg_skipped")))
+                if hidden:
+                    row_maps[owner.name] = dict(
+                        zip(inter, rstats["hidden_rows"]))
+                    pos = set(inter)
+                    global_pos = (pos if global_pos is None
+                                  else global_pos & pos)
+                else:
+                    global_ids &= set(inter)
+                stats["rounds"].append({
+                    "owner": owner.name, "intersection_size": len(inter),
+                    "client_upload_bytes": rstats["client_upload_bytes"],
+                    "server_response_bytes":
+                        rstats["server_response_bytes"],
+                    "n_chunks": rstats["n_chunks"],
+                    "blind_cached": rstats["blind_cached"],
+                    **({"bloom_bytes": rstats["bloom_bytes"],
+                        "bloom_shards": rstats["bloom_shards"]}
+                       if mode == "bloom" else
+                       {"server_set_bytes": rstats["server_set_bytes"]}),
+                    **({k: rstats[k] for k in
+                        ("delta_used", "resp_skipped",
+                         "server_leg_skipped", "client_modexp_ops",
+                         "server_modexp_ops", "hidden_kept")
+                        if k in rstats}),
+                    **({"upload_skipped": rstats["upload_skipped"],
+                        "upload_wire_bytes": rstats["upload_wire_bytes"],
+                        "download_wire_bytes":
+                            rstats["download_wire_bytes"]}
+                       if backend != "direct" else {})})
+        if hidden:
+            final = sorted(global_pos or set())
+            stats["global_intersection"] = len(final)
+            # every party keeps the same aligned order; the scientist maps
+            # keep positions back to its rows through the client's item
+            # order, never learning which positions were members
+            items = list(client.items)
+            for owner in self.owners:
+                owner._align_hidden(
+                    [row_maps[owner.name][p] for p in final])
+                self._log("scientist", owner.name, "resolved_ids",
+                          count=len(final))
+            self.scientist._align_hidden(final, items)
+        else:
+            stats["global_intersection"] = len(global_ids)
+            self.scientist._align(global_ids)
+            for owner in self.owners:
+                owner._align(global_ids)
+                self._log("scientist", owner.name, "resolved_ids",
+                          count=len(global_ids))
         for owner in self.owners:
-            wire: Dict[str, List[int]] = {}
-
-            def tally(kind, n_bytes, wire=wire):
-                c = wire.setdefault(kind, [0, 0])
-                c[0] += 1
-                c[1] += n_bytes
-
-            inter, rstats = psi_round(client, owner.psi_server(group),
-                                      chunk_size=chunk_size,
-                                      on_message=tally)
-            for kind, (n_msgs, n_bytes) in wire.items():
-                frm, to = (("scientist", owner.name)
-                           if kind == "psi_blind_chunk"
-                           else (owner.name, "scientist"))
-                self._log(frm, to, kind, bytes=n_bytes, chunks=n_msgs)
-            if rstats["blind_cached"]:
-                self._log("scientist", owner.name, "psi_blind_reuse",
-                          reused_upload_bytes=rstats["client_upload_bytes"])
-            global_ids &= set(inter)
-            stats["rounds"].append({
-                "owner": owner.name, "intersection_size": len(inter),
-                **{k: rstats[k] for k in
-                   ("client_upload_bytes", "server_response_bytes",
-                    "server_set_bytes", "n_chunks", "blind_cached")}})
-        stats["global_intersection"] = len(global_ids)
-        self.scientist._align(global_ids)
-        for owner in self.owners:
-            owner._align(global_ids)
-            self._log("scientist", owner.name, "resolved_ids",
-                      count=len(global_ids))
             if owner.ids != self.scientist.ids:
                 raise RuntimeError(f"misaligned owner {owner.name}")
+        # every owner round succeeded: the next churn diffs against the
+        # state all peers now hold
+        client.rebase_delta()
         self._resolved = True
         self.resolve_stats = stats
         return stats
+
+    def _resolve_owner_direct(self, client, owner, *, group, fp_rate,
+                              pool, chunk_size):
+        """One in-process PSI round, with one transcript entry per wire
+        kind (the engine's message callback tallies them)."""
+        wire: Dict[str, List[int]] = {}
+
+        def tally(kind, n_bytes):
+            c = wire.setdefault(kind, [0, 0])
+            c[0] += 1
+            c[1] += n_bytes
+
+        inter, rstats = psi_round(client, owner.psi_server(group, fp_rate),
+                                  pool=pool, chunk_size=chunk_size,
+                                  on_message=tally)
+        for kind, (n_msgs, n_bytes) in wire.items():
+            frm, to = (("scientist", owner.name)
+                       if kind in ("psi_blind_chunk", "psi_delta_chunk",
+                                   "psi_lift_chunk")
+                       else (owner.name, "scientist"))
+            self._log(frm, to, kind, bytes=n_bytes, chunks=n_msgs)
+        return inter, rstats
+
+    def _mirror_owner_psi_caches(self, owner, client, group, fp_rate):
+        """Copy a finished process-backend round's content-addressed PSI
+        artifacts onto the owner: the spawned worker's caches died with
+        it, and a long-lived owner process would have kept them.  Every
+        entry is keyed by its own content tag, so none can go stale.
+        The hidden response leg (D) never reaches the client, so a
+        hidden delta on the process backend degrades to a full upload."""
+        key = (group, fp_rate)
+        blob = client._blinded_packed
+        if blob is not None:
+            owner._psi_blind_caches.setdefault(key, {})[blind_tag(blob)] = \
+                blob
+        rc = client.round_cache.get(owner.name)
+        if not rc:
+            return
+        if "d_blob" in rc:
+            owner._psi_resp_caches.setdefault(key, {})[rc["tag"]] = \
+                rc["d_blob"]
+        if client.mode == "hidden" and rc.get("t_blob"):
+            owner._psi_lift_caches.setdefault(key, {})[rc["server_tag"]] = \
+                rc["t_blob"]
+
+    def _resolve_owner_wire(self, client, owner, *, backend, group,
+                            fp_rate, pool, chunk_size, latency_s,
+                            bandwidth_bps, timeout, stats,
+                            generation=0):
+        """One wire-native PSI round: the owner's actor on its own thread
+        (queue) or in a spawned worker (process), every leg a measured
+        frame.  The transcript gets one entry per kind and direction with
+        the measured payload and wire bytes, and
+        ``stats["per_party_wire"]`` the owner's channel totals (of the
+        verified attempt only)."""
+        from repro_torch.federation.psi_transport import wire_psi_round
+
+        if backend == "process":
+            from repro_torch.federation import runtime
+            # the own set is blinded on the owner's persistent server in
+            # the parent at spawn: its ops count as the round's server ops
+            srv_parent = owner.psi_server(group, fp_rate)
+            spawn_ops0 = srv_parent.ops
+            handle = runtime.spawn_psi_worker(
+                owner, group=group, fp_rate=fp_rate,
+                latency_s=latency_s, bandwidth_bps=bandwidth_bps,
+                generation=generation, pool=pool, chunk_size=chunk_size)
+            try:
+                ep_sci = handle.endpoint
+                inter, rstats = wire_psi_round(
+                    client, ep_sci, worker=handle, pool=pool,
+                    chunk_size=chunk_size, timeout=timeout,
+                    peer=owner.name)
+            finally:
+                try:
+                    handle.endpoint.send("psi_stop", {})
+                except RuntimeError:        # the worker is gone
+                    pass
+                handle.shutdown()
+            for k in ("server_modexp_ops", "modexp_ops"):
+                rstats[k] = rstats.get(k, 0) + srv_parent.ops - spawn_ops0
+            self._mirror_owner_psi_caches(owner, client, group, fp_rate)
+        else:
+            ep_sci, ep_own = transport.channel_pair(
+                "scientist", owner.name, backend="queue",
+                latency_s=latency_s, bandwidth_bps=bandwidth_bps)
+            worker = owner.psi_endpoint(ep_own, group, fp_rate, pool=pool)
+            # the spawned workers' chaos surface, on the thread actor
+            faults.arm_actor(worker, owner.name, generation=generation)
+            faults.arm_endpoint(ep_own, owner.name, generation=generation)
+            th = threading.Thread(target=worker.run, daemon=True,
+                                  name=f"psi-{owner.name}")
+            th.start()
+            try:
+                inter, rstats = wire_psi_round(
+                    client, ep_sci, worker=worker, pool=pool,
+                    chunk_size=chunk_size, timeout=timeout,
+                    peer=owner.name)
+            finally:
+                ep_sci.send("psi_stop", {})
+                _join_or_warn(th, 10.0, f"resolve({owner.name})")
+
+        sent, rcvd = ep_sci.sent_stats, ep_sci.recv_stats
+        for kind, st in sorted(sent["by_kind"].items()):
+            if kind == "psi_stop":
+                continue
+            self._log("scientist", owner.name, kind, measured=True,
+                      bytes=st["payload_bytes"],
+                      wire_bytes=st["wire_bytes"], chunks=st["count"])
+        for kind, st in sorted(rcvd["by_kind"].items()):
+            self._log(owner.name, "scientist", kind, measured=True,
+                      bytes=st["payload_bytes"],
+                      wire_bytes=st["wire_bytes"], chunks=st["count"])
+        stats["per_party_wire"][owner.name] = {
+            "sent_wire_bytes": sent["wire_bytes"],
+            "recv_wire_bytes": rcvd["wire_bytes"],
+            "messages": sent["messages"] + rcvd["messages"],
+        }
+        # the blind upload alone (0 when the owner had it cached)
+        rstats["upload_wire_bytes"] = sent["by_kind"].get(
+            "psi_blind_chunk", {"wire_bytes": 0})["wire_bytes"]
+        rstats["download_wire_bytes"] = rcvd["wire_bytes"]
+        return inter, rstats
 
     # -------------------------------------------------------------- 2. build
 
@@ -623,7 +883,7 @@ class VerticalSession:
             m = self._recv_from_owner(ep, w, "params_dump", timeout, sup)
             slices.append(tree_unflatten(
                 self.adapter.owner_param_slice(self.params, p),
-                [transport.to_tensor(m.payload[str(i)], self.device)
+                [to_tensor(m.payload[str(i)], self.device)
                  for i in range(len(m.payload))]))
         self.params = {"heads": self.adapter.stack_head_params(slices),
                        "trunk": trunk_params}
@@ -686,11 +946,11 @@ class VerticalSession:
             return handle, handle.endpoint, None
         owner_opt, owner_update = adapter.owner_update_rule(owner_lr)
         hp = template if leaves is None else tree_unflatten(
-            template, [transport.to_tensor(a, self.device) for a in leaves])
+            template, [to_tensor(a, self.device) for a in leaves])
         opt_state = owner_opt.init(hp)
         if opt_leaves is not None:
             opt_state = tree_unflatten(opt_state, [
-                transport.to_tensor(a, self.device) for a in opt_leaves])
+                to_tensor(a, self.device) for a in opt_leaves])
         ep_sci, ep_own = transport.channel_pair(
             "scientist", owner.name, backend=backend)
         head_fwd, head_bwd = adapter.owner_programs(p)
@@ -766,7 +1026,7 @@ class VerticalSession:
                              "schedule (sequential is the synchronous "
                              "baseline)")
         bm = batch_size // M
-        codec = transport.get_codec(compression, self.device)
+        codec = get_codec(compression, self.device)
         denom = float(batch_size)
         masked = aggregation == "masked_sum"
 
@@ -1094,10 +1354,7 @@ class VerticalSession:
             # one never returns
             for th, limit in [(th, 10.0) for th in threads] + \
                     [(th, 1.0) for th in retired_threads]:
-                th.join(timeout=limit)
-                if th.is_alive():
-                    warnings.warn(f"fit(split): {th.name} still running "
-                                  f"{limit:g} s after stop", RuntimeWarning)
+                _join_or_warn(th, limit, "fit(split)")
             for w in workers:
                 if not isinstance(w, OwnerComputeEndpoint):
                     # after a failure a survivor may wait on a message

@@ -12,7 +12,9 @@ Two backends:
     frame.  Tensors cross as host numpy (``t.detach().cpu().numpy()``),
     so frames — dtype names, shapes, bytes — are byte-identical to the
     reference's; bf16 crosses as its raw words under the name
-    ``bfloat16``.
+    ``bfloat16``.  Delivery can be delayed by ``latency_s`` plus
+    ``wire_bytes / bandwidth_bps`` per frame (the PSI rounds of
+    ``resolve`` take both).
 
 Every serialized frame carries a CRC32 of its blob, checked on receipt
 (:class:`FrameCorrupt`); a channel's ``fault_hook`` can drop, corrupt or
@@ -20,17 +22,17 @@ delay a frame (``federation/faults.py``), and a delayed frame carries a
 ``not_before`` deadline that the receiver waits out.  The CRC is not
 counted in the wire bytes, so byte counts stay the reference's.
 
-Cut-payload codecs live here too (``get_codec``): the only tensors that
-cross the boundary are cut activations and cut gradients.  ``fp16`` is a
-plain down-cast; ``int8`` is per-row symmetric quantization fused with
-wire packing in one CUDA kernel (``repro_torch/csrc/quantize.cu``): the
-payload is a single ``(rows, K+4)`` byte frame, values + bitcast scale.
-Decoding is a plain tensor multiply on the receiver's device.
+This module imports no torch: a tensor can only reach it from a process
+that loaded torch, so it finds torch in ``sys.modules``, and the spawned
+PSI workers of ``federation/runtime.py`` run it without ever loading
+torch.  The cut-payload codecs and ``to_tensor``, which need torch, live
+in ``federation/cut_codec.py``.
 """
 from __future__ import annotations
 
 import queue
 import struct
+import sys
 import threading
 import time
 import zlib
@@ -38,10 +40,8 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import numpy as np
-import torch
 
-__all__ = ["Message", "Channel", "Endpoint", "channel_pair", "Codec",
-           "FP16Codec", "Int8Codec", "get_codec", "FrameCorrupt"]
+__all__ = ["Message", "Channel", "Endpoint", "channel_pair", "FrameCorrupt"]
 
 
 class FrameCorrupt(RuntimeError):
@@ -57,6 +57,16 @@ class FrameCorrupt(RuntimeError):
             f"{receiver!r} (crc32 mismatch)")
         self.kind, self.seq = kind, seq
         self.sender, self.receiver = sender, receiver
+
+
+def _is_tensor(a) -> bool:
+    torch = sys.modules.get("torch")
+    return torch is not None and isinstance(a, torch.Tensor)
+
+
+def _loaded_torch():
+    """torch, which is loaded in any process that holds a tensor."""
+    return sys.modules["torch"]
 
 
 def crc32(blob: bytes) -> int:
@@ -88,7 +98,8 @@ def _host(arr) -> Tuple[str, np.ndarray]:
     stream.  numpy has no bfloat16 of its own, so a bf16 tensor crosses
     as its raw 2-byte words under the dtype name ``bfloat16`` — the name
     and bytes the reference's ml_dtypes array writes."""
-    if isinstance(arr, torch.Tensor):
+    if _is_tensor(arr):
+        torch = _loaded_torch()
         t = arr.detach()
         if t.dtype == torch.bfloat16:
             return "bfloat16", np.ascontiguousarray(
@@ -139,28 +150,19 @@ def _unpack(blob: bytes) -> Dict[str, object]:
         count = nbytes // dtype.itemsize if dtype.itemsize else 0
         a = np.frombuffer(blob, dtype=dtype, count=count,
                           offset=off).reshape(shape)
-        out[name] = (torch.from_numpy(a.copy()).view(torch.bfloat16)
-                     if dtname == "bfloat16" else a)
+        if dtname == "bfloat16":
+            # only a process that loaded torch sends bf16 (a cut of an LM)
+            torch = _loaded_torch()
+            a = torch.from_numpy(a.copy()).view(torch.bfloat16)
+        out[name] = a
         off += nbytes
     return out
 
 
 def _nbytes(a) -> int:
-    if isinstance(a, torch.Tensor):
+    if _is_tensor(a):
         return a.numel() * a.element_size()
     return np.asarray(a).nbytes
-
-
-def to_tensor(a, device: torch.device) -> torch.Tensor:
-    """A received payload value as a tensor on ``device`` (read-only wire
-    views are copied first: torch tensors are writable; a ``bfloat16``
-    frame entry already arrives as a ``torch.bfloat16`` tensor)."""
-    if isinstance(a, torch.Tensor):
-        return a.to(device)
-    a = np.asarray(a)
-    if not a.flags.writeable:
-        a = a.copy()
-    return torch.from_numpy(a).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -187,12 +189,17 @@ class Channel:
     edge (an owner applies the step-``t`` gradient before it runs the
     step-``t+1`` forward).  Several threads may send on one channel (the
     supervisor's heartbeats beside the step loop), so the accounting
-    takes a lock."""
+    takes a lock.  ``latency_s`` and ``bandwidth_bps`` give every frame
+    a transit time, ``latency_s + wire_bytes / bandwidth_bps``, that
+    the receiver waits out."""
 
     def __init__(self, sender: str, receiver: str, *, serialize: bool,
-                 tap=None):
+                 latency_s: float = 0.0,
+                 bandwidth_bps: Optional[float] = None, tap=None):
         self.sender, self.receiver = sender, receiver
         self.serialize = serialize
+        self.latency_s = latency_s
+        self.bandwidth_bps = bandwidth_bps
         # observation hook: ``tap(msg, blob)`` on every send, with the
         # serialized frame (None on the direct backend); the privacy
         # tests capture transcripts through it
@@ -235,16 +242,20 @@ class Channel:
             self.tap(msg, blob)
         fault = (self.fault_hook(kind, seq)
                  if self.fault_hook is not None else None)
+        transit = self.latency_s + (wb / self.bandwidth_bps
+                                    if self.bandwidth_bps else 0.0)
+        if fault is not None and fault[0] == "delay":
+            transit += fault[1]
+        if transit:
+            msg.not_before = time.monotonic() + transit
         self._account(kind, pb, wb)
         if fault is not None:
-            action, delay_s = fault
+            action = fault[0]
             if action == "drop_frame":
                 with self._lock:
                     self.stats["dropped_frames"] = self.stats.get(
                         "dropped_frames", 0) + 1
                 return msg                         # lost on the wire
-            if action == "delay":
-                msg.not_before = time.monotonic() + delay_s
             if action == "corrupt_frame" and blob is not None:
                 # one byte flipped after the crc was taken: the
                 # receiver's check fails loudly (FrameCorrupt)
@@ -382,87 +393,19 @@ class Endpoint(KindReceiver):
         return self.inbox.stats
 
 
-def channel_pair(a: str, b: str, *, backend: str = "queue", tap=None
+def channel_pair(a: str, b: str, *, backend: str = "queue",
+                 latency_s: float = 0.0,
+                 bandwidth_bps: Optional[float] = None, tap=None
                  ) -> Tuple[Endpoint, Endpoint]:
     """The duplex boundary between parties ``a`` and ``b``:
     ``(endpoint_a, endpoint_b)``.  ``tap`` observes every send in both
-    directions (see :class:`Channel`)."""
+    directions, ``latency_s`` and ``bandwidth_bps`` delay every frame
+    (see :class:`Channel`)."""
     if backend not in ("queue", "direct"):
         raise ValueError(f"unknown transport backend {backend!r}")
     ser = backend == "queue"
-    ab = Channel(a, b, serialize=ser, tap=tap)
-    ba = Channel(b, a, serialize=ser, tap=tap)
+    kw = dict(serialize=ser, latency_s=latency_s,
+              bandwidth_bps=bandwidth_bps, tap=tap)
+    ab = Channel(a, b, **kw)
+    ba = Channel(b, a, **kw)
     return Endpoint(a, b, ab, ba), Endpoint(b, a, ba, ab)
-
-
-# ---------------------------------------------------------------------------
-# Cut-payload codecs
-# ---------------------------------------------------------------------------
-
-
-class Codec:
-    """Encode/decode for cut payloads.  ``encode`` maps a float tensor to
-    the wire payload dict (tensors stay on their device; a serializing
-    channel copies them to the host); ``decode`` returns a tensor on
-    ``device``, f32 for the lossy codecs.  The lossless codec ships the cut as it is, in its own
-    dtype (f32 MLP cuts, bf16 LM cuts) — the receiver gets that dtype."""
-
-    name = "none"
-
-    def __init__(self, device="cpu"):
-        self.device = torch.device(device)
-
-    def encode(self, t: torch.Tensor) -> Dict[str, object]:
-        return {"x": t.detach()}
-
-    def decode(self, payload: Dict[str, object]) -> torch.Tensor:
-        return to_tensor(payload["x"], self.device)
-
-
-class FP16Codec(Codec):
-    name = "fp16"
-
-    def encode(self, t):
-        return {"h": t.detach().to(torch.float16)}
-
-    def decode(self, payload):
-        return to_tensor(payload["h"], self.device).to(torch.float32)
-
-
-class Int8Codec(Codec):
-    """Per-row symmetric int8 (scale = absmax/127 over the last axis),
-    quantized and wire-packed in one kernel pass
-    (``repro_torch.kernels.quantize.quantize_pack_int8``): the payload is
-    one ``(rows, K+4)`` uint8 frame — K int8 values plus the
-    little-endian f32 scale in the trailing 4 bytes of each row.  An f32
-    or bf16 cut goes to the kernel as it is (bf16 is upcast exactly in
-    its registers: the reference's frame of ``astype(float32)``); other
-    dtypes are cast to f32 first."""
-
-    name = "int8"
-
-    def encode(self, t):
-        from repro_torch.kernels.quantize import quantize_pack_int8
-        a = t.detach()
-        if a.dtype not in (torch.float32, torch.bfloat16):
-            a = a.to(torch.float32)
-        packed = quantize_pack_int8(a.reshape(-1, a.shape[-1]).contiguous())
-        return {"qp": packed.reshape(a.shape[:-1] + (packed.shape[-1],))}
-
-    def decode(self, payload):
-        qp = to_tensor(payload["qp"], self.device)
-        k = qp.shape[-1] - 4
-        q = qp[..., :k].view(torch.int8).to(torch.float32)
-        scale = qp[..., k:].contiguous().view(torch.float32)
-        return q * scale
-
-
-CODECS = {c.name: c for c in (Codec, FP16Codec, Int8Codec)}
-
-
-def get_codec(name: Optional[str], device="cpu") -> Codec:
-    key = name or "none"
-    if key not in CODECS:
-        raise ValueError(f"unknown compression {name!r}; "
-                         f"known: {sorted(CODECS)}")
-    return CODECS[key](device)

@@ -12,7 +12,7 @@ scientist, who alone sees the generated text.  With a ``transport``
 backend ("direct" | "queue") prefill and decode run as separate
 owner/scientist segment programs and the cut tensors are real wire
 payloads (measured bytes, optional fp16/int8 codec —
-``federation.transport``; the int8 codec runs the CUDA quantize kernel
+``federation.cut_codec``; the int8 codec runs the CUDA quantize kernel
 on the card).
 
 The engine runs on the CUDA card unless built with ``device="cpu"``;
@@ -36,7 +36,8 @@ import torch
 
 from repro_torch.configs.base import not_ported
 from repro_torch.device import resolve_device
-from repro_torch.federation import batching, transport as transport_mod
+from repro_torch.federation import batching, cut_codec
+from repro_torch.federation import transport as transport_mod
 from repro_torch.models.model import SplitModel
 from repro_torch.tree import tree_leaves
 
@@ -122,7 +123,7 @@ class ServingEngine:
         self.eos = eos_token
         self.pad = pad_token
         self.max_queue = max_queue
-        self._codec = transport_mod.get_codec(compression, self.device)
+        self._codec = cut_codec.get_codec(compression, self.device)
         self._cut_dtype = None        # model cut dtype, seen at first ship
         self._queue: List[Request] = []
         self._next_rid = 0

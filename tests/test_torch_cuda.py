@@ -280,7 +280,7 @@ def test_int8_codec_sends_a_bf16_cut_to_the_kernel_uncast(cuda_device,
                                                           monkeypatch):
     """A bf16 cut on the card reaches the kernel as bf16 (no cast
     launch), one counted launch per message; f32 goes as it is too."""
-    from repro_torch.federation.transport import get_codec
+    from repro_torch.federation.cut_codec import get_codec
     from repro_torch.kernels import quantize
     seen = []
     real = quantize.quantize_pack_int8

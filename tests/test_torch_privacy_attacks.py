@@ -23,7 +23,8 @@ from repro_torch.core.resolution import VerticalDataset
 from repro_torch.data import make_vertical_mnist_parties
 from repro_torch.federation import VerticalSession, feature_parties
 from repro_torch.federation import transport
-from repro_torch.federation.transport import _unpack, get_codec
+from repro_torch.federation.cut_codec import get_codec
+from repro_torch.federation.transport import _unpack
 
 # The tier-1 suite runs several xdist workers on one shared CPU: one
 # torch thread per worker keeps these tests from starving the others.

@@ -23,6 +23,7 @@ from repro.kernels.quantize import (quantize_int8 as ref_quantize_int8,
                                     quantize_int8_ref as ref_q8_oracle,
                                     quantize_pack_int8 as ref_pack,
                                     quantize_pack_int8_ref as ref_pack_oracle)
+from repro_torch.federation import cut_codec as pt_codec
 from repro_torch.federation import transport as pt_transport
 from repro_torch.kernels.quantize import (launch_counts, quantize_int8,
                                           quantize_int8_ref,
@@ -145,7 +146,7 @@ def test_int8_codec_frames_equal_reference(shape):
     and decodes to the reference's f32 within the scale tolerance."""
     x = edge_inputs(shape, seed=2)
     ours = pt_transport._pack(
-        pt_transport.get_codec("int8").encode(torch.from_numpy(x)))
+        pt_codec.get_codec("int8").encode(torch.from_numpy(x)))
     ref = ref_transport._pack(ref_transport.get_codec("int8").encode(x))
     assert len(ours) == len(ref)
     a, b = pt_transport._unpack(ours)["qp"], ref_transport._unpack(ref)["qp"]
@@ -153,7 +154,7 @@ def test_int8_codec_frames_equal_reference(shape):
     k = shape[1]
     _assert_matches_jitted_reference(a[:, :k], a[:, k:].copy().view("<f4"),
                                      b[:, :k], b[:, k:].copy().view("<f4"))
-    dec = pt_transport.get_codec("int8").decode({"qp": a})
+    dec = pt_codec.get_codec("int8").decode({"qp": a})
     np.testing.assert_allclose(
         dec.numpy(), ref_transport.get_codec("int8").decode({"qp": b}),
         rtol=1e-6, atol=0)
@@ -197,7 +198,7 @@ def test_int8_codec_bf16_frames_equal_reference(shape):
     # own conversion may give the NaN another payload)
     jb = jnp.asarray(x).astype(jnp.bfloat16)
     xb = torch.from_numpy(np.array(jb).view(np.int16)).view(torch.bfloat16)
-    ours = pt_transport._pack(pt_transport.get_codec("int8").encode(xb))
+    ours = pt_transport._pack(pt_codec.get_codec("int8").encode(xb))
     ref = ref_transport._pack(ref_transport.get_codec("int8").encode(jb))
     assert len(ours) == len(ref)
     a, b = pt_transport._unpack(ours)["qp"], ref_transport._unpack(ref)["qp"]
@@ -222,7 +223,7 @@ def test_int8_codec_sends_bf16_and_f32_cuts_uncast(monkeypatch):
         seen.append(x.dtype)
         return real(x)
     monkeypatch.setattr(quantize, "quantize_pack_int8", spy)
-    codec = pt_transport.get_codec("int8")
+    codec = pt_codec.get_codec("int8")
     x = torch.from_numpy(edge_inputs((6, 16), seed=5))
     frames = [codec.encode(x.to(dt).reshape(2, 3, 16))["qp"]
               for dt in (torch.bfloat16, torch.float32, torch.float16)]

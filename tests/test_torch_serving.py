@@ -28,7 +28,7 @@ from repro.federation import transport as ref_transport
 from repro.launch.engine import ServingEngine as RefServingEngine
 from repro.models.model import SplitModel as RefSplitModel
 from repro_torch.configs import get_config
-from repro_torch.federation import transport
+from repro_torch.federation import cut_codec, transport
 from repro_torch.launch import serve
 from repro_torch.launch.engine import QueueFull, ServingEngine
 from repro_torch.models.model import SplitModel
@@ -136,9 +136,9 @@ def test_bf16_frames_are_the_reference_s():
     assert blob == ref_transport._pack({"x": ref_arr,
                                         "s": np.arange(3, dtype=np.int32)})
     back = transport._unpack(blob)
-    got = transport.to_tensor(back["x"], torch.device("cpu"))
+    got = cut_codec.to_tensor(back["x"], torch.device("cpu"))
     assert got.dtype == torch.bfloat16 and torch.equal(got, t)
-    assert torch.equal(transport.to_tensor(back["s"], "cpu"), payload["s"])
+    assert torch.equal(cut_codec.to_tensor(back["s"], "cpu"), payload["s"])
     ref_back = ref_transport._unpack(blob)
     np.testing.assert_array_equal(
         np.asarray(ref_back["x"]).view(np.uint16),

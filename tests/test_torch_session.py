@@ -168,15 +168,6 @@ def test_unported_fit_options_raise(kw, item):
         s.fit(epochs=1, batch_size=32, verbose=False, **kw)
 
 
-def test_unported_resolve_options_raise():
-    s = VerticalSession(*feature_parties(*make_vertical_mnist_parties(
-        40, seed=0)), device="cpu")
-    for kw in (dict(mode="bloom"), dict(parallelism=2),
-               dict(backend="queue")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            s.resolve(group="modp512", **kw)
-
-
 def test_wire_frames_equal_reference():
     """``_pack`` writes the reference's frame byte for byte, from numpy
     arrays and from tensors alike; channel accounting per kind is the
