@@ -115,13 +115,33 @@ Phases, in order; any failure raises and exits non-zero:
      alignment, with exact launch counts and its loss trail against the
      CPU's; one resolve of 60000 subjects (wall, IDs/s, modexps, wire
      bytes by kind);
- 14. the results, last (after phases 15, 16 and 17): a ``{"privacy":
-     ...}`` JSON line with phase 15's numbers, a ``{"recovery": ...}``
-     line with phase 16's, a ``{"psi": ...}`` line with phase 17's, a
+ 18. the rest of ``fit`` on the paper's path: (a) frames at 8 ms one-way
+     on a queue channel pair and a process endpoint pair, the receiver's
+     wait ending past their deadline by a p50 under 0.1 ms with the
+     spin, beside the sleep alone (``REPRO_SPIN_WAIT_S=0``), with
+     ``recv``'s return (unpacking included) printed beside it; (b)
+     phase 4's split int8 fit at 8 ms one-way, pipelined, sequential, in 4 microbatches and on a
+     1e8 B/s link, each steady step at or above its round-trip floor,
+     pipelined below sequential, params and loss trail bitwise those of
+     the same fit at latency 0, with phase 4's and phase 13's exact
+     launch counts; (c) owners of widths 588 + 196 (queue and process)
+     and the reference's eight uneven owners (queue): lossless split ==
+     joint bitwise, one cut byte count for every owner, int8 fits with
+     exact counts, and cut fusion at P = 8 against its plain version
+     (2e-4), timed beside the library call and the bound; (d) a 10-step
+     split int8 process fit with ``ckpt_every=5``: the files equal the
+     fit's params, a fresh session restores step 5 and its 5 more steps
+     equal a session that went on without a restore, bit for bit, and
+     each checkpoint's wall time beside the steady step;
+ 14. the results, last (after phases 15, 16, 17 and 18): a
+     ``{"privacy": ...}`` JSON line with phase 15's numbers, a
+     ``{"recovery": ...}`` line with phase 16's, a ``{"psi": ...}`` line
+     with phase 17's, a ``{"fit_options": ...}`` line with phase 18's, a
      ``{"kernels": [...]}`` JSON line (each entry with its
-     ``recovery_launches`` in the queue crash run and its
-     ``psi_launches`` in phase 17's fit), then the ``{"ok": true,
-     ...}`` JSON line last.
+     ``recovery_launches`` in the queue crash run, its ``psi_launches``
+     in phase 17's fit and its ``phase18_launches`` over phase 18's
+     fits; cut fusion's fma entry with phase 18's P = 8 timing as
+     ``p8``), then the ``{"ok": true, ...}`` JSON line last.
 
 Without a CUDA device it prints nothing and exits 2.  It imports only
 ``repro_torch`` (never JAX or the JAX package ``repro``).
@@ -2107,6 +2127,397 @@ def phase_psi():
     return out, out["fit"]["counts"]
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the rest of fit on the paper's path
+# ---------------------------------------------------------------------------
+
+WIRE_LATENCY = 8e-3             # one-way, the paper's pipeline experiment
+WIRE_BANDWIDTH = 1e8            # bytes per second
+WIRE_FRAMES = 200
+IMBALANCED = (588, 196)
+#: the reference's eight uneven owners (tests/test_process_transport.py)
+EIGHT_OWNERS = (200, 60, 120, 84, 96, 40, 104, 80)
+CUT_P8 = (8, 128, 64, 500, "concat", 8)
+
+
+def _pcts(ms):
+    ms = sorted(ms)
+    return {"p50_ms": ms[len(ms) // 2], "p90_ms": ms[(9 * len(ms)) // 10],
+            "max_ms": ms[-1], "min_ms": ms[0]}
+
+
+def wire_overshoot(backend, spin):
+    """``WIRE_FRAMES`` frames (an int8 cut's (128, 68) bytes) sent one at
+    a time at ``WIRE_LATENCY`` one-way on a queue channel pair or a
+    process endpoint pair: how far past its deadline (``not_before``)
+    the receiver's wait ends (``wait``), and how far past it ``recv``
+    returns the frame, its CRC check and unpacking included
+    (``delivery``), in ms.  ``spin`` False builds the pair under
+    ``REPRO_SPIN_WAIT_S=0`` (the sleep alone).  The wait is timed by
+    wrapping ``transport.wait_until`` for the run."""
+    import numpy as np
+    from repro_torch.federation import process_transport, transport
+    old = os.environ.pop("REPRO_SPIN_WAIT_S", None)
+    if not spin:
+        os.environ["REPRO_SPIN_WAIT_S"] = "0"
+    try:
+        if backend == "queue":
+            a, b = transport.channel_pair("a", "b",
+                                          latency_s=WIRE_LATENCY)
+            spin_s = b.inbox.spin_s
+        else:
+            a, b = process_transport.process_endpoint_pair(
+                "a", "b", latency_s=WIRE_LATENCY)
+            spin_s = b.spin_s
+    finally:
+        os.environ.pop("REPRO_SPIN_WAIT_S", None)
+        if old is not None:
+            os.environ["REPRO_SPIN_WAIT_S"] = old
+    waits, delivery = [], []
+    real = transport.wait_until
+
+    def timed_wait(deadline, spin_s=transport.SPIN_WAIT_S):
+        real(deadline, spin_s)
+        waits.append(1e3 * (time.monotonic() - deadline))
+
+    x = np.zeros((128, 68), np.uint8)
+    mods = (transport, process_transport)
+    for m in mods:
+        m.wait_until = timed_wait
+    try:
+        for i in range(WIRE_FRAMES):
+            msg = a.send("cut_activations", {"x": x}, seq=i)
+            b.recv(timeout=10.0)
+            delivery.append(1e3 * (time.monotonic() - msg.not_before))
+    finally:
+        for m in mods:
+            m.wait_until = real
+        if backend == "process":
+            a.close()
+            b.close()
+    if len(waits) != WIRE_FRAMES:
+        raise AssertionError(f"{backend}: {len(waits)} waits for "
+                             f"{WIRE_FRAMES} frames")
+    return {"spin_s": spin_s, "wait": _pcts(waits),
+            "delivery": _pcts(delivery)}
+
+
+def fit_counts(session, schedule="pipelined", microbatches=1, int8=True,
+               evaluates=2, process=False):
+    """The launches a split fit of ``session`` implies (phase 4's and
+    phase 13's forms), ``evaluates`` evaluations included: cut fusion on
+    every trunk forward; with int8 one quantize per cut and cut-gradient
+    chunk, the warmup's included (worker processes count their own
+    cuts)."""
+    n_cut = trunk_forwards(session, schedule, microbatches, evaluates)
+    need = {"cut_fusion": n_cut, "cut_fusion.fma": n_cut,
+            "cut_fusion.tc": 0}
+    if int8:
+        steps = session.transport_stats["steps"]
+        need["quantize_pack_int8"] = len(session.owners) * microbatches \
+            * (steps + 1) * (1 if process else 2)
+    return need
+
+
+def leaves_of(session):
+    from repro_torch.tree import tree_leaves
+    return tree_leaves(session.params)
+
+
+def same_leaves(a, b):
+    import torch
+    return len(a) == len(b) and all(torch.equal(x.cpu(), y.cpu())
+                                    for x, y in zip(a, b))
+
+
+def owners_session(device, splits, keep_frac, parallelism=0, **split):
+    """Phase 4's 2000 subjects split across owners of widths ``splits``,
+    resolved (modp512) and built with the paper's head and trunk."""
+    import dataclasses
+    from repro_torch.configs import CONFIG
+    from repro_torch.data import make_vertical_mnist_parties
+    from repro_torch.federation import VerticalSession, feature_parties
+    s = VerticalSession(*feature_parties(*make_vertical_mnist_parties(
+        2000, n_owners=len(splits), seed=0, keep_frac=keep_frac,
+        feature_splits=splits)), device=device)
+    s.resolve(group="modp512", parallelism=parallelism)
+    return s.build(dataclasses.replace(
+        CONFIG, feature_splits=splits, split=dataclasses.replace(
+            CONFIG.split, n_owners=len(splits), **split)))
+
+
+def run_fit(session, total, what, need=None, evaluate=True, **kw):
+    """``session.fit(**kw)`` from its built params, then one evaluate,
+    with the launch counts read around both and checked against
+    ``need(session)``; the counts are added into ``total``."""
+    session.build(session.config)
+    reset_counts()
+    h = session.fit(**kw)
+    if evaluate:
+        session.evaluate()
+    counts = read_counts()
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    if need is not None:
+        check_counts(counts, need(session), what)
+    return h
+
+
+def phase_fit_options(bw, f32_flops):
+    """Phase 18: the delivery wait's precision at 8 ms one-way; the
+    paper's pipeline at 8 ms (pipelined, sequential, 4 microbatches, and
+    a 1e8 B/s link) against its round-trip floors and bitwise against
+    latency 0; owners of unequal widths (588 + 196 on queue and process,
+    the reference's eight on the queue) split == joint bitwise, with cut
+    fusion at P = 8 timed; and checkpoints of a process fit restored and
+    resumed bit for bit."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import restore_split
+    from repro_torch.kernels.cut_fusion import (cut_fusion, cut_fusion_ref,
+                                                route_of)
+    from repro_torch.tree import tree_leaves
+    out = {"latency_s": WIRE_LATENCY, "bandwidth_bps": WIRE_BANDWIDTH}
+    total: dict = {}
+
+    # ---- (a) the delivery wait: spin, then the sleep alone
+    out["wire"] = {}
+    for backend in ("queue", "process"):
+        for spin in (True, False):
+            r = wire_overshoot(backend, spin)
+            out["wire"][f"{backend}/{'spin' if spin else 'sleep'}"] = r
+            w, d = r["wait"], r["delivery"]
+            print(f"  (a) {backend}, {'spin' if spin else 'sleep alone'} "
+                  f"(spin_s {r['spin_s']}), {WIRE_FRAMES} frames at "
+                  f"{1e3 * WIRE_LATENCY:.0f} ms one-way, past the "
+                  f"deadline: the wait ends p50 {w['p50_ms']:.4f} / p90 "
+                  f"{w['p90_ms']:.4f} / max {w['max_ms']:.4f} ms; recv "
+                  f"returns p50 {d['p50_ms']:.4f} / p90 {d['p90_ms']:.4f} "
+                  f"/ max {d['max_ms']:.4f} ms")
+            if w["min_ms"] < 0:
+                raise AssertionError(f"{backend}: a wait ended before its "
+                                     "deadline")
+            if spin and w["p50_ms"] >= 0.1:
+                raise AssertionError(f"{backend}: p50 overshoot of the "
+                                     f"wait {w['p50_ms']:.4f} ms >= 0.1 ms")
+
+    # ---- (b) the paper's pipeline at 8 ms one-way
+    s, _ = mnist_session("cuda")
+    base = dict(epochs=1, batch_size=128, eval_frac=0.15, mode="split",
+                compression="int8", backend="queue", verbose=False)
+    runs = {"pipelined": dict(schedule="pipelined"),
+            "sequential": dict(schedule="sequential"),
+            "pipelined_m4": dict(microbatches=4)}
+    zero = {}
+    for name, kw in runs.items():
+        M = kw.get("microbatches", 1)
+        sched = kw.get("schedule", "pipelined")
+        h = run_fit(s, total, f"the {name} fit at latency 0",
+                    lambda x: fit_counts(x, sched, M), **base, **kw)
+        zero[name] = (leaves_of(s), h["loss_trail"])
+    runs["pipelined_bw"] = dict(bandwidth_bps=WIRE_BANDWIDTH)
+    out["pipeline"] = {}
+    for name, kw in runs.items():
+        M = kw.get("microbatches", 1)
+        sched = kw.get("schedule", "pipelined")
+        h = run_fit(s, total, f"the {name} fit at 8 ms",
+                    lambda x: fit_counts(x, sched, M), **base, **kw,
+                    latency_s=WIRE_LATENCY)
+        ts = s.transport_stats
+        wk = ts["wire_by_kind"]
+        frame = {k: wk[k]["wire_bytes"] / wk[k]["count"]
+                 for k in ("cut_activations", "cut_gradients")}
+        rtts = 2 if sched == "sequential" else 1
+        floor = 1e3 * 2 * rtts * WIRE_LATENCY
+        if "bandwidth_bps" in kw:
+            # the step's one round trip carries a gradient and a cut frame
+            floor += 1e3 * (frame["cut_activations"]
+                            + frame["cut_gradients"]) / WIRE_BANDWIDTH
+        twin = "pipelined" if name == "pipelined_bw" else name
+        params0, trail0 = zero[twin]
+        bitwise = same_leaves(leaves_of(s), params0) \
+            and h["loss_trail"] == trail0
+        out["pipeline"][name] = {
+            "steady_step_ms": ts["steady_step_ms"], "step_ms": ts["step_ms"],
+            "floor_ms": floor, "steps": ts["steps"], "microbatches": M,
+            "frame_bytes": frame, "bitwise_vs_latency_0": bitwise}
+        print(f"  (b) {name}: steady_step_ms {ts['steady_step_ms']:.3f} "
+              f"(floor {floor:.3f} ms: {rtts} round trip(s) of "
+              f"{1e3 * WIRE_LATENCY:.0f} ms one-way"
+              + (f" + a {frame['cut_activations']:.0f} B cut and a "
+                 f"{frame['cut_gradients']:.0f} B gradient at "
+                 f"{WIRE_BANDWIDTH:.0e} B/s" if "bandwidth_bps" in kw
+                 else "")
+              + f"), step_ms {ts['step_ms']:.3f}; params and loss trail "
+              f"{'bitwise equal to' if bitwise else 'DIFFER from'} "
+              f"latency 0")
+        if not bitwise:
+            raise AssertionError(f"{name}: latency changed the fit")
+        if ts["steady_step_ms"] < floor:
+            raise AssertionError(f"{name}: step below its floor")
+    pipe = out["pipeline"]
+    if not pipe["pipelined"]["steady_step_ms"] < \
+            pipe["sequential"]["steady_step_ms"]:
+        raise AssertionError("pipelined is not faster than sequential")
+
+    # ---- (c) owners of unequal widths
+    N = min(8, os.cpu_count() or 1)
+    out["imbalanced"] = {}
+    lossless = dict(base, compression=None)
+    s2 = owners_session("cuda", IMBALANCED, 0.9)
+    run_fit(s2, total, "the joint fit (588 + 196)",
+            lambda x: {"cut_fusion": trunk_forwards(x, "joint",
+                                                    evaluates=2)},
+            **dict(lossless, mode="joint"))
+    joint = (leaves_of(s2), s2.history["loss_trail"])
+    for backend in ("queue", "process"):
+        t = time.time()
+        h = run_fit(s2, total, f"the lossless {backend} fit (588 + 196)",
+                    lambda x: fit_counts(x, int8=False),
+                    **dict(lossless, backend=backend))
+        if not (same_leaves(leaves_of(s2), joint[0])
+                and h["loss_trail"] == joint[1]):
+            raise AssertionError(f"588 + 196, {backend}: split != joint")
+        lossless_s = time.time() - t
+        t = time.time()
+        h8 = run_fit(s2, total, f"the int8 {backend} fit (588 + 196)",
+                     lambda x: fit_counts(x, process=backend == "process"),
+                     **dict(base, backend=backend))
+        po = s2.transport_stats["per_owner"]
+        if len({v["cut_wire_bytes"] for v in po.values()}) != 1:
+            raise AssertionError(f"588 + 196, {backend}: cut bytes differ "
+                                 f"by owner: {po}")
+        out["imbalanced"][f"588+196/{backend}"] = {
+            "shared": len(s2.scientist.ids),
+            "steps": s2.transport_stats["steps"],
+            "int8_loss_trail": h8["loss_trail"],
+            "steady_step_ms": s2.transport_stats["steady_step_ms"],
+            "cut_wire_bytes_per_owner": po["owner0"]["cut_wire_bytes"]}
+        print(f"  (c) 588 + 196 on {backend}: lossless split == joint, "
+              f"params and loss trail bitwise ({len(joint[1])} steps, "
+              f"{lossless_s:.2f} s); int8 fit ({time.time() - t:.2f} s) "
+              f"trail {[round(v, 4) for v in h8['loss_trail']]}, steady "
+              f"{s2.transport_stats['steady_step_ms']:.3f} ms, "
+              f"{po['owner0']['cut_wire_bytes']} cut bytes per owner")
+    if out["imbalanced"]["588+196/queue"]["int8_loss_trail"] != \
+            out["imbalanced"]["588+196/process"]["int8_loss_trail"]:
+        raise AssertionError("588 + 196 int8: process != queue")
+    t = time.time()
+    s8 = owners_session("cuda", EIGHT_OWNERS, 0.95, parallelism=N)
+    resolve_s = time.time() - t
+    run_fit(s8, total, "the joint fit (eight owners)",
+            lambda x: {"cut_fusion": trunk_forwards(x, "joint",
+                                                    evaluates=2)},
+            **dict(lossless, mode="joint"))
+    joint8 = (leaves_of(s8), s8.history["loss_trail"])
+    h = run_fit(s8, total, "the lossless queue fit (eight owners)",
+                lambda x: fit_counts(x, int8=False), **lossless)
+    po = s8.transport_stats["per_owner"]
+    if not (same_leaves(leaves_of(s8), joint8[0])
+            and h["loss_trail"] == joint8[1]):
+        raise AssertionError("eight owners: split != joint")
+    if len({v["cut_wire_bytes"] for v in po.values()}) != 1:
+        raise AssertionError(f"eight owners: cut bytes differ: {po}")
+    h8 = run_fit(s8, total, "the int8 queue fit (eight owners)",
+                 lambda x: fit_counts(x), **base)
+    out["imbalanced"]["eight/queue"] = {
+        "shared": len(s8.scientist.ids), "resolve_s": resolve_s,
+        "steps": s8.transport_stats["steps"],
+        "int8_loss_trail": h8["loss_trail"],
+        "steady_step_ms": s8.transport_stats["steady_step_ms"]}
+    print(f"  (c) eight owners {EIGHT_OWNERS} on the queue "
+          f"({len(s8.scientist.ids)} shared, resolved with a pool of {N} "
+          f"in {resolve_s:.2f} s): lossless split == joint bitwise over "
+          f"{len(joint8[1])} steps, one cut byte count "
+          f"({po['owner0']['cut_wire_bytes']}) for every owner; int8 "
+          f"steady {s8.transport_stats['steady_step_ms']:.3f} ms")
+    # cut fusion at P = 8, the trunk's input at eight owners
+    P, T, K, D, combine, _ = CUT_P8
+    rng = np.random.default_rng(0)
+    z = torch.from_numpy(rng.normal(size=(P, T, K)).astype(
+        np.float32)).cuda()
+    w = torch.from_numpy(rng.normal(size=(P, K, D)).astype(
+        np.float32)).cuda()
+    want = cut_fusion_ref(z, w, combine=combine)
+    got = cut_fusion(z, w, combine)
+    d = (got - want).abs()
+    ratio = (d / (2e-4 + 2e-4 * want.abs())).max().item()
+    if ratio > 1.0 or not torch.isfinite(got).all():
+        raise AssertionError(f"cut_fusion P = 8: max |diff| "
+                             f"{d.max().item():.3e} beyond atol=rtol=2e-4")
+    bound, by, flops, nbytes = cut_bound(CUT_P8, torch.float32, bw,
+                                         f32_flops)
+    library = cut_library_call(z, w, combine)
+    p8 = {"shape": list(CUT_P8[:4]), "combine": combine,
+          "dtype": "float32", "route": route_of(z, w, combine),
+          "max_abs_err": d.max().item(), "tol_ratio": ratio,
+          "ms": device_ms(lambda: cut_fusion(z, w, combine)),
+          "plain_ms": device_ms(lambda: cut_fusion_ref(z, w,
+                                                       combine=combine)),
+          "library_ms": device_ms(library), "bound_ms": bound,
+          "bound_by": by, "flops": flops, "bytes": nbytes}
+    p8["x_lib"] = p8["ms"] / p8["library_ms"]
+    out["cut_fusion_p8"] = p8
+    print(f"  (c) cut_fusion (P, T, k, d) {CUT_P8[:4]} f32 "
+          f"[{p8['route']}]: max |diff| {p8['max_abs_err']:.3e} (ratio "
+          f"{ratio:.3f}); {p8['ms']:.6f} ms, plain {p8['plain_ms']:.6f} "
+          f"ms, library {p8['library_ms']:.6f} ms (x lib "
+          f"{p8['x_lib']:.2f}), bound {bound:.6f} ms ({by})")
+
+    # ---- (d) checkpoints of a process fit, restored and resumed
+    ckpt_dir = Path(__file__).resolve().parent / "build" / "phase18_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    kw = dict(steps=10, batch_size=128, eval_frac=0.15, mode="split",
+              compression="int8", verbose=False, shuffle_seed=0)
+    try:
+        run_fit(s, total, "the process fit with checkpoints",
+                lambda x: fit_counts(x, process=True, evaluates=1),
+                evaluate=False,
+                **kw, backend="process", ckpt_dir=str(ckpt_dir),
+                ckpt_every=5)
+        ts = s.transport_stats
+        ten = leaves_of(s)
+        dirs = sorted(os.listdir(ckpt_dir))
+        if dirs != ["step_00000005", "step_00000010"]:
+            raise AssertionError(f"checkpoints at {dirs}")
+        if not same_leaves([torch.from_numpy(a) for a in tree_leaves(
+                restore_split(str(ckpt_dir / dirs[1])))], ten):
+            raise AssertionError("the step-10 files != the fit's params")
+        # the same five steps without checkpoints (queue == process)
+        half = dict(kw, steps=5, backend="queue")
+        run_fit(s, total, "five steps", None, evaluate=False, **half)
+        five = leaves_of(s)
+        if not same_leaves([torch.from_numpy(a) for a in tree_leaves(
+                restore_split(str(ckpt_dir / dirs[0])))], five):
+            raise AssertionError("the step-5 files != five steps' params")
+        s.fit(**half)                     # on, without a restore
+        on = (leaves_of(s), s.history["loss_trail"])
+        fresh, _ = mnist_session("cuda")
+        fresh.restore(str(ckpt_dir / dirs[0]))
+        if not same_leaves(leaves_of(fresh), five):
+            raise AssertionError("restored params != the step-5 state")
+        fresh.fit(**half)
+        if not (same_leaves(leaves_of(fresh), on[0])
+                and fresh.history["loss_trail"] == on[1]):
+            raise AssertionError("the resumed fit != the session that "
+                                 "went on without a restore")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    out["checkpoint"] = {"ckpt_s": ts["ckpt_s"],
+                         "steady_step_ms": ts["steady_step_ms"],
+                         "step_ms": ts["step_ms"]}
+    print(f"  (d) process fit, 10 steps, ckpt_every=5: files at {dirs}; "
+          f"checkpoint wall {[round(x, 4) for x in ts['ckpt_s']]} s "
+          f"(sync + pull + save) beside a steady step of "
+          f"{ts['steady_step_ms']:.3f} ms; the step-10 files == the fit's "
+          f"params, the step-5 files == five steps' params, bitwise; "
+          f"restored + 5 steps == the same session going on without a "
+          f"restore (params and loss trail bitwise)")
+    return out, total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2199,6 +2610,12 @@ def main():
     print("== 17. PSI entity resolution: every mode and backend, the pool, "
           "delta rounds, retries, into the split int8 fit")
     psi_out, psi_counts = phase_psi()
+    print(f"  phase wall {time.time() - t:.2f} s")
+
+    t = time.time()
+    print("== 18. the rest of fit: wire latency and bandwidth, owners of "
+          "unequal widths, checkpoints")
+    fit_out, fit_counts_18 = phase_fit_options(bw, flops)
     print(f"  phase wall {time.time() - t:.2f} s")
 
     print("== 14. results")
@@ -2298,10 +2715,16 @@ def main():
         e["recovery_launches"] = crash_counts.get(e["name"], 0)
         # and in phase 17's split int8 fit on the hidden alignment
         e["psi_launches"] = psi_counts.get(e["name"], 0)
+        # and over phase 18's fits and evaluations
+        e["phase18_launches"] = fit_counts_18.get(e["name"], 0)
+    # cut fusion at eight owners (phase 18), beside the path's P = 2
+    next(e for e in entries if e["name"] == "cut_fusion.fma")["p8"] = \
+        fit_out["cut_fusion_p8"]
     print(json.dumps({"privacy": {k: v for k, v in priv.items()
                                   if k != "counts"}}))
     print(json.dumps({"recovery": without(rec, "all_counts")}))
     print(json.dumps({"psi": psi_out}))
+    print(json.dumps({"fit_options": fit_out}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -50,7 +50,9 @@ from typing import (Callable, Dict, Iterator, List, Optional, Sequence,
                     Tuple)
 
 from repro_torch.core.bloom import ShardedBloom
-from repro_torch.core.modexp import ModexpPool, hashpow_chunk, pow_chunk
+from repro_torch.core.modexp import ModexpPool, hashpow_chunk
+from repro_torch.core.modexp import hash_to_group as _hash_to_group
+from repro_torch.core.modexp import pack_ints, pow_chunk, unpack_ints
 
 # RFC 3526, 2048-bit MODP group: p is a safe prime (p = 2q + 1).
 P_HEX = (
@@ -141,6 +143,13 @@ def decoy_row(position: int, n_rows: int) -> int:
     return (position * _DECOY_MULT) % max(1, n_rows)
 
 
+def hash_to_group(item: bytes, prime: int = PRIME, nbytes: int = 256) -> int:
+    """H(x) = (sha256-derived integer mod p)^2, in QR_p (order q); it
+    lives in :mod:`repro_torch.core.modexp`, beside the chunk kernels
+    that fuse it with the blinding."""
+    return _hash_to_group(item, prime, nbytes)
+
+
 def _sample_exponent(q: int, exp_bits: Optional[int] = SHORT_EXP_BITS) -> int:
     """A secret exponent in [2, q).  ``exp_bits`` bounds its width for
     short-exponent DH (None = full-width uniform)."""
@@ -193,6 +202,7 @@ class PSIClient:
             self._blind_exp = _sample_exponent(self._q, exp_bits)
             self._unblind_exp = None            # noinv/hidden never unblind
         self._blinded_packed: Optional[bytes] = None
+        self._blinded: Optional[List[int]] = None      # ``blind()``'s ints
         #: cumulative modular exponentiations submitted by this client
         #: (one per set element per leg) — the delta gate's cost metric
         self.ops = 0
@@ -221,6 +231,22 @@ class PSIClient:
                  for lo, hi in _chunk_slices(len(items), chunk_size)))
             self._blinded_packed = b"".join(parts)
         return self._blinded_packed
+
+    def blind(self) -> List[int]:
+        """The one-shot API: the blinded set as ints (memoized)."""
+        if self._blinded is None:
+            self._blinded = unpack_ints(self.blind_packed(), self._nb)
+        return self._blinded
+
+    def reset_session(self) -> None:
+        """Drop the memoized blinded set and the delta and round state,
+        keeping the secrets: a fresh round with the same exponents."""
+        self._blinded_packed = None
+        self._blinded = None
+        self._delta = None
+        self._base_items = None
+        self._base_packed = None
+        self.round_cache.clear()
 
     # -- delta resolution --------------------------------------------------
     def update_items(self, new_items: Sequence[str],
@@ -288,6 +314,7 @@ class PSIClient:
         rows = np.frombuffer(base_packed, np.uint8).reshape(-1, nb)
         kept = rows[retained].tobytes() if retained else b""
         self._blinded_packed = kept + added_packed
+        self._blinded = None
         self.items = [base_items[i] for i in retained] + added
 
         delta_bytes = len(added_packed) + 8 * len(removed)
@@ -352,6 +379,18 @@ class PSIClient:
         hits = _exact_membership(d_blob, t_blob, self._nb)
         return [self.items[i] for i in np.nonzero(hits)[0]]
 
+    def intersect(self, double_blinded: Sequence[int],
+                  server_bloom) -> List[str]:
+        """The one-shot API: the intersection from an unchunked
+        bloom-mode response (:meth:`PSIServer.respond`).  A client of
+        another mode unblinds with α^{-1} mod q (full width)."""
+        exp = self._unblind_exp
+        if exp is None:
+            exp = pow(self._blind_exp, -1, self._q)
+        packed = pack_ints(list(double_blinded), self._nb)
+        unb = pow_chunk((packed, exp, self._p, self._nb))
+        return self._match_packed(unb, server_bloom, 0)
+
 
 class PSIServer:
     """A data owner's side.  β is short; both server legs (double-blind,
@@ -401,6 +440,22 @@ class PSIServer:
                               for i in range(0, len(packed), nb)])
             self._bloom = bf
         return self._bloom
+
+    def reset_session(self) -> None:
+        """Drop the memoized response side (keeping β); see
+        :meth:`PSIClient.reset_session`."""
+        self._bloom = None
+        self._own_packed = None
+        self._own_rows = None
+        self._own_elems = {}
+
+    def respond(self, blinded: Sequence[int]):
+        """The one-shot API: (the double-blinded client set in order,
+        the bloom over the owner's set)."""
+        packed = pack_ints(list(blinded), self._nb)
+        double = unpack_ints(
+            pow_chunk((packed, self._beta, self._p, self._nb)), self._nb)
+        return double, self.build_bloom()
 
     def update_items(self, new_items: Sequence[str]) -> None:
         """Replace the owner's item set.  The per-item blinded elements

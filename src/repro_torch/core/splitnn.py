@@ -6,7 +6,9 @@
    10 trunk).  Parameters keep the reference's layout: each layer is
    ``{"w": (in, out), "b": (out,)}`` computing ``x @ w + b``; ``heads``
    is a list of layers whose leaves are stacked over owners
-   (``(P, 392, 64)``, ``(P, 64)``), ``trunk`` a list of layers.  The
+   (``(P, 392, 64)``, ``(P, 64)``) or, for owners of unequal widths
+   (``feature_splits``), a list of per-owner layer lists; ``trunk`` a
+   list of layers.  The
    trunk's first layer is the fused cut layer (``trunk_apply``): the
    owners' cuts go through the cut-fusion kernel
    (``repro_torch.kernels.cut_fusion``) straight into the trunk's input
@@ -71,20 +73,25 @@ def nll_parts(logits, labels, denom: float):
 
 
 class MLPSplitNN:
+    """``feature_splits`` gives each owner its own input width (summing
+    to ``n_features``); without it the owners split the features
+    equally.  Owners of one width (``symmetric``) keep their head leaves
+    stacked over owners; owners of unequal widths keep a list of head
+    segments, one per owner.  Every cut is (B, k) either way, so the
+    trunk and cut fusion do not depend on the widths."""
+
     def __init__(self, cfg: MLPSplitConfig):
         self.cfg = cfg
         sp = cfg.split
         self.P = sp.n_owners
-        if cfg.feature_splits and len(set(cfg.feature_splits)) > 1:
-            raise NotImplementedError(
-                "imbalanced owner feature widths are not ported yet "
-                "(ROADMAP.md, port queue)")
+        self.splits = (tuple(cfg.feature_splits or ())
+                       or (cfg.n_features // self.P,) * self.P)
+        if len(self.splits) != self.P or sum(self.splits) != cfg.n_features:
+            raise ValueError(f"feature_splits {self.splits} inconsistent")
         if sp.combine not in ("concat", "sum", "mean", "max"):
             raise ValueError(sp.combine)
-        if cfg.n_features % self.P:
-            raise ValueError(f"{cfg.n_features} features not divisible by "
-                             f"{self.P} owners")
-        self.f_p = cfg.n_features // self.P        # 392 per owner (paper)
+        self.symmetric = len(set(self.splits)) == 1
+        self.f_p = self.splits[0]                  # 392 per owner (paper)
         self.k = cfg.head_layers[-1]               # 64
         self.trunk_in = self.P * self.k if sp.combine == "concat" else self.k
 
@@ -98,9 +105,10 @@ class MLPSplitNN:
         """Random params on the CPU from ``gen`` (He-normal weights, zero
         biases, the reference's scheme; the numbers differ from JAX's —
         carry reference params across with ``repro_torch.weights``)."""
-        head_dims = (self.f_p,) + self.cfg.head_layers
-        heads = stack_heads([self._mlp_init(gen, head_dims)
-                             for _ in range(self.P)])
+        heads = [self._mlp_init(gen, (f,) + self.cfg.head_layers)
+                 for f in self.splits]
+        if self.symmetric:
+            heads = stack_heads(heads)
         trunk = self._mlp_init(gen, (self.trunk_in,) + self.cfg.trunk_layers)
         return {"heads": heads, "trunk": trunk}
 
@@ -116,10 +124,17 @@ class MLPSplitNN:
         """One owner's head: Linear(392 -> 64) + ReLU."""
         return torch.relu(self._mlp_apply(hp, x))
 
+    def owner_head(self, heads, p: int):
+        """Owner ``p``'s head segment: a slice of the stacked heads, or
+        the ``p``-th entry of a list of per-owner segments."""
+        return head_slice(heads, p) if self.symmetric else heads[p]
+
     def heads_forward(self, heads, x_slices):
-        """x_slices: (P, B, f_p).  Each owner's head through
-        :meth:`head_apply`, stacked to (P, B, k)."""
-        return torch.stack([self.head_apply(head_slice(heads, p), x_slices[p])
+        """x_slices: (P, B, f_p), or a list of (B, f_i) slices for owners
+        of unequal widths.  Each owner's head through :meth:`head_apply`,
+        stacked to (P, B, k)."""
+        return torch.stack([self.head_apply(self.owner_head(heads, p),
+                                            x_slices[p])
                             for p in range(self.P)])
 
     def trunk_apply(self, trunk, cut):
@@ -159,7 +174,12 @@ class MLPSplitNN:
                                   float(logits.shape[0]))
         w = float(self.cfg.split.nopeek_weight)
         if w > 0.0:
-            return loss + nopeek_penalty(xs, cut, w), metrics
+            if isinstance(xs, (list, tuple)):   # owners of unequal widths
+                pen = w * sum(distance_correlation(x, c)
+                              for x, c in zip(xs, cut))
+            else:
+                pen = nopeek_penalty(xs, cut, w)
+            return loss + pen, metrics
         return loss, metrics
 
 

@@ -1,6 +1,7 @@
 """Batch layouts (the port's counterpart of ``repro.federation.batching``).
 
   feature layout    ``x_slices``     (P, B, f_p)   <-> partition_features
+                    (a list of (B, f_i) for owners of unequal widths)
   sequence layout   ``owner_tokens`` (P, B, S_p)   <-> partition_sequence
   serving layout    padded request waves -> the sequence layout
 
@@ -10,33 +11,38 @@ optional label gather the session does for the scientist.
 from __future__ import annotations
 
 import hashlib
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 
-def stack_feature_slices(slices: Sequence[np.ndarray]) -> np.ndarray:
-    """Per-owner feature slices [(B, f), ...] -> stacked (P, B, f).  The
-    port trains equal owner widths only (imbalanced widths are queued in
-    ROADMAP.md)."""
-    if len({s.shape[-1] for s in slices}) != 1:
-        raise NotImplementedError(
-            "imbalanced owner feature widths are not ported yet "
-            "(ROADMAP.md, port queue)")
-    return np.stack([np.asarray(s) for s in slices])
+def stack_feature_slices(slices: Sequence[np.ndarray]
+                         ) -> Union[np.ndarray, List[np.ndarray]]:
+    """Per-owner feature slices [(B, f_i), ...] -> stacked (P, B, f) when
+    the owners have one width, else the list as it is (owners of unequal
+    widths stay ragged)."""
+    if len({s.shape[-1] for s in slices}) == 1:
+        return np.stack([np.asarray(s) for s in slices])
+    return [np.asarray(s) for s in slices]
+
+
+def _tensor(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
 
 
 def feature_batch(owner_slices: Sequence[np.ndarray],
                   labels: Optional[np.ndarray], idx=None, *,
-                  device="cpu") -> Dict[str, torch.Tensor]:
+                  device="cpu") -> Dict[str, object]:
     """An ``MLPSplitNN`` batch from per-owner feature matrices
-    [(N, f), ...] + scientist labels (N,), optionally gathering rows
-    ``idx`` (ID-aligned across all parties after resolution)."""
+    [(N, f_i), ...] + scientist labels (N,), optionally gathering rows
+    ``idx`` (ID-aligned across all parties after resolution).
+    ``x_slices`` is one stacked tensor, or a list of per-owner tensors
+    for owners of unequal widths."""
     sel = (lambda a: a if idx is None else a[idx])
     xs = stack_feature_slices([sel(np.asarray(s)) for s in owner_slices])
-    batch = {"x_slices": torch.from_numpy(np.ascontiguousarray(
-        xs, np.float32)).to(device)}
+    batch = {"x_slices": ([_tensor(x, device) for x in xs]
+                          if isinstance(xs, list) else _tensor(xs, device))}
     if labels is not None:
         batch["labels"] = torch.from_numpy(
             sel(np.asarray(labels)).astype(np.int64)).to(device)

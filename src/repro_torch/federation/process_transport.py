@@ -29,7 +29,8 @@ owner's compute loop and the PSI actor use (``send`` / ``recv`` /
     shows as a closed pipe, which raises too.
   * **Latency across the boundary.**  The sender stamps a delivery
     deadline (``latency_s + wire_bytes / bandwidth_bps`` past the send)
-    into the header and the receiver waits it out.
+    into the header and the receiver waits it out: a coarse sleep, then
+    a spin over the last ``spin_s`` seconds (``transport.wait_until``).
   * **Checked frames.**  The header carries a CRC32 of the blob; a
     mismatch raises ``transport.FrameCorrupt``, which ``recv_kind``
     routes to the kind that owns the frame.  ``fault_hook`` drops,
@@ -56,7 +57,8 @@ import numpy as np
 
 from repro_torch.federation.transport import (FrameCorrupt, KindReceiver,
                                               Message, _nbytes, _pack,
-                                              _unpack, crc32, wait_until)
+                                              _unpack, crc32, spin_wait_s,
+                                              wait_until)
 
 __all__ = ["ProcessEndpoint", "process_endpoint_pair", "POISON_KIND",
            "FrameCorrupt"]
@@ -92,15 +94,19 @@ def _account(stats: Dict[str, object], kind: str, payload_bytes: int,
 class ProcessEndpoint(KindReceiver):
     """One party's end of a duplex process boundary.  ``recv`` raises
     ``queue.Empty`` on timeout and ``RuntimeError`` once the peer died
-    (its error frame, or a closed pipe)."""
+    (its error frame, or a closed pipe).  A frame's deadline is waited
+    out with a spin over its last ``spin_s`` seconds (None:
+    ``transport.spin_wait_s()`` at construction)."""
 
     def __init__(self, name: str, peer: str, conn, *,
                  latency_s: float = 0.0,
-                 bandwidth_bps: Optional[float] = None):
+                 bandwidth_bps: Optional[float] = None,
+                 spin_s: Optional[float] = None):
         self.name, self.peer = name, peer
         self.conn = conn
         self.latency_s = latency_s
         self.bandwidth_bps = bandwidth_bps
+        self.spin_s = spin_wait_s() if spin_s is None else spin_s
         # fault hook: ``fault_hook(kind, seq) -> (action, delay_s) | None``,
         # installed by ``faults.arm_endpoint`` (drop, corrupt, delay)
         self.fault_hook = None
@@ -212,18 +218,21 @@ class ProcessEndpoint(KindReceiver):
         with self._lock:
             _account(self.recv_stats, kind, int(pb), len(blob))
         if not_before:
-            wait_until(not_before)
+            wait_until(not_before, self.spin_s)
         return Message(self.peer, self.name, kind, _unpack(blob),
                        seq=int(seq), payload_bytes=int(pb),
                        wire_bytes=len(blob), not_before=not_before,
                        crc=int(crc))
 
     def recv(self, timeout: Optional[float] = None) -> Message:
+        # the frame is read (and its deadline waited out) outside the
+        # lock, as the queue endpoint does: a waiter in ``recv_kind``
+        # never waits behind a spin
         with self._cond:
             if self._stash:
                 return self._stash.pop(0)
             self._check_peer()
-            return self._recv_frame(timeout)
+        return self._recv_frame(timeout)
 
     _read = _recv_frame
 
@@ -246,12 +255,14 @@ class ProcessEndpoint(KindReceiver):
 
 
 def process_endpoint_pair(a: str, b: str, *, latency_s: float = 0.0,
-                          bandwidth_bps: Optional[float] = None
+                          bandwidth_bps: Optional[float] = None,
+                          spin_s: Optional[float] = None
                           ) -> Tuple[ProcessEndpoint, ProcessEndpoint]:
     """Both ends of a process boundary in the current process (the
     worker spawn builds the far end inside the child; see
     ``federation/runtime.py``)."""
     import multiprocessing as mp
     c1, c2 = mp.Pipe(duplex=True)
-    kw = dict(latency_s=latency_s, bandwidth_bps=bandwidth_bps)
+    kw = dict(latency_s=latency_s, bandwidth_bps=bandwidth_bps,
+              spin_s=spin_s)
     return ProcessEndpoint(a, b, c1, **kw), ProcessEndpoint(b, a, c2, **kw)

@@ -103,10 +103,14 @@ class MLPAdapter:
         return self.cfg.split.combine == "sum"
 
     def owner_param_slice(self, params, p: int):
-        return splitnn.head_slice(params["heads"], p)
+        return self.model.owner_head(params["heads"], p)
 
     def stack_head_params(self, slices: Sequence):
-        return splitnn.stack_heads(list(slices))
+        """The owners' head segments as ``params["heads"]``: stacked, or
+        the list itself for owners of unequal widths."""
+        if self.model.symmetric:
+            return splitnn.stack_heads(list(slices))
+        return list(slices)
 
     def owner_optimizer(self, owner_lr: Optional[float] = None):
         # plain SGD is elementwise, so one owner's slice of the joint

@@ -81,7 +81,10 @@ class OwnerWorkerSpec:
     ``opt_state_leaves`` (the snapshot's optimizer state; None: a fresh
     state from the params), ``start_step`` (the step to resume at) and
     ``generation`` (0 for the first start, one more per respawn: it
-    scopes the fault plan and the masked warmup's tags)."""
+    scopes the fault plan and the masked warmup's tags).  ``latency_s``
+    and ``bandwidth_bps`` delay every frame on the pipe in both
+    directions, and ``spin_s`` is the delivery wait's spin, the caller's
+    ``transport.spin_wait_s()``."""
 
     name: str
     ids: List[str]
@@ -102,6 +105,9 @@ class OwnerWorkerSpec:
     opt_state_leaves: Optional[List[np.ndarray]] = None
     start_step: int = 0
     generation: int = 0
+    latency_s: float = 0.0
+    bandwidth_bps: Optional[float] = None
+    spin_s: Optional[float] = None
 
 
 @dataclass
@@ -193,7 +199,8 @@ def _owner_body(spec: OwnerWorkerSpec, ep: ProcessEndpoint) -> None:
 
 def owner_worker_main(spec: OwnerWorkerSpec, conn) -> None:
     """Spawn target of an owner worker."""
-    _run_worker(spec, conn, _owner_body)
+    _run_worker(spec, conn, _owner_body, latency_s=spec.latency_s,
+                bandwidth_bps=spec.bandwidth_bps, spin_s=spec.spin_s)
 
 
 def _psi_body(spec: PSIWorkerSpec, ep: ProcessEndpoint) -> None:
@@ -254,7 +261,8 @@ class WorkerHandle:
 
 
 def _spawn(main, spec, *, owner=None, latency_s: float = 0.0,
-           bandwidth_bps: Optional[float] = None) -> WorkerHandle:
+           bandwidth_bps: Optional[float] = None,
+           spin_s: Optional[float] = None) -> WorkerHandle:
     import multiprocessing as mp
     ctx = mp.get_context("spawn")
     parent_conn, child_conn = ctx.Pipe(duplex=True)
@@ -263,15 +271,19 @@ def _spawn(main, spec, *, owner=None, latency_s: float = 0.0,
     proc.start()
     child_conn.close()          # the child owns its end now
     ep = ProcessEndpoint(SCIENTIST, spec.name, parent_conn,
-                         latency_s=latency_s, bandwidth_bps=bandwidth_bps)
+                         latency_s=latency_s, bandwidth_bps=bandwidth_bps,
+                         spin_s=spin_s)
     return WorkerHandle(spec.name, proc, ep, owner=owner)
 
 
 def spawn_owner_worker(spec: OwnerWorkerSpec, *, owner=None
                        ) -> WorkerHandle:
     """Start one owner worker; returns the parent's handle, whose
-    ``endpoint`` is the scientist's end of the party boundary."""
-    return _spawn(owner_worker_main, spec, owner=owner)
+    ``endpoint`` is the scientist's end of the party boundary, with the
+    spec's latency, bandwidth and spin."""
+    return _spawn(owner_worker_main, spec, owner=owner,
+                  latency_s=spec.latency_s, bandwidth_bps=spec.bandwidth_bps,
+                  spin_s=spec.spin_s)
 
 
 def spawn_psi_worker(owner, *, group: str, fp_rate: float = 1e-9,

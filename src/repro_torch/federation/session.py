@@ -78,8 +78,16 @@ modexp worker pool, the ``direct`` / ``queue`` / ``process`` backends
 with latency and bandwidth, O(Δ) delta rounds after churn, and retries
 of a crashed or wedged owner round.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): checkpointing and serving.
+Training options of the reference's ``fit`` that the port takes as
+well: ``latency_s`` / ``bandwidth_bps`` (every frame of a split fit's
+wire waits out ``latency_s + wire_bytes / bandwidth_bps``, for thread
+and spawned owners alike), ``log_every``, owners of unequal feature
+widths (``feature_splits`` in the config), and per-party checkpoints
+(``checkpoint`` / ``restore``, ``fit(ckpt_dir=, ckpt_every=)``; files
+under ``step_{step:08d}/`` that the reference reads too).
+
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP.md
+item): serving.
 """
 from __future__ import annotations
 
@@ -94,6 +102,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import restore_split, save_split
 from repro_torch.configs.base import not_ported
 from repro_torch.core import masking, privacy
 from repro_torch.core.modexp import ModexpPool
@@ -515,14 +524,16 @@ class VerticalSession:
             steps: Optional[int] = None, batch_size: int = 128,
             eval_frac: float = 0.0, owner_lr: Optional[float] = None,
             scientist_lr: Optional[float] = None,
-            shuffle_seed: Optional[int] = None, verbose: bool = True,
-            mode: str = "joint", schedule: str = "pipelined",
-            microbatches: int = 1, compression: Optional[str] = None,
-            backend: str = "queue", timeout: float = 120.0,
-            supervise: bool = False, max_restarts: int = 2,
-            resync_every: int = 1, heartbeat_s: float = 0.5,
-            aggregation: Optional[str] = None,
-            ckpt_dir: Optional[str] = None) -> dict:
+            log_every: Optional[int] = None, ckpt_dir: Optional[str] = None,
+            ckpt_every: int = 0, shuffle_seed: Optional[int] = None,
+            verbose: bool = True, mode: str = "joint",
+            schedule: str = "pipelined", microbatches: int = 1,
+            compression: Optional[str] = None, backend: str = "queue",
+            latency_s: float = 0.0, bandwidth_bps: Optional[float] = None,
+            timeout: float = 120.0, supervise: bool = False,
+            max_restarts: int = 2, resync_every: int = 1,
+            heartbeat_s: float = 0.5,
+            aggregation: Optional[str] = None) -> dict:
         """The SplitNN training loop over exactly one of ``epochs``
         epochs of full batches or ``steps`` steps (a fresh permutation
         whenever the rest cannot fill a batch).  ``eval_frac`` holds out
@@ -530,6 +541,13 @@ class VerticalSession:
         ``history["eval"]`` (per epoch, or once after ``steps``), and the
         per-step loss in ``history["loss_trail"]``.  ``steps=0`` runs
         only the split warmup handshake.
+
+        ``verbose`` prints every ``log_every`` epochs (default 1) and the
+        last; in steps mode it prints every ``log_every`` steps and the
+        last, and nothing when ``log_every`` is unset.  ``ckpt_dir`` with
+        ``ckpt_every`` writes per-party checkpoints (:meth:`checkpoint`)
+        every ``ckpt_every`` epochs, or steps in steps mode; a checkpoint
+        is taken outside the step time and changes nothing in the run.
 
         ``mode="joint"`` runs the single autograd step (with
         ``microbatches=M > 1``: the microbatched joint oracle).
@@ -541,8 +559,11 @@ class VerticalSession:
         ``compression`` (None | "fp16" | "int8" cut codec), ``backend``
         ("queue" = serialized simulated network, "direct" = in-process
         handoff, "process" = each owner in a spawned worker process over
-        an OS pipe), ``timeout`` (seconds a receive from an owner may
-        wait; warmup receives wait at least 120 s, for worker start-up).
+        an OS pipe), ``latency_s`` / ``bandwidth_bps`` (every frame in
+        both directions arrives ``latency_s + wire_bytes /
+        bandwidth_bps`` after its send; wire backends only), ``timeout``
+        (seconds a receive from an owner may wait; warmup receives wait
+        at least 120 s, for worker start-up).
         ``aggregation`` (None | "masked_sum"): secure forward aggregation,
         see the module docstring.  Both modes draw batches from one index
         stream, so they see the same batches in the same order.
@@ -596,8 +617,10 @@ class VerticalSession:
             if int(resync_every) < 1:
                 raise ValueError(
                     f"resync_every must be >= 1: {resync_every}")
-        if ckpt_dir is not None:
-            raise not_ported("checkpointing", "checkpointing")
+        if backend == "direct" and (latency_s or bandwidth_bps):
+            raise ValueError("latency_s/bandwidth_bps model the wire — "
+                             "they require a wire backend "
+                             "('queue' or 'process')")
         n = len(self.scientist.ids)
         n_train = n - int(n * eval_frac)
         if n_train < batch_size:
@@ -611,16 +634,22 @@ class VerticalSession:
             total_steps = epochs * steps_per_epoch
         else:
             steps_per_epoch, total_steps = None, int(steps)
+        # the per-fit bookkeeping (``_after_step``): printing, checkpoints,
+        # and the seconds each checkpoint took
+        book = dict(steps_per_epoch=steps_per_epoch, epochs=epochs,
+                    total_steps=total_steps, verbose=verbose,
+                    log_every=log_every, ckpt_dir=ckpt_dir,
+                    ckpt_every=ckpt_every, ckpt_s=[])
         loop = dict(stream=self._index_stream(rng, n_train, batch_size,
                                               epochs, steps),
-                    total_steps=total_steps,
-                    steps_per_epoch=steps_per_epoch, batch_size=batch_size,
-                    owner_lr=owner_lr, scientist_lr=scientist_lr,
-                    verbose=verbose)
+                    total_steps=total_steps, batch_size=batch_size,
+                    owner_lr=owner_lr, scientist_lr=scientist_lr, book=book)
         if mode == "split":
             return self._fit_split(
                 **loop, schedule=schedule, microbatches=M,
-                compression=compression, backend=backend, timeout=timeout,
+                compression=compression, backend=backend,
+                latency_s=latency_s, bandwidth_bps=bandwidth_bps,
+                timeout=timeout,
                 aggregation=aggregation, supervise=supervise,
                 max_restarts=max_restarts, resync_every=int(resync_every),
                 heartbeat_s=heartbeat_s)
@@ -653,27 +682,47 @@ class VerticalSession:
         return torch.from_numpy(self.scientist.labels[idx].astype(
             np.int64)).to(self.device)
 
-    def _after_step(self, t, metrics, history, t0, *, steps_per_epoch,
-                    verbose, sync):
-        """Step ``t``'s bookkeeping, shared by every loop.  Epochs: at
-        each epoch's end its record, eval and print (``sync`` makes
-        ``self.params`` current first).  Steps: the step's record, whose
-        tensors ``_finish`` reads, so a step takes no host sync."""
-        if steps_per_epoch is None:
+    def _after_step(self, t, metrics, history, t0, book, sync):
+        """Step ``t``'s bookkeeping, shared by every loop (the
+        reference's).  Epochs: at each epoch's end its record, eval,
+        print and checkpoint.  Steps: the step's record, whose tensors
+        ``_finish`` reads, so a step takes no host sync unless
+        ``log_every`` prints it; a checkpoint every ``ckpt_every``
+        steps.  ``sync`` makes ``self.params`` current before an eval or
+        a checkpoint reads them."""
+        spe = book["steps_per_epoch"]
+        if spe is None:
             history["train"].append({"step": t, **metrics})
-        elif (t + 1) % steps_per_epoch == 0:
-            self._end_epoch((t + 1) // steps_per_epoch - 1, metrics,
-                            history, t0, verbose=verbose, sync=sync)
+            every = book["log_every"]
+            if book["verbose"] and every and (
+                    t % every == 0 or t == book["total_steps"] - 1):
+                print(f"step {t:5d} " + " ".join(
+                    f"{k}={v:.4f}" for k, v in _scalars(metrics).items())
+                    + f" ({time.time() - t0:.1f}s)")
+            done = t + 1
+        elif (t + 1) % spe == 0:
+            done = (t + 1) // spe
+            self._end_epoch(done - 1, metrics, history, t0, book, sync)
+        else:
+            return
+        every = book["ckpt_every"]
+        if book["ckpt_dir"] and every and done % every == 0:
+            tc = time.time()
+            sync()
+            self.checkpoint(book["ckpt_dir"], done)
+            book["ckpt_s"].append(time.time() - tc)
 
-    def _end_epoch(self, ep, metrics, history, t0, *, verbose, sync):
-        """Per-epoch history, eval and print.  ``sync`` makes
-        ``self.params`` current before eval reads them."""
+    def _end_epoch(self, ep, metrics, history, t0, book, sync):
+        """Per-epoch history, eval and print (every ``log_every`` epochs
+        and the last).  ``sync`` makes ``self.params`` current before
+        eval reads them."""
         rec = {"epoch": ep, **_scalars(metrics)}
         history["train"].append(rec)
         if len(self._eval_idx):
             sync()
             history["eval"].append({"epoch": ep, **self.evaluate()})
-        if verbose:
+        if book["verbose"] and (ep % (book["log_every"] or 1) == 0
+                                or ep == book["epochs"] - 1):
             ev = history["eval"][-1] if history["eval"] else {}
             extra = "".join(f" val_{k}={v:.4f}"
                             for k, v in ev.items() if k != "epoch")
@@ -681,20 +730,16 @@ class VerticalSession:
                 f"{k}={v:.4f}" for k, v in rec.items() if k != "epoch")
                 + extra + f" ({time.time() - t0:.1f}s)")
 
-    def _finish(self, history, losses, *, steps_mode, verbose):
+    def _finish(self, history, losses, book):
         """The run's history; ``self.params`` must be current.  A steps
         run gets its records' scalars and one eval here."""
         history["loss_trail"] = torch.stack(losses).tolist() if losses \
             else []
-        if steps_mode:
+        if book["steps_per_epoch"] is None:
             history["train"] = [_scalars(r) for r in history["train"]]
             if len(self._eval_idx):
                 history["eval"].append({"step": len(losses),
                                         **self.evaluate()})
-            if verbose and history["train"]:
-                print(" ".join(f"{k}={v:.4f}" if k != "step"
-                               else f"step {v:5d}"
-                               for k, v in history["train"][-1].items()))
         final = dict(history["train"][-1]) if history["train"] else {}
         if history["eval"]:
             final.update({f"val_{k}": v
@@ -706,8 +751,8 @@ class VerticalSession:
 
     # ------------------------------------------------------- 3a. joint
 
-    def _fit_joint(self, stream, *, total_steps, steps_per_epoch,
-                   batch_size, owner_lr, scientist_lr, verbose) -> dict:
+    def _fit_joint(self, stream, *, total_steps, batch_size, owner_lr,
+                   scientist_lr, book) -> dict:
         adapter = self.adapter
         opt = adapter.default_optimizer(owner_lr, scientist_lr)
         state = opt.init(self.params)
@@ -729,18 +774,13 @@ class VerticalSession:
             self.params, state, metrics = step_fn(self.params, state,
                                                   batch, t)
             losses.append(metrics["loss"])
-            self._after_step(t, metrics, history, t0,
-                             steps_per_epoch=steps_per_epoch,
-                             verbose=verbose, sync=lambda: None)
-        return self._finish(history, losses,
-                            steps_mode=steps_per_epoch is None,
-                            verbose=verbose)
+            self._after_step(t, metrics, history, t0, book, lambda: None)
+        return self._finish(history, losses, book)
 
     # ------------------------------------- 3a'. microbatched joint oracle
 
-    def _fit_joint_microbatched(self, stream, *, total_steps,
-                                steps_per_epoch, batch_size, owner_lr,
-                                scientist_lr, verbose, microbatches,
+    def _fit_joint_microbatched(self, stream, *, total_steps, batch_size,
+                                owner_lr, scientist_lr, book, microbatches,
                                 aggregation=None) -> dict:
         """The GPipe oracle of ``fit(mode="split", microbatches=M)``: the
         same cached per-segment programs in the same order.  Per chunk,
@@ -817,13 +857,9 @@ class VerticalSession:
                 tg = tree_add(tg, weightgrad(tp, cuts, lab_m, denom))
             tp, ts = trunk_update(tp, ts, tg, t)
             losses.append(metrics["loss"])
-            self._after_step(t, metrics, history, t0,
-                             steps_per_epoch=steps_per_epoch,
-                             verbose=verbose, sync=reassemble)
+            self._after_step(t, metrics, history, t0, book, reassemble)
         reassemble()
-        return self._finish(history, losses,
-                            steps_mode=steps_per_epoch is None,
-                            verbose=verbose)
+        return self._finish(history, losses, book)
 
     def _dequantized(self, ints: np.ndarray) -> torch.Tensor:
         """A host int32 ring sum, dequantized on the session's device."""
@@ -907,13 +943,15 @@ class VerticalSession:
                 threads.append(th)
 
     def _start_owner(self, p, backend, *, codec, compression, owner_lr,
-                     sequential, microbatches, aggregation, leaves=None,
-                     opt_leaves=None, start_step=0, generation=0):
+                     sequential, microbatches, aggregation, latency_s,
+                     bandwidth_bps, leaves=None, opt_leaves=None,
+                     start_step=0, generation=0):
         """Start owner ``p``: a thread behind a channel pair (queue,
-        direct) or a spawned process behind a pipe; returns ``(worker,
-        scientist endpoint, thread or None)``.  The first start takes the
-        owner's slice of the session's params and a fresh optimizer
-        state; a respawn gives the snapshot's ``leaves`` and
+        direct) or a spawned process behind a pipe, either with the
+        wire's ``latency_s`` and ``bandwidth_bps`` in both directions;
+        returns ``(worker, scientist endpoint, thread or None)``.  The
+        first start takes the owner's slice of the session's params and
+        a fresh optimizer state; a respawn gives the snapshot's ``leaves`` and
         ``opt_leaves`` (host numpy), the ``start_step`` to resume at and
         its ``generation``.  Owners are armed from the env fault plan at
         their generation.  Masked owners, threads and processes alike,
@@ -941,7 +979,9 @@ class VerticalSession:
                              if self.device.type == "cpu" else None),
                 aggregation=aggregation, n_owners=P,
                 opt_state_leaves=opt_leaves, start_step=start_step,
-                generation=generation, **noise)
+                generation=generation, latency_s=latency_s,
+                bandwidth_bps=bandwidth_bps,
+                spin_s=transport.spin_wait_s(), **noise)
             handle = runtime.spawn_owner_worker(spec, owner=owner)
             return handle, handle.endpoint, None
         owner_opt, owner_update = adapter.owner_update_rule(owner_lr)
@@ -952,7 +992,8 @@ class VerticalSession:
             opt_state = tree_unflatten(opt_state, [
                 to_tensor(a, self.device) for a in opt_leaves])
         ep_sci, ep_own = transport.channel_pair(
-            "scientist", owner.name, backend=backend)
+            "scientist", owner.name, backend=backend, latency_s=latency_s,
+            bandwidth_bps=bandwidth_bps)
         head_fwd, head_bwd = adapter.owner_programs(p)
         masker = None
         if aggregation == "masked_sum":
@@ -973,11 +1014,11 @@ class VerticalSession:
         th.start()
         return w, ep_sci, th
 
-    def _fit_split(self, stream, *, total_steps, steps_per_epoch,
-                   batch_size, owner_lr, scientist_lr, verbose, schedule,
-                   microbatches, compression, backend, timeout,
-                   aggregation, supervise=False, max_restarts=2,
-                   resync_every=1, heartbeat_s=0.5) -> dict:
+    def _fit_split(self, stream, *, total_steps, batch_size, owner_lr,
+                   scientist_lr, book, schedule, microbatches, compression,
+                   backend, latency_s, bandwidth_bps, timeout, aggregation,
+                   supervise=False, max_restarts=2, resync_every=1,
+                   heartbeat_s=0.5) -> dict:
         """True split execution over the transport (paper Fig. 2).
 
         Per step t the wire carries ``head_fwd`` (batch row indices),
@@ -1042,7 +1083,8 @@ class VerticalSession:
 
         owner_kw = dict(codec=codec, compression=compression,
                         owner_lr=owner_lr, sequential=sequential,
-                        microbatches=M, aggregation=aggregation)
+                        microbatches=M, aggregation=aggregation,
+                        latency_s=latency_s, bandwidth_bps=bandwidth_bps)
         workers, eps, threads = [], [], []
         # replaced owners: (owner index, endpoint) for the accounting, and
         # their threads (a wedged one never ends)
@@ -1327,9 +1369,7 @@ class VerticalSession:
                     if t == 0:
                         t_warm = time.time()
                     tb = time.time()
-                    self._after_step(t, metrics, history, t0,
-                                     steps_per_epoch=steps_per_epoch,
-                                     verbose=verbose, sync=sync)
+                    self._after_step(t, metrics, history, t0, book, sync)
                     overhead_s += time.time() - tb
                     t += 1
                 except (OwnerFailure, transport.FrameCorrupt) as e:
@@ -1404,9 +1444,10 @@ class VerticalSession:
             "mode": "split", "schedule": schedule, "microbatches": M,
             "aggregation": aggregation or "none",
             "compression": compression or "none", "backend": backend,
+            "latency_s": latency_s, "bandwidth_bps": bandwidth_bps,
             "device": str(self.device),
             "steps": total_steps, "wall_s": wall_s,
-            # per-step cost excludes eval/sync bookkeeping ...
+            # per-step cost excludes eval/sync/checkpoint bookkeeping ...
             "step_ms": 1e3 * step_s / n_div,
             # ... and, steady-state, the step-0 pipeline fill too
             "steady_step_ms": (1e3 * (t0 + step_s - t_warm)
@@ -1422,10 +1463,10 @@ class VerticalSession:
             "total_payload_bytes_per_step": tot_payload // n_div,
             "recoveries": len(self.recovery_events),
             "supervisor": dict(sup.stats) if sup is not None else None,
+            # the wall seconds of each checkpoint (its sync included)
+            "ckpt_s": list(book["ckpt_s"]),
         }
-        history = self._finish(history, losses,
-                               steps_mode=steps_per_epoch is None,
-                               verbose=verbose)
+        history = self._finish(history, losses, book)
         history["transport"] = self.transport_stats
         return history
 
@@ -1464,8 +1505,29 @@ class VerticalSession:
         return cut_layer_traffic(len(self.owners), batch_size, 1, shape[-1],
                                  bytes_per_el)
 
-    def checkpoint(self, ckpt_dir: str, step: int = 0):
-        raise not_ported("checkpointing", "checkpointing")
+    def checkpoint(self, ckpt_dir: str, step: int = 0) -> str:
+        """Per-party checkpoints of the session's params:
+        ``step_{step:08d}/owner{i}.npz`` per owner and ``trunk.npz``
+        (:func:`repro_torch.checkpoint.save_split`); returns that
+        directory."""
+        self._require(built=True)
+        return save_split(ckpt_dir, self.params, step)
+
+    def restore(self, step_dir: str) -> "VerticalSession":
+        """Load the per-party checkpoints of ``step_dir`` (written by
+        :meth:`checkpoint`, ``fit(ckpt_every=...)`` or the reference's
+        ``save_split``) into the session's params on its device, so a
+        fresh session resumes from that step."""
+        self._require(built=True)
+        loaded = restore_split(step_dir)
+        want = [tuple(t.shape) for t in tree_leaves(self.params)]
+        got = [tuple(a.shape) for a in tree_leaves(loaded)]
+        if got != want:
+            raise ValueError(f"checkpoint {step_dir!r} does not fit the "
+                             f"built model: leaf shapes {got} != {want}")
+        self.params = tree_map(lambda a: torch.from_numpy(np.array(
+            a, np.float32)).to(self.device), loaded)
+        return self
 
     def serve(self, **engine_kw):
         raise not_ported("serving", "the LM serving slice")

@@ -13,8 +13,11 @@ Two backends:
     so frames — dtype names, shapes, bytes — are byte-identical to the
     reference's; bf16 crosses as its raw words under the name
     ``bfloat16``.  Delivery can be delayed by ``latency_s`` plus
-    ``wire_bytes / bandwidth_bps`` per frame (the PSI rounds of
-    ``resolve`` take both).
+    ``wire_bytes / bandwidth_bps`` per frame (``fit`` and the PSI
+    rounds of ``resolve`` take both).  The receiver waits a frame's
+    deadline out with a coarse sleep and then a spin over its last
+    ``spin_s`` seconds (:func:`wait_until`), so delivery lands within a
+    fraction of a millisecond of the deadline.
 
 Every serialized frame carries a CRC32 of its blob, checked on receipt
 (:class:`FrameCorrupt`); a channel's ``fault_hook`` can drop, corrupt or
@@ -30,6 +33,7 @@ in ``federation/cut_codec.py``.
 """
 from __future__ import annotations
 
+import os
 import queue
 import struct
 import sys
@@ -41,7 +45,20 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["Message", "Channel", "Endpoint", "channel_pair", "FrameCorrupt"]
+__all__ = ["Message", "Channel", "Endpoint", "channel_pair", "FrameCorrupt",
+           "spin_wait_s", "wait_until"]
+
+# The delivery wait sleeps until this close to a deadline, then spins on
+# the monotonic clock: ``time.sleep`` alone overshoots by the kernel's
+# timer slack and the thread's wake-up (tenths of a millisecond on a
+# Linux host), which would add noise of that size to every hop of an
+# injected latency.
+SPIN_WAIT_S = 3e-3
+
+#: the default spin on a host with one usable core: there a long spin
+#: cannot buy precision, since the sender needs the same core to make
+#: progress, and it only takes the peer's turns at the interpreter lock
+SPIN_WAIT_SINGLE_CORE_S = 5e-4
 
 
 class FrameCorrupt(RuntimeError):
@@ -73,13 +90,48 @@ def crc32(blob: bytes) -> int:
     return zlib.crc32(blob) & 0xFFFFFFFF
 
 
-def wait_until(deadline: float) -> None:
-    """Sleep until ``time.monotonic()`` reaches ``deadline`` (a frame's
+def _effective_cores() -> int:
+    try:
+        return len(os.sched_getaffinity(0))
+    except (AttributeError, OSError):       # not Linux
+        return os.cpu_count() or 1
+
+
+def spin_wait_s() -> float:
+    """The spin margin in effect: ``REPRO_SPIN_WAIT_S`` where it is set
+    to a non-negative float, else :data:`SPIN_WAIT_S`
+    (:data:`SPIN_WAIT_SINGLE_CORE_S` on a host with one usable core).
+    Channels and process endpoints read it once, at construction."""
+    raw = os.environ.get("REPRO_SPIN_WAIT_S")
+    if raw is not None:
+        try:
+            v = float(raw)
+            if v >= 0.0:
+                return v
+        except ValueError:
+            pass
+    return (SPIN_WAIT_S if _effective_cores() > 1
+            else SPIN_WAIT_SINGLE_CORE_S)
+
+
+def wait_until(deadline: float, spin_s: float = SPIN_WAIT_S) -> None:
+    """Block until ``time.monotonic()`` reaches ``deadline`` (a frame's
     ``not_before``; the clock is system-wide, so a deadline stamped in
-    another process holds here too)."""
-    left = deadline - time.monotonic()
-    if left > 0.0:
-        time.sleep(left)
+    another process holds here too): one coarse sleep to ``spin_s``
+    before it, then a spin.  Each pass of the spin yields the
+    interpreter lock (``sleep(0)``): a bare busy loop would hold it for
+    the whole switch interval and serialise the owner threads against
+    the scientist.  ``spin_s=0`` is the sleep alone."""
+    while True:
+        rem = deadline - time.monotonic()
+        if rem <= 0.0:
+            return
+        if rem > spin_s:
+            time.sleep(rem - spin_s)
+        else:
+            while time.monotonic() < deadline:
+                time.sleep(0)
+            return
 
 
 # ---------------------------------------------------------------------------
@@ -191,15 +243,18 @@ class Channel:
     supervisor's heartbeats beside the step loop), so the accounting
     takes a lock.  ``latency_s`` and ``bandwidth_bps`` give every frame
     a transit time, ``latency_s + wire_bytes / bandwidth_bps``, that
-    the receiver waits out."""
+    the receiver waits out, spinning its last ``spin_s`` seconds (None:
+    :func:`spin_wait_s` at construction)."""
 
     def __init__(self, sender: str, receiver: str, *, serialize: bool,
                  latency_s: float = 0.0,
-                 bandwidth_bps: Optional[float] = None, tap=None):
+                 bandwidth_bps: Optional[float] = None,
+                 spin_s: Optional[float] = None, tap=None):
         self.sender, self.receiver = sender, receiver
         self.serialize = serialize
         self.latency_s = latency_s
         self.bandwidth_bps = bandwidth_bps
+        self.spin_s = spin_wait_s() if spin_s is None else spin_s
         # observation hook: ``tap(msg, blob)`` on every send, with the
         # serialized frame (None on the direct backend); the privacy
         # tests capture transcripts through it
@@ -268,7 +323,7 @@ class Channel:
     def recv(self, timeout: Optional[float] = None) -> Message:
         msg = self._q.get(timeout=timeout)
         if msg.not_before:
-            wait_until(msg.not_before)
+            wait_until(msg.not_before, self.spin_s)
         if self.serialize:
             blob = msg.payload["__blob__"]
             if msg.crc is not None and crc32(blob) != msg.crc:
@@ -395,17 +450,18 @@ class Endpoint(KindReceiver):
 
 def channel_pair(a: str, b: str, *, backend: str = "queue",
                  latency_s: float = 0.0,
-                 bandwidth_bps: Optional[float] = None, tap=None
+                 bandwidth_bps: Optional[float] = None,
+                 spin_s: Optional[float] = None, tap=None
                  ) -> Tuple[Endpoint, Endpoint]:
     """The duplex boundary between parties ``a`` and ``b``:
     ``(endpoint_a, endpoint_b)``.  ``tap`` observes every send in both
     directions, ``latency_s`` and ``bandwidth_bps`` delay every frame
-    (see :class:`Channel`)."""
+    and ``spin_s`` sets the receiver's spin (see :class:`Channel`)."""
     if backend not in ("queue", "direct"):
         raise ValueError(f"unknown transport backend {backend!r}")
     ser = backend == "queue"
     kw = dict(serialize=ser, latency_s=latency_s,
-              bandwidth_bps=bandwidth_bps, tap=tap)
+              bandwidth_bps=bandwidth_bps, spin_s=spin_s, tap=tap)
     ab = Channel(a, b, **kw)
     ba = Channel(b, a, **kw)
     return Endpoint(a, b, ab, ba), Endpoint(b, a, ba, ab)

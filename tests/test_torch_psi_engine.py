@@ -311,3 +311,76 @@ def test_resolution_resolve_equals_reference(mode):
         assert a_own[k].ids == r_own[k].ids
         assert np.array_equal(a_own[k].data, r_own[k].data)
     assert st_ == rst
+
+
+# ---------------------------------------------------------------------------
+# the one-shot API: blind / respond / intersect / reset_session
+# ---------------------------------------------------------------------------
+
+
+def test_hash_to_group_reexport_equals_reference():
+    for group in ("modp512", "modp2048"):
+        p, _, nb = psi.GROUPS[group]
+        for item in (b"a", b"id-7", b""):
+            assert psi.hash_to_group(item, p, nb) == \
+                ref_psi.hash_to_group(item, p, nb)
+    assert psi.hash_to_group(b"x") == ref_psi.hash_to_group(b"x")
+
+
+def test_psi_server_learns_only_cardinality():
+    """The server's view is blinded group elements, distinct from the raw
+    hashes; with equal secrets they are the reference's."""
+    c, _, rc, _ = _pair(["a", "b"], ["b"])
+    blinded = c.blind()
+    p, _, nb = psi.GROUPS[GROUP]
+    raw = [psi.hash_to_group(x.encode(), p, nb) for x in ["a", "b"]]
+    assert all(b != r for b, r in zip(blinded, raw))
+    assert blinded == rc.blind()
+
+
+@pytest.mark.parametrize("mode", ["noinv", "bloom"])
+def test_one_shot_round_equals_reference(mode):
+    """One client against two owners through ``blind`` (memoized, not
+    re-blinded), ``respond`` and ``intersect``: every output equal to the
+    reference's with equal secrets, and the right intersections."""
+    xs = _ids(30)
+    rc = ref_psi.PSIClient(xs, GROUP, mode=mode)
+    c = psi.PSIClient(xs, GROUP, mode=mode)
+    c._blind_exp, c._unblind_exp = rc._blind_exp, rc._unblind_exp
+    b1 = c.blind()
+    assert c.blind() is b1
+    assert b1 == rc.blind()
+    for shift in (5, 10):
+        ys = _ids(30, shift)
+        rs = ref_psi.PSIServer(ys, group=GROUP)
+        s = psi.PSIServer(ys, group=GROUP, beta=rs._beta)
+        double, bf = s.respond(b1)
+        r_double, r_bf = rs.respond(rc.blind())
+        assert double == r_double
+        assert bf.shard_frames() == r_bf.shard_frames()
+        inter = c.intersect(double, bf)
+        assert inter == rc.intersect(r_double, r_bf) == _ids(30 - shift,
+                                                              shift)
+        assert s.ops == rs.ops
+    assert c.ops == rc.ops
+
+
+def test_reset_session_keeps_the_secrets():
+    """The server builds its bloom once per session; ``reset_session`` on
+    either side drops the memoized state and rebuilds the same bytes
+    from the same secrets, as the reference's does."""
+    c, s, rc, rs = _pair(_ids(10), _ids(25))
+    _, bf1 = s.respond(c.blind())
+    _, bf2 = s.respond(c.blind())
+    assert bf1 is bf2
+    rs.respond(rc.blind())
+    blinded = c.blind()
+    c.reset_session()
+    rc.reset_session()
+    assert c.blind() is not blinded and c.blind() == blinded
+    s.reset_session()
+    rs.reset_session()
+    _, bf3 = s.respond(c.blind())
+    assert bf3 is not bf1 and bf3.shard_frames() == bf1.shard_frames()
+    assert bf3.shard_frames() == rs.respond(rc.blind())[1].shard_frames()
+    assert (c.ops, s.ops) == (rc.ops, rs.ops)

@@ -160,14 +160,6 @@ def test_session_without_device_needs_a_card():
             VerticalSession(sci, owners)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(ckpt_dir="x"), "checkpointing")])
-def test_unported_fit_options_raise(kw, item):
-    s = _session(120)
-    with pytest.raises(NotImplementedError, match=item):
-        s.fit(epochs=1, batch_size=32, verbose=False, **kw)
-
-
 def test_wire_frames_equal_reference():
     """``_pack`` writes the reference's frame byte for byte, from numpy
     arrays and from tensors alike; channel accounting per kind is the

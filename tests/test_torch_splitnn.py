@@ -177,14 +177,13 @@ def test_other_combines_match_reference(combine):
 
 
 def test_unported_options_raise():
-    """Imbalanced owner widths still raise, naming ROADMAP.md; the
-    privacy options build (they train since the masked_sum and privacy
-    slice)."""
+    """Options that once raised now build: imbalanced owner widths (list
+    heads) and the privacy options (they train since the masked_sum and
+    privacy slice)."""
     import dataclasses
     from repro_torch.configs import SplitConfig
     cfg = dataclasses.replace(CONFIG, feature_splits=(300, 484))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        splitnn.MLPSplitNN(cfg)
+    assert not splitnn.MLPSplitNN(cfg).symmetric
     splitnn.MLPSplitNN(dataclasses.replace(CONFIG, split=SplitConfig(
         nopeek_weight=0.1, cut_noise_std=1.0, grad_noise_std=0.1,
         grad_norm_mode="sign")))
