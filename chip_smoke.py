@@ -133,15 +133,45 @@ Phases, in order; any failure raises and exits non-zero:
      fit's params, a fresh session restores step 5 and its 5 more steps
      equal a session that went on without a restore, bit for bit, and
      each checkpoint's wall time beside the steady step;
+ 19. the rest of LM serving at full width, run right after phase 8 on
+     phase 7's llama3.2-3b params (and (i) right after phase 11 on phase
+     10's zamba2-2.7b params): (a) the attention decode kernel with
+     per-row kv lengths (llama's trunk decode tick, lengths 1025-1057)
+     against its plain version (2e-2), each row's bits against a scalar
+     call at its length, a vector of equal lengths against the scalar
+     call, timed beside the scalar route and SDPA with a per-row mask;
+     (b) 8 requests of 1024 tokens with mixed max_new through 4 slots,
+     int8 over the queue: continuous == wave tokens bitwise, exact
+     launches derived from each run's ticks and refills, fewer ticks
+     than the waves' token steps, tok/s and ms per tick; (c) the same
+     on the process transport: tokens, cut bytes and messages equal;
+     (d) the requests twice through a cut cache of 8 entries: 8 hits, no
+     prefill bytes, bitwise tokens, bytes per entry; (e) two
+     ``ServingService`` sessions on two threads over one process
+     channel, each equal to its solo run, scoped stats summing to the
+     channel's; (f) each tick's ms at 8 ms one-way beside latency 0,
+     every tick above the one-way floor, refill ticks paying one window;
+     (g) a transport fault failing the pending requests with
+     ``Result.error``, then a fresh request served; (h) ``cut_dim`` 768
+     (phase 7's params plus ``cut_proj`` / ``in_proj``): exact launches
+     and decode frame bytes against the analytic size, prefill ms; (j)
+     ``VerticalSession(*sequence_parties(...))`` -> resolve -> build ->
+     ``serve_dataset`` (continuous, process, int8), 8 documents of 1024
+     tokens; (i) zamba2-2.7b continuous == wave bitwise with exact
+     launches;
  14. the results, last (after phases 15, 16, 17 and 18): a
+     ``{"serving_continuous": ...}`` JSON line with phase 19's numbers, a
      ``{"privacy": ...}`` JSON line with phase 15's numbers, a
      ``{"recovery": ...}`` line with phase 16's, a ``{"psi": ...}`` line
      with phase 17's, a ``{"fit_options": ...}`` line with phase 18's, a
      ``{"kernels": [...]}`` JSON line (each entry with its
      ``recovery_launches`` in the queue crash run, its ``psi_launches``
-     in phase 17's fit and its ``phase18_launches`` over phase 18's
-     fits; cut fusion's fma entry with phase 18's P = 8 timing as
-     ``p8``), then the ``{"ok": true, ...}`` JSON line last.
+     in phase 17's fit, its ``phase18_launches`` over phase 18's fits,
+     and its ``continuous_launches`` / ``zamba2_continuous_launches`` in
+     phase 19's continuous runs; cut fusion's fma entry with phase 18's
+     P = 8 timing as ``p8``; the decode route with per-row lengths as
+     ``block_attention.per_row``), then the ``{"ok": true, ...}`` JSON
+     line last.
 
 Without a CUDA device it prints nothing and exits 2.  It imports only
 ``repro_torch`` (never JAX or the JAX package ``repro``).
@@ -501,6 +531,61 @@ def path_cut_timing(session):
           f"rows {res['dense_ms']:.6f} ms, launch floor "
           f"{res['floor_ms']:.6f} ms")
     return res
+
+
+def read_profile(prof):
+    """A finished ``torch.profiler`` profile read in one pass over its raw
+    events, by the rules of ``prof.events()`` / ``key_averages()`` but
+    without the tree of event objects they build (40–80 s for a wave of
+    10^5 host ops).  Returns ``(kernels, top, host)``: ``kernels``
+    {device event name: [count, us]}; ``top`` the aten ops whose parent
+    is no aten op; ``host`` {host op name: [count, self us]}.  A host
+    op's parent is the innermost synchronous host op around it on its
+    thread, as in the tree."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name
+    kernels, host, threads = {}, {}, {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if (_filter_name(name)
+                or getattr(e, "is_hidden_event", lambda: False)()
+                or e.is_async() or e.start_thread_id() != e.end_thread_id()):
+            continue
+        if e.device_type() == DeviceType.CUDA:
+            k = kernels.setdefault(name, [0, 0.0])
+            k[0] += 1
+            k[1] += (e.end_ns() - e.start_ns()) / 1e3
+        elif e.device_type() == DeviceType.CPU:
+            threads.setdefault(e.start_thread_id(), []).append(
+                (e.start_ns(), e.end_ns(), name))
+    top = 0
+
+    # a stack entry: [start, end, name, children's ns, children, whether
+    # the last child has the entry's name]; the tree folds an only child
+    # of the same name into its parent (``_remove_dup_nodes``)
+    def close(ev):
+        h = host.setdefault(ev[2], [0, 0.0])
+        h[0] += 1 - (ev[4] == 1 and ev[5])
+        h[1] += (ev[1] - ev[0] - ev[3]) / 1e3
+
+    for evs in threads.values():
+        evs.sort(key=lambda ev: (ev[0], -ev[1]))
+        stack = []
+        for s, t, name in evs:
+            while stack and (s >= stack[-1][1] or t > stack[-1][1]):
+                close(stack.pop())
+            parent = stack[-1] if stack else None
+            if name.startswith("aten::") and (
+                    parent is None or not parent[2].startswith("aten::")):
+                top += 1
+            if parent is not None:
+                parent[3] += t - s
+                parent[4] += 1
+                parent[5] = name == parent[2]
+            stack.append([s, t, name, 0, 0, False])
+        while stack:
+            close(stack.pop())
+    return kernels, top, host
 
 
 def profile_epoch(session):
@@ -1090,7 +1175,6 @@ def profile_wave(model, params, kw, ctxs):
     """One more wave under torch.profiler: the device's busy share of the
     wave's wall time and the kernels that fill it."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.engine import ServingEngine
     eng = ServingEngine(model, params, **kw)
@@ -1102,31 +1186,30 @@ def profile_wave(model, params, kw, ctxs):
         eng.run()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels)
+    t_read = time.perf_counter()
+    kernels, top, _ = read_profile(prof)
+    read_s = time.perf_counter() - t_read
+    busy = sum(us for _, us in kernels.values())
     if not busy:
         print("  profiler: no device time recorded; busy share not measured")
         return None
     print(f"  profiled wave (prefill + {NEW - 1} decode ticks; profiler "
           f"on): wall {wall_us / 1e3:.3f} ms, device busy "
-          f"{busy / 1e3:.3f} ms = {busy / wall_us:.4f} of it")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"    {e.self_device_time_total:12.1f} us  x{e.count:<6d} "
-              f"{e.key[:90]}")
+          f"{busy / 1e3:.3f} ms = {busy / wall_us:.4f} of it; profile read "
+          f"in {read_s:.2f} s")
+    for key, (n, us) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]:
+        print(f"    {us:12.1f} us  x{n:<6d} {key[:90]}")
     # host dispatch: operator calls made from Python (an aten op whose
     # parent is not itself an aten op), per forward of the wave
-    top = sum(1 for e in prof.events() if e.name.startswith("aten::") and (
-        e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::")))
     print(f"  host: {top} top-level aten ops in the wave = {top / NEW:.0f} "
           f"per forward (prefill or decode tick)")
     # the port's kernels on the serving path: attention (tc, decode_mma
     # and its merge), the chunked scan's three launches, int8
     for tag in ("attn_tc", "decode_mma", "decode_combine", "ssd_chunk_state",
                 "ssd_state_pass", "ssd_chunk_out", "quantize_rows"):
-        ours = [e for e in kernels if tag in e.key]
-        us = sum(e.self_device_time_total for e in ours)
-        print(f"  {tag}: {us:.1f} us over {sum(e.count for e in ours)} "
+        ours = [v for key, v in kernels.items() if tag in key]
+        us = sum(u for _, u in ours)
+        print(f"  {tag}: {us:.1f} us over {sum(n for n, _ in ours)} "
               f"launches = {us / busy:.4f} of device busy time")
     return busy / wall_us
 
@@ -2518,6 +2601,658 @@ def phase_fit_options(bw, f32_flops):
     return out, total
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the rest of LM serving — continuous batching on per-row decode
+# positions, the process transport, the cut cache, multiplexed sessions,
+# latency, degraded service, the cut bottleneck, the session entry point
+# ---------------------------------------------------------------------------
+
+# (b)'s requests: phase 7's eight contexts with mixed max_new; the
+# continuous schedule at 4 slots takes 52 ticks, the waves 64 token steps
+MIXED = [32, 8, 24, 4, 32, 16, 12, 28]
+# (a): llama's trunk decode tick with per-row kv lengths over 1025-1057
+PER_ROW_LENS = (1025, 1041, 1057, 1033)
+CUT_DIM = 768                      # (h): a quarter of d_model
+LATENCY_S = 0.008                  # (f): one way
+
+
+def per_row_kernel(bw):
+    """19(a): the decode kernel with per-row lengths against its plain
+    version, each row's bits against a scalar call at that row's length,
+    a vector of equal lengths against the scalar call; timed beside the
+    scalar route at the same shape and SDPA with a per-row mask."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.block_attention import (attention_ref,
+                                                     block_attention)
+    B, Sq, Skv, nh, nkv, hd = 4, 1, 1057, 24, 8, 128
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .cuda().to(torch.bfloat16)
+               for s in ((B, Sq, nh, hd), (B, Skv, nkv, hd),
+                         (B, Skv, nkv, hd)))
+    lens = torch.tensor(PER_ROW_LENS)
+    kw = dict(q_offset=lens - 1, kv_len=lens)
+    got = block_attention(q, k, v, **kw)
+    want = attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    e = (got.float() - want.float()).abs()
+    if not bool((e <= 2e-2 + 2e-2 * want.float().abs()).all()):
+        raise AssertionError(f"per-row decode: max |diff| "
+                             f"{e.max().item():.3e} beyond 2e-2")
+    for b, n in enumerate(PER_ROW_LENS):
+        alone = block_attention(q, k, v, q_offset=n - 1, kv_len=n)
+        same = block_attention(q, k, v, q_offset=torch.full((B,), n - 1),
+                               kv_len=torch.full((B,), n))
+        torch.cuda.synchronize()
+        if not torch.equal(got[b], alone[b]):
+            raise AssertionError(f"per-row decode: row {b}'s bits differ "
+                                 f"from a call at its length {n}")
+        if not torch.equal(same, alone):
+            raise AssertionError(f"per-row decode at {n}: the vector call "
+                                 "differs from the scalar call")
+    mask = (torch.arange(Skv, device="cuda")[None, :]
+            < lens.cuda()[:, None])[:, None, None]
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = lambda: sdpa(qh, kh, vh, attn_mask=mask, enable_gqa=True)
+    lib_err = (lib().transpose(1, 2).float() - want.float()).abs().max()
+    torch.use_deterministic_algorithms(False)
+    library_ms = device_ms(lib, reps=10, rounds=7)
+    torch.use_deterministic_algorithms(True)
+    # the plain version reads the lengths on the card (a graph captures
+    # no copy from pageable host memory)
+    kw_dev = {n: t.cuda() for n, t in kw.items()}
+    keys = sum(PER_ROW_LENS)
+    nbytes = 2 * (2 * B * Sq * nh * hd + 2 * keys * nkv * hd)
+    flops = 4 * nh * hd * Sq * keys
+    bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * flops / BF16_FLOPS
+    row = {"shape": [[B, Sq, nh, hd], [B, Skv, nkv, hd]],
+           "kv_lens": list(PER_ROW_LENS),
+           "max_abs_err": e.max().item(),
+           "ms": device_ms(lambda: block_attention(q, k, v, **kw),
+                           reps=10, rounds=7),
+           "scalar_ms": device_ms(lambda: block_attention(
+               q, k, v, q_offset=Skv - 1, kv_len=Skv), reps=10, rounds=7),
+           "plain_ms": device_ms(lambda: attention_ref(q, k, v, **kw_dev),
+                                 reps=5, rounds=5),
+           "eager_ms": eager_ms(lambda: block_attention(q, k, v, **kw),
+                                reps=10, rounds=5),
+           "library_ms": library_ms,
+           "library_max_abs_err": lib_err.item(),
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    print(f"  per-row decode {row['shape']} kv_lens {row['kv_lens']} bf16: "
+          f"max |diff| {row['max_abs_err']:.3e} (tol 2e-2); every row == a "
+          f"call at its length, and vector == scalar, bitwise\n    "
+          f"{row['ms']:.6f} ms (eager {row['eager_ms']:.6f}); scalar route "
+          f"at kv_len {Skv} {row['scalar_ms']:.6f} ms; plain "
+          f"{row['plain_ms']:.6f} ms; SDPA (per-row mask) "
+          f"{row['library_ms']:.6f} ms (|diff| "
+          f"{row['library_max_abs_err']:.2e}); bound "
+          f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
+    return row
+
+
+def profile_schedulers(model, params, kw, ctxs, n_new=12):
+    """Both schedulers on the same 4 requests of ``n_new`` tokens (the
+    same forwards: one prefill, ``n_new`` - 1 decode steps) under
+    torch.profiler: wall, device busy share, top-level aten ops and the
+    host time of the ops that took most of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.engine import ServingEngine
+    out = {}
+    for sched in ("wave", "continuous"):
+        eng = ServingEngine(model, params, scheduler=sched,
+                            **dict(kw, max_new=n_new))
+        for c in ctxs:
+            eng.submit(c)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        kernels, top, host_ops = read_profile(prof)
+        busy = sum(us for _, us in kernels.values())
+        host = sorted(((us, k, n) for k, (n, us) in host_ops.items()),
+                      reverse=True)
+        out[sched] = {"wall_ms": 1e3 * wall,
+                      "busy_share": busy / (1e6 * wall) if busy else None,
+                      "top_level_aten_ops": top,
+                      "host_ms_top": [(k, round(us / 1e3, 3), n)
+                                      for us, k, n in host[:6]]}
+        print(f"    profiled {sched} (4 x {n_new} tokens, profiler on): "
+              f"wall {1e3 * wall:.3f} ms, device busy "
+              f"{out[sched]['busy_share']}, {top} top-level aten ops; "
+              f"host ms by op {out[sched]['host_ms_top']}")
+    return out
+
+
+def tick_table(transcript, n_ticks):
+    """Per tick of one continuous run (its transcript's slice): whether
+    some slot decodes, and the admissions that need a prefill (cache hits
+    excluded)."""
+    admit, finish, hit = {}, {}, set()
+    for ev in transcript:
+        if ev[0] in ("admit", "refill"):
+            admit[ev[1]] = ev[3]
+        elif ev[0] == "finish":
+            finish[ev[1]] = ev[3]
+        elif ev[0] == "cut_cache_hit":
+            hit.add(ev[1])
+    decode = [any(admit[r] < t <= finish[r] for r in finish)
+              for t in range(n_ticks)]
+    prefill = [any(t == admit[r] and r not in hit for r in admit)
+               for t in range(n_ticks)]
+    return decode, prefill
+
+
+def serving_need(model, decode_steps, prefills, per_row, int8_frames=None):
+    """Exact launches of a run with ``decode_steps`` decode forwards and
+    ``prefills`` prefill forwards: every attention block of every forward
+    (decode route at a decode step — per-row on the continuous engine —
+    tc at a prefill), every Mamba2 block of a prefill (chunked scan), one
+    quantize per int8 cut message."""
+    cfg = model.cfg
+    units = model.P * model.n_head_units + model.n_trunk_units
+    n_attn = units * sum(k != "mamba2" for k in cfg.block_pattern)
+    n_ssm = units * sum(k == "mamba2" for k in cfg.block_pattern)
+    need = {"block_attention": n_attn * (decode_steps + prefills),
+            "block_attention.decode": n_attn * decode_steps,
+            "block_attention.tc": n_attn * prefills,
+            "block_attention.fma": 0,
+            "block_attention.per_row": n_attn * decode_steps if per_row
+            else 0,
+            "mamba2_scan": n_ssm * prefills,
+            "mamba2_scan.chunked": n_ssm * prefills,
+            "mamba2_scan.serial": 0}
+    if int8_frames is not None:
+        need["quantize_pack_int8"] = int8_frames
+    return need
+
+
+def continuous_need(eng, start, model, int8=True):
+    """The exact launches of the continuous run whose transcript starts at
+    ``start``, derived from its ticks and refills: a decode tick ships one
+    int8 decode frame, a prefill ships one cut_prefill frame per owner."""
+    decode, prefill = tick_table(eng.transcript[start:], eng._tick)
+    n_dec, n_pre = sum(decode), sum(prefill)
+    need = serving_need(model, n_dec, n_pre, True,
+                        n_dec + model.P * n_pre if int8 else None)
+    return need, n_dec, n_pre
+
+
+def wave_need(model, mixed, slots=SLOTS):
+    """The wave engine's launches on ``mixed``: per wave one prefill and
+    max(max_new) - 1 decode steps, one int8 frame per owner at the
+    prefill and one per decode step."""
+    waves = [mixed[i:i + slots] for i in range(0, len(mixed), slots)]
+    steps = sum(max(w) - 1 for w in waves)
+    need = serving_need(model, steps, len(waves), False,
+                        steps + model.P * len(waves))
+    return need, sum(max(w) for w in waves)
+
+
+def served(eng, ctxs, mixed):
+    """Submit, run under fresh launch counts, read them: (tokens, counts,
+    wall s, transcript start)."""
+    import torch
+    start = len(eng.transcript)
+    rids = [eng.submit(c, max_new=m) for c, m in zip(ctxs, mixed)]
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = eng.run()
+    counts = read_counts()
+    wall = time.perf_counter() - t
+    bad = [r for r in rids if out[r].error]
+    if bad:
+        raise AssertionError(f"requests {bad} failed: {out[bad[0]].error}")
+    return [out[r].generated for r in rids], counts, wall, start
+
+
+def tick_timed_engine(*a, **kw):
+    """A ``ServingEngine`` that records the host time (after a device
+    sync) at every tick's end: ``tick_ends``, from the run's start."""
+    import torch
+    from repro_torch.launch.engine import ServingEngine
+
+    class TickTimed(ServingEngine):
+        @property
+        def _tick(self):
+            return self.__dict__.get("_tick_n", 0)
+
+        @_tick.setter
+        def _tick(self, n):
+            torch.cuda.synchronize()
+            if n == 0:
+                self.tick_ends = [time.perf_counter()]
+            else:
+                self.tick_ends.append(time.perf_counter())
+            self.__dict__["_tick_n"] = n
+
+    return TickTimed(*a, **kw)
+
+
+def timed_wire_waits(eng):
+    """Time every delivery wait of the in-process transport (the receiver
+    blocking until a frame's injected ``not_before``) while ``eng`` runs,
+    summed per tick of a ``tick_timed_engine``: returns ``(waits,
+    restore)`` with ``waits`` {tick: seconds}; ``restore()`` puts the
+    transport's own wait back."""
+    from repro_torch.federation import transport
+    orig, waits = transport.wait_until, {}
+
+    def timed(deadline, spin_s=transport.SPIN_WAIT_S):
+        t = time.perf_counter()
+        orig(deadline, spin_s)
+        tick = eng.__dict__.get("_tick_n", 0)
+        waits[tick] = waits.get(tick, 0.0) + time.perf_counter() - t
+
+    def restore():
+        transport.wait_until = orig
+
+    transport.wait_until = timed
+    return waits, restore
+
+
+def bottleneck_params(model, params, cut_dim):
+    """Phase 7's param tree plus each head's ``cut_proj`` (d -> cut_dim)
+    and the trunk's ``in_proj`` (cut_dim -> d), drawn on the card; the
+    other leaves are shared, not copied."""
+    import torch
+    from repro_torch.models import layers
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    d = model.cfg.d_model
+    heads = dict(params["heads"])
+    heads["cut_proj"] = {"w": torch.stack([layers.dense_init(
+        gen, d, cut_dim)["w"] for _ in range(model.P)])}
+    trunk = dict(params["trunk"])
+    trunk["in_proj"] = layers.dense_init(gen, cut_dim, d)
+    return {"heads": heads, "trunk": trunk}
+
+
+def phase_continuous(model, params, bw):
+    """Phase 19 (a)-(h) on phase 7's llama3.2-3b params."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.launch.engine import (CutCache, ServingEngine,
+                                           ServingService)
+    from repro_torch.models.model import SplitModel
+    from repro_torch.tree import tree_leaves
+    out = {}
+    t0 = time.time()
+    print("  (a) the decode kernel with per-row lengths")
+    out["per_row_kernel"] = per_row_kernel(bw)
+    cfg = model.cfg
+    ctxs = lm_contexts(cfg.vocab, len(MIXED), CTX)
+    kw = dict(batch_slots=SLOTS, ctx_len=CTX, max_new=NEW,
+              transport="queue", compression="int8", device="cuda")
+
+    warm = ServingEngine(model, params, scheduler="continuous", **kw)
+    served(warm, ctxs[:2], [2, 1])
+    print(f"  (b) continuous vs wave: {len(MIXED)} requests of {CTX} "
+          f"tokens, max_new {MIXED}, {SLOTS} slots, int8, queue")
+    wave = ServingEngine(model, params, **kw)
+    w_toks, w_counts, w_wall, _ = served(wave, ctxs, MIXED)
+    need, wave_ticks = wave_need(model, MIXED)
+    check_counts(w_counts, need, "the wave run")
+    cont = ServingEngine(model, params, scheduler="continuous", **kw)
+    c_toks, c_counts, c_wall, start = served(cont, ctxs, MIXED)
+    need, n_dec, n_pre = continuous_need(cont, start, model)
+    check_counts(c_counts, need, "the continuous run")
+    st = cont.stats
+    if c_toks != w_toks:
+        bad = [i for i, (a, b) in enumerate(zip(c_toks, w_toks)) if a != b]
+        raise AssertionError(f"continuous != wave tokens for {bad}")
+    if not st["ticks"] < wave_ticks:
+        raise AssertionError(f"{st['ticks']} ticks, the waves took "
+                             f"{wave_ticks}")
+    n_tok = sum(MIXED)
+    out["continuous_vs_wave"] = {
+        "tokens_equal": True, "ticks": st["ticks"],
+        "wave_token_steps": wave_ticks, "decode_ticks": n_dec,
+        "prefill_ticks": n_pre, "slot_refills": st["slot_refills"],
+        "wall_ms": 1e3 * c_wall, "wave_wall_ms": 1e3 * w_wall,
+        "tok_per_s": n_tok / c_wall, "wave_tok_per_s": n_tok / w_wall,
+        "ms_per_tick": 1e3 * c_wall / st["ticks"],
+        "wave_ms_per_step": 1e3 * w_wall / wave_ticks,
+        "counts": c_counts, "wave_counts": w_counts,
+        "cut_wire_bytes": st["cut_wire_bytes"],
+        "cut_messages": st["cut_messages"]}
+    print(f"    tokens bitwise equal; continuous {st['ticks']} ticks ({n_dec} "
+          f"decode, {n_pre} with a prefill, {st['slot_refills']} refills) "
+          f"in {1e3 * c_wall:.3f} ms = {n_tok / c_wall:.2f} tok/s, "
+          f"{1e3 * c_wall / st['ticks']:.3f} ms per tick; wave "
+          f"{wave_ticks} token steps in {1e3 * w_wall:.3f} ms = "
+          f"{n_tok / w_wall:.2f} tok/s, {1e3 * w_wall / wave_ticks:.3f} "
+          f"ms per step")
+    cont.close()
+    out["profile"] = profile_schedulers(model, params, kw, ctxs[:SLOTS])
+
+    print("  (c) the same continuous run on the process transport")
+    proc = ServingEngine(model, params, scheduler="continuous",
+                         **dict(kw, transport="process"))
+    p_toks, p_counts, p_wall, start = served(proc, ctxs, MIXED)
+    check_counts(p_counts, continuous_need(proc, start, model)[0],
+                 "the process run")
+    proc.close()
+    for k in ("cut_wire_bytes", "cut_messages", "cut_payload_bytes"):
+        if proc.stats[k] != st[k]:
+            raise AssertionError(f"process {k} {proc.stats[k]} != queue "
+                                 f"{st[k]}")
+    if p_toks != c_toks:
+        raise AssertionError("process tokens differ from the queue's")
+    out["process"] = {"tokens_equal": True, "wall_ms": 1e3 * p_wall,
+                      "cut_wire_bytes": proc.stats["cut_wire_bytes"],
+                      "cut_messages": proc.stats["cut_messages"]}
+    print(f"    tokens, cut_wire_bytes {proc.stats['cut_wire_bytes']} and "
+          f"cut_messages {proc.stats['cut_messages']} equal the queue's; "
+          f"wall {1e3 * p_wall:.3f} ms")
+
+    print(f"  (d) the cut cache ({len(MIXED)} entries), the requests twice")
+    cache = CutCache(max_entries=len(MIXED))
+    ce = ServingEngine(model, params, scheduler="continuous",
+                       cut_cache=cache, **kw)
+    first, _, _, _ = served(ce, ctxs, MIXED)
+    before = dict(ce._ep_sci.recv_stats["by_kind"].get(
+        "cut_prefill", {"payload_bytes": 0}))
+    again, h_counts, h_wall, start = served(ce, ctxs, MIXED)
+    need, n_dec_h, n_pre_h = continuous_need(ce, start, model)
+    check_counts(h_counts, need, "the cache-hit run")
+    after = ce._ep_sci.recv_stats["by_kind"]["cut_prefill"]
+    hits = ce.stats["cut_cache_hits"]
+    if (hits != len(MIXED) or n_pre_h != 0
+            or after["payload_bytes"] != before["payload_bytes"]
+            or first != c_toks or again != c_toks):
+        raise AssertionError(f"cut cache: {hits} hits, {n_pre_h} prefills, "
+                             f"prefill bytes {before} -> {after}")
+    entry = next(iter(cache._d.values()))
+    per_entry = sum(t.numel() * t.element_size()
+                    for t in tree_leaves(entry))
+    out["cut_cache"] = {"hits": hits, "bytes_per_entry": per_entry,
+                        "hit_run_wall_ms": 1e3 * h_wall,
+                        "counts": h_counts}
+    print(f"    {hits} cut_cache_hits, 0 prefill cut bytes on the second "
+          f"run, tokens bitwise equal; {per_entry} bytes per entry "
+          f"({per_entry / 1e6:.1f} MB); hit run {1e3 * h_wall:.3f} ms")
+    del ce, cache, entry
+
+    print("  (e) ServingService: two sessions on two threads over one "
+          "process channel")
+    import threading
+    sets = [(ctxs[:4], [8, 4, 6, 2]), (ctxs[4:], [8, 2, 4, 6])]
+    svc = ServingService(model, params, transport="process",
+                         batch_slots=SLOTS, ctx_len=CTX, max_new=NEW,
+                         compression="int8", cache_entries=len(MIXED),
+                         device="cuda")
+    sessions = [svc.session(), svc.session()]
+    res, errors = {}, []
+
+    def drive(i):
+        try:
+            s, (cs, mx) = sessions[i], sets[i]
+            rids = [s.submit(c, max_new=m) for c, m in zip(cs, mx)]
+            o = s.run()
+            res[i] = [o[r].generated for r in rids]
+        except BaseException as e:           # noqa: BLE001
+            errors.append(e)
+
+    threads = [threading.Thread(target=drive, args=(i,)) for i in (0, 1)]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300)
+    svc_wall = time.perf_counter() - t
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"multiplexed sessions failed: {errors}")
+    solo = []
+    for cs, mx in sets:
+        e = ServingEngine(model, params, scheduler="continuous",
+                          **dict(kw, transport="process"))
+        solo.append(served(e, cs, mx)[0])
+        e.close()
+    raw = svc.channel_stats
+    scoped = [s._ep_sci.recv_stats for s in sessions]
+    if [res[0], res[1]] != solo:
+        raise AssertionError("a session's tokens differ from its solo run")
+    for k in ("messages", "payload_bytes", "wire_bytes"):
+        if raw[k] != sum(sc[k] for sc in scoped):
+            raise AssertionError(f"scoped {k} do not sum to the channel's")
+    svc.close()
+    out["sessions"] = {"tokens_equal_solo": True, "wall_ms": 1e3 * svc_wall,
+                       "channel_wire_bytes": raw["wire_bytes"],
+                       "session_wire_bytes": [sc["wire_bytes"]
+                                              for sc in scoped]}
+    print(f"    each session == its solo run; scoped wire bytes "
+          f"{[sc['wire_bytes'] for sc in scoped]} sum to the channel's "
+          f"{raw['wire_bytes']}; both sessions in {1e3 * svc_wall:.3f} ms")
+    del svc, sessions
+
+    print(f"  (f) latency: continuous on the queue at "
+          f"{1e3 * LATENCY_S:.0f} ms one-way against 0")
+    lat_ctx, lat_mx = ctxs[:6], [12, 4, 8, 2, 6, 10]
+    # A tick's wall time swings by tens of ms from run to run on the host,
+    # so the windows a tick pays are read from the transport itself: the
+    # time its receives block until a frame's delivery deadline.  A refill
+    # tick whose ships are both sent before either receive waits at most
+    # one window in all; a refill shipped after the decode's receive
+    # would wait two.
+    runs = {}
+    for lat in (0.0, LATENCY_S, 0.0):      # latency 0 before and after
+        e = tick_timed_engine(model, params, scheduler="continuous",
+                              **dict(kw, latency_s=lat))
+        waits, restore = timed_wire_waits(e)
+        try:
+            toks, _, wall, start = served(e, lat_ctx, lat_mx)
+        finally:
+            restore()
+        ends = e.tick_ends
+        decode, prefill = tick_table(e.transcript[start:], e._tick)
+        kinds = ["refill" if p and d else "prefill" if p else "decode"
+                 for d, p in zip(decode, prefill)]
+        runs.setdefault(lat, []).append(
+            ([1e3 * (b - a) for a, b in zip(ends, ends[1:])], toks, kinds,
+             [1e3 * waits.get(i, 0.0) for i in range(len(kinds))]))
+    t0s = [min(a, b) for a, b in zip(runs[0.0][0][0], runs[0.0][1][0])]
+    t8, toks8, kinds, w8 = runs[LATENCY_S][0]
+    if toks8 != runs[0.0][0][1] or kinds != runs[0.0][0][2]:
+        raise AssertionError("the run at 8 ms differs from latency 0")
+    if any(w for r in runs[0.0] for w in r[3]):
+        raise AssertionError("a receive waited on the wire at latency 0")
+    floor = 1e3 * LATENCY_S
+    print("    tick: kind, ms at 8 ms one-way (floor 8) | ms at 0 (the "
+          "lesser of two runs) | difference | ms waited on the wire at 8")
+    for i, (k, a, b, w) in enumerate(zip(kinds, t8, t0s, w8)):
+        print(f"    {i:3d}: {k:7s} {a:9.3f} | {b:9.3f} | {a - b:8.3f} | "
+              f"{w:7.3f}")
+    if min(t8) < floor:
+        raise AssertionError(f"a tick at {min(t8):.3f} ms, below the "
+                             f"{floor} ms one-way floor")
+    refill_wait = [w for k, w in zip(kinds, w8) if k == "refill"]
+    decode_wait = [w for k, w in zip(kinds, w8) if k == "decode"]
+    # a decode tick receives its own frame at once: it waits the window
+    if not decode_wait or min(decode_wait) < 0.75 * floor:
+        raise AssertionError(f"decode ticks waited {decode_wait} ms on the "
+                             f"wire, not the {floor} ms window")
+    if not refill_wait or max(refill_wait) > 1.5 * floor:
+        raise AssertionError(f"refill ticks waited {refill_wait} ms on the "
+                             f"wire: more than one {floor} ms window")
+    refill_extra = [a - b for k, a, b in zip(kinds, t8, t0s)
+                    if k == "refill"]
+    decode_extra = [a - b for k, a, b in zip(kinds, t8, t0s)
+                    if k == "decode"]
+    out["latency"] = {
+        "one_way_ms": floor, "kinds": kinds, "tick_ms": t8,
+        "tick_ms_latency0": t0s, "wire_wait_ms": w8,
+        "refill_wire_wait_ms": refill_wait,
+        "decode_wire_wait_ms_median": float(np.median(decode_wait)),
+        "refill_extra_ms_median": float(np.median(refill_extra)),
+        "decode_extra_ms_median": float(np.median(decode_extra))}
+    print(f"    every tick at or above the {floor} ms floor; waited on the "
+          f"wire: refill ticks {[round(w, 3) for w in refill_wait]} ms (at "
+          f"most one {floor} ms window; two would be {2 * floor}), decode "
+          f"ticks median {out['latency']['decode_wire_wait_ms_median']:.3f}"
+          f" ms; median wall extra over latency 0: refill ticks "
+          f"{out['latency']['refill_extra_ms_median']:.3f} ms, decode "
+          f"ticks {out['latency']['decode_extra_ms_median']:.3f} ms")
+
+    print("  (g) degraded service: a transport fault mid-run")
+    de = ServingEngine(model, params, scheduler="continuous", **kw)
+    sends = {"n": 0}
+
+    def hook(kind, seq):
+        sends["n"] += 1
+        if sends["n"] == 6:
+            raise OSError("link down")
+        return None
+
+    de._ep_owner.outbox.fault_hook = hook
+    rids = [de.submit(c, max_new=m) for c, m in zip(ctxs[:5],
+                                                    [4, 2, 4, 4, 3])]
+    got = de.run()
+    failed = [r for r in rids if got[r].error]
+    if (sorted(got) != sorted(rids) or not failed
+            or de.stats["failed_requests"] != len(failed)
+            or not all("link down" in got[r].error for r in failed)):
+        raise AssertionError(f"degraded service: {got}")
+    de._ep_owner.outbox.fault_hook = None
+    fresh = de.submit(ctxs[5], max_new=2)
+    ok = de.run()[fresh]
+    if ok.error or len(ok.generated) != 2:
+        raise AssertionError(f"no fresh service after the fault: {ok}")
+    out["degraded"] = {"failed": len(failed), "served": len(rids)
+                       - len(failed), "fresh_ok": True}
+    print(f"    {len(failed)} of {len(rids)} requests failed with "
+          f"{got[failed[0]].error!r}; the engine then served a fresh "
+          f"request: {ok.generated}")
+
+    print(f"  (h) the cut bottleneck: cut_dim {CUT_DIM} (phase 7's params "
+          f"+ cut_proj and in_proj drawn on the card)")
+    bcfg = cfg.replace(split=dataclasses.replace(cfg.split,
+                                                 cut_dim=CUT_DIM))
+    bmodel = SplitModel(bcfg)
+    bparams = bottleneck_params(model, params, CUT_DIM)
+    be = ServingEngine(bmodel, bparams, scheduler="continuous", **kw)
+    send_s, pre_s = [], []
+    be._refill_send = synced(be._refill_send, send_s)
+    be._refill_recv = synced(be._refill_recv, pre_s)
+    b_toks, b_counts, b_wall, start = served(be, ctxs, MIXED)
+    need, b_dec, b_pre = continuous_need(be, start, bmodel)
+    check_counts(b_counts, need, "the bottleneck run")
+    dec = be._ep_sci.recv_stats["by_kind"]["cut_activations"]
+    full = cont._ep_sci.recv_stats["by_kind"]["cut_activations"]
+    header = 4 + 2 + len("qp") + 2 + len("uint8") + 1 + 3 * 8 + 8
+    want_p = dec["count"] * SLOTS * (CUT_DIM + 4)
+    if (dec["payload_bytes"] != want_p
+            or dec["wire_bytes"] != want_p + dec["count"] * header
+            or dec["count"] != b_dec):
+        raise AssertionError(f"bottleneck decode frames {dec}, analytic "
+                             f"payload {want_p}")
+    if any(not 0 <= tk < cfg.vocab for g in b_toks for tk in g) or \
+            [len(g) for g in b_toks] != MIXED:
+        raise AssertionError("bottleneck serving output wrong")
+    ratio = (dec["payload_bytes"] / dec["count"]) / (
+        full["payload_bytes"] / full["count"])
+    out["bottleneck"] = {
+        "cut_dim": CUT_DIM, "decode_frames": dec["count"],
+        "decode_payload_bytes": dec["payload_bytes"],
+        "decode_wire_bytes": dec["wire_bytes"],
+        "payload_ratio_to_d_model": ratio, "counts": b_counts,
+        "head_prefill_ms": [1e3 * s for s in send_s],
+        "trunk_prefill_ms": [1e3 * s for s in pre_s],
+        "wall_ms": 1e3 * b_wall,
+        "tok_per_s": sum(MIXED) / b_wall}
+    print(f"    {dec['count']} decode frames of {SLOTS} x ({CUT_DIM} + 4) "
+          f"payload bytes ({dec['payload_bytes']} B, wire "
+          f"{dec['wire_bytes']}: + {header} B of header each) = "
+          f"{ratio:.4f} of d_model's ({SLOTS} x 3076 a frame); per "
+          f"refill, head prefill + ship ms "
+          f"{[round(1e3 * s, 3) for s in send_s]}, receive + trunk "
+          f"prefill ms {[round(1e3 * s, 3) for s in pre_s]}; "
+          f"{sum(MIXED) / b_wall:.2f} tok/s")
+    del bparams, be
+    out["wall_s"] = time.time() - t0
+    return out
+
+
+def phase_continuous_session():
+    """19(j): VerticalSession(*sequence_parties(...)) -> resolve ->
+    build(llama3.2-3b) -> serve_dataset(continuous, process, int8) on the
+    card, eight documents of 1024 tokens."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.federation import VerticalSession, sequence_parties
+    cfg = get_config(LM)
+    toks = lm_contexts(cfg.vocab, 2 * SLOTS, CTX, seed=3)
+    t = time.perf_counter()
+    s = VerticalSession(*sequence_parties(toks, cfg.split.n_owners,
+                                          with_labels=False))
+    rstats = s.resolve(group="modp512")
+    s.build(cfg, seed=0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    n_new = 8
+    reset_counts()
+    t = time.perf_counter()
+    out, eng = s.serve_dataset(max_new=n_new, batch_slots=SLOTS,
+                               scheduler="continuous", transport="process",
+                               compression="int8")
+    counts = read_counts()
+    wall = time.perf_counter() - t
+    eng.close()
+    need = continuous_need(eng, 0, eng.model)[0]
+    check_counts(counts, need, "serve_dataset")
+    gen = [out[r].generated for r in sorted(out)]
+    if (len(gen) != 2 * SLOTS or any(len(g) != n_new for g in gen)
+            or any(not 0 <= tk < cfg.vocab for g in gen for tk in g)
+            or any(out[r].error for r in out)):
+        raise AssertionError(f"serve_dataset output wrong: {gen}")
+    print(f"  PSI {rstats['global_intersection']} documents aligned; build "
+          f"+ resolve {setup_s:.2f} s; served {len(gen)} x {n_new} tokens "
+          f"in {1e3 * wall:.3f} ms ({eng.stats['ticks']} ticks, "
+          f"{eng.stats['cut_messages']} cut messages, "
+          f"{eng.stats['cut_wire_bytes']} wire bytes); request 0 -> "
+          f"{gen[0]}")
+    del s
+    return {"documents": len(gen), "ticks": eng.stats["ticks"],
+            "wall_ms": 1e3 * wall, "setup_s": setup_s, "counts": counts,
+            "cut_wire_bytes": eng.stats["cut_wire_bytes"]}
+
+
+def phase_continuous_zamba(model, params):
+    """19(i): zamba2-2.7b continuous == wave bit for bit on phase 10's
+    params: 4 requests of 1024 tokens, max_new up to 8 (the Mamba2 conv
+    and state rows scattered on refill, the shared attention block's
+    decode on per-row lengths)."""
+    from repro_torch.launch.engine import ServingEngine
+    ctxs = lm_contexts(model.cfg.vocab, 6, CTX, seed=4)
+    mixed = [8, 3, 6, 2, 5, 4]
+    kw = dict(batch_slots=SLOTS, ctx_len=CTX, max_new=8, transport="queue",
+              compression="int8", device="cuda")
+    wave = ServingEngine(model, params, **kw)
+    w_toks, w_counts, w_wall, _ = served(wave, ctxs, mixed)
+    check_counts(w_counts, wave_need(model, mixed)[0], "the zamba2 wave")
+    cont = ServingEngine(model, params, scheduler="continuous", **kw)
+    c_toks, c_counts, c_wall, start = served(cont, ctxs, mixed)
+    need, n_dec, n_pre = continuous_need(cont, start, model)
+    check_counts(c_counts, need, "the zamba2 continuous run")
+    if c_toks != w_toks:
+        raise AssertionError("zamba2: continuous != wave tokens")
+    print(f"  zamba2-2.7b: {len(mixed)} requests, max_new {mixed}: tokens "
+          f"bitwise equal; continuous {cont.stats['ticks']} ticks "
+          f"({n_dec} decode, {n_pre} with a prefill) in {1e3 * c_wall:.3f} "
+          f"ms, wave {1e3 * w_wall:.3f} ms")
+    return {"tokens_equal": True, "ticks": cont.stats["ticks"],
+            "wall_ms": 1e3 * c_wall, "wave_wall_ms": 1e3 * w_wall,
+            "counts": c_counts}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2566,10 +3301,23 @@ def main():
     print(f"  phase wall {time.time() - t:.2f} s")
     t = time.time()
     print("== 8. engine == manual decode; card vs CPU")
-    phase_lm_checks(serving.pop("model"), serving.pop("params"),
+    lm_model, lm_params = serving.pop("model"), serving.pop("params")
+    phase_lm_checks(lm_model, lm_params,
                     get_config(LM).replace(n_layers=2,
                                            compute_dtype="float32"), 64)
+    print(f"  phase wall {time.time() - t:.2f} s")
+    t = time.time()
+    print(f"== 19. the rest of LM serving at full width ({LM}, run here "
+          "while phase 7's params are alive): continuous batching, "
+          "process transport, cut cache, sessions, latency, degraded "
+          "service, cut bottleneck, the session entry point")
+    cont = phase_continuous(lm_model, lm_params, bw)
+    del lm_model, lm_params
     torch.cuda.empty_cache()       # the llama params are gone
+    print("  (j) VerticalSession -> resolve -> build -> serve_dataset "
+          "(continuous, process, int8)")
+    cont["session"] = phase_continuous_session()
+    torch.cuda.empty_cache()
     print(f"  phase wall {time.time() - t:.2f} s")
     t = time.time()
     print("== 9. SSD scan kernel vs plain version on the card")
@@ -2582,9 +3330,16 @@ def main():
     print(f"  phase wall {time.time() - t:.2f} s")
     t = time.time()
     print("== 11. engine == manual decode; card vs CPU (zamba2-2.7b)")
-    phase_lm_checks(zamba.pop("model"), zamba.pop("params"),
+    z_model, z_params = zamba.pop("model"), zamba.pop("params")
+    phase_lm_checks(z_model, z_params,
                     get_config(ZAMBA, reduced=True).replace(
                         n_layers=18, compute_dtype="float32"), 128)
+    print(f"  phase wall {time.time() - t:.2f} s")
+    t = time.time()
+    print("== 19(i). zamba2-2.7b continuous == wave (phase 10's params)")
+    cont["zamba2"] = phase_continuous_zamba(z_model, z_params)
+    del z_model, z_params
+    torch.cuda.empty_cache()
     print(f"  phase wall {time.time() - t:.2f} s")
     t = time.time()
     print("== 12. cut-fusion kernel vs plain version on the card")
@@ -2720,6 +3475,27 @@ def main():
     # cut fusion at eight owners (phase 18), beside the path's P = 2
     next(e for e in entries if e["name"] == "cut_fusion.fma")["p8"] = \
         fit_out["cut_fusion_p8"]
+    # the decode route with per-row lengths (phase 19(a)), launched on
+    # every decode tick of the continuous engine
+    pr = cont["per_row_kernel"]
+    c_counts = cont["continuous_vs_wave"]["counts"]
+    entries.append({
+        "name": "block_attention.per_row", "route": "cuda",
+        "source": "src/repro_torch/csrc/attention_decode.cu",
+        "replaces": "src/repro/kernels/block_attention/kernel.py:28",
+        "launches": c_counts["block_attention.per_row"], "on_path": True,
+        "max_abs_err": pr["max_abs_err"], "ms": pr["ms"],
+        "plain_ms": pr["plain_ms"], "bound_ms": pr["bound_ms"],
+        "bound_by": pr["bound_by"], "library_ms": pr["library_ms"],
+        "shape": pr["shape"], "kv_lens": pr["kv_lens"],
+        "scalar_ms": pr["scalar_ms"], "eager_ms": pr["eager_ms"]})
+    # every kernel's launches in phase 19(b)'s continuous run (llama) and
+    # 19(i)'s (zamba2)
+    z_counts = cont["zamba2"]["counts"]
+    for e in entries:
+        e["continuous_launches"] = c_counts.get(e["name"], 0)
+        e["zamba2_continuous_launches"] = z_counts.get(e["name"], 0)
+    print(json.dumps({"serving_continuous": cont}))
     print(json.dumps({"privacy": {k: v for k, v in priv.items()
                                   if k != "counts"}}))
     print(json.dumps({"recovery": without(rec, "all_counts")}))

@@ -6,8 +6,9 @@ the inputs of the same data subjects.  Each owner runs ``cut_layer``
 blocks (its head segment) locally; the data scientist combines head
 outputs at the cut layer and runs the remaining blocks (the trunk
 segment).  The privacy fields (NoPeek, cut noise, the cut-gradient
-defences) train on the MLP SplitNN; the LM refuses ``cut_dim`` and cut
-noise (ROADMAP.md, item 15).
+defences) train on the MLP SplitNN; the LM serves with a ``cut_dim``
+bottleneck and cut noise (its training is not ported: ROADMAP.md,
+item 13).
 
 ``ArchConfig``: one architecture, field for field as in the reference.
 The port builds the dense attention family and the Mamba2 hybrid

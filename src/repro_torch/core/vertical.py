@@ -1,5 +1,6 @@
 """Vertical partitioning of datasets across data owners (numpy; a copy
-of the parts of ``repro.core.vertical`` the MLP path uses).
+of ``repro.core.vertical``: feature columns for the MLP path, sequence
+spans for the split LM).
 
 The paper's MNIST experiment splits each image into a left and a right
 half; generally, each data owner holds a disjoint vertical slice of every
@@ -37,6 +38,19 @@ def partition_features(x: np.ndarray, owners: Owners) -> List[np.ndarray]:
     """Split feature columns (axis -1) into contiguous owner slices."""
     return list(np.split(x, _split_points(x.shape[-1], owners, "features"),
                          axis=-1))
+
+
+def partition_sequence(tokens: np.ndarray, owners: Owners
+                       ) -> List[np.ndarray]:
+    """Split the sequence dim (axis 1) into contiguous owner slices.
+    ``owners``: a count or explicit per-owner slice lengths."""
+    return list(np.split(tokens, _split_points(tokens.shape[1], owners,
+                                               "seq"), axis=1))
+
+
+def unpartition(slices: List[np.ndarray], axis: int = -1) -> np.ndarray:
+    """Inverse of the partitioners."""
+    return np.concatenate(slices, axis=axis)
 
 
 def make_ids(n: int, prefix: str = "subject") -> List[str]:

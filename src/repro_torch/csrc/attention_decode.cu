@@ -50,7 +50,16 @@
 //     scratch that the wrapper allocates; a second, small launch merges
 //     the splits (max, weights, sums over a fixed tree, each output
 //     column summed in split order; no atomics), so the bits depend
-//     only on the shapes and kv_len, never on scheduling.
+//     only on the shapes and kv_len, never on scheduling;
+//   * per-row lengths (continuous batching: every batch row decodes at
+//     its own position): the wrapper hands in a (B, 6) int32 table of
+//     each row's q_offset, kv_lim, live range and split plan, each what
+//     a scalar call with that row's length would use
+//     (block_attention/plan.py::row_plans).  The grid covers the longest
+//     row's splits; a block past its row's n_split returns before it
+//     reads anything, and the merge reads only that row's n_split
+//     partials, so a row's bits are those of a scalar call at its
+//     length, whatever the other rows' lengths.
 
 #include <climits>
 #include <cmath>
@@ -74,6 +83,7 @@ struct Params {
   void* o;
   float* part_acc;                 // (n_split, B * nkv, R, hd)
   float* part_ml;                  // (n_split, B * nkv, R, 2): m, l
+  const int* rows;                 // (B, 6) per-row plans, or nullptr
   int Sq, nh, nkv, hd, g, R, BH;
   long long qs_b, qs_s, qs_h;      // element strides of q, k, v
   long long ks_b, ks_s, ks_h;
@@ -83,6 +93,19 @@ struct Params {
   int k_begin, k_end, split_len, n_split;
   int vec;                         // 16-byte loads of k and v allowed
 };
+
+// Batch row b's plan: the call's scalars, or b's row of the per-row
+// table (q_offset, kv_lim, k_begin, k_end, split_len, n_split).
+struct RowPlan {
+  int q_offset, kv_lim, k_begin, k_end, split_len, n_split;
+};
+__device__ __forceinline__ RowPlan row_plan(const Params& p, int b) {
+  if (p.rows == nullptr)
+    return {p.q_offset, p.kv_lim, p.k_begin, p.k_end, p.split_len,
+            p.n_split};
+  const int* r = p.rows + 6 * b;
+  return {r[0], r[1], r[2], r[3], r[4], r[5]};
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -211,8 +234,10 @@ __global__ void __launch_bounds__(kThreads) decode_split(Params p) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int split = blockIdx.x, bh = blockIdx.y;
   const int b = bh / p.nkv, kvh = bh % p.nkv;
-  const int s_begin = p.k_begin + split * p.split_len;
-  const int s_end = min(p.k_end, s_begin + p.split_len);
+  const RowPlan rp = row_plan(p, b);
+  if (split >= rp.n_split) return;   // past this row's plan
+  const int s_begin = rp.k_begin + split * rp.split_len;
+  const int s_end = min(rp.k_end, s_begin + rp.split_len);
   const T* K = static_cast<const T*>(p.k) + b * p.ks_b + kvh * p.ks_h;
   const T* V = static_cast<const T*>(p.v) + b * p.vs_b + kvh * p.vs_h;
   const T* Q = static_cast<const T*>(p.q) + b * p.qs_b;
@@ -277,10 +302,10 @@ __global__ void __launch_bounds__(kThreads) decode_split(Params p) {
     for (int i = 0; i < SPT; ++i) {
       const int r = half + 2 * i;
       if (r >= R) continue;
-      const int qp = p.q_offset + r / p.g;
+      const int qp = rp.q_offset + r / p.g;
       float x = s[i];
       if (p.softcap > 0.0f) x = p.softcap * tanhf(x / p.softcap);
-      bool ok = kp < p.kv_lim;
+      bool ok = kp < rp.kv_lim;
       if (p.kind == kCausal) ok = ok && kp <= qp;
       else if (p.kind == kLocal) ok = ok && kp <= qp && kp > qp - p.window;
       sS[r * kLdS + key] = kp >= s_end ? -INFINITY : ok ? x : kNegInf;
@@ -424,8 +449,10 @@ __global__ void __launch_bounds__(kThreads) decode_mma(Params p) {
   const int g = lane >> 2, t = lane & 3;
   const int split = blockIdx.x, bh = blockIdx.y;
   const int b = bh / p.nkv, kvh = bh % p.nkv;
-  const int s_begin = p.k_begin + split * p.split_len;
-  const int s_end = min(p.k_end, s_begin + p.split_len);
+  const RowPlan rp = row_plan(p, b);
+  if (split >= rp.n_split) return;   // past this row's plan
+  const int s_begin = rp.k_begin + split * rp.split_len;
+  const int s_end = min(rp.k_end, s_begin + rp.split_len);
   const int n_steps = s_end > s_begin ? (s_end - s_begin + 15) / 16 : 0;
   using bf16 = __nv_bfloat16;
   const bf16* K = static_cast<const bf16*>(p.k) + b * p.ks_b + kvh * p.ks_h;
@@ -474,9 +501,9 @@ __global__ void __launch_bounds__(kThreads) decode_mma(Params p) {
     }
   }
   // the live keys [lo, hi) of rows g and g + 8
-  const int qp0 = p.q_offset + g / p.g, qp1 = p.q_offset + (g + 8) / p.g;
-  const int hi0 = p.kind == kBidir ? p.kv_lim : min(p.kv_lim, qp0 + 1);
-  const int hi1 = p.kind == kBidir ? p.kv_lim : min(p.kv_lim, qp1 + 1);
+  const int qp0 = rp.q_offset + g / p.g, qp1 = rp.q_offset + (g + 8) / p.g;
+  const int hi0 = p.kind == kBidir ? rp.kv_lim : min(rp.kv_lim, qp0 + 1);
+  const int hi1 = p.kind == kBidir ? rp.kv_lim : min(rp.kv_lim, qp1 + 1);
   const int lo0 = p.kind == kLocal ? qp0 - p.window + 1 : INT_MIN;
   const int lo1 = p.kind == kLocal ? qp1 - p.window + 1 : INT_MIN;
 
@@ -644,21 +671,22 @@ __device__ __forceinline__ float block_reduce(float x, float* red) {
 // One block per (batch x kv head, row): M = max_s m_s, the weights
 // w_s = exp(m_s - M) in shared memory, L = sum_s w_s l_s over a fixed
 // tree, and each output column the sum over s, in split order, of
-// w_s acc_s.
+// w_s acc_s, over the n_split splits of the batch row's plan.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) decode_combine(Params p) {
   extern __shared__ float w[];     // n_split weights, then 4 for red
   float* red = w + p.n_split;
   const int bh = blockIdx.x / p.R, r = blockIdx.x % p.R;
   const int b = bh / p.nkv, kvh = bh % p.nkv;
+  const int n_split = row_plan(p, b).n_split;
   const long long stride = (long long)p.BH * p.R;   // between splits
   const long long row = (long long)bh * p.R + r;
   float m = -3.0e38f;
-  for (int s = threadIdx.x; s < p.n_split; s += kThreads)
+  for (int s = threadIdx.x; s < n_split; s += kThreads)
     m = fmaxf(m, p.part_ml[(s * stride + row) * 2]);
   const float M = block_reduce<true>(m, red);
   float l = 0.0f;
-  for (int s = threadIdx.x; s < p.n_split; s += kThreads) {
+  for (int s = threadIdx.x; s < n_split; s += kThreads) {
     const float ws = expf(p.part_ml[(s * stride + row) * 2] - M);
     w[s] = ws;
     l += ws * p.part_ml[(s * stride + row) * 2 + 1];
@@ -672,7 +700,7 @@ __global__ void __launch_bounds__(kThreads) decode_combine(Params p) {
   for (int d = threadIdx.x; d < p.hd; d += kThreads) {
     float o = 0.0f;
 #pragma unroll 4
-    for (int s = 0; s < p.n_split; ++s)
+    for (int s = 0; s < n_split; ++s)
       o = fmaf(w[s], acc[s * stride * p.hd + d], o);
     store(O + d, o * inv_l);
   }
@@ -751,12 +779,15 @@ int launch_hd(const Params& p, void* stream) {
 // last dimension of q, k and v is contiguous.  kind 0 = causal, 1 =
 // local, 2 = bidir.  Split s covers keys [k_begin + s * split_len,
 // min(k_end, k_begin + (s + 1) * split_len)).  part_acc holds n_split *
-// B * nkv * R * hd floats and part_ml n_split * B * nkv * R * 2.  The
+// B * nkv * R * hd floats and part_ml n_split * B * nkv * R * 2.  With
+// `rows` (a device array of B x 6 ints: q_offset, kv_lim, k_begin,
+// k_end, split_len, n_split per batch row) those come from each row's
+// entry instead of the scalars, and n_split is the largest row's.  The
 // wrapper checks R = Sq * (nh / nkv) <= 64, 1 <= hd <= 256,
 // B * nkv <= 65535, and sets vec only when k and v allow 16-byte loads.
 extern "C" int attention_decode_launch(
     const void* q, const void* k, const void* v, void* o, float* part_acc,
-    float* part_ml, int dtype, int B, int Sq, int nh, int nkv, int hd,
+    float* part_ml, const int* rows, int dtype, int B, int Sq, int nh, int nkv, int hd,
     long long qs_b, long long qs_s, long long qs_h, long long ks_b,
     long long ks_s, long long ks_h, long long vs_b, long long vs_s,
     long long vs_h, int kind, int window, int kv_lim, int q_offset,
@@ -764,7 +795,7 @@ extern "C" int attention_decode_launch(
     int n_split, int vec, void* stream) {
   if (B == 0 || Sq == 0) return (int)cudaGetLastError();
   const int g = nh / nkv;
-  Params p{q, k, v, o, part_acc, part_ml, Sq, nh, nkv, hd, g, Sq * g,
+  Params p{q, k, v, o, part_acc, part_ml, rows, Sq, nh, nkv, hd, g, Sq * g,
            B * nkv, qs_b, qs_s, qs_h, ks_b, ks_s, ks_h, vs_b, vs_s, vs_h,
            kind, window, kv_lim, q_offset, softcap, scale, k_begin, k_end,
            split_len, n_split, vec};

@@ -17,6 +17,7 @@ _EXPORTS = {
     "OwnerComputeEndpoint": "parties",
     "PrivacyError": "parties",
     "feature_parties": "parties",
+    "sequence_parties": "parties",
     "build_adapter": "registry",
     "VerticalSession": "session",
     "OwnerFailure": "supervisor",

@@ -64,6 +64,12 @@ def sequence_owner_slices(tokens, n_owners: int) -> np.ndarray:
         B, n_owners, S // n_owners).transpose(1, 0, 2)
 
 
+def merge_sequence_slices(owner_tokens) -> np.ndarray:
+    """Inverse of :func:`sequence_owner_slices`: (P, B, S_p) -> (B, S)."""
+    P, B, S_p = owner_tokens.shape
+    return np.asarray(owner_tokens).transpose(1, 0, 2).reshape(B, P * S_p)
+
+
 # ---------------------------------------------------------------------------
 # serving layout (padded request waves -> sequence layout)
 # ---------------------------------------------------------------------------

@@ -22,6 +22,7 @@ import torch
 from repro_torch.core.privacy import deterministic_cut_noise
 from repro_torch.core.psi import DEFAULT_MODE, PSIClient, PSIServer
 from repro_torch.core.resolution import VerticalDataset
+from repro_torch.core.vertical import make_ids, partition_sequence
 from repro_torch.tree import tree_add, tree_leaves
 
 # snapshot markers an owner (and the supervised fit, of its acks) keeps:
@@ -433,3 +434,26 @@ def feature_parties(scientist_ds: VerticalDataset,
     owners = [DataOwner(name, ds.ids, ds.data)
               for name, ds in owner_ds.items()]
     return sci, owners
+
+
+def sequence_parties(tokens: np.ndarray, n_owners: int,
+                     ids: Optional[Sequence[str]] = None,
+                     with_labels: bool = True
+                     ) -> Tuple[DataScientist, List[DataOwner]]:
+    """Vertically partition token streams across sequence-slice owners.
+
+    ``tokens``: (N, S+1) when ``with_labels`` (inputs ``[:, :-1]``, the
+    scientist keeps next-token labels ``[:, 1:]``), else (N, S) raw
+    contexts (serving: the scientist holds no labels).  Owner p receives
+    the contiguous sequence slice [p*S/P, (p+1)*S/P) of every
+    document."""
+    tokens = np.asarray(tokens)
+    if with_labels:
+        inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    else:
+        inputs, labels = tokens, None
+    ids = list(ids) if ids is not None else make_ids(len(tokens), "doc")
+    slices = partition_sequence(inputs, n_owners)
+    owners = [DataOwner(f"owner{p}", ids, slices[p])
+              for p in range(n_owners)]
+    return DataScientist(ids, labels), owners

@@ -41,9 +41,17 @@ owner's compute loop and the PSI actor use (``send`` / ``recv`` /
   * **Two waiting threads.**  ``recv_kind`` is the queue endpoint's
     (``transport.KindReceiver``): one waiter reads the pipe at a time
     and hands on what it stashes, so the step loop and the supervisor's
-    heartbeat thread may wait on one endpoint at once.
-
-The transport tap and duplicate dropping are queued in ROADMAP.md.
+    heartbeat thread may wait on one endpoint at once, and so may the
+    serving sessions that share one endpoint
+    (``transport.ScopedEndpoint``).
+  * **A tap.**  ``tap(msg, blob)`` observes every frame the endpoint
+    sends and every frame it receives (``process_endpoint_pair`` puts it
+    on endpoint ``a``: both directions of the boundary).
+  * **Duplicate dropping, opt in.**  With ``dedup`` a received frame
+    whose seq equals the last delivered seq of its kind is dropped and
+    counted (``recv_stats["dup_dropped"]``); negative seqs are exempt
+    and ``reset_dedup`` forgets the seqs (after a rollback the replayed
+    frames reuse them).  Off by default: serving reuses seqs per tick.
 """
 from __future__ import annotations
 
@@ -101,15 +109,19 @@ class ProcessEndpoint(KindReceiver):
     def __init__(self, name: str, peer: str, conn, *,
                  latency_s: float = 0.0,
                  bandwidth_bps: Optional[float] = None,
-                 spin_s: Optional[float] = None):
+                 spin_s: Optional[float] = None, tap=None,
+                 dedup: bool = False):
         self.name, self.peer = name, peer
         self.conn = conn
         self.latency_s = latency_s
         self.bandwidth_bps = bandwidth_bps
         self.spin_s = spin_wait_s() if spin_s is None else spin_s
+        self.tap = tap
         # fault hook: ``fault_hook(kind, seq) -> (action, delay_s) | None``,
         # installed by ``faults.arm_endpoint`` (drop, corrupt, delay)
         self.fault_hook = None
+        self._dedup = dedup
+        self._last_seq: Dict[str, int] = {}
         self.sent_stats = _new_stats()
         self.recv_stats = _new_stats()
         #: the peer's error frame, once seen
@@ -149,6 +161,8 @@ class ProcessEndpoint(KindReceiver):
         msg = Message(self.name, self.peer, kind, {"__blob__": blob},
                       seq=seq, payload_bytes=pb, wire_bytes=len(blob),
                       crc=crc)
+        if self.tap is not None:
+            self.tap(msg, blob)
         fault = (self.fault_hook(kind, seq)
                  if self.fault_hook is not None else None)
         transit = self.latency_s + (len(blob) / self.bandwidth_bps
@@ -191,38 +205,64 @@ class ProcessEndpoint(KindReceiver):
 
     # -- receiving ---------------------------------------------------------
     def _recv_frame(self, timeout: Optional[float]) -> Message:
-        try:
-            if not self.conn.poll(timeout):
-                raise _queue.Empty
-            frame = self.conn.recv_bytes()
-        except (EOFError, OSError) as e:
-            raise RuntimeError(
-                f"{self.name}: connection to {self.peer!r} closed "
-                f"({type(e).__name__})") from (
-                    self.peer_error if self.peer_error is not None else e)
-        (klen,) = struct.unpack_from("<H", frame, 0)
-        kind = frame[2:2 + klen].decode()
-        seq, not_before, pb, crc = struct.unpack_from(HEADER_FMT, frame,
-                                                      2 + klen)
-        blob = frame[2 + klen + _HEADER_LEN:]
-        if kind == POISON_KIND:
-            pl = _unpack(blob)
-            err = pl["error"].tobytes().decode()
-            tb = pl["traceback"].tobytes().decode()
-            self.peer_error = RuntimeError(
-                f"party {self.peer!r} died: {err}"
-                + (f"\n--- remote traceback ---\n{tb}" if tb else ""))
-            raise self.peer_error
-        if crc32(blob) != crc:
-            raise FrameCorrupt(kind, int(seq), self.peer, self.name)
-        with self._lock:
-            _account(self.recv_stats, kind, int(pb), len(blob))
-        if not_before:
-            wait_until(not_before, self.spin_s)
-        return Message(self.peer, self.name, kind, _unpack(blob),
-                       seq=int(seq), payload_bytes=int(pb),
-                       wire_bytes=len(blob), not_before=not_before,
-                       crc=int(crc))
+        deadline = (None if timeout is None
+                    else time.monotonic() + timeout)
+        while True:
+            try:
+                if not self.conn.poll(timeout):
+                    raise _queue.Empty
+                frame = self.conn.recv_bytes()
+            except (EOFError, OSError) as e:
+                raise RuntimeError(
+                    f"{self.name}: connection to {self.peer!r} closed "
+                    f"({type(e).__name__})") from (
+                        self.peer_error if self.peer_error is not None
+                        else e)
+            (klen,) = struct.unpack_from("<H", frame, 0)
+            kind = frame[2:2 + klen].decode()
+            seq, not_before, pb, crc = struct.unpack_from(
+                HEADER_FMT, frame, 2 + klen)
+            blob = frame[2 + klen + _HEADER_LEN:]
+            if kind == POISON_KIND:
+                pl = _unpack(blob)
+                err = pl["error"].tobytes().decode()
+                tb = pl["traceback"].tobytes().decode()
+                self.peer_error = RuntimeError(
+                    f"party {self.peer!r} died: {err}"
+                    + (f"\n--- remote traceback ---\n{tb}" if tb else ""))
+                raise self.peer_error
+            if crc32(blob) != crc:
+                raise FrameCorrupt(kind, int(seq), self.peer, self.name)
+            if self._dedup and seq >= 0:
+                if self._last_seq.get(kind) == int(seq):
+                    with self._lock:
+                        self.recv_stats["dup_dropped"] = \
+                            self.recv_stats.get("dup_dropped", 0) + 1
+                    if deadline is not None:
+                        timeout = max(0.0, deadline - time.monotonic())
+                    continue                   # a replayed frame: drop
+                self._last_seq[kind] = int(seq)
+            with self._lock:
+                _account(self.recv_stats, kind, int(pb), len(blob))
+            if not_before:
+                wait_until(not_before, self.spin_s)
+            msg = Message(self.peer, self.name, kind, _unpack(blob),
+                          seq=int(seq), payload_bytes=int(pb),
+                          wire_bytes=len(blob), not_before=not_before,
+                          crc=int(crc))
+            if self.tap is not None:
+                self.tap(msg, blob)
+            return msg
+
+    def reset_dedup(self) -> None:
+        """Forget the last delivered seq of every kind (after a rollback
+        the replayed step's frames reuse their seqs)."""
+        self._last_seq.clear()
+
+    def empty(self) -> bool:
+        """Nothing stashed and nothing waiting on the pipe."""
+        with self._cond:
+            return not self._stash and not self.conn.poll(0)
 
     def recv(self, timeout: Optional[float] = None) -> Message:
         # the frame is read (and its deadline waited out) outside the
@@ -256,13 +296,17 @@ class ProcessEndpoint(KindReceiver):
 
 def process_endpoint_pair(a: str, b: str, *, latency_s: float = 0.0,
                           bandwidth_bps: Optional[float] = None,
-                          spin_s: Optional[float] = None
+                          spin_s: Optional[float] = None, tap=None,
+                          dedup: bool = False
                           ) -> Tuple[ProcessEndpoint, ProcessEndpoint]:
     """Both ends of a process boundary in the current process (the
     worker spawn builds the far end inside the child; see
-    ``federation/runtime.py``)."""
+    ``federation/runtime.py``; serving keeps both ends here).  ``tap``
+    observes endpoint ``a``'s traffic in both directions; ``dedup`` turns
+    on duplicate dropping on endpoint ``a``'s receive path."""
     import multiprocessing as mp
     c1, c2 = mp.Pipe(duplex=True)
     kw = dict(latency_s=latency_s, bandwidth_bps=bandwidth_bps,
               spin_s=spin_s)
-    return ProcessEndpoint(a, b, c1, **kw), ProcessEndpoint(b, a, c2, **kw)
+    return (ProcessEndpoint(a, b, c1, tap=tap, dedup=dedup, **kw),
+            ProcessEndpoint(b, a, c2, **kw))

@@ -1,8 +1,13 @@
 """Model registry: ``session.build(config)`` dispatches a config to an
 adapter that gives the session one surface — init, loss, batch assembly,
-per-segment optimizers, and the per-segment programs split execution
-runs (the port's counterpart of ``repro.federation.registry``; only the
-MLP adapter is ported, the LM adapter is queued in ROADMAP.md).
+per-segment optimizers, the per-segment programs split execution runs,
+and the serving engine (the port's counterpart of
+``repro.federation.registry``).  ``MLPSplitConfig`` builds the
+:class:`MLPAdapter` (the paper's path: training and evaluation);
+``ArchConfig`` builds the serving half of :class:`SplitLMAdapter`
+(``VerticalSession.serve`` / ``serve_dataset``).  Training the split LM
+is queued in ROADMAP.md (item 13): its training accessors raise
+``NotImplementedError`` naming it.
 
 Every program accessor is cached on the adapter, so the joint path and
 the split workers call the very same function objects; with the same
@@ -15,20 +20,21 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig, not_ported
 from repro_torch.configs.pyvertical_mnist import MLPSplitConfig
 from repro_torch.core import masking, splitnn
 from repro_torch.federation import batching
 from repro_torch.optim import apply_updates, multi_segment, sgd
 
+_LM_TRAINING = "item 13, LM training"
+
 
 def build_adapter(cfg):
     if isinstance(cfg, MLPSplitConfig):
         return MLPAdapter(cfg)
-    raise NotImplementedError(
-        f"no port adapter for {type(cfg).__name__}: only the MLP SplitNN "
-        "trains in the port (LM training, SplitLMAdapter, is queued as "
-        "item 13 in ROADMAP.md; LM serving runs through "
-        "repro_torch.launch.engine)")
+    if isinstance(cfg, ArchConfig):
+        return SplitLMAdapter(cfg)
+    raise ValueError(f"no adapter registered for {type(cfg).__name__}")
 
 
 class MLPAdapter:
@@ -138,3 +144,55 @@ class MLPAdapter:
     def trunk_update_rule(self, scientist_lr: Optional[float] = None):
         return self._update_rule(("trunk_upd", scientist_lr),
                                  self.trunk_optimizer(scientist_lr))
+
+
+class SplitLMAdapter:
+    """Sequence-split language models (``SplitModel``), text modality:
+    the serving half.  Training them is ROADMAP.md item 13: ``fit``,
+    ``evaluate`` and the training accessors here raise
+    ``NotImplementedError`` naming it."""
+
+    layout = "sequence"
+    supports_serving = True
+    supports_training = False
+    supports_split = False
+    #: ``session.build`` draws the params with a generator on the
+    #: session's device (billions of them at full width)
+    init_on_device = True
+
+    def __init__(self, cfg: ArchConfig):
+        if cfg.modality != "text":
+            raise ValueError(
+                f"VerticalSession drives text archs; {cfg.name} is "
+                f"{cfg.modality}")
+        if float(cfg.split.nopeek_weight) > 0.0:
+            # the LM head has no NoPeek program (token inputs have no
+            # meaningful euclidean geometry for the dcor penalty)
+            raise ValueError(
+                "SplitConfig.nopeek_weight > 0 is not supported by the "
+                "sequence-split LM adapter (supports_nopeek=False); use "
+                "cut_noise_std / grad-side defences instead")
+        from repro_torch.models.model import SplitModel
+        self.cfg = cfg
+        self.model = SplitModel(cfg)
+
+    def init(self, gen: torch.Generator):
+        return self.model.init(gen)
+
+    def cut_shape(self, batch_size: int,
+                  feature_shape: Tuple[int, ...]) -> Tuple[int, ...]:
+        """(B, S_p, k): sequence-slice cut activations."""
+        return (batch_size, feature_shape[0], self.model.k)
+
+    def make_engine(self, params, **engine_kw):
+        from repro_torch.launch.engine import ServingEngine
+        return ServingEngine(self.model, params, **engine_kw)
+
+    # ------------------------------------------------ training: item 13
+    # ``fit`` refuses on ``supports_training``; ``evaluate`` reaches these
+
+    def loss_fn(self, params, batch):
+        raise not_ported("the split LM's loss", _LM_TRAINING)
+
+    def make_batch(self, *args, **kwargs):
+        raise not_ported("the split LM's training batches", _LM_TRAINING)

@@ -86,8 +86,14 @@ widths (``feature_splits`` in the config), and per-party checkpoints
 (``checkpoint`` / ``restore``, ``fit(ckpt_dir=, ckpt_every=)``; files
 under ``step_{step:08d}/`` that the reference reads too).
 
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP.md
-item): serving.
+Serving (split LMs, ``ArchConfig``): ``build`` draws the LM's params on
+the session's device, ``serve(**engine_kw)`` wraps them in a
+``launch.engine.ServingEngine`` (wave or continuous scheduling, the
+direct / queue / process transports, latency, cut codecs, the cut
+cache), and ``serve_dataset`` serves the session's own aligned contexts
+(``sequence_parties(..., with_labels=False)``).  Training the split LM
+is not ported yet: ``fit`` raises ``NotImplementedError`` naming
+ROADMAP.md item 13.
 """
 from __future__ import annotations
 
@@ -110,7 +116,7 @@ from repro_torch.core.psi import (DEFAULT_CHUNK, DEFAULT_MODE, blind_tag,
                                   psi_round)
 from repro_torch.core.splitnn import cut_layer_traffic, make_split_train_step
 from repro_torch.device import resolve_device
-from repro_torch.federation import faults, transport
+from repro_torch.federation import batching, faults, transport
 from repro_torch.federation.cut_codec import get_codec, to_tensor
 from repro_torch.federation.parties import (SNAPSHOTS_KEPT, DataOwner,
                                             DataScientist,
@@ -511,11 +517,17 @@ class VerticalSession:
         # environment sets one, the mask root
         self._init_seed = self.seed if seed is None else seed
         if params is None:
-            params = self.adapter.init(
-                torch.Generator().manual_seed(self._init_seed))
-        self.params = tree_map(
-            lambda t: torch.as_tensor(t, dtype=torch.float32).to(
-                self.device).clone(), params)
+            # the MLP's draws come from a CPU generator on every device;
+            # an LM's billions of params are drawn where they will live
+            on_device = getattr(self.adapter, "init_on_device", False)
+            params = self.adapter.init(torch.Generator(
+                device=self.device if on_device else "cpu").manual_seed(
+                    self._init_seed))
+            self.params = tree_map(lambda t: t.to(self.device), params)
+        else:
+            self.params = tree_map(
+                lambda t: torch.as_tensor(t, dtype=torch.float32).to(
+                    self.device).clone(), params)
         return self
 
     # ---------------------------------------------------------------- 3. fit
@@ -580,7 +592,11 @@ class VerticalSession:
         a replay of the steps since.  The final params and loss trail
         equal the fault-free run's bit for bit.  Any other error
         propagates as it would unsupervised."""
-        self._require(resolved=True, built=True, labels=True)
+        self._require(resolved=True, built=True)
+        if not getattr(self.adapter, "supports_training", True):
+            raise not_ported(f"fit on {type(self.adapter).__name__}",
+                             "item 13, LM training")
+        self._require(labels=True)
         if (epochs is None) == (steps is None):
             raise ValueError("pass exactly one of epochs= or steps=")
         if mode not in ("joint", "split"):
@@ -1502,8 +1518,9 @@ class VerticalSession:
         self._require(built=True)
         shape = self.adapter.cut_shape(batch_size,
                                        self.owners[0].feature_shape)
-        return cut_layer_traffic(len(self.owners), batch_size, 1, shape[-1],
-                                 bytes_per_el)
+        tokens = shape[1] if len(shape) == 3 else 1
+        return cut_layer_traffic(len(self.owners), batch_size, tokens,
+                                 shape[-1], bytes_per_el)
 
     def checkpoint(self, ckpt_dir: str, step: int = 0) -> str:
         """Per-party checkpoints of the session's params:
@@ -1529,5 +1546,36 @@ class VerticalSession:
             a, np.float32)).to(self.device), loaded)
         return self
 
+    # ------------------------------------------------------------ 5. serve
+
     def serve(self, **engine_kw):
-        raise not_ported("serving", "the LM serving slice")
+        """Wrap the resident split model in a ``ServingEngine`` (LM
+        archs) on the session's device.  Kwargs are forwarded:
+        ``batch_slots, ctx_len, max_new, eos_token, pad_token``, the
+        transport boundary (``transport`` "direct" | "queue" | "process",
+        ``latency_s``, ``bandwidth_bps``, ``compression`` None | "fp16"
+        | "int8"), and ``scheduler`` ("wave" | "continuous"),
+        ``max_queue`` and ``cut_cache``."""
+        self._require(built=True)
+        if not getattr(self.adapter, "supports_serving", False):
+            raise ValueError(
+                f"{type(self.adapter).__name__} does not support serving")
+        engine_kw.setdefault("device", self.device)
+        return self.adapter.make_engine(self.params, **engine_kw)
+
+    def serve_dataset(self, *, max_new: int = 16, batch_slots: int = 4,
+                      n_requests: Optional[int] = None, **engine_kw):
+        """Serve the session's own aligned contexts: the owners' sequence
+        slices are merged (owner side) into each request's context,
+        queued, and decoded.  Returns ({rid: Result}, engine)."""
+        self._require(resolved=True, built=True)
+        contexts = batching.merge_sequence_slices(
+            np.stack(self._owner_arrays()))
+        if n_requests is not None:
+            contexts = contexts[:n_requests]
+        engine = self.serve(batch_slots=batch_slots,
+                            ctx_len=contexts.shape[1], max_new=max_new,
+                            **engine_kw)
+        for row in contexts:
+            engine.submit(row)
+        return engine.run(), engine

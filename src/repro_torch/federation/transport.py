@@ -45,8 +45,8 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["Message", "Channel", "Endpoint", "channel_pair", "FrameCorrupt",
-           "spin_wait_s", "wait_until"]
+__all__ = ["Message", "Channel", "Endpoint", "ScopedEndpoint",
+           "channel_pair", "FrameCorrupt", "spin_wait_s", "wait_until"]
 
 # The delivery wait sleeps until this close to a deadline, then spins on
 # the monotonic clock: ``time.sleep`` alone overshoots by the kernel's
@@ -438,6 +438,10 @@ class Endpoint(KindReceiver):
     def _read(self, timeout: float) -> Message:
         return self.inbox.recv(timeout=timeout)
 
+    def empty(self) -> bool:
+        """Nothing stashed and nothing waiting in the inbox."""
+        with self._cond:
+            return not self._stash and self.inbox._q.empty()
 
     @property
     def sent_stats(self) -> Dict[str, object]:
@@ -446,6 +450,57 @@ class Endpoint(KindReceiver):
     @property
     def recv_stats(self) -> Dict[str, object]:
         return self.inbox.stats
+
+
+class ScopedEndpoint:
+    """A kind-prefixed view of a shared endpoint: session multiplexing.
+
+    Many serving sessions share one owner<->scientist boundary; each
+    session's frames ride the same channel with the session scope (e.g.
+    ``"s3:"``) in front of the protocol kind.  Works over :class:`Endpoint`
+    and ``process_transport.ProcessEndpoint`` alike (the kind travels in
+    the pipe's header), and the base endpoint's ``recv_kind``
+    (:class:`KindReceiver`: several waiting threads, other kinds stashed)
+    absorbs the sessions' interleaving.  ``sent_stats`` / ``recv_stats``
+    are the prefix-filtered slice of the shared totals, the scope
+    stripped from the ``by_kind`` keys: a session sees exactly its own
+    traffic."""
+
+    def __init__(self, base, scope: str):
+        self.base, self.scope = base, scope
+        self.name = getattr(base, "name", "?")
+        self.peer = getattr(base, "peer", "?")
+
+    def send(self, kind: str, payload: Dict[str, object], *,
+             seq: int = 0) -> Message:
+        return self.base.send(self.scope + kind, payload, seq=seq)
+
+    def recv_kind(self, kind: str, timeout: Optional[float] = None
+                  ) -> Message:
+        return self.base.recv_kind(self.scope + kind, timeout)
+
+    def empty(self) -> bool:
+        return self.base.empty()
+
+    def _filter(self, stats: Dict[str, object]) -> Dict[str, object]:
+        out = {"messages": 0, "payload_bytes": 0, "wire_bytes": 0,
+               "by_kind": {}}
+        # a snapshot: another session's thread may add a kind meanwhile
+        for k, v in list(stats["by_kind"].items()):
+            if k.startswith(self.scope):
+                out["by_kind"][k[len(self.scope):]] = v
+                out["messages"] += v["count"]
+                out["payload_bytes"] += v["payload_bytes"]
+                out["wire_bytes"] += v["wire_bytes"]
+        return out
+
+    @property
+    def sent_stats(self) -> Dict[str, object]:
+        return self._filter(self.base.sent_stats)
+
+    @property
+    def recv_stats(self) -> Dict[str, object]:
+        return self._filter(self.base.recv_stats)
 
 
 def channel_pair(a: str, b: str, *, backend: str = "queue",

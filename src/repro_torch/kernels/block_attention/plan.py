@@ -23,12 +23,20 @@ Routes (``ops.py`` launches one per call, decided before the launch):
 * ``fma`` (``csrc/block_attention.cu``): the rest — f32 prefills (the
   2e-4 tolerance rules out bf16 or TF32 operands), bf16 with hd above
   128 or not a multiple of 16.
+
+Per-row lengths (continuous batching: every batch row at its own decode
+position, ``q_offset`` and ``kv_len`` one per row) run on the decode
+route only.  ``row_plans`` gives each row the plan a scalar call with
+that row's length would take (``live_range`` and ``split_plan`` with the
+call's ``B * nkv``), so a row's bits depend neither on the other rows'
+lengths nor on whether its length came as a scalar or a vector.
 """
 from __future__ import annotations
 
 import functools
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 TILE = 64                  # keys per tile of the decode route
@@ -39,10 +47,16 @@ ROUTES = ("decode", "tc", "fma")
 
 
 def choose_route(dtype, Sq: int, nh: int, nkv: int, hd: int,
-                 tma_aligned: bool = True) -> str:
-    """The route of a call with q (B, Sq, nh, hd) and nkv kv heads."""
+                 tma_aligned: bool = True, per_row: bool = False) -> str:
+    """The route of a call with q (B, Sq, nh, hd) and nkv kv heads;
+    ``per_row``: the call gives one ``q_offset`` / ``kv_len`` per row,
+    which only the decode route takes."""
     if Sq * (nh // nkv) <= DECODE_MAX_ROWS:
         return "decode"
+    if per_row:
+        raise ValueError(f"per-row lengths run on the decode route, which "
+                         f"takes at most {DECODE_MAX_ROWS} query rows per "
+                         f"kv head, got {Sq * (nh // nkv)}")
     if (dtype == torch.bfloat16 and hd % 16 == 0 and hd <= TC_MAX_HEAD_DIM
             and tma_aligned):
         return "tc"
@@ -112,3 +126,22 @@ def splits(k_begin: int, k_end: int, split_len: int,
     return [(k_begin + i * split_len, min(k_end, k_begin + (i + 1) *
                                           split_len))
             for i in range(n_split)]
+
+
+
+def row_plans(Sq: int, kind: str, window: int, q_offsets: Sequence[int],
+              kv_lens: Sequence[int], skv: int, n_bh: int,
+              n_sm: int = 132, tile: int = TILE) -> np.ndarray:
+    """The decode route's plan of every batch row, (B, 6) int32 in the
+    kernel's order: row b's ``q_offset``, its ``kv_lim`` (``kv_len``
+    clamped to [0, skv]), its live range ``k_begin, k_end`` and its split
+    plan ``split_len, n_split``, each what a scalar call with that row's
+    ``q_offset`` and ``kv_len`` computes (``n_bh``: the call's B * nkv,
+    as in the scalar plan)."""
+    out = np.zeros((len(q_offsets), 6), np.int32)
+    for b, (qo, kl) in enumerate(zip(q_offsets, kv_lens)):
+        qo, kv_lim = int(qo), max(0, min(int(kl), skv))
+        k_begin, k_end = live_range(Sq, kind, window, qo, kv_lim, skv, tile)
+        split_len, n_split = split_plan(k_begin, k_end, n_bh, n_sm, tile)
+        out[b] = (qo, kv_lim, k_begin, k_end, split_len, n_split)
+    return out

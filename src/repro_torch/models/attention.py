@@ -8,10 +8,14 @@ softmax.  The reference computes the same function with a jnp scan
 (``repro.models.attention.attention``).
 
 KV caches are updated in place (the reference returns an updated copy):
-a cache is allocated once per request wave and written at ``pos``.
+a cache is allocated once per request wave and written at ``pos``.  A
+decode step of continuous batching gives every row its own position
+(:class:`RowPositions`): each row's key and value land at its position,
+and the kernel masks each row at its own length.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import not_ported
@@ -32,6 +36,37 @@ def attn_init(gen, cfg):
             "wo": layers.dense_init(gen, qd, d)}
 
 
+class RowPositions:
+    """One position per batch row (continuous batching's decode step, in
+    which every slot sits at its own position).  ``host``: a CPU int64
+    tensor, which the attention kernel's per-row split plan and the KV
+    write read; ``dev``: its copy on the compute device (rope reads it),
+    uploaded once without a host sync and shared by every layer of the
+    step."""
+
+    def __init__(self, host, device):
+        self.host = torch.as_tensor(np.asarray(host), dtype=torch.int64)
+        if self.host.dim() != 1:
+            raise ValueError(f"per-row positions are one int per row, got "
+                             f"shape {tuple(self.host.shape)}")
+        device = torch.device(device)
+        if device.type == "cpu":
+            self.dev = self.host
+        else:
+            self.dev = self.host.pin_memory().to(device, non_blocking=True)
+
+    @classmethod
+    def of(cls, pos, device):
+        """``pos`` as an int or a :class:`RowPositions`: an int stays an
+        int; a (B,) numpy array or tensor becomes per-row positions (a
+        tensor on the card is read back once, with a sync)."""
+        if pos is None or isinstance(pos, (int, np.integer, cls)):
+            return pos
+        if isinstance(pos, torch.Tensor):
+            pos = pos.detach().cpu()
+        return cls(pos, device)
+
+
 def init_kv_cache(batch: int, s_max: int, n_kv: int, head_dim: int,
                   dtype=torch.bfloat16, device="cpu"):
     return {"k": torch.zeros((batch, s_max, n_kv, head_dim), dtype=dtype,
@@ -40,9 +75,21 @@ def init_kv_cache(batch: int, s_max: int, n_kv: int, head_dim: int,
                              device=device)}
 
 
-def update_kv_cache(cache, k_new, v_new, pos: int):
-    """Write k/v (B, Sq, nkv, hd) at position ``pos``, in place."""
+def update_kv_cache(cache, k_new, v_new, pos):
+    """Write k/v (B, Sq, nkv, hd) at position ``pos``, in place; with
+    :class:`RowPositions` (Sq = 1), row b's key and value at position
+    ``pos.host[b]``: one plain copy per row.  (An index_put would be one
+    call, but in deterministic mode the card runs it through a sort and
+    bounds checks: ~370 us of host time per call on an H100 host.)"""
     Sq = k_new.shape[1]
+    if isinstance(pos, RowPositions):
+        if Sq != 1:
+            raise ValueError(f"per-row positions take one query per row, "
+                             f"got {Sq}")
+        for b, p in enumerate(pos.host.tolist()):
+            cache["k"][b, p].copy_(k_new[b, 0])
+            cache["v"][b, p].copy_(v_new[b, 0])
+        return cache
     cache["k"][:, pos:pos + Sq] = k_new
     cache["v"][:, pos:pos + Sq] = v_new
     return cache
@@ -53,7 +100,9 @@ def attn_apply(params, x, *, cfg, kind: str, positions=None, window: int = 0,
     """Full attention sub-layer (no norm/residual — caller owns those).
 
     x: (B, Sq, d).  ``cache``/``pos``: decode-mode KV cache handling (the
-    cache is written in place).  Returns (out, cache).
+    cache is written in place; ``pos`` an int or :class:`RowPositions`,
+    whose host values go to the kernel as per-row ``q_offset`` and
+    ``kv_len``).  Returns (out, cache).
     """
     if kv_x is not None:
         raise not_ported("cross-attention (kv_x)",
@@ -79,8 +128,8 @@ def attn_apply(params, x, *, cfg, kind: str, positions=None, window: int = 0,
                              "item 12, KV cache variants")
         cache = update_kv_cache(cache, k, v, pos)
         k, v = cache["k"], cache["v"]
-        q_offset = pos
-        kv_len = pos + Sq
+        q_offset = pos.host if isinstance(pos, RowPositions) else pos
+        kv_len = q_offset + Sq
 
     out = block_attention(q, k.to(q.dtype), v.to(q.dtype), kind=kind,
                           window=window, softcap=cfg.attn_softcap,

@@ -19,8 +19,20 @@ flow through the Mamba2 state unmasked; the LM
 head is its own matrix even with ``tie_embeddings``; the logits are
 computed in f32.  No aux loss is returned (MoE is not ported).
 
-Only the text modality is ported; the vision/audio modalities, the
-encoder-decoder, cut-dim bottlenecks and ring caches raise.
+``SplitConfig.cut_dim > 0`` puts a bottleneck at the cut: each head ends
+in ``cut_proj`` (d_model -> cut_dim) and the trunk starts with
+``in_proj`` (cut_dim -> d_model), so the cut is ``(..., self.k)``.
+``cut_noise_std > 0`` adds Gaussian noise in the combine when
+``forward`` (or ``combine``) is given a ``torch.Generator``; serving
+never adds it, as in the reference.
+
+The decode programs take a position as an int (every row at one
+position: the wave engine) or as one position per batch row (continuous
+batching: a (B,) int array or CPU tensor, or a
+:class:`~repro_torch.models.attention.RowPositions`).
+
+Only the text modality is ported; the vision/audio modalities and the
+encoder-decoder raise, and so do ring caches (in the engine).
 """
 from __future__ import annotations
 
@@ -29,7 +41,9 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ArchConfig, not_ported
+from repro_torch.core.privacy import gaussian_cut_noise
 from repro_torch.models import layers, transformer
+from repro_torch.models.attention import RowPositions
 from repro_torch.tree import tree_map
 
 Params = Dict[str, Any]
@@ -44,10 +58,6 @@ class SplitModel:
         if cfg.modality != "text" or cfg.enc_dec:
             raise not_ported(f"the {cfg.modality} modality / enc-dec",
                              "item 8, the other architecture families")
-        if cfg.split.cut_dim > 0 or cfg.split.cut_noise_std > 0.0:
-            raise not_ported("cut-dim bottlenecks and cut noise on the LM",
-                             "item 15, the LM's cut bottleneck and cut "
-                             "noise")
         if cfg.param_dtype != "float32":
             raise ValueError("the port keeps params in float32")
         self.cfg = cfg
@@ -57,24 +67,33 @@ class SplitModel:
         cut = min(max(sp.cut_layer, 1), n_units - 1)
         self.n_head_units = cut
         self.n_trunk_units = n_units - cut
+        self.k = sp.cut_dim if sp.cut_dim > 0 else cfg.d_model
 
     # ------------------------------------------------------------------ init
 
     def init(self, gen: torch.Generator) -> Params:
         """Random params on ``gen``'s device, drawn from ``gen``: dense
         weights N(0, 1/d_in), embeddings and the LM head N(0, 0.02^2),
-        norms zero (the reference's distributions; not its draws)."""
+        norms zero (the reference's distributions; not its draws).  With
+        ``cut_dim > 0`` each head gains ``cut_proj`` and the trunk
+        ``in_proj``."""
         cfg = self.cfg
+        bottleneck = cfg.split.cut_dim > 0
 
         def head_one():
-            return {"blocks": transformer.stack_init(
+            hp = {"blocks": transformer.stack_init(
                 gen, cfg, self.n_head_units),
                 "embed": layers.embed_init(gen, cfg.vocab, cfg.d_model)}
+            if bottleneck:
+                hp["cut_proj"] = layers.dense_init(gen, cfg.d_model, self.k)
+            return hp
 
         heads = [head_one() for _ in range(self.P)]
         heads = tree_map(lambda *ls: torch.stack(ls), *heads)
         trunk: Params = {"blocks": transformer.stack_init(
             gen, cfg, self.n_trunk_units)}
+        if bottleneck:
+            trunk["in_proj"] = layers.dense_init(gen, self.k, cfg.d_model)
         trunk["out_norm"] = layers.norm_init(cfg.d_model, cfg.norm,
                                              gen.device)
         trunk["lm_head"] = layers.dense_init(gen, cfg.d_model, cfg.vocab,
@@ -84,10 +103,14 @@ class SplitModel:
     # ------------------------------------------------------------ head pass
 
     def _positions(self, S_p: int, owner: int, offset=0, device="cpu"):
-        """Global positions of owner ``owner``'s slice (rope input)."""
+        """Global positions of owner ``owner``'s slice (rope input): (S_p,)
+        for an int ``offset``, (B, S_p) for per-row positions."""
         if self.cfg.rope == "mrope":
             raise not_ported("M-RoPE positions", "item 8")
-        return owner * S_p + offset + torch.arange(S_p, device=device)
+        base = owner * S_p + torch.arange(S_p, device=device)
+        if isinstance(offset, RowPositions):
+            return offset.dev[:, None] + base
+        return offset + base
 
     def _head_one(self, hp, owner_inputs, positions, caches=None, pos=None):
         cfg = self.cfg
@@ -97,6 +120,8 @@ class SplitModel:
         x, caches = transformer.stack_apply(
             hp["blocks"], x, cfg=cfg, positions=positions, caches=caches,
             pos=pos)
+        if cfg.split.cut_dim > 0:
+            x = layers.dense_apply(hp["cut_proj"], x)
         return x, caches
 
     def heads_forward(self, heads, owner_inputs, *, caches=None, pos=None):
@@ -116,13 +141,18 @@ class SplitModel:
 
     # ------------------------------------------------------------- combine
 
-    def combine(self, cut):
+    def combine(self, cut, gen=None):
         """The paper's cut-layer combine (data-scientist side).
 
         cut: (P, B, S_p, k).  concat: along the sequence (ID-aligned
         order) -> (B, S, k); sum/mean/max: elementwise across owners ->
-        (B, S_p, k)."""
+        (B, S_p, k).  With ``cut_noise_std > 0`` and a generator ``gen``
+        (on the cut's device), N(0, cut_noise_std^2) noise in the cut's
+        dtype is added to every owner's cut first (the reference draws it
+        from a JAX key: the same distribution, not the same draws)."""
         sp = self.cfg.split
+        if sp.cut_noise_std > 0.0 and gen is not None:
+            cut = gaussian_cut_noise(gen, cut, sp.cut_noise_std)
         P, B, S_p, k = cut.shape
         if sp.combine == "concat":
             return cut.permute(1, 0, 2, 3).reshape(B, P * S_p, k)
@@ -140,9 +170,14 @@ class SplitModel:
         """z: combined cut (B, S, k).  Returns (logits (B, S, vocab) f32,
         caches)."""
         cfg = self.cfg
+        if cfg.split.cut_dim > 0:
+            z = layers.dense_apply(trunk["in_proj"], z)
         S = z.shape[1]
-        off = pos if pos is not None else 0
-        positions = off + torch.arange(S, device=z.device)
+        positions = torch.arange(S, device=z.device)
+        if isinstance(pos, RowPositions):
+            positions = pos.dev[:, None] + positions
+        elif pos is not None:
+            positions = pos + positions
         x, caches = transformer.stack_apply(
             trunk["blocks"], z, cfg=cfg, positions=positions, caches=caches,
             pos=pos)
@@ -161,12 +196,13 @@ class SplitModel:
         B, S = t.shape
         return t.reshape(B, self.P, S // self.P).permute(1, 0, 2)
 
-    def forward(self, params, batch):
+    def forward(self, params, batch, gen=None):
         """Full-sequence forward (no cache).  Returns logits (B, S,
-        vocab)."""
+        vocab).  ``gen``: the cut noise's generator (see
+        :meth:`combine`)."""
         cut, _ = self.heads_forward(params["heads"],
                                     self.split_owner_inputs(batch))
-        z = self.combine(cut.to(_cdtype(self.cfg)))
+        z = self.combine(cut.to(_cdtype(self.cfg)), gen=gen)
         logits, _ = self.trunk_forward(params["trunk"], z)
         return logits
 
@@ -218,23 +254,27 @@ class SplitModel:
                                         caches=trunk_caches, pos=0)
         return logits[:, -1], tc
 
-    def decode_heads(self, heads, token, head_caches, pos_local: int):
+    def decode_heads(self, heads, token, head_caches, pos_local):
         """Owner side of one decode step: the generation owner's cut
-        slice (B, 1, k) plus updated head caches."""
+        slice (B, 1, k) plus updated head caches.  ``pos_local``: an int,
+        or one position per row (see the module docstring)."""
+        pos_local = RowPositions.of(pos_local, token.device)
         oi = token[None].expand((self.P,) + tuple(token.shape))
         cut, hc = self.heads_forward(heads, oi, caches=head_caches,
                                      pos=pos_local)
         return cut[0], hc
 
-    def decode_trunk(self, trunk, z, trunk_caches, pos: int):
+    def decode_trunk(self, trunk, z, trunk_caches, pos):
+        pos = RowPositions.of(pos, z.device)
         logits, tc = self.trunk_forward(trunk, z, caches=trunk_caches,
                                         pos=pos)
         return logits[:, -1], tc
 
-    def decode_step(self, params, caches, token, pos: int, pos_local: int):
+    def decode_step(self, params, caches, token, pos, pos_local):
         """One new token (B, 1).  The generation owner is owner 0.
         ``pos``: global position in the combined sequence;
-        ``pos_local``: position within owner 0's slice/cache."""
+        ``pos_local``: position within owner 0's slice/cache; each an
+        int, or one position per row."""
         z, hc = self.decode_heads(params["heads"], token, caches["heads"],
                                   pos_local)
         logits, tc = self.decode_trunk(params["trunk"], z, caches["trunk"],

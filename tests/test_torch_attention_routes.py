@@ -181,3 +181,73 @@ def test_split_kv_ref_matches_plain_on_route_cases(case):
     torch.testing.assert_close(
         attention_split_kv_ref(q, k, v, n_sm=4096, **kw),
         attention_ref(q, k, v, **kw), **attn_tol(F32))
+
+
+# ---------------------------------------------------------------------------
+# per-row lengths (continuous batching's decode step)
+# ---------------------------------------------------------------------------
+
+# B, Sq, Skv, nh, nkv, hd, kind, window, per-row q_offsets
+PER_ROW_CASES = [
+    (4, 1, 1057, 6, 2, 128, "causal", 0, (1024, 1040, 1056, 1030)),
+    (3, 4, 300, 4, 2, 64, "causal", 0, (0, 150, 296)),
+    (3, 1, 300, 4, 2, 32, "local", 64, (20, 150, 299)),
+    (2, 1, 200, 4, 4, 64, "causal", 0, (199, 60)),
+]
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", PER_ROW_CASES)
+def test_per_row_lengths_equal_scalar_calls(case, dtype):
+    """Both plain versions with one ``q_offset`` / ``kv_len`` per row
+    (``kv_len = q_offset + Sq``): row b's bits are those of a scalar call
+    at row b's length, and a vector of equal lengths gives the scalar
+    call's bits; the split-KV version stays within the kernel tolerance
+    of the reference's attention, row by row."""
+    B, Sq, Skv, nh, nkv, hd, kind, window, offs = case
+    arrays = attn_inputs(B, Sq, Skv, nh, nkv, hd)
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in arrays)
+    qo = torch.tensor(offs)
+    kw = dict(kind=kind, window=window)
+    for fn in (attention_ref, attention_split_kv_ref):
+        got = fn(q, k, v, q_offset=qo, kv_len=qo + Sq, **kw)
+        for b, o in enumerate(offs):
+            alone = fn(q, k, v, q_offset=o, kv_len=o + Sq, **kw)
+            assert torch.equal(got[b], alone[b]), (fn.__name__, b)
+            same = fn(q, k, v, q_offset=torch.full((B,), o),
+                      kv_len=torch.full((B,), o + Sq), **kw)
+            assert torch.equal(same, alone), (fn.__name__, b)
+            want = ref_attention.attention(
+                *(jnp.asarray(a[b:b + 1]) for a in arrays), q_offset=o,
+                kv_len=o + Sq, **kw)
+            np.testing.assert_allclose(
+                got[b:b + 1].float().numpy(), np.asarray(want, np.float32),
+                **attn_tol(dtype))
+
+
+def test_row_plans_are_the_scalar_plans():
+    """``plan.row_plans``: each row's (q_offset, kv_lim, live range,
+    split plan) is the scalar call's at that row's length, with the
+    call's B * nkv, whatever the other rows hold."""
+    offs, Sq, skv, n_bh = [1024, 1040, 1056, 0, 2000], 1, 1057, 40
+    table = plan.row_plans(Sq, "causal", 0, offs, [o + Sq for o in offs],
+                           skv, n_bh)
+    assert table.dtype == np.int32 and table.shape == (5, 6)
+    for row, o in zip(table, offs):
+        kv_lim = min(o + Sq, skv)
+        lr = plan.live_range(Sq, "causal", 0, o, kv_lim, skv)
+        assert tuple(row) == (o, kv_lim) + lr + plan.split_plan(*lr, n_bh)
+    alone = plan.row_plans(Sq, "causal", 0, offs[:1], [offs[0] + 1], skv,
+                           n_bh)
+    assert (alone[0] == table[0]).all()
+
+
+def test_per_row_lengths_take_the_decode_route_only():
+    """The route of a per-row call is the decode route; a call whose rows
+    per kv head exceed it is refused, before any launch."""
+    assert plan.choose_route(BF16, 1, 24, 8, 128, per_row=True) == "decode"
+    assert plan.choose_route(F32, 16, 8, 2, 64, per_row=True) == "decode"
+    for dtype, Sq, nh, nkv, hd in ((BF16, 512, 24, 8, 128),
+                                   (F32, 17, 8, 2, 64)):
+        with pytest.raises(ValueError, match="decode route"):
+            plan.choose_route(dtype, Sq, nh, nkv, hd, per_row=True)

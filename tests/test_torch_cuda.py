@@ -995,3 +995,94 @@ def test_queue_int8_crash_recovers_bitwise_on_card(cuda_device, monkeypatch):
     assert qz.launch_counts["quantize_pack_int8"] - n_q == sum(
         wk[k]["count"] for k in ("cut_activations", "warmup_cuts",
                                  "cut_gradients", "warmup_grads"))
+
+
+# per-row lengths on the decode route (continuous batching): llama3.2-3b's
+# trunk decode tick with lengths spread over 1025-1057, a zamba2-like MHA
+# hd-80 tick, an f32 tick with four query rows per batch row, and a local
+# window (B, Sq, Skv, nh, nkv, hd, kind, window, q_offsets, dtype)
+PER_ROW_CASES = [
+    (4, 1, 1057, 24, 8, 128, "causal", 0, (1024, 1040, 1056, 1030),
+     torch.bfloat16),
+    (4, 1, 1057, 32, 32, 80, "causal", 0, (1056, 1024, 1035, 1047),
+     torch.bfloat16),
+    (3, 4, 600, 8, 2, 64, "causal", 0, (100, 590, 333), torch.float32),
+    (3, 1, 300, 4, 2, 64, "local", 64, (20, 150, 299), torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PER_ROW_CASES)
+def test_per_row_decode_matches_plain_and_scalar_calls_on_card(cuda_device,
+                                                               case):
+    """Per-row ``q_offset`` / ``kv_len`` (``kv_len = q_offset + Sq``): the
+    decode kernel is within tolerance of the plain version, every row's
+    bits equal a scalar call in which every row has that row's length,
+    and a vector of equal lengths gives the scalar call's bits."""
+    B, Sq, Skv, nh, nkv, hd, kind, window, offs, dtype = case
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+               for a in attn_inputs(B, Sq, Skv, nh, nkv, hd))
+    qo = torch.tensor(offs)
+    kw = dict(kind=kind, window=window)
+    n0 = attn_kernel.launch_counts["block_attention.decode"]
+    got = attn_kernel.block_attention(q, k, v, q_offset=qo,
+                                      kv_len=qo + Sq, **kw)
+    want = attn_kernel.attention_ref(q, k, v, q_offset=qo, kv_len=qo + Sq,
+                                     **kw)
+    torch.cuda.synchronize()
+    assert attn_kernel.launch_counts["block_attention.decode"] == n0 + 1
+    torch.testing.assert_close(got.float(), want.float(), **attn_tol(dtype))
+    for b, o in enumerate(offs):
+        alone = attn_kernel.block_attention(q, k, v, q_offset=o,
+                                            kv_len=o + Sq, **kw)
+        same = attn_kernel.block_attention(
+            q, k, v, q_offset=torch.full((B,), o),
+            kv_len=torch.full((B,), o + Sq), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got[b], alone[b]), b
+        assert torch.equal(same, alone), b
+
+
+@pytest.mark.cuda
+def test_per_row_lengths_refuse_other_routes_on_card(cuda_device):
+    q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+               for a in attn_inputs(2, 128, 200, 8, 2, 64))
+    with pytest.raises(ValueError, match="decode route"):
+        attn_kernel.block_attention(q, k, v, q_offset=torch.tensor([0, 5]),
+                                    kv_len=torch.tensor([128, 133]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,n_layers,ctx", [("llama3.2-3b", 4, 160),
+                                               ("zamba2-2.7b", 18, 128)])
+def test_continuous_equals_wave_on_card(cuda_device, arch, n_layers, ctx):
+    """bf16 on the card, int8 over the queue: continuous batching (per-row
+    decode positions, refills) gives the wave engine's tokens bit for
+    bit, with every decode tick on the decode route."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.engine import ServingEngine
+    from repro_torch.models.model import SplitModel
+    cfg = get_config(arch, reduced=True).replace(n_layers=n_layers)
+    model = SplitModel(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    ctxs = [rng.integers(0, cfg.vocab, ctx) for _ in range(5)]
+    mixed = [2, 6, 1, 5, 3]
+
+    def run(scheduler):
+        eng = ServingEngine(model, params, batch_slots=2, ctx_len=ctx,
+                            max_new=6, transport="queue",
+                            compression="int8", scheduler=scheduler)
+        rids = [eng.submit(c, max_new=m) for c, m in zip(ctxs, mixed)]
+        n0 = dict(attn_kernel.launch_counts)
+        out = eng.run()
+        n = {r: attn_kernel.launch_counts[r] - n0[r]
+             for r in attn_kernel.launch_counts}
+        return [out[r].generated for r in rids], n, eng.stats
+
+    wave, nw, _ = run("wave")
+    cont, nc, st = run("continuous")
+    assert cont == wave
+    assert nc["block_attention.fma"] == 0
+    assert nc["block_attention"] == (nc["block_attention.decode"]
+                                     + nc["block_attention.tc"])
+    assert st["ticks"] < sum(mixed)

@@ -198,10 +198,6 @@ def test_queue_full_carries_backpressure_signal(f32_models):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(scheduler="continuous"), "item 11"),
-    (dict(cut_cache=True), "item 11"),
-    (dict(transport="process"), "item 11"),
-    (dict(transport="queue", latency_s=0.001), "item 11"),
     (dict(ring_cache=True), "item 12")])
 def test_unported_serving_options_raise(f32_models, kw, item):
     _, _, model, params = f32_models
