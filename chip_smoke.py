@@ -113,7 +113,7 @@ Phases, in order; any failure raises and exits non-zero:
      unchanged repeat; ``crash_psi`` and ``wedge_psi`` retried once on
      queue and process; the split int8 fit over the queue on the hidden
      alignment, with exact launch counts and its loss trail against the
-     CPU's; one resolve of 60000 subjects (wall, IDs/s, modexps, wire
+     CPU's; one resolve of 20000 subjects (wall, IDs/s, modexps, wire
      bytes by kind);
  18. the rest of ``fit`` on the paper's path: (a) frames at 8 ms one-way
      on a queue channel pair and a process endpoint pair, the receiver's
@@ -159,7 +159,25 @@ Phases, in order; any failure raises and exits non-zero:
      ``serve_dataset`` (continuous, process, int8), 8 documents of 1024
      tokens; (i) zamba2-2.7b continuous == wave bitwise with exact
      launches;
- 14. the results, last (after phases 15, 16, 17 and 18): a
+ 20. LM training at full width (the dense family), after phase 18: (a)
+     the attention Function (the kernel forward, a backward of plain
+     products) against autograd through the plain version at
+     llama3.2-3b's training shapes (batch 8, the trunk's 256 tokens and
+     a head's 128; 24/8 heads, hd 128), bf16 (route tc) and f32 (route
+     fma), with the forward's, the backward's, the plain version's and
+     SDPA's forward and forward + backward times beside the bounds; (b)
+     llama3.2-3b at full widths, 8 layers cut after 2 (params from seed
+     0), 64 documents of 256 tokens (8 held out) through PSI into 10
+     Adam steps of 8: joint, split lossless over the queue (its params
+     and loss trail bitwise those of the per-owner-clipped joint
+     oracle) and split int8 (within 2e-2 of lossless), each with exact
+     tc attention and quantize launch counts (the split head backward
+     recomputes its forward), a falling loss, the wire bytes per owner
+     per step against the frames, the steady step and an evaluation;
+     (c) the reduced config's int8 split fit with owners in spawned
+     workers == the queue, bitwise; (d) ``python -m
+     repro_torch.launch.train --reduced --steps 3`` on the card;
+ 14. the results, last (after phases 15, 16, 17, 18 and 20): a
      ``{"serving_continuous": ...}`` JSON line with phase 19's numbers, a
      ``{"privacy": ...}`` JSON line with phase 15's numbers, a
      ``{"recovery": ...}`` line with phase 16's, a ``{"psi": ...}`` line
@@ -171,7 +189,9 @@ Phases, in order; any failure raises and exits non-zero:
      phase 19's continuous runs; cut fusion's fma entry with phase 18's
      P = 8 timing as ``p8``; the decode route with per-row lengths as
      ``block_attention.per_row``), then the ``{"ok": true, ...}`` JSON
-     line last.
+     line last; before them an ``{"lm_train": ...}`` line with phase
+     20's numbers, and every kernels entry with its
+     ``lm_train_launches`` over phase 20(b)'s three fits.
 
 Without a CUDA device it prints nothing and exits 2.  It imports only
 ``repro_torch`` (never JAX or the JAX package ``repro``).
@@ -1944,6 +1964,10 @@ PSI_BACKENDS = ("direct", "queue", "process")
 PSI_CHUNK = 256
 
 
+# (f)'s subjects: a third of MNIST's 60000 training subjects
+PSI_SCALE = 20000
+
+
 def psi_session(device, n=2000):
     """Phase 4's parties (``n`` subjects, two owners, keep_frac 0.9),
     not yet resolved."""
@@ -2003,9 +2027,9 @@ def phase_psi():
     paper's split int8 fit over the queue on (b)'s hidden alignment,
     then evaluate, with exact kernel launch counts (phase 4's form) and
     a finite, falling loss trail within 2e-2 of the same run on the CPU;
-    (f) one resolve at MNIST's 60000 training subjects (modp512, noinv,
-    process, the pool): wall seconds, IDs/s, modexp ops, wire bytes by
-    kind.  Seconds are host wall time around each resolve."""
+    (f) one resolve at 20000 subjects, a third of MNIST's 60000
+    training subjects (modp512, noinv, process, the pool): wall seconds,
+    IDs/s, modexp ops, wire bytes by kind.  Seconds are host wall time around each resolve."""
     import numpy as np
     from repro_torch.core.psi import DEFAULT_CHUNK, HIDDEN_PAD
     from repro_torch.federation import faults
@@ -2187,23 +2211,26 @@ def phase_psi():
                       "quantize_pack_int8", "cut_fusion", "cut_fusion.fma",
                       "cut_fusion.tc")}}
 
-    # ---- (f) MNIST's 60000 training subjects
+    # ---- (f) a third of MNIST's 60000 training subjects (cut from all
+    # 60000 to keep the script inside its time limit)
     t = time.time()
-    s = psi_session("cuda", n=60000)
+    s = psi_session("cuda", n=PSI_SCALE)
     made = time.time() - t
     st, sec = timed_resolve(s, group="modp512", backend="process",
                             parallelism=N)
     if st["parallelism"] != N:
-        raise AssertionError(f"60000: pool reports {st['parallelism']}")
+        raise AssertionError(f"{PSI_SCALE}: pool reports "
+                             f"{st['parallelism']}")
     ops = sum(r["client_modexp_ops"] + r["server_modexp_ops"]
               for r in st["rounds"])
     wire = wire_by_kind(s)
-    print(f"  (f) 60000 subjects (parties made in {made:.2f} s), noinv, "
+    print(f"  (f) {PSI_SCALE} subjects (parties made in {made:.2f} s), "
+          f"noinv, "
           f"process, pool {N}: {st['global_intersection']} shared, "
-          f"{sec:.3f} s, {60000 / sec:.1f} IDs/s, {ops} modexps; wire "
+          f"{sec:.3f} s, {PSI_SCALE / sec:.1f} IDs/s, {ops} modexps; wire "
           f"{json.dumps(wire)}")
-    out["scale"] = {"subjects": 60000, "seconds": sec, "ids_per_s":
-                    60000 / sec, "modexp_ops": ops, "shared":
+    out["scale"] = {"subjects": PSI_SCALE, "seconds": sec, "ids_per_s":
+                    PSI_SCALE / sec, "modexp_ops": ops, "shared":
                     st["global_intersection"], "wire_by_kind": wire}
     if os.environ.get(faults.CHAOS_ENV):
         raise AssertionError(f"{faults.CHAOS_ENV} left set")
@@ -3253,6 +3280,453 @@ def phase_continuous_zamba(model, params):
             "counts": c_counts}
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: LM training at full width (the dense family)
+# ---------------------------------------------------------------------------
+
+# (a): the attention Function at llama3.2-3b's training shapes, batch 8:
+# the trunk over the combined 256 tokens, a head over its 128
+LM_TRAIN_ATTN = {"trunk": (8, 256, 24, 8, 128), "head": (8, 128, 24, 8, 128)}
+# (b): llama3.2-3b at full width, 8 layers cut after 2 (two head units per
+# owner, six trunk units), 64 documents of 256 tokens, 8 held out, 10
+# Adam steps of 8 documents
+LM_TRAIN_LAYERS, LM_TRAIN_CUT, LM_TRAIN_DOCS, LM_TRAIN_SEQ = 8, 2, 64, 256
+LM_TRAIN_BATCH, LM_TRAIN_STEPS, LM_TRAIN_EVAL = 8, 10, 0.125
+
+
+def attn_train_bound(shape, dtype, bw, f32_flops):
+    """The least time of the attention's forward and of its backward at
+    a causal training shape: forward 4·B·nh·hd·pairs FLOP over q, k, v
+    in and o out; backward 10·B·nh·hd·pairs (S recomputed, dV, dP, dQ,
+    dK) over q, k, v, dO in and dq, dk, dv out."""
+    import torch
+    B, S, nh, nkv, hd = shape
+    pairs = S * (S + 1) // 2
+    elt = 2 if dtype == torch.bfloat16 else 4
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else f32_flops
+    qo = B * S * nh * hd * elt
+    kv = B * S * nkv * hd * elt
+    out = {}
+    for part, flops, nbytes in (
+            ("fwd", 4 * B * nh * hd * pairs, 2 * qo + 2 * kv),
+            ("bwd", 10 * B * nh * hd * pairs, 3 * qo + 4 * kv)):
+        bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * flops / peak
+        out[part] = (max(bytes_ms, ops_ms),
+                     "bytes" if bytes_ms >= ops_ms else "operations")
+    return out
+
+
+def lm_attention_function(bw, f32_flops):
+    """20(a): the attention Function (the kernel forward, the backward of
+    plain products) against autograd through the plain version on the
+    card, bf16 (route tc) and f32 (route fma) at the training shapes;
+    times of the kernel forward, the backward, the plain version's
+    forward and forward + backward, SDPA's forward and forward +
+    backward, and the bounds."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.block_attention import (attention_backward,
+                                                     attention_fn,
+                                                     attention_ref,
+                                                     block_attention,
+                                                     route_of)
+    from repro_torch.kernels.block_attention.ref import attention_mask
+    tol = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+    rows, err = {}, {"fwd": {}, "bwd": {}}
+    for name, shape in LM_TRAIN_ATTN.items():
+        B, S, nh, nkv, hd = shape
+        rng = np.random.default_rng(0)
+        base = [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                .cuda() for s in ((B, S, nh, hd), (B, S, nkv, hd),
+                                  (B, S, nkv, hd), (B, S, nh, hd))]
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v, do = (t.to(dt) for t in base)
+
+            def fwd_bwd(fn):
+                qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+                out = fn(qq, kk, vv)
+                out.backward(do)
+                return out.detach(), qq.grad, kk.grad, vv.grad
+
+            got = fwd_bwd(attention_fn)
+            want = fwd_bwd(attention_ref)
+            torch.cuda.synchronize()
+            errs = []
+            for part, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+                e = (g.float() - w.float()).abs()
+                lim = tol[dt] + tol[dt] * w.float().abs()
+                if not bool((e <= lim).all()) or not torch.isfinite(g).all():
+                    raise AssertionError(
+                        f"attention Function {name} {dt} {part}: max |diff| "
+                        f"{e.max().item():.3e} beyond atol=rtol={tol[dt]}")
+                errs.append(e.max().item())
+            key = f"{name}:{str(dt)[6:]}"
+            route = route_of(q, k, v)
+            err["fwd"][key], err["bwd"][key] = errs[0], max(errs[1:])
+            bound = attn_train_bound(shape, dt, bw, f32_flops)
+            case = (B, S, S, nh, nkv, hd, "causal", 0, 0.0, 0, S)
+            sdpa = sdpa_call(q, k, v, case, attention_mask)
+            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+            sdpa_g = sdpa_call(qs, ks, vs, case, attention_mask)
+
+            def sdpa_fwd_bwd():
+                qs.grad = ks.grad = vs.grad = None
+                sdpa_g().backward(do)
+
+            def fn_fwd_bwd():
+                fwd_bwd(attention_fn)
+
+            def plain_fwd_bwd():
+                fwd_bwd(attention_ref)
+
+            torch.use_deterministic_algorithms(False)
+            library_ms = device_ms(sdpa, reps=10, rounds=7)
+            library_fb_ms = eager_ms(sdpa_fwd_bwd, reps=5, rounds=5)
+            torch.use_deterministic_algorithms(True)
+            row = {"shape": list(shape), "dtype": str(dt)[6:],
+                   "route": route,
+                   "fwd_ms": device_ms(lambda: block_attention(q, k, v),
+                                       reps=10, rounds=7),
+                   "bwd_ms": device_ms(lambda: attention_backward(
+                       q, k, v, do), reps=5, rounds=5),
+                   "fwd_bwd_ms": eager_ms(fn_fwd_bwd, reps=5, rounds=5),
+                   "plain_ms": device_ms(lambda: attention_ref(q, k, v),
+                                         reps=5, rounds=5),
+                   "plain_fwd_bwd_ms": eager_ms(plain_fwd_bwd, reps=5,
+                                                rounds=5),
+                   "library_ms": library_ms,
+                   "library_fwd_bwd_ms": library_fb_ms,
+                   "bound_ms": bound["fwd"][0], "bound_by": bound["fwd"][1],
+                   "bwd_bound_ms": bound["bwd"][0],
+                   "bwd_bound_by": bound["bwd"][1],
+                   "max_abs_err": errs[0], "grad_max_abs_err": max(errs[1:])}
+            rows[key] = row
+            print(f"  {key} {tuple(shape)} [{route}]: out |diff| "
+                  f"{errs[0]:.3e}, grads |diff| {max(errs[1:]):.3e} (tol "
+                  f"{tol[dt]}); forward {row['fwd_ms']:.6f} ms (bound "
+                  f"{row['bound_ms']:.6f}, {row['bound_by']}; SDPA "
+                  f"{library_ms:.6f}; plain {row['plain_ms']:.6f}); "
+                  f"backward {row['bwd_ms']:.6f} ms (bound "
+                  f"{row['bwd_bound_ms']:.6f}, {row['bwd_bound_by']}); "
+                  f"forward + backward {row['fwd_bwd_ms']:.6f} ms (SDPA "
+                  f"{library_fb_ms:.6f}; plain "
+                  f"{row['plain_fwd_bwd_ms']:.6f})")
+    return {"rows": rows, "max_abs_err": err}
+
+
+def lm_train_cfg(**split):
+    from repro_torch.configs import get_config
+    return get_config(LM).replace(n_layers=LM_TRAIN_LAYERS).with_split(
+        cut_layer=LM_TRAIN_CUT, **split)
+
+
+def lm_train_session(cfg, toks, params=None, device="cuda", seed=0):
+    from repro_torch.federation import VerticalSession, sequence_parties
+    s = VerticalSession(*sequence_parties(toks, cfg.split.n_owners),
+                        device=device)
+    s.resolve(group="modp512")
+    return s.build(cfg, seed=seed, params=params)
+
+
+def owner_clipped_oracle(session, steps, batch_size):
+    """The per-owner-clipped joint oracle of a split LM fit: per step one
+    autograd pass through the adapter's ``loss_fn`` at the joint params
+    (the joint fit's gradients), then the heads' rule on each owner's
+    ``owner_param_slice`` apart, stacked back, and the trunk's rule; the
+    fit's batches (the session's index stream at its seed, no rows held
+    out).  Leaves the result in ``session.params``; returns the loss
+    trail."""
+    import numpy as np
+    import torch
+    from repro_torch.core.splitnn import _leaf, grads_of
+    from repro_torch.tree import tree_map
+    ad = session.adapter
+    P = len(session.owners)
+    n = len(session.scientist.ids)
+    n_train = n - int(n * LM_TRAIN_EVAL)
+    session._train_idx = np.arange(n_train)
+    stream = session._index_stream(np.random.default_rng(session.seed),
+                                   n_train, batch_size, None, steps)
+    oopt, oupd = ad.owner_update_rule()
+    topt, tupd = ad.trunk_update_rule()
+    slices = [ad.owner_param_slice(session.params, p) for p in range(P)]
+    ostates = [oopt.init(x) for x in slices]
+    tp = session.params["trunk"]
+    ts = topt.init(tp)
+    session.params = None
+    losses = []
+    for t in range(steps):
+        batch = ad.make_batch(session._owner_arrays(),
+                              session.scientist.labels, next(stream),
+                              device=session.device)
+        with torch.enable_grad():
+            leaves = tree_map(_leaf, {
+                "heads": ad.stack_head_params(slices), "trunk": tp})
+            obj, metrics = ad.loss_fn(leaves, batch)
+            grads = grads_of(obj, leaves)
+        del leaves, obj
+        for p in range(P):
+            slices[p], ostates[p] = oupd(slices[p], ostates[p],
+                                         ad.owner_param_slice(grads, p), t)
+        tp, ts = tupd(tp, ts, grads["trunk"], t)
+        del grads
+        losses.append(metrics["loss"].item())
+    del ostates, ts
+    session.params = {"heads": ad.stack_head_params(slices), "trunk": tp}
+    return losses
+
+
+def step_clock(session):
+    """Per-step wall times of the session's next fit (a device sync at
+    each step's end), read from its bookkeeping hook."""
+    import torch
+    marks = []
+    inner = session._after_step
+
+    def after(t, *a, **kw):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return inner(t, *a, **kw)
+
+    session._after_step = after
+    return marks
+
+
+def lm_train_need(cfg, mode, steps, evaluations, int8=False):
+    """Exact launches of one fit: the tc attention kernel on every
+    attention forward — per joint step the heads' and the trunk's; per
+    split step (and once in the warmup) each owner's forward and its
+    backward's recompute, and the trunk's cut-gradient and
+    weight-gradient passes — plus one forward per evaluation; the int8
+    codec on every cut and cut gradient, the warmup's included."""
+    P, head, trunk = cfg.split.n_owners, LM_TRAIN_CUT, \
+        LM_TRAIN_LAYERS - LM_TRAIN_CUT
+    fwd = P * head + trunk
+    if mode == "joint":
+        tc = steps * fwd
+    else:
+        tc = (steps + 1) * (2 * P * head + 2 * trunk)
+    tc += evaluations * fwd
+    need = {"block_attention": tc, "block_attention.tc": tc,
+            "block_attention.fma": 0, "block_attention.decode": 0}
+    need["quantize_pack_int8"] = 2 * P * (steps + 1) if int8 else 0
+    return need
+
+
+def lm_train_fit(cfg, toks, p0, name, **kw):
+    """One 10-step fit of phase 20(b) from the host params ``p0``, with
+    its counts (reset just before, read just after), step times, loss
+    trail, evaluation and wire bytes; the session is returned for the
+    caller to compare and free."""
+    import torch
+    s = lm_train_session(cfg, toks, p0)
+    marks = step_clock(s)
+    reset_counts()
+    t0 = time.perf_counter()
+    h = s.fit(steps=LM_TRAIN_STEPS, batch_size=LM_TRAIN_BATCH,
+              eval_frac=LM_TRAIN_EVAL, verbose=False, **kw)
+    ev = s.evaluate(batch_size=LM_TRAIN_BATCH)
+    counts = read_counts()
+    wall = time.perf_counter() - t0
+    del s._after_step            # the hook: a cycle that would keep s
+    split = kw.get("mode") == "split"
+    need = lm_train_need(cfg, "split" if split else "joint", LM_TRAIN_STEPS,
+                         2, int8=kw.get("compression") == "int8")
+    check_counts(counts, need, name)
+    trail = h["loss_trail"]
+    if len(trail) != LM_TRAIN_STEPS or not all(map(math.isfinite, trail)):
+        raise AssertionError(f"{name}: bad loss trail {trail}")
+    if not trail[-1] < trail[0]:
+        raise AssertionError(f"{name}: step 9's loss {trail[-1]} is not "
+                             f"below step 0's {trail[0]}")
+    steps_ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+    out = {"loss_trail": trail, "eval": ev, "counts": counts,
+           "wall_s": wall, "steady_step_ms": sorted(steps_ms)[
+               len(steps_ms) // 2],
+           "step_ms": steps_ms, "peak_gb": torch.cuda.max_memory_allocated()
+           / 1e9}
+    if split:
+        ts = s.transport_stats
+        out["transport_steady_step_ms"] = ts["steady_step_ms"]
+        out["per_owner"] = ts["per_owner"]
+    print(f"  {name}: loss {trail[0]:.4f} -> {trail[-1]:.4f}; eval "
+          f"{ev['loss']:.4f}; steady step {out['steady_step_ms']:.3f} ms "
+          f"(median of steps 1-9 between device syncs"
+          + (f"; transport's {out['transport_steady_step_ms']:.3f}"
+             if split else "") + f"); wall {wall:.2f} s; peak "
+          f"{out['peak_gb']:.2f} GB")
+    return s, out
+
+
+def free_card():
+    """Collect what the last run left (sessions hold cycles through
+    their threads' closures) and return the cached blocks."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def profile_lm_steps(cfg, toks, p0, steps=3):
+    """``steps`` more joint steps under torch.profiler: the device's busy
+    share of their wall time and the kernels that fill it, by family
+    (the f32 LM head's and the bf16 GEMMs, attention, the rest)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    s = lm_train_session(cfg, toks, p0)
+    s.fit(steps=1, batch_size=LM_TRAIN_BATCH, verbose=False)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        s.fit(steps=steps, batch_size=LM_TRAIN_BATCH, verbose=False)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    del s
+    t = time.perf_counter()
+    kernels, top, _ = read_profile(prof)
+    busy = sum(us for _, us in kernels.values())
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][1])
+    out = {"steps": steps, "wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+           "busy_share": busy / wall_us, "top_level_aten_ops": top,
+           "top_kernels": [[n[:90], c, us / 1e3] for n, (c, us) in
+                           ranked[:12]], "read_s": time.perf_counter() - t}
+    print(f"  joint, {steps} steps profiled: wall {out['wall_ms']:.1f} ms, "
+          f"device busy {out['busy_ms']:.1f} ms (share "
+          f"{out['busy_share']:.3f}), {top} top-level aten ops; read in "
+          f"{out['read_s']:.2f} s; top kernels (calls, ms):")
+    for n, c, ms in out["top_kernels"]:
+        print(f"    {ms:10.3f} ms {c:6d}x  {n}")
+    return out
+
+
+def phase_lm_train(bw, f32_flops):
+    """Phase 20: LM training at full width (the dense family)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_token_dataset
+    from repro_torch.tree import tree_leaves, tree_map
+    out = {}
+    free_card()                  # what earlier phases left cached
+    t = time.time()
+    print("  (a) the attention Function at the training shapes")
+    out["attention"] = lm_attention_function(bw, f32_flops)
+    out["attention_s"] = time.time() - t
+
+    t = time.time()
+    cfg = lm_train_cfg()
+    toks = make_token_dataset(LM_TRAIN_DOCS, LM_TRAIN_SEQ, cfg.vocab, 0)
+    first = lm_train_session(cfg, toks)
+    p0 = tree_map(lambda x: x.cpu(), first.params)
+    del first
+    n_params = sum(x.numel() for x in tree_leaves(p0))
+    print(f"  (b) {LM} at full width: {LM_TRAIN_LAYERS} layers cut after "
+          f"{LM_TRAIN_CUT}, {n_params / 1e9:.3f} G params (seed 0), "
+          f"{LM_TRAIN_DOCS} documents of {LM_TRAIN_SEQ}, {LM_TRAIN_STEPS} "
+          f"Adam steps of {LM_TRAIN_BATCH}")
+    runs = {}
+    free_card()
+    s, runs["joint"] = lm_train_fit(cfg, toks, p0, "joint")
+    del s
+    free_card()
+    out["joint_profile"] = profile_lm_steps(cfg, toks, p0)
+    free_card()
+    o = lm_train_session(cfg, toks, p0)
+    oracle_trail = owner_clipped_oracle(o, LM_TRAIN_STEPS, LM_TRAIN_BATCH)
+    oracle = [x.cpu() for x in tree_leaves(o.params)]
+    del o
+    free_card()
+    s, runs["split"] = lm_train_fit(cfg, toks, p0, "split lossless, queue",
+                                    mode="split")
+    got = tree_leaves(s.params)
+    same = runs["split"]["loss_trail"] == oracle_trail and all(
+        torch.equal(a.cpu(), b) for a, b in zip(got, oracle))
+    if not same:
+        raise AssertionError("split lossless != the per-owner-clipped "
+                             "joint oracle")
+    print("    split lossless == the per-owner-clipped joint oracle: "
+          "params and loss trail bitwise equal")
+    del s, got, oracle
+    free_card()
+    s, runs["int8"] = lm_train_fit(cfg, toks, p0, "split int8, queue",
+                                   mode="split", compression="int8")
+    del s
+    free_card()
+    # step 0 runs on equal params, so its loss gap is the codec's own;
+    # later steps part further (Adam on int8-coded cut gradients), and
+    # are printed, not held to a limit
+    gaps = [abs(a - b) / abs(b) for a, b in zip(
+        runs["int8"]["loss_trail"], runs["split"]["loss_trail"])]
+    print(f"    int8 vs lossless loss, relative gap per step: "
+          f"{[float(f'{g:.3e}') for g in gaps]} (step 0 limit 2e-2)")
+    if gaps[0] > 2e-2:
+        raise AssertionError("int8 split training's step 0 parts from "
+                             "lossless")
+    out["int8_gap"] = gaps
+    rows = LM_TRAIN_BATCH * LM_TRAIN_SEQ // cfg.split.n_owners
+    wire = {"split": (rows * cfg.d_model * 2 + 4, rows * cfg.d_model * 2),
+            "int8": (rows * (cfg.d_model + 4) + 4, rows * (cfg.d_model + 4))}
+    for name, (fwd, bwd) in wire.items():
+        for owner, o in runs[name]["per_owner"].items():
+            if (o["cut_payload_bytes"] != fwd * LM_TRAIN_STEPS
+                    or o["grad_payload_bytes"] != bwd * LM_TRAIN_STEPS):
+                raise AssertionError(
+                    f"{name} {owner}: {o['cut_payload_bytes']} / "
+                    f"{o['grad_payload_bytes']} bytes, want {fwd} / {bwd} "
+                    "per step")
+        print(f"    {name}: {fwd} forward and {bwd} backward bytes per "
+              "owner per step, as the frames give")
+    out["wire_per_owner_step"] = wire
+    out["runs"] = {k: {kk: vv for kk, vv in v.items() if kk != "counts"}
+                   for k, v in runs.items()}
+    out["counts"] = {k: v["counts"] for k, v in runs.items()}
+    out["oracle_trail"] = oracle_trail
+    out["full_width_s"] = time.time() - t
+    del p0
+
+    t = time.time()
+    print("  (c) reduced llama, bf16: owners in spawned workers == the "
+          "queue, bitwise")
+    small = get_config(LM, reduced=True).replace(n_layers=3).with_split(
+        cut_layer=1)
+    stoks = make_token_dataset(16, 64, small.vocab, 0)
+    sp0 = tree_map(lambda x: x.cpu(),
+                   lm_train_session(small, stoks).params)
+    res = {}
+    for backend in ("queue", "process"):
+        ss = lm_train_session(small, stoks, sp0)
+        hh = ss.fit(steps=3, batch_size=4, verbose=False, mode="split",
+                    backend=backend, compression="int8")
+        res[backend] = (hh["loss_trail"], [x.cpu() for x in
+                                           tree_leaves(ss.params)])
+    if res["process"][0] != res["queue"][0] or not all(
+            torch.equal(a, b) for a, b in zip(res["process"][1],
+                                              res["queue"][1])):
+        raise AssertionError("LM process backend != queue backend")
+    print(f"    int8, 3 steps: process == queue bitwise, trail "
+          f"{[round(x, 5) for x in res['queue'][0]]}")
+    out["process_s"] = time.time() - t
+
+    t = time.time()
+    print("  (d) python -m repro_torch.launch.train --reduced --steps 3")
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"))
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
+         "--steps", "3", "--log-every", "1"], capture_output=True,
+        text=True, env=env, timeout=300)
+    print("\n".join(f"    {ln}" for ln in run.stdout.strip().splitlines()))
+    if run.returncode != 0:
+        raise AssertionError(f"launch.train failed: {run.stderr[-2000:]}")
+    last = run.stdout.strip().splitlines()[-1]
+    loss = float(last.split("loss=")[1].split()[0])
+    if not math.isfinite(loss):
+        raise AssertionError(f"launch.train loss {loss}")
+    out["launcher_loss"] = loss
+    out["launcher_s"] = time.time() - t
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3371,6 +3845,13 @@ def main():
     print("== 18. the rest of fit: wire latency and bandwidth, owners of "
           "unequal widths, checkpoints")
     fit_out, fit_counts_18 = phase_fit_options(bw, flops)
+    print(f"  phase wall {time.time() - t:.2f} s")
+
+    t = time.time()
+    print(f"== 20. LM training at full width ({LM}, the dense family): the "
+          "attention Function, joint / split lossless / split int8 fits, "
+          "process == queue, the launcher")
+    lm_train = phase_lm_train(bw, flops)
     print(f"  phase wall {time.time() - t:.2f} s")
 
     print("== 14. results")
@@ -3495,6 +3976,13 @@ def main():
     for e in entries:
         e["continuous_launches"] = c_counts.get(e["name"], 0)
         e["zamba2_continuous_launches"] = z_counts.get(e["name"], 0)
+    # and over phase 20(b)'s three full-width fits (joint, split
+    # lossless, split int8)
+    for e in entries:
+        e["lm_train_launches"] = sum(c.get(e["name"], 0) for c in
+                                     lm_train["counts"].values())
+    print(json.dumps({"lm_train": {k: v for k, v in lm_train.items()
+                                   if k != "counts"}}))
     print(json.dumps({"serving_continuous": cont}))
     print(json.dumps({"privacy": {k: v for k, v in priv.items()
                                   if k != "counts"}}))

@@ -6,9 +6,8 @@ the inputs of the same data subjects.  Each owner runs ``cut_layer``
 blocks (its head segment) locally; the data scientist combines head
 outputs at the cut layer and runs the remaining blocks (the trunk
 segment).  The privacy fields (NoPeek, cut noise, the cut-gradient
-defences) train on the MLP SplitNN; the LM serves with a ``cut_dim``
-bottleneck and cut noise (its training is not ported: ROADMAP.md,
-item 13).
+defences) train on the MLP SplitNN; the LM trains and serves with a
+``cut_dim`` bottleneck and cut noise.
 
 ``ArchConfig``: one architecture, field for field as in the reference.
 The port builds the dense attention family and the Mamba2 hybrid
@@ -102,7 +101,7 @@ class ArchConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     zero_sharding: bool = False
-    remat: bool = True             # no effect: the port only serves
+    remat: bool = True             # no effect: the port keeps activations
 
     def __post_init__(self):
         if self.head_dim == 0:
@@ -126,6 +125,11 @@ class ArchConfig:
     @property
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
+
+    def with_split(self, **kw) -> "ArchConfig":
+        """This config with the given ``SplitConfig`` fields replaced."""
+        return dataclasses.replace(
+            self, split=dataclasses.replace(self.split, **kw))
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)

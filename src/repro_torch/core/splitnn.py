@@ -188,10 +188,19 @@ class MLPSplitNN:
 # ---------------------------------------------------------------------------
 
 
+def grads_of(outputs, tree, cotangents=None):
+    """The gradients of ``outputs`` (seeded with ``cotangents``, default
+    ones) with respect to every leaf of ``tree``, as a tree of its
+    structure.  A leaf the outputs do not use (a unit stack of zero
+    units) gets zeros."""
+    return tree_unflatten(tree, list(torch.autograd.grad(
+        outputs, tree_leaves(tree), cotangents, allow_unused=True,
+        materialize_grads=True)))
+
+
 def _grad(loss, tree):
     """d loss / d tree, as a tree of the same structure."""
-    return tree_unflatten(tree, list(torch.autograd.grad(
-        loss, tree_leaves(tree))))
+    return grads_of(loss, tree)
 
 
 def _leaf(t):
@@ -213,6 +222,7 @@ def make_split_train_step(loss_fn: Callable, optimizer) -> Callable:
         with torch.no_grad():
             updates, opt_state = optimizer.update(grads, opt_state, params,
                                                   step_idx)
+            del grads, leaves        # before the new params (a full LM's)
             params = apply_updates(params, updates)
         return params, opt_state, {k: v.detach() for k, v in metrics.items()}
 
@@ -292,15 +302,18 @@ def make_mlp_trunk_microbatch_programs(model: MLPSplitNN):
           moment they exist.
       ``weightgrad(tp, cuts, labels, denom) -> trunk_grads`` — the
           recompute-based trunk gradients, taken while the cut
-          gradients are on the wire."""
+          gradients are on the wire.
 
-    def cutgrad(tp, cuts, labels, denom):
+    Both take the session's ``inv_micro`` too, as the LM's programs do
+    (its aux weight); the MLP has no aux and ignores it."""
+
+    def cutgrad(tp, cuts, labels, denom, inv_micro=None):
         with torch.enable_grad():
             cl = [_leaf(c) for c in cuts]
             loss, parts = _chunk_loss(model, tp, cl, labels, denom)
             return tuple(torch.autograd.grad(loss, cl)), _detached(parts)
 
-    def weightgrad(tp, cuts, labels, denom):
+    def weightgrad(tp, cuts, labels, denom, inv_micro=None):
         with torch.enable_grad():
             tl = tree_map(_leaf, tp)
             loss, _ = _chunk_loss(model, tl, cuts, labels, denom)

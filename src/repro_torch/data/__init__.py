@@ -1,2 +1,2 @@
 from repro_torch.data.synthetic import (  # noqa: F401
-    make_mnist_like, make_token_dataset, make_vertical_mnist_parties)
+    batches, make_mnist_like, make_token_dataset, make_vertical_mnist_parties)

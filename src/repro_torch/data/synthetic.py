@@ -1,7 +1,7 @@
 """Synthetic MNIST-like data with unique subject IDs, and synthetic token
 streams (numpy; a copy of ``repro.data.synthetic``'s MNIST and token
-generators — for a seed it gives the reference's arrays and IDs
-exactly).
+generators and its ``batches`` iterator — for a seed it gives the
+reference's arrays, IDs and batches exactly).
 
 MNIST itself is not available offline, so a class-conditional image-like
 dataset with the same geometry (28x28, 10 classes, 784 features) stands
@@ -9,7 +9,7 @@ in: per-class smooth prototypes plus noise and a random shift.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 
@@ -90,3 +90,17 @@ def make_token_dataset(n_docs: int, seq_len: int, vocab: int, seed: int = 0):
                 t[j] = rng.integers(0, vocab)
         toks[i] = t
     return toks.astype(np.int32)
+
+
+def batches(data: Dict[str, np.ndarray], batch_size: int, seed: int = 0,
+            epochs: int = 1, drop_last: bool = True) -> Iterator[Dict]:
+    """Shuffled mini-batch iterator over aligned arrays (a fresh
+    permutation per epoch, the reference's draws)."""
+    n = len(next(iter(data.values())))
+    rng = np.random.default_rng(seed)
+    for _ in range(epochs):
+        order = rng.permutation(n)
+        stop = n - (n % batch_size) if drop_last else n
+        for s in range(0, stop, batch_size):
+            idx = order[s:s + batch_size]
+            yield {k: v[idx] for k, v in data.items()}

@@ -27,6 +27,14 @@ def stack_feature_slices(slices: Sequence[np.ndarray]
     return [np.asarray(s) for s in slices]
 
 
+def unstack_feature_slices(stacked) -> List:
+    """Inverse of :func:`stack_feature_slices`: a list of per-owner
+    slices."""
+    if isinstance(stacked, list):
+        return stacked
+    return [stacked[p] for p in range(stacked.shape[0])]
+
+
 def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
 
@@ -68,6 +76,24 @@ def merge_sequence_slices(owner_tokens) -> np.ndarray:
     """Inverse of :func:`sequence_owner_slices`: (P, B, S_p) -> (B, S)."""
     P, B, S_p = owner_tokens.shape
     return np.asarray(owner_tokens).transpose(1, 0, 2).reshape(B, P * S_p)
+
+
+def sequence_batch(owner_slices: Sequence[np.ndarray],
+                   labels: Optional[np.ndarray], idx=None, *,
+                   device="cpu") -> Dict[str, torch.Tensor]:
+    """A ``SplitModel`` training batch from per-owner token slices
+    [(N, S_p), ...] + scientist next-token labels (N, S), optionally
+    gathering rows ``idx``: ``owner_tokens`` (P, B, S_p) int32 and
+    ``labels`` (B, S) int64 (-100 marks a masked position) on
+    ``device``."""
+    sel = (lambda a: a if idx is None else a[idx])
+    ot = np.stack([sel(np.asarray(s)) for s in owner_slices])
+    batch = {"owner_tokens": torch.from_numpy(np.ascontiguousarray(
+        ot, np.int32)).to(device)}
+    if labels is not None:
+        batch["labels"] = torch.from_numpy(np.ascontiguousarray(
+            sel(np.asarray(labels)), np.int64)).to(device)
+    return batch
 
 
 # ---------------------------------------------------------------------------

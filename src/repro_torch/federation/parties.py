@@ -32,6 +32,14 @@ from repro_torch.tree import tree_add, tree_leaves
 SNAPSHOTS_KEPT = 4
 
 
+def device_rows(features, device) -> torch.Tensor:
+    """An owner's aligned rows on ``device``: integer token slices as
+    int32, anything else as f32."""
+    a = np.asarray(features)
+    dt = np.int32 if np.issubdtype(a.dtype, np.integer) else np.float32
+    return torch.from_numpy(np.ascontiguousarray(a, dt)).to(device)
+
+
 class PrivacyError(RuntimeError):
     """Raised when code crosses the party-visibility boundary."""
 
@@ -236,9 +244,10 @@ class OwnerComputeEndpoint:
                          forward if its request already arrived.
       ``warmup``         pre-training handshake: one forward per chunk,
                          one backward of a zero gradient per chunk
-                         (without the NoPeek term) and one update,
-                         through both codec directions: params and
-                         optimizer state stay bitwise unchanged.
+                         (without the NoPeek term) and one update whose
+                         result is dropped, through both codec
+                         directions: params and optimizer state stay
+                         bitwise as they are (a respawned owner's too).
       ``barrier``        flush marker, acked once every prior message is
                          processed.
       ``pull_params``    the head params as numbered numpy leaves
@@ -269,6 +278,9 @@ class OwnerComputeEndpoint:
     is the thread target (and the spawned worker's loop,
     ``federation/runtime.py``).
 
+    The owner's rows are staged as they are held: feature rows as f32,
+    token slices as integers.  A head forward may return ``(cut, aux)``
+    (an LM's): ``aux`` ships beside the cut as one f32 scalar.
     Cuts ship codec-encoded, or with ``masker`` (a
     :class:`~repro_torch.core.masking.MaskedAggregator`) quantized and
     ring-masked as ``{"mq": uint32}``, bypassing the codec.  Without a
@@ -306,8 +318,7 @@ class OwnerComputeEndpoint:
         self._plan: Dict[int, List[torch.Tensor]] = {}  # step -> chunks
         self._grad_acc = None
         self._grads_seen = 0
-        self._feats = torch.from_numpy(np.ascontiguousarray(
-            owner._features, np.float32)).to(self.device)
+        self._feats = device_rows(owner._features, self.device)
 
     def _stage(self, idx) -> List[torch.Tensor]:
         """Gather the step's rows on the device and cut the chunks."""
@@ -316,8 +327,11 @@ class OwnerComputeEndpoint:
         bm = x.shape[0] // self.micro
         return [x[m * bm:(m + 1) * bm] for m in range(self.micro)]
 
-    def _ship_cut(self, cut: torch.Tensor, seq: int,
-                  kind: str = "cut_activations") -> None:
+    def _ship_cut(self, out, seq: int, kind: str = "cut_activations"
+                  ) -> None:
+        # an LM's head forward returns (cut, aux): the owner's scalar aux
+        # loss rides with the cut, for the scientist's aux metric
+        cut, aux = out if isinstance(out, tuple) else (out, None)
         if self.masker is not None:
             # {"mq": uint32 ring element}: uniform ring words, 4 bytes
             # each like the f32 cut, so no codec applies
@@ -326,10 +340,13 @@ class OwnerComputeEndpoint:
             payload = self.masker.encode(cut, tag)
         else:
             if self.cut_noise_std > 0.0 and kind == "cut_activations":
+                # the noisy cut ships in f32 whatever the cut's dtype
                 cut = torch.from_numpy(deterministic_cut_noise(
-                    cut.cpu().numpy(), self.cut_noise_std, self.noise_seed,
-                    f"s{seq}")).to(self.device)
+                    cut.float().cpu().numpy(), self.cut_noise_std,
+                    self.noise_seed, f"s{seq}")).to(self.device)
             payload = self.codec.encode(cut)
+        if aux is not None:
+            payload["aux"] = np.float32(aux.sum().item())
         self.endpoint.send(kind, payload, seq=seq)
 
     def _run_fwd(self, step: int) -> None:
@@ -349,8 +366,9 @@ class OwnerComputeEndpoint:
             # its gradient is not finite, and any term would move params
             self._grad_acc = tree_add(self._grad_acc, self.head_bwd(
                 self.params, x, g * 0.0, nopeek=False))
-        self.params, self.opt_state = self._update(
-            self.params, self.opt_state, self._grad_acc, 0)
+        # the update runs and its result is dropped: a zero gradient
+        # still moves a respawned owner's restored Adam state (m decays)
+        self._update(self.params, self.opt_state, self._grad_acc, 0)
         self._grad_acc = None
         self.endpoint.send("warmup_done", {}, seq=msg.seq)
 

@@ -8,8 +8,10 @@ from a picklable spec and runs the very loop the thread backend runs:
 
   * :func:`owner_worker_main` — resolves the spec's device (on a card
     that configures the reference numerics in the worker's own CUDA
-    context), rebuilds the registry adapter from the config dataclass,
-    takes its head params as numpy leaves, and runs an
+    context), rebuilds the registry adapter from the config dataclass
+    (the MLP's ``MLPSplitConfig`` or an LM's ``ArchConfig``: the worker
+    builds its head's programs from it), takes its head params as numpy
+    leaves, and runs an
     :class:`~repro_torch.federation.parties.OwnerComputeEndpoint` over
     a :class:`~repro_torch.federation.process_transport.ProcessEndpoint`.
     Only cut activations and cut gradients cross back.
@@ -67,8 +69,8 @@ class OwnerWorkerSpec:
     """Everything a spawned owner worker needs to rebuild its party:
     ``config`` is the model config (a frozen dataclass);
     ``param_leaves`` the owner's head params as numpy leaves in
-    ``tree_leaves`` order (the worker rebuilds the tree against the
-    structure of a freshly initialised slice, so no structure crosses);
+    ``tree_leaves`` order (the worker rebuilds the tree against its
+    adapter's ``owner_template``, so no structure crosses);
     ``device`` the explicit device string the worker resolves;
     ``num_threads`` the worker's intra-op CPU threads (None: torch's
     default).  ``aggregation="masked_sum"`` makes the worker build its
@@ -166,9 +168,9 @@ def _owner_body(spec: OwnerWorkerSpec, ep: ProcessEndpoint) -> None:
     device = resolve_device(spec.device)
     adapter = build_adapter(spec.config)
     p = spec.owner_index
-    template = adapter.owner_param_slice(
-        adapter.init(torch.Generator().manual_seed(0)), p)
-    params = tree_unflatten(template, [
+    # the structure only: an LM's full-width init would draw billions
+    # of weights on the worker's host just to learn shapes
+    params = tree_unflatten(adapter.owner_template(p), [
         torch.from_numpy(np.array(leaf, np.float32)).to(device)
         for leaf in spec.param_leaves])
     owner_opt, owner_update = adapter.owner_update_rule(spec.owner_lr)

@@ -86,14 +86,22 @@ widths (``feature_splits`` in the config), and per-party checkpoints
 (``checkpoint`` / ``restore``, ``fit(ckpt_dir=, ckpt_every=)``; files
 under ``step_{step:08d}/`` that the reference reads too).
 
-Serving (split LMs, ``ArchConfig``): ``build`` draws the LM's params on
-the session's device, ``serve(**engine_kw)`` wraps them in a
+Split LMs (``ArchConfig``): ``build`` draws the LM's params on the
+session's device.  ``fit`` trains a dense LM on sequence-slice owners
+(``sequence_parties``): each owner's head runs on its slice of every
+document, the cuts are (B, S_p, k) and the scientist's trunk holds the
+next-token labels; the per-segment rules are clip + Adam
+(``SplitLMAdapter``), every ``fit`` option above applies except
+``aggregation="masked_sum"`` and NoPeek (the reference's
+``ValueError`` s), and each owner's scalar aux loss rides with its cut
+frames.  Split training equals the joint run within a tolerance (the
+clip scope: one global norm jointly, one owner's slice split).  LMs
+with ``mamba2`` blocks serve but do not train yet (ROADMAP.md item
+13b).  ``serve(**engine_kw)`` wraps the params in a
 ``launch.engine.ServingEngine`` (wave or continuous scheduling, the
 direct / queue / process transports, latency, cut codecs, the cut
 cache), and ``serve_dataset`` serves the session's own aligned contexts
-(``sequence_parties(..., with_labels=False)``).  Training the split LM
-is not ported yet: ``fit`` raises ``NotImplementedError`` naming
-ROADMAP.md item 13.
+(``sequence_parties(..., with_labels=False)``, or a trained session's).
 """
 from __future__ import annotations
 
@@ -121,10 +129,23 @@ from repro_torch.federation.cut_codec import get_codec, to_tensor
 from repro_torch.federation.parties import (SNAPSHOTS_KEPT, DataOwner,
                                             DataScientist,
                                             OwnerComputeEndpoint,
-                                            PrivacyError)
+                                            PrivacyError, device_rows)
 from repro_torch.federation.registry import build_adapter
 from repro_torch.federation.supervisor import OwnerFailure, Supervisor
 from repro_torch.tree import tree_add, tree_leaves, tree_map, tree_unflatten
+
+
+def _cut_aux(out):
+    """A head forward's output as ``(cut, aux or None)``."""
+    return out if isinstance(out, tuple) else (out, None)
+
+
+def _with_owner_aux(metrics, owner_aux: float):
+    """The step's metrics with the owners' aux added to the trunk's (the
+    joint path's heads + trunk aux)."""
+    if owner_aux and "aux" in metrics:
+        return {**metrics, "aux": metrics["aux"] + owner_aux}
+    return metrics
 
 
 def _scalars(m):
@@ -594,8 +615,8 @@ class VerticalSession:
         propagates as it would unsupervised."""
         self._require(resolved=True, built=True)
         if not getattr(self.adapter, "supports_training", True):
-            raise not_ported(f"fit on {type(self.adapter).__name__}",
-                             "item 13, LM training")
+            raise not_ported(f"fit on {self.config.name} (mamba2 blocks)",
+                             "item 13b, LM training on the SSM family")
         self._require(labels=True)
         if (epochs is None) == (steps is None):
             raise ValueError("pass exactly one of epochs= or steps=")
@@ -713,7 +734,8 @@ class VerticalSession:
             if book["verbose"] and every and (
                     t % every == 0 or t == book["total_steps"] - 1):
                 print(f"step {t:5d} " + " ".join(
-                    f"{k}={v:.4f}" for k, v in _scalars(metrics).items())
+                    f"{k}={v:.4f}" for k, v in
+                    sorted(_scalars(metrics).items()))
                     + f" ({time.time() - t0:.1f}s)")
             done = t + 1
         elif (t + 1) % spe == 0:
@@ -743,7 +765,8 @@ class VerticalSession:
             extra = "".join(f" val_{k}={v:.4f}"
                             for k, v in ev.items() if k != "epoch")
             print(f"epoch {ep:3d} " + " ".join(
-                f"{k}={v:.4f}" for k, v in rec.items() if k != "epoch")
+                f"{k}={v:.4f}" for k, v in sorted(rec.items())
+                if k != "epoch")
                 + extra + f" ({time.time() - t0:.1f}s)")
 
     def _finish(self, history, losses, book):
@@ -827,10 +850,9 @@ class VerticalSession:
         cutgrad, weightgrad = adapter.trunk_microbatch_programs()
         tp = self.params["trunk"]
         ts = trunk_opt.init(tp)
-        denom = float(batch_size)
+        denom, inv_micro = float(batch_size), 1.0 / M
         # each owner's rows staged on the device, as its worker stages them
-        feats = [torch.from_numpy(np.ascontiguousarray(
-            f, np.float32)).to(self.device) for f in self._owner_arrays()]
+        feats = [device_rows(f, self.device) for f in self._owner_arrays()]
 
         def reassemble():
             self.params = {"heads": adapter.stack_head_params(slices),
@@ -846,18 +868,25 @@ class VerticalSession:
             xs = [f[rows] for f in feats]
             lab = self._labels(idx)
             hg: list = [None] * P
-            metrics, cache = None, []
+            metrics, cache, owner_aux = None, [], 0.0
             for m in range(M):
                 sl = slice(m * bm, (m + 1) * bm)
                 chunks = [x[sl] for x in xs]
-                cuts = tuple(head_progs[p][0](slices[p], chunks[p])
-                             for p in range(P))
+                cuts = []
+                for p in range(P):
+                    cut, aux = _cut_aux(head_progs[p][0](slices[p],
+                                                         chunks[p]))
+                    cuts.append(cut)
+                    if aux is not None:
+                        # the f32 round trip the wire's aux takes
+                        owner_aux += float(np.float32(aux.sum().item()))
+                cuts = tuple(cuts)
                 if masked:
                     # no masks: they would cancel in the fold anyway
                     cuts = (self._dequantized(masking.fold_quantized(
                         [masking.quantize(c).cpu().numpy()
                          for c in cuts])),)
-                cg, parts = cutgrad(tp, cuts, lab[sl], denom)
+                cg, parts = cutgrad(tp, cuts, lab[sl], denom, inv_micro)
                 if masked:
                     cg = [cg[0]] * P
                 for p in range(P):
@@ -870,8 +899,10 @@ class VerticalSession:
                     slices[p], ostates[p], hg[p], t)
             tg = None
             for cuts, lab_m in cache:
-                tg = tree_add(tg, weightgrad(tp, cuts, lab_m, denom))
+                tg = tree_add(tg, weightgrad(tp, cuts, lab_m, denom,
+                                             inv_micro))
             tp, ts = trunk_update(tp, ts, tg, t)
+            metrics = _with_owner_aux(metrics, owner_aux)
             losses.append(metrics["loss"])
             self._after_step(t, metrics, history, t0, book, reassemble)
         reassemble()
@@ -945,12 +976,15 @@ class VerticalSession:
         ``workers`` (with its scientist endpoint to ``eps``, and a thread
         to ``threads``) as it starts, so that a failure half way leaves
         every started one to the caller's clean-up."""
-        if backend == "process" and self.device.type == "cuda" \
-                and kw["compression"] == "int8":
+        if backend == "process" and self.device.type == "cuda":
             # build before spawning: the workers (respawns too) load what
-            # is built
-            from repro_torch.kernels import build
-            build.build(["quantize"])
+            # is built — the codec's kernel, and an LM head's attention
+            from repro_torch.kernels import block_attention, build
+            names = (["quantize"] if kw["compression"] == "int8" else [])
+            if getattr(self.adapter, "layout", None) == "sequence":
+                names += list(block_attention.ops.SOURCES.values())
+            if names:
+                build.build(names)
         for p in range(len(self.owners)):
             w, ep, th = self._start_owner(p, backend, **kw)
             workers.append(w)
@@ -1084,7 +1118,7 @@ class VerticalSession:
                              "baseline)")
         bm = batch_size // M
         codec = get_codec(compression, self.device)
-        denom = float(batch_size)
+        denom, inv_micro = float(batch_size), 1.0 / M
         masked = aggregation == "masked_sum"
 
         trunk_opt, trunk_update = adapter.trunk_update_rule(scientist_lr)
@@ -1126,17 +1160,21 @@ class VerticalSession:
         def recv_cuts(kind, seq, wait):
             """One chunk from every owner: the decoded cuts, or (masked)
             the dequantized ring sum of their payloads as one owner
-            plane, so the scientist never holds an owner's cut."""
-            payloads = []
+            plane, so the scientist never holds an owner's cut; and the
+            owners' summed aux scalars (an LM's)."""
+            payloads, aux = [], 0.0
             for ep, w in zip(eps, workers):
                 m = recv(ep, w, kind, wait)
                 if m.seq != seq:
                     raise RuntimeError(f"protocol desync: {kind} seq "
                                        f"{m.seq} != expected {seq}")
                 payloads.append(m.payload)
+                if "aux" in m.payload:
+                    aux += float(np.asarray(m.payload["aux"]).sum())
             if masked:
-                return (self._dequantized(masking.reconstruct(payloads)),)
-            return tuple(codec.decode(pl) for pl in payloads)
+                return (self._dequantized(masking.reconstruct(payloads)),
+                        ), aux
+            return tuple(codec.decode(pl) for pl in payloads), aux
 
         def to_owners(cg):
             """The trunk's cut gradient as one tensor per owner (masked:
@@ -1147,7 +1185,7 @@ class VerticalSession:
             if not defend_on:
                 return g
             return torch.from_numpy(privacy.obfuscate_cut_gradient(
-                g.cpu().numpy(), noise_std=sp.grad_noise_std,
+                g.float().cpu().numpy(), noise_std=sp.grad_noise_std,
                 norm_mode=sp.grad_norm_mode, seed=self._init_seed,
                 tag=f"g{seq}o{p}")).to(self.device)
 
@@ -1318,17 +1356,18 @@ class VerticalSession:
             wait = max(timeout, 120.0)
             wlab = self._labels(widx)
             for m in range(M):
-                cuts = recv_cuts("warmup_cuts", m, wait)
+                cuts, _ = recv_cuts("warmup_cuts", m, wait)
                 lab_m = wlab[m * bm:(m + 1) * bm]
                 if sequential:
                     _, _, cg = trunk_step(tp, cuts, lab_m)
                 else:
-                    cg, _ = cutgrad(tp, cuts, lab_m, denom)
-                    weightgrad(tp, cuts, lab_m, denom)
+                    cg, _ = cutgrad(tp, cuts, lab_m, denom, inv_micro)
+                    weightgrad(tp, cuts, lab_m, denom, inv_micro)
                 wzero = torch.zeros_like(to_owners(cg)[0])
                 for ep in eps:
                     ep.send("warmup_grads", codec.encode(wzero), seq=m)
-            tp, ts = trunk_update(tp, ts, tree_map(torch.zeros_like, tp), 0)
+            # run and dropped, as the owners do
+            trunk_update(tp, ts, tree_map(torch.zeros_like, tp), 0)
             for ep, w in zip(eps, workers):
                 recv(ep, w, "warmup_done", wait)
             if supervise:
@@ -1358,7 +1397,8 @@ class VerticalSession:
                         fwd_next = t + 2
                     lab_t = self._labels(inflight.popleft())
                     if sequential:
-                        cuts = recv_cuts("cut_activations", t, timeout)
+                        cuts, owner_aux = recv_cuts("cut_activations", t,
+                                                    timeout)
                         metrics, tg, cg = trunk_step(tp, cuts, lab_t)
                         tp, ts = trunk_update(tp, ts, tg, t)
                         send_grads(to_owners(cg), t)
@@ -1366,21 +1406,24 @@ class VerticalSession:
                             recv(ep, w, "step_done",
                                                   timeout)
                     else:
-                        metrics, cache = None, []
+                        metrics, cache, owner_aux = None, [], 0.0
                         for m in range(M):
                             seq = t * M + m
                             lab_m = lab_t[m * bm:(m + 1) * bm]
-                            cuts = recv_cuts("cut_activations", seq,
-                                             timeout)
-                            cg, parts = cutgrad(tp, cuts, lab_m, denom)
+                            cuts, aux_m = recv_cuts("cut_activations", seq,
+                                                    timeout)
+                            owner_aux += aux_m
+                            cg, parts = cutgrad(tp, cuts, lab_m, denom,
+                                                inv_micro)
                             send_grads(to_owners(cg), seq)
                             metrics = tree_add(metrics, parts)
                             cache.append((cuts, lab_m))
                         tg = None
                         for cuts, lab_m in cache:
                             tg = tree_add(tg, weightgrad(tp, cuts, lab_m,
-                                                         denom))
+                                                         denom, inv_micro))
                         tp, ts = trunk_update(tp, ts, tg, t)
+                    metrics = _with_owner_aux(metrics, owner_aux)
                     losses.append(metrics["loss"])
                     if t == 0:
                         t_warm = time.time()
@@ -1536,14 +1579,16 @@ class VerticalSession:
         ``save_split``) into the session's params on its device, so a
         fresh session resumes from that step."""
         self._require(built=True)
-        loaded = restore_split(step_dir)
+        loaded = tree_leaves(restore_split(step_dir))
         want = [tuple(t.shape) for t in tree_leaves(self.params)]
-        got = [tuple(a.shape) for a in tree_leaves(loaded)]
+        got = [tuple(a.shape) for a in loaded]
         if got != want:
             raise ValueError(f"checkpoint {step_dir!r} does not fit the "
                              f"built model: leaf shapes {got} != {want}")
-        self.params = tree_map(lambda a: torch.from_numpy(np.array(
-            a, np.float32)).to(self.device), loaded)
+        # the built tree's structure: a file keeps no empty subtree (an
+        # LM's ``shared: {}``)
+        self.params = tree_unflatten(self.params, [torch.from_numpy(
+            np.array(a, np.float32)).to(self.device) for a in loaded])
         return self
 
     # ------------------------------------------------------------ 5. serve

@@ -5,7 +5,9 @@ The attention itself is the kernel's wrapper
 (``repro_torch.kernels.block_attention``): on a CUDA tensor it launches
 the hand-written flash kernel, on a CPU tensor it runs the plain masked
 softmax.  The reference computes the same function with a jnp scan
-(``repro.models.attention.attention``).
+(``repro.models.attention.attention``).  When autograd records (a
+training forward), the call goes through ``attention_fn``: the same
+forward, and a backward of plain products.
 
 KV caches are updated in place (the reference returns an updated copy):
 a cache is allocated once per request wave and written at ``pos``.  A
@@ -19,7 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import not_ported
-from repro_torch.kernels.block_attention import block_attention
+from repro_torch.kernels.block_attention import attention_fn, block_attention
 from repro_torch.models import layers
 
 
@@ -131,8 +133,14 @@ def attn_apply(params, x, *, cfg, kind: str, positions=None, window: int = 0,
         q_offset = pos.host if isinstance(pos, RowPositions) else pos
         kv_len = q_offset + Sq
 
-    out = block_attention(q, k.to(q.dtype), v.to(q.dtype), kind=kind,
-                          window=window, softcap=cfg.attn_softcap,
-                          q_offset=q_offset, kv_len=kv_len)
+    k, v = k.to(q.dtype), v.to(q.dtype)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        out = attention_fn(q, k, v, kind=kind, window=window,
+                           softcap=cfg.attn_softcap, q_offset=q_offset,
+                           kv_len=kv_len)
+    else:
+        out = block_attention(q, k, v, kind=kind, window=window,
+                              softcap=cfg.attn_softcap, q_offset=q_offset,
+                              kv_len=kv_len)
     out = layers.dense_apply(params["wo"], out.reshape(B, Sq, nh * hd))
     return out, cache

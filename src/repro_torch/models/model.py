@@ -17,7 +17,16 @@ a decode token's head rope position is ``owner + pos_local``; every
 owner's Mamba2 state advances on the decode token too; left-pad tokens
 flow through the Mamba2 state unmasked; the LM
 head is its own matrix even with ``tie_embeddings``; the logits are
-computed in f32.  No aux loss is returned (MoE is not ported).
+computed in f32.
+
+Training: ``forward`` returns ``(logits, aux)`` and ``loss_fn`` the
+objective ``ce + aux`` with ``{"loss": ce, "aux": aux}``, as in the
+reference; ``ce_loss`` is the causal LM loss (labels -100 are masked).
+``aux`` is the blocks' auxiliary loss, a scalar 0 for the dense and
+Mamba2 blocks the port builds (MoE's balance loss is item 8), carried
+where the reference carries it.  Attention under autograd runs the
+kernel forward and a backward of plain products
+(``kernels.block_attention.attention_fn``).
 
 ``SplitConfig.cut_dim > 0`` puts a bottleneck at the cut: each head ends
 in ``cut_proj`` (d_model -> cut_dim) and the trunk starts with
@@ -68,6 +77,7 @@ class SplitModel:
         self.n_head_units = cut
         self.n_trunk_units = n_units - cut
         self.k = sp.cut_dim if sp.cut_dim > 0 else cfg.d_model
+        self.cdtype = _cdtype(cfg)
 
     # ------------------------------------------------------------------ init
 
@@ -196,15 +206,44 @@ class SplitModel:
         B, S = t.shape
         return t.reshape(B, self.P, S // self.P).permute(1, 0, 2)
 
+    @staticmethod
+    def aux_zero(like: torch.Tensor) -> torch.Tensor:
+        """The blocks' auxiliary loss: a scalar f32 0 on ``like``'s
+        device (no block the port builds has one)."""
+        return torch.zeros((), dtype=torch.float32, device=like.device)
+
     def forward(self, params, batch, gen=None):
-        """Full-sequence forward (no cache).  Returns logits (B, S,
-        vocab).  ``gen``: the cut noise's generator (see
-        :meth:`combine`)."""
+        """Full-sequence forward (train / prefill without a cache).
+        Returns ``(logits (B, S, vocab) f32, aux)``: the heads' aux
+        summed over owners plus the trunk's.  ``gen``: the cut noise's
+        generator (see :meth:`combine`)."""
         cut, _ = self.heads_forward(params["heads"],
                                     self.split_owner_inputs(batch))
-        z = self.combine(cut.to(_cdtype(self.cfg)), gen=gen)
+        z = self.combine(cut.to(self.cdtype), gen=gen)
         logits, _ = self.trunk_forward(params["trunk"], z)
-        return logits
+        return logits, self.aux_zero(logits) + self.aux_zero(logits)
+
+    @staticmethod
+    def ce_loss(logits, labels):
+        """Causal LM loss: the mean over valid positions (labels >= 0;
+        -100 is masked) of ``logsumexp(logits) - logits[label]``, the
+        label logit picked with a vocabulary comparison, as the
+        reference does."""
+        valid = labels >= 0
+        lab = torch.where(valid, labels, 0)
+        lse = torch.logsumexp(logits, dim=-1)
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        label_logit = torch.where(vocab == lab[..., None], logits,
+                                  0.0).sum(-1)
+        ll = label_logit - lse
+        n = valid.sum().clamp(min=1)
+        return -(ll * valid).sum() / n
+
+    def loss_fn(self, params, batch, gen=None):
+        """``(ce + aux, {"loss": ce, "aux": aux})``."""
+        logits, aux = self.forward(params, batch, gen=gen)
+        loss = self.ce_loss(logits, batch["labels"])
+        return loss + aux, {"loss": loss, "aux": aux}
 
     # ------------------------------------------------------------ serving
 

@@ -1,7 +1,7 @@
 """The port on the card: the CUDA quantize, attention, SSD scan and
 cut-fusion kernels against their plain versions, and the training and
 serving paths through them (the microbatched and process-backend
-schedules and a supervised crash recovery included).
+schedules, a supervised crash recovery and LM training included).
 Every test here needs an NVIDIA GPU and skips without one; the file
 imports only ``repro_torch`` (no JAX), so it runs on a machine with a
 card:
@@ -16,7 +16,10 @@ card:
 with ``test_torch_ssm.py`` and ``test_torch_scan_routes.py``;
 ``CUT_CASES`` and ``cut_inputs`` with ``test_torch_cut_fusion.py``;
 ``EMPTY_ROW_CASES`` with ``test_torch_attention_empty_rows.py``;
-``CUT_PATH_CASES`` with ``test_torch_cut_fusion_plan.py``.
+``CUT_PATH_CASES`` with ``test_torch_cut_fusion_plan.py``;
+``lm_session`` and ``lm_owner_clipped_oracle`` (the per-owner-clipped
+joint oracle of split LM training) with ``test_torch_lm_train.py`` and
+``test_torch_lm_train_process.py``.
 """
 import numpy as np
 import pytest
@@ -1086,3 +1089,144 @@ def test_continuous_equals_wave_on_card(cuda_device, arch, n_layers, ctx):
     assert nc["block_attention"] == (nc["block_attention.decode"]
                                      + nc["block_attention.tc"])
     assert st["ticks"] < sum(mixed)
+
+
+# ---------------------------------------------------------------------------
+# LM training (the dense family): attention under autograd, split == the
+# per-owner-clipped joint oracle, card vs CPU
+# ---------------------------------------------------------------------------
+
+#: attention's training shapes at llama3.2-3b's heads (24 q, 8 kv, hd
+#: 128): the trunk over the combined sequence, a head over its slice
+LM_TRAIN_ATTN = [(2, 256, 24, 8, 128), (2, 128, 24, 8, 128)]
+
+
+def lm_session(cfg, toks, device, params=None):
+    """A labelled sequence-split session on ``device``, resolved and
+    built (from ``params`` when given)."""
+    from repro_torch.federation import VerticalSession, sequence_parties
+    s = VerticalSession(*sequence_parties(toks, cfg.split.n_owners),
+                        device=device)
+    s.resolve(group="modp512")
+    return s.build(cfg, params=params)
+
+
+def lm_owner_clipped_oracle(session, steps, batch_size):
+    """The per-owner-clipped joint oracle of a split LM fit on
+    ``session`` (built, never fitted): per step one autograd pass
+    through the adapter's ``loss_fn`` at the joint params — the joint
+    fit's gradients — then the heads' rule applied to each owner's
+    ``owner_param_slice`` apart, stacked back with
+    ``stack_head_params``, and the trunk's rule.  The batches are the
+    fit's (the session's index stream at its seed).  Leaves the result
+    in ``session.params``; returns the loss trail."""
+    from repro_torch.core.splitnn import _leaf, grads_of
+    from repro_torch.tree import tree_map
+    ad = session.adapter
+    P = len(session.owners)
+    n = len(session.scientist.ids)
+    session._train_idx = np.arange(n)
+    stream = session._index_stream(np.random.default_rng(session.seed), n,
+                                   batch_size, None, steps)
+    oopt, oupd = ad.owner_update_rule()
+    topt, tupd = ad.trunk_update_rule()
+    slices = [ad.owner_param_slice(session.params, p) for p in range(P)]
+    ostates = [oopt.init(x) for x in slices]
+    tp = session.params["trunk"]
+    ts = topt.init(tp)
+    losses = []
+    for t in range(steps):
+        batch = ad.make_batch(session._owner_arrays(),
+                              session.scientist.labels, next(stream),
+                              device=session.device)
+        with torch.enable_grad():
+            leaves = tree_map(_leaf, {
+                "heads": ad.stack_head_params(slices), "trunk": tp})
+            obj, metrics = ad.loss_fn(leaves, batch)
+            grads = grads_of(obj, leaves)
+        for p in range(P):
+            slices[p], ostates[p] = oupd(slices[p], ostates[p],
+                                         ad.owner_param_slice(grads, p), t)
+        tp, ts = tupd(tp, ts, grads["trunk"], t)
+        losses.append(metrics["loss"].item())
+    session.params = {"heads": ad.stack_head_params(slices), "trunk": tp}
+    return losses
+
+
+def _lm_train_cfg(compute):
+    from repro_torch.configs import get_config
+    return get_config("llama3.2-3b", reduced=True).replace(
+        n_layers=3, compute_dtype=compute).with_split(cut_layer=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", LM_TRAIN_ATTN)
+def test_attention_function_on_card(cuda_device, shape, dtype):
+    """The attention Function at the training shapes: the kernel forward
+    (tc in bf16, fma in f32) and the plain-product backward against
+    autograd through the plain version, within the kernel tolerances."""
+    B, S, nh, nkv, hd = shape
+    base = [torch.from_numpy(a).to(cuda_device)
+            for a in attn_inputs(B, S, S, nh, nkv, hd)]
+    dout = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(B, S, nh, hd)).astype(np.float32)).to(cuda_device, dtype)
+    tol = attn_tol(dtype)
+
+    def run(fn):
+        q, k, v = (t.to(dtype).requires_grad_() for t in base)
+        out = fn(q, k, v)
+        out.backward(dout)
+        return out.detach(), q.grad, k.grad, v.grad
+
+    n0 = attn_kernel.launch_counts[
+        f"block_attention.{'tc' if dtype == torch.bfloat16 else 'fma'}"]
+    got = run(lambda q, k, v: attn_kernel.attention_fn(q, k, v))
+    assert attn_kernel.launch_counts[
+        f"block_attention.{'tc' if dtype == torch.bfloat16 else 'fma'}"] \
+        == n0 + 1
+    want = run(lambda q, k, v: attn_kernel.attention_ref(q, k, v))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+def test_lm_split_equals_owner_clipped_oracle_on_card(cuda_device):
+    """bf16 on the card: split lossless training over the queue equals
+    the per-owner-clipped joint oracle bit for bit (params and loss
+    trail), with the attention forward on the tc kernel."""
+    from repro_torch.data import make_token_dataset
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = _lm_train_cfg("bfloat16")
+    # 256 tokens: the heads' 128 query rows and the trunk's 256 take the
+    # tc route (64 rows or fewer per kv head take the decode route)
+    toks = make_token_dataset(16, 256, cfg.vocab, 0)
+    first = lm_session(cfg, toks, cuda_device)
+    p0 = tree_map(lambda t: t.cpu(), first.params)
+    trail = lm_owner_clipped_oracle(first, 3, 4)
+    want = [t.cpu() for t in tree_leaves(first.params)]
+    del first
+    s = lm_session(cfg, toks, cuda_device, p0)
+    n0 = attn_kernel.launch_counts["block_attention.tc"]
+    h = s.fit(steps=3, batch_size=4, verbose=False, mode="split")
+    assert attn_kernel.launch_counts["block_attention.tc"] > n0
+    assert h["loss_trail"] == trail
+    for a, b in zip(tree_leaves(s.params), want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_lm_joint_fit_card_vs_cpu(cuda_device):
+    """f32: the joint fit's loss trail on the card within rel 1e-4 of
+    the CPU's, from the same params."""
+    from repro_torch.data import make_token_dataset
+    from repro_torch.tree import tree_map
+    cfg = _lm_train_cfg("float32")
+    toks = make_token_dataset(16, 64, cfg.vocab, 0)
+    cpu = lm_session(cfg, toks, "cpu")
+    p0 = tree_map(torch.clone, cpu.params)
+    want = cpu.fit(steps=3, batch_size=4, verbose=False)["loss_trail"]
+    card = lm_session(cfg, toks, cuda_device, p0)
+    got = card.fit(steps=3, batch_size=4, verbose=False)["loss_trail"]
+    np.testing.assert_allclose(got, want, rtol=1e-4)

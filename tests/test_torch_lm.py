@@ -181,8 +181,8 @@ def test_forward_matches_reference(arch, n_layers, compute):
     ref, ref_params, ours, params = _pair(arch, n_layers, compute)
     toks = _tokens(2, CTX[arch], ours.cfg.vocab)
     want, _ = ref.forward(ref_params, {"tokens": jnp.asarray(toks)})
-    got = ours.forward(params, {"tokens": torch.from_numpy(toks)})
-    assert got.dtype == torch.float32
+    got, aux = ours.forward(params, {"tokens": torch.from_numpy(toks)})
+    assert got.dtype == torch.float32 and float(aux) == 0.0
     _check(got, want, compute, BF16_ATOL.get((arch, n_layers), 5e-2))
 
 

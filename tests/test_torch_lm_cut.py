@@ -128,7 +128,7 @@ def test_bottleneck_forward_matches_reference(arch, n_layers, cut_dim,
                                           cut_dim=cut_dim)
     toks = _tokens(2, CTX[arch], ours.cfg.vocab)
     want, _ = ref.forward(ref_params, {"tokens": jnp.asarray(toks)})
-    got = ours.forward(params, {"tokens": torch.from_numpy(toks)})
+    got, _ = ours.forward(params, {"tokens": torch.from_numpy(toks)})
     _check(got, want, compute, BF16_ATOL.get((arch, n_layers), 5e-2))
     cut, _ = ours.heads_forward(params["heads"], ours.split_owner_inputs(
         {"tokens": torch.from_numpy(toks)}))
@@ -220,8 +220,8 @@ def test_cut_noise_without_a_generator_is_noise_free(noisy):
     toks = torch.from_numpy(_tokens(2, CTX[LLAMA], ours.cfg.vocab))
     quiet = SplitModel(ours.cfg.replace(split=dataclasses.replace(
         ours.cfg.split, cut_noise_std=0.0)))
-    got = ours.forward(params, {"tokens": toks})
-    assert torch.equal(got, quiet.forward(params, {"tokens": toks}))
+    got, _ = ours.forward(params, {"tokens": toks})
+    assert torch.equal(got, quiet.forward(params, {"tokens": toks})[0])
     want, _ = ref.forward(ref_params, {"tokens": jnp.asarray(toks.numpy())})
     _check(got, want, "float32")
 
@@ -254,9 +254,9 @@ def test_cut_noise_through_forward(noisy):
     _, _, ours, params = noisy
     toks = {"tokens": torch.from_numpy(_tokens(2, CTX[LLAMA],
                                                ours.cfg.vocab))}
-    quiet = ours.forward(params, toks)
-    a = ours.forward(params, toks, gen=torch.Generator().manual_seed(1))
-    b = ours.forward(params, toks, gen=torch.Generator().manual_seed(1))
+    quiet, _ = ours.forward(params, toks)
+    a, _ = ours.forward(params, toks, gen=torch.Generator().manual_seed(1))
+    b, _ = ours.forward(params, toks, gen=torch.Generator().manual_seed(1))
     assert torch.equal(a, b) and not torch.equal(a, quiet)
 
 

@@ -737,29 +737,33 @@ def test_serve_dataset_takes_n_requests_and_engine_knobs(served):
 
 
 def test_lm_session_builds_on_its_device_and_refuses_fit():
-    """``build(ArchConfig)`` draws the LM on the session's device, the
-    adapter is the serving half of ``SplitLMAdapter``, and ``fit`` raises
-    naming ROADMAP.md item 13; serving an MLP session is refused."""
+    """``build(ArchConfig)`` draws the LM on the session's device and
+    the adapter is ``SplitLMAdapter``; a session without labels refuses
+    ``fit`` as the reference's does, and an LM with Mamba2 blocks
+    (zamba2) refuses it naming ROADMAP.md item 13b."""
+    from repro_torch.federation import PrivacyError
     cfg, _, toks = _sessions()
     s = _port_session(cfg, toks)
     assert type(s.adapter).__name__ == "SplitLMAdapter"
     assert s.adapter.layout == "sequence" and s.adapter.supports_serving
-    assert not s.adapter.supports_split
+    assert s.adapter.supports_split
     assert s.adapter.cut_shape(4, (8,)) == (4, 8, cfg.d_model)
     assert s.cut_traffic(4, bytes_per_el=2)["per_owner_forward_bytes"] == \
         4 * 8 * cfg.d_model * 2
     again = _port_session(cfg, toks)             # one seed, one draw
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(s.params),
                                                  tree_leaves(again.params)))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 13"):
+    with pytest.raises(PrivacyError, match="no labels"):
         s.fit(steps=1, batch_size=2)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        s.adapter.loss_fn(s.params, None)
+    zcfg = get_config("zamba2-2.7b", reduced=True)
+    z = _port_session(zcfg, make_token_dataset(4, 16, zcfg.vocab, 0)[:, :16])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 13b"):
+        z.adapter.loss_fn(z.params, None)
     labelled = VerticalSession(*sequence_parties(
-        make_token_dataset(4, 16, cfg.vocab, 0), 2), device="cpu")
+        make_token_dataset(4, 16, zcfg.vocab, 0), 2), device="cpu")
     labelled.resolve(group="modp512")
-    labelled.build(cfg)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    labelled.build(zcfg)
+    with pytest.raises(NotImplementedError, match="item 13b"):
         labelled.fit(steps=1, batch_size=2)
 
 
