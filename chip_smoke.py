@@ -91,22 +91,25 @@ Phases, in order; any failure raises and exits non-zero:
  16. supervised crash recovery (``fit(supervise=True)``) at phase 4's
      width and depth, split int8: the fault-free supervised run ==
      the unsupervised one bit for bit on the queue; the snapshot and
-     heartbeat cost as five alternating pairs of 50-step fits, every
+     heartbeat cost as three alternating pairs of 50-step fits, every
      steady step printed; a crash at step 3 and a corrupt cut frame on
-     the queue and the process backend, and a wedge on the process
-     backend caught by the heartbeats, each == its backend's fault-free
-     supervised run bit for bit, with its recovery event and wall time
-     beside the fault-free one; a masked-sum crash on the queue == its
+     the queue, one fit each, and on the process backend one fit with a
+     crash, a corrupt cut frame and a wedge caught by the heartbeats,
+     each == its backend's fault-free supervised run bit for bit, with
+     its recovery events and wall time beside the fault-free one; a
+     masked-sum crash on the queue == its
      fault-free masked run; exact launch counts in every run, replays
      and the respawn's warmup included, from the run's own record; no
      recovery without a plan; "restart budget exhausted" for a crash in
      every generation;
  17. PSI entity resolution at phase 4's population (2000 subjects, two
      owners), host compute beside the card: one resolve at the default
-     group modp2048 on the process backend with a pool of min(8, cpus)
-     modexp workers, equal to the serial direct modp512 resolve; every
+     group modp2048 (500 subjects) on the process backend with a pool of
+     min(8, cpus) modexp workers, equal to the serial direct modp512
+     resolve; every
      mode (noinv, bloom, hidden) on every backend (direct, queue,
-     process) with and without the pool, rows bitwise equal within a
+     process) with the pool, and without it (noinv everywhere, bloom
+     and hidden on direct), rows bitwise equal within a
      mode, every pool reporting the parallelism it asked for; ±1 % churn
      of the scientist's rows, then delta rounds on queue and process
      with the reference engine's O(Δ) modexp counts, and a hello-only
@@ -177,7 +180,23 @@ Phases, in order; any failure raises and exits non-zero:
      (c) the reduced config's int8 split fit with owners in spawned
      workers == the queue, bitwise; (d) ``python -m
      repro_torch.launch.train --reduced --steps 3`` on the card;
- 14. the results, last (after phases 15, 16, 17, 18 and 20): a
+ 21. LM training at full width on the SSM family, after phase 20: (a)
+     the scan Function (the kernel forward, a backward of plain
+     products) at zamba2-2.7b's training shapes (batch 8, the trunk's 256
+     tokens and a head's 128; 80 heads of 64, 64 states, chunks of 256;
+     x, B, C strided views of one buffer as the Mamba2 block gives them),
+     bf16 (route chunked) and f32 (route serial): the forward against the
+     plain ``ssd_chunked`` and the gradients against autograd through the
+     plain stages, within 2e-2 / 2e-4, with the forward's, the
+     backward's and the plain version's times beside the backward's
+     bound; (b) zamba2-2.7b at full widths cut in depth to 30 layers (5
+     units, the cut after 2), phase 20(b)'s data and fits, with exact
+     chunked-scan, tc and quantize launches, the scan backward's calls
+     and its share of the step, split lossless == the per-owner-clipped
+     oracle bitwise; (c) the reduced config's int8 split fit on spawned
+     workers == the queue, bitwise; (d) ``python -m
+     repro_torch.launch.train --arch zamba2-2.7b --reduced --steps 3``;
+ 14. the results, last (after phases 15, 16, 17, 18, 20 and 21): a
      ``{"serving_continuous": ...}`` JSON line with phase 19's numbers, a
      ``{"privacy": ...}`` JSON line with phase 15's numbers, a
      ``{"recovery": ...}`` line with phase 16's, a ``{"psi": ...}`` line
@@ -190,8 +209,10 @@ Phases, in order; any failure raises and exits non-zero:
      P = 8 timing as ``p8``; the decode route with per-row lengths as
      ``block_attention.per_row``), then the ``{"ok": true, ...}`` JSON
      line last; before them an ``{"lm_train": ...}`` line with phase
-     20's numbers, and every kernels entry with its
-     ``lm_train_launches`` over phase 20(b)'s three fits.
+     20's numbers and a ``{"zamba2_train": ...}`` line with phase 21's,
+     and every kernels entry with its ``lm_train_launches`` over phase
+     20(b)'s three fits and its ``zamba2_train_launches`` over phase
+     21(b)'s.
 
 Without a CUDA device it prints nothing and exits 2.  It imports only
 ``repro_torch`` (never JAX or the JAX package ``repro``).
@@ -1735,12 +1756,14 @@ def without(obj, key):
 
 
 def chaos_fit(session, fault=None, **kw):
-    """``session.fit(**kw)`` under a one-fault plan (``federation.faults``
-    keywords) set in ``REPRO_CHAOS_PARTY`` for this fit alone."""
+    """``session.fit(**kw)`` under a plan of one fault or a list of them
+    (``federation.faults`` keywords) set in ``REPRO_CHAOS_PARTY`` for
+    this fit alone."""
     from repro_torch.federation import faults
     if fault:
         os.environ[faults.CHAOS_ENV] = faults.FaultPlan(
-            [faults.Fault(**fault)]).to_env()
+            [faults.Fault(**f) for f in (
+                fault if isinstance(fault, list) else [fault])]).to_env()
     try:
         return session.fit(**kw)
     finally:
@@ -1785,9 +1808,20 @@ RECOVERY_FAULTS = {
     "corrupt": (dict(party="owner0", action="corrupt_frame",
                      kind="cut_activations", occurrence=4), 4,
                 ("owner0", "rollback", 4)),
-    "wedge": (dict(party="owner0", action="wedge", kind="head_fwd",
-                   occurrence=None, step=3), 3, ("owner0", "respawn", 2)),
 }
+# the process backend's three faults in one fit (a CUDA worker's start-up
+# costs each process fit 10-20 s): owner0 crashes at step 3 (replay from
+# marker 2); owner1's seventh cut (steps 0-3, the replayed 2-3, then step
+# 4) is corrupted (rollback to marker 4); owner1 wedges at step 7, caught
+# by the heartbeats (respawn, replay from marker 6)
+PROCESS_FAULTS = [
+    (dict(party="owner0", action="crash", kind="head_fwd", occurrence=None,
+          step=3), 3, ("owner0", "respawn", 2)),
+    (dict(party="owner1", action="corrupt_frame", kind="cut_activations",
+          occurrence=6), 4, ("owner1", "rollback", 4)),
+    (dict(party="owner1", action="wedge", kind="head_fwd", occurrence=None,
+          step=7), 7, ("owner1", "respawn", 6)),
+]
 
 
 def phase_recovery():
@@ -1795,15 +1829,16 @@ def phase_recovery():
     the paper's path at full width, phase 4's session (2000 subjects, two
     owners, split int8, one epoch of 10 steps).  Fault-free supervised ==
     unsupervised bitwise on the queue.  The snapshot and heartbeat cost:
-    five pairs of 5-epoch queue fits (50 steps), unsupervised and
+    three pairs of 5-epoch queue fits (50 steps), unsupervised and
     supervised in alternating order, heartbeats every 50 ms (ten times
     the default rate, so that they fire inside a fit), every steady step
     printed.  Then crash (owner0 on ``head_fwd`` at
     step 3) and corrupt frame (owner0's fifth ``cut_activations``) on the
-    queue and the process backend, and a wedge (``head_fwd`` at step 3,
-    the default 120 s timeout: the heartbeats must catch it) on the
-    process backend: each run equals its backend's
-    fault-free supervised run bit for bit, with its recovery event and
+    queue, one fit each, and on the process backend one fit with three
+    faults (``PROCESS_FAULTS``: owner0's crash, a corrupt cut of owner1,
+    then owner1 wedged on ``head_fwd`` at step 7 under the default 120 s
+    timeout: the heartbeats must catch it): each run equals its backend's
+    fault-free supervised run bit for bit, with its recovery events and
     the wall time beside the fault-free one.  The sum trunk with
     ``aggregation="masked_sum"`` crashed at step 3 on the queue == its
     fault-free masked supervised run.  Exact launch counts in every run
@@ -1835,16 +1870,15 @@ def phase_recovery():
         counts = read_counts()
         return s, h, wall, counts
 
-    def check_run(what, s, counts, backend, masked=False, expect=None):
-        """Exact counts; the recovery record against ``expect``
-        ((noticed at, (party, action, marker))) or none."""
+    def check_run(what, s, counts, backend, masked=False, expect=()):
+        """Exact counts; the recovery record against ``expect``, a list
+        of (noticed at, (party, action, marker)), or none."""
         need, stepped = recovery_counts(s, backend, masked)
         steps = s.transport_stats["steps"]
         ev = [(e["party"], e["action"], e["step"])
               for e in s.recovery_events]
-        replayed = 0 if expect is None else expect[0] - expect[1][2]
-        if ev != ([] if expect is None else [expect[1]]) or \
-                stepped != steps + replayed:
+        replayed = sum(n - e[2] for n, e in expect)
+        if ev != [e for _, e in expect] or stepped != steps + replayed:
             raise AssertionError(f"{what}: events {ev}, {stepped} steps "
                                  f"run, expected {expect}")
         check_counts(counts, need, what)
@@ -1871,7 +1905,7 @@ def phase_recovery():
     # heartbeats that fire; all runs bitwise equal, none suspected
     steady, acks, first = {False: [], True: []}, [], None
     cost_session, _ = mnist_session("cuda")
-    for i in range(5):
+    for i in range(3):
         for sup in ((False, True) if i % 2 == 0 else (True, False)):
             s, h, _, _ = run("queue", session=cost_session, supervise=sup,
                              epochs=5,
@@ -1891,7 +1925,7 @@ def phase_recovery():
                     h["loss_trail"] != first[1]["loss_trail"]:
                 raise AssertionError("two 5-epoch fault-free runs differ")
     med = {k: sorted(v)[len(v) // 2] for k, v in steady.items()}
-    print(f"  supervision cost, 5 pairs of 50-step queue fits in "
+    print(f"  supervision cost, 3 pairs of 50-step queue fits in "
           f"alternating order (all bitwise equal, heartbeats every 50 ms, "
           f"acks {acks}): steady_step_ms unsupervised "
           f"{[round(x, 3) for x in steady[False]]} (median "
@@ -1903,26 +1937,31 @@ def phase_recovery():
                              "heartbeat_acks": acks},
                     "clean_wall_s": q_wall, "clean": res}
 
-    def chaos(backend, name, clean, masked=False, **extra):
-        fault, noticed, event = RECOVERY_FAULTS[name]
+    def chaos(backend, name, clean, masked=False, plan=None, **extra):
+        """One fit under the fault ``name`` or under ``plan`` (a list of
+        ``RECOVERY_FAULTS``-form entries): == ``clean`` bitwise, every
+        recovery event in order, a wedge caught by the heartbeats."""
+        plan = plan or [RECOVERY_FAULTS[name]]
         c, hc, c_wall = clean
-        s, h, wall, counts = run(backend, fault, masked, supervise=True,
-                                 **extra)
+        s, h, wall, counts = run(backend, [f for f, _, _ in plan], masked,
+                                 supervise=True, **extra)
         if not same_params(c, s) or h["loss_trail"] != hc["loss_trail"]:
             raise AssertionError(f"{backend} {name}: != fault-free")
         what = f"the {'masked ' if masked else ''}{backend} {name} fit"
-        r = check_run(what, s, counts, backend, masked, (noticed, event))
-        e = s.recovery_events[0]
-        if name == "wedge" and "unresponsive" not in e["error"]:
-            raise AssertionError(f"the wedge was not caught by the "
-                                 f"heartbeats: {e['error']}")
+        r = check_run(what, s, counts, backend, masked,
+                      [(n, e) for _, n, e in plan])
+        for (f, _, _), e in zip(plan, s.recovery_events):
+            if f["action"] == "wedge" and "unresponsive" not in e["error"]:
+                raise AssertionError(f"the wedge was not caught by the "
+                                     f"heartbeats: {e['error']}")
+        secs = [e["seconds"] for e in s.recovery_events]
         print(f"  {backend} {'masked ' if masked else ''}{name}: == "
-              f"fault-free bitwise; event {r['events'][0]}, recovery "
-              f"{e['seconds']:.2f} s; fit wall {wall:.2f} s (fault-free "
-              f"{c_wall:.2f} s); replayed {r['replayed_steps']}; launches "
-              f"{r['counts']}")
+              f"fault-free bitwise; events {r['events']}, recovery "
+              f"{', '.join(f'{x:.2f}' for x in secs)} s; fit wall "
+              f"{wall:.2f} s (fault-free {c_wall:.2f} s); replayed "
+              f"{r['replayed_steps']}; launches {r['counts']}")
         return dict(r, wall_s=wall, clean_wall_s=c_wall,
-                    recover_s=e["seconds"])
+                    recover_s=secs[0] if len(secs) == 1 else secs)
 
     for name in ("crash", "corrupt"):
         out["queue"][name] = chaos("queue", name, base[True])
@@ -1932,8 +1971,8 @@ def phase_recovery():
     if not same_params(q, p_clean[0]):
         raise AssertionError("supervised process != supervised queue")
     out["process"] = {"clean_wall_s": p_clean[2]}
-    for name in ("crash", "corrupt", "wedge"):
-        out["process"][name] = chaos("process", name, p_clean[:3])
+    out["process"]["crash+corrupt+wedge"] = chaos(
+        "process", "crash+corrupt+wedge", p_clean[:3], plan=PROCESS_FAULTS)
     m_clean = run("queue", masked=True, supervise=True)
     check_run("the supervised masked queue fit", m_clean[0], m_clean[3],
               "queue", masked=True)
@@ -1966,6 +2005,9 @@ PSI_CHUNK = 256
 
 # (f)'s subjects: a third of MNIST's 60000 training subjects
 PSI_SCALE = 20000
+# (a)'s subjects: modp2048's modexps are ~8x modp512's, so (a) holds the
+# default group at a quarter of phase 4's population
+PSI_MODP2048 = 500
 
 
 def psi_session(device, n=2000):
@@ -2007,15 +2049,17 @@ def phase_psi():
     the paper's training path.  Phase 4's population (2000 subjects, two
     owners, keep_frac 0.9); N = min(8, cpu count) modexp workers;
     chunks of ``PSI_CHUNK`` IDs in (a) and (b).  (a) one resolve at the
-    default group modp2048 on the process backend with the pool, whose
-    IDs equal the serial direct modp512 resolve's;
-    (b) every mode on every backend with parallelism 0 and N at modp512:
+    default group modp2048 on the process backend with the pool, at
+    ``PSI_MODP2048`` subjects, whose IDs equal the serial direct modp512
+    resolve's of the same parties;
+    (b) every mode on every backend with parallelism N at modp512, and
+    0 for noinv on every backend and for bloom and hidden on direct:
     within a mode the aligned IDs, labels and features bitwise equal,
     noinv's IDs == bloom's, hidden's pseudonym rows equal across
     backends, and every pool run reporting the N it asked for; then
-    noinv on each backend with parallelism 0 and N at resolve's default
-    chunk, the pool's speedup a caller who sets only ``parallelism``
-    sees; (c) ±1 %
+    noinv on the process backend with parallelism 0 and N at resolve's
+    default chunk, the pool's speedup a caller who sets only
+    ``parallelism`` sees; (c) ±1 %
     churn of the scientist's rows (20 out, 20 in) through
     ``update_rows``, then a resolve on queue and process: every round a
     delta round, the client's splice 20 modexps, each owner's 20 and the
@@ -2044,25 +2088,30 @@ def phase_psi():
     ref = psi_session("cuda")
     st, ref_s = timed_resolve(ref, group="modp512")
     ref_ids = list(ref.scientist.ids)
-    s = psi_session("cuda")
+    small = psi_session("cuda", n=PSI_MODP2048)
+    timed_resolve(small, group="modp512")
+    s = psi_session("cuda", n=PSI_MODP2048)
     st, sec = timed_resolve(s, group="modp2048", backend="process",
                             parallelism=N, chunk_size=PSI_CHUNK)
-    if st["parallelism"] != N or list(s.scientist.ids) != ref_ids:
+    want = list(small.scientist.ids)
+    if st["parallelism"] != N or list(s.scientist.ids) != want:
         raise AssertionError(f"modp2048: parallelism {st['parallelism']}, "
-                             f"{len(s.scientist.ids)} IDs vs {len(ref_ids)}")
+                             f"{len(s.scientist.ids)} IDs vs {len(want)}")
     ops = sum(r["client_modexp_ops"] + r["server_modexp_ops"]
               for r in st["rounds"])
-    print(f"  (a) modp2048, process, pool {N}: {len(ref_ids)} IDs == the "
-          f"serial direct modp512 resolve's; {sec:.3f} s, {ops} modexps "
-          f"({ops / sec:.1f}/s)")
-    out["modp2048"] = {"seconds": sec, "modexp_ops": ops,
-                       "parallelism": st["parallelism"]}
+    print(f"  (a) modp2048, {PSI_MODP2048} subjects, process, pool {N}: "
+          f"{len(want)} IDs == the serial direct modp512 resolve's; "
+          f"{sec:.3f} s, {ops} modexps ({ops / sec:.1f}/s)")
+    out["modp2048"] = {"subjects": PSI_MODP2048, "seconds": sec,
+                       "modexp_ops": ops, "parallelism": st["parallelism"]}
 
-    # ---- (b) modes x backends x parallelism
+    # ---- (b) modes x backends x parallelism (bloom and hidden serial on
+    # direct only: the pool's speedup on each backend is noinv's)
     views, secs, hidden_queue = {}, {}, None
     for mode in PSI_MODES:
         for backend in PSI_BACKENDS:
-            for par in (0, N):
+            serial = mode == "noinv" or backend == "direct"
+            for par in ((0, N) if serial else (N,)):
                 s = psi_session("cuda")
                 st, sec = timed_resolve(s, group="modp512", mode=mode,
                                         backend=backend, parallelism=par,
@@ -2072,7 +2121,7 @@ def phase_psi():
                                          f"reports {st['parallelism']}")
                 views[mode, backend, par] = aligned_view(s)
                 secs[f"{mode}/{backend}/{par}"] = sec
-                if (mode, backend, par) == ("hidden", "queue", 0):
+                if (mode, backend, par) == ("hidden", "queue", N):
                     hidden_queue = s
         first = views[mode, "direct", 0]
         bad = [k for k, v in views.items() if k[0] == mode and v != first]
@@ -2088,7 +2137,8 @@ def phase_psi():
     if not hid or any(not i.startswith("anon") for i in hid) or not \
             len(ref_ids) <= len(hid) <= len(ref_ids) + 2 * (HIDDEN_PAD - 1):
         raise AssertionError(f"hidden alignment: {len(hid)} rows")
-    print(f"  (b) 3 modes x 3 backends x parallelism 0 / {N}: rows bitwise "
+    print(f"  (b) 3 modes x 3 backends x pool {N}, and serial (noinv on "
+          f"every backend, bloom and hidden on direct): rows bitwise "
           f"equal within each mode, noinv == bloom IDs ({len(ref_ids)}), "
           f"hidden {len(hid)} pseudonym rows on every backend")
     for k, v in secs.items():
@@ -2096,24 +2146,22 @@ def phase_psi():
     out["round_seconds"] = secs
     out["pool_speedup"] = {
         f"{m}/{b}": secs[f"{m}/{b}/0"] / secs[f"{m}/{b}/{N}"]
-        for m in PSI_MODES for b in PSI_BACKENDS}
+        for m in PSI_MODES for b in PSI_BACKENDS if f"{m}/{b}/0" in secs}
     out["hidden_rows"] = len(hid)
     # the pool at resolve's default chunk, as a caller who sets only
-    # ``parallelism`` gets it (2000 IDs: one task per leg)
+    # ``parallelism`` gets it (2000 IDs: one task per leg), on the
+    # process backend (each backend's pool ran in the matrix above)
     dsecs = {}
-    for backend in PSI_BACKENDS:
-        for par in (0, N):
-            s = psi_session("cuda")
-            st, dsecs[par] = timed_resolve(s, group="modp512",
-                                           backend=backend, parallelism=par)
-            if st["parallelism"] != par or \
-                    list(s.scientist.ids) != ref_ids:
-                raise AssertionError(f"default chunk, {backend}, pool {par}")
-        out["pool_speedup"][f"noinv/{backend}/default_chunk"] = \
-            dsecs[0] / dsecs[N]
-        print(f"    noinv/{backend} at the default chunk {DEFAULT_CHUNK}: "
-              f"{dsecs[0]:.3f} s serial, {dsecs[N]:.3f} s pool "
-              f"({dsecs[0] / dsecs[N]:.2f}x)")
+    for par in (0, N):
+        s = psi_session("cuda")
+        st, dsecs[par] = timed_resolve(s, group="modp512",
+                                       backend="process", parallelism=par)
+        if st["parallelism"] != par or list(s.scientist.ids) != ref_ids:
+            raise AssertionError(f"default chunk, process, pool {par}")
+    out["pool_speedup"]["noinv/process/default_chunk"] = dsecs[0] / dsecs[N]
+    print(f"    noinv/process at the default chunk {DEFAULT_CHUNK}: "
+          f"{dsecs[0]:.3f} s serial, {dsecs[N]:.3f} s pool "
+          f"({dsecs[0] / dsecs[N]:.2f}x)")
 
     # ---- (c) ±1 % churn of the scientist's rows: delta rounds
     out["churn"] = {}
@@ -2196,7 +2244,7 @@ def phase_psi():
         raise AssertionError(f"hidden fit: bad loss trail {trail}")
     cpu = psi_session("cpu")
     cpu.resolve(group="modp512", mode="hidden", backend="queue")
-    if aligned_view(cpu) != views["hidden", "queue", 0]:
+    if aligned_view(cpu) != views["hidden", "queue", N]:
         raise AssertionError("hidden alignment differs on the CPU")
     hc = cpu.build(CONFIG).fit(**kw)
     gap = max(abs(a - b) for a, b in zip(trail, hc["loss_trail"]))
@@ -3493,24 +3541,78 @@ def step_clock(session):
 
 
 def lm_train_need(cfg, mode, steps, evaluations, int8=False):
-    """Exact launches of one fit: the tc attention kernel on every
-    attention forward — per joint step the heads' and the trunk's; per
-    split step (and once in the warmup) each owner's forward and its
+    """Exact launches of one fit, and the calls of the scan's backward:
+    each unit of the block pattern runs the tc attention kernel once per
+    attention block and the chunked scan once per ``mamba2`` block, in
+    every forward — per joint step the heads' and the trunk's; per split
+    step (and once in the warmup) each owner's forward and its
     backward's recompute, and the trunk's cut-gradient and
     weight-gradient passes — plus one forward per evaluation; the int8
-    codec on every cut and cut gradient, the warmup's included."""
-    P, head, trunk = cfg.split.n_owners, LM_TRAIN_CUT, \
-        LM_TRAIN_LAYERS - LM_TRAIN_CUT
+    codec on every cut and cut gradient, the warmup's included.  The
+    scan's backward runs once per ``mamba2`` block of every unit a
+    backward pass goes through: per joint step the heads' and the
+    trunk's, per split step (and in the warmup) each owner's head and
+    the trunk's two passes."""
+    from repro_torch.models.model import SplitModel
+    model = SplitModel(cfg)
+    P, head, trunk = (cfg.split.n_owners, model.n_head_units,
+                      model.n_trunk_units)
+    n_scan = sum(k == "mamba2" for k in cfg.block_pattern)
+    n_attn = len(cfg.block_pattern) - n_scan
     fwd = P * head + trunk
     if mode == "joint":
-        tc = steps * fwd
+        units, back = steps * fwd, steps * fwd
     else:
-        tc = (steps + 1) * (2 * P * head + 2 * trunk)
-    tc += evaluations * fwd
+        units = (steps + 1) * (2 * P * head + 2 * trunk)
+        back = (steps + 1) * (P * head + 2 * trunk)
+    units += evaluations * fwd
+    tc, scans = units * n_attn, units * n_scan
     need = {"block_attention": tc, "block_attention.tc": tc,
-            "block_attention.fma": 0, "block_attention.decode": 0}
+            "block_attention.fma": 0, "block_attention.decode": 0,
+            "mamba2_scan": scans, "mamba2_scan.chunked": scans,
+            "mamba2_scan.serial": 0}
     need["quantize_pack_int8"] = 2 * P * (steps + 1) if int8 else 0
-    return need
+    return need, back * n_scan
+
+
+class ScanBackwardClock:
+    """Counts the SSD scan's backward calls (``mamba2_scan.autograd.
+    ssd_backward``, plain products, no kernel launch of its own) while
+    it is entered, and brackets each with CUDA events on the calling
+    thread's stream: ``ms()`` sums their spans (the device time from
+    the backward's first operation to its last, gaps included)."""
+
+    def __init__(self):
+        from repro_torch.kernels.mamba2_scan import autograd
+        self.module, self.inner, self.events = autograd, None, []
+
+    def __enter__(self):
+        import torch
+        inner = self.inner = self.module.ssd_backward
+
+        def timed(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = inner(*a, **kw)
+            e1.record()
+            self.events.append((e0, e1))
+            return out
+
+        self.module.ssd_backward = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.module.ssd_backward = self.inner
+
+    @property
+    def calls(self):
+        return len(self.events)
+
+    def ms(self):
+        import torch
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
 
 
 def lm_train_fit(cfg, toks, p0, name, **kw):
@@ -3523,16 +3625,21 @@ def lm_train_fit(cfg, toks, p0, name, **kw):
     marks = step_clock(s)
     reset_counts()
     t0 = time.perf_counter()
-    h = s.fit(steps=LM_TRAIN_STEPS, batch_size=LM_TRAIN_BATCH,
-              eval_frac=LM_TRAIN_EVAL, verbose=False, **kw)
-    ev = s.evaluate(batch_size=LM_TRAIN_BATCH)
+    with ScanBackwardClock() as clock:
+        h = s.fit(steps=LM_TRAIN_STEPS, batch_size=LM_TRAIN_BATCH,
+                  eval_frac=LM_TRAIN_EVAL, verbose=False, **kw)
+        ev = s.evaluate(batch_size=LM_TRAIN_BATCH)
     counts = read_counts()
     wall = time.perf_counter() - t0
     del s._after_step            # the hook: a cycle that would keep s
     split = kw.get("mode") == "split"
-    need = lm_train_need(cfg, "split" if split else "joint", LM_TRAIN_STEPS,
-                         2, int8=kw.get("compression") == "int8")
+    need, back = lm_train_need(cfg, "split" if split else "joint",
+                               LM_TRAIN_STEPS, 2,
+                               int8=kw.get("compression") == "int8")
     check_counts(counts, need, name)
+    if clock.calls != back:
+        raise AssertionError(f"{name}: the scan's backward ran "
+                             f"{clock.calls} times, not {back}")
     trail = h["loss_trail"]
     if len(trail) != LM_TRAIN_STEPS or not all(map(math.isfinite, trail)):
         raise AssertionError(f"{name}: bad loss trail {trail}")
@@ -3545,6 +3652,12 @@ def lm_train_fit(cfg, toks, p0, name, **kw):
                len(steps_ms) // 2],
            "step_ms": steps_ms, "peak_gb": torch.cuda.max_memory_allocated()
            / 1e9}
+    if back:
+        # the backward's spans per step (the split warmup's included)
+        per_step = clock.ms() / (LM_TRAIN_STEPS + split)
+        out.update(scan_backward_calls=back, scan_backward_ms_per_step=
+                   per_step, scan_backward_share=per_step
+                   / out["steady_step_ms"])
     if split:
         ts = s.transport_stats
         out["transport_steady_step_ms"] = ts["steady_step_ms"]
@@ -3555,6 +3668,11 @@ def lm_train_fit(cfg, toks, p0, name, **kw):
           + (f"; transport's {out['transport_steady_step_ms']:.3f}"
              if split else "") + f"); wall {wall:.2f} s; peak "
           f"{out['peak_gb']:.2f} GB")
+    if back:
+        print(f"    the scan's backward: {back} calls (exactly as derived), "
+              f"{out['scan_backward_ms_per_step']:.3f} ms a step (CUDA "
+              f"event spans) = {out['scan_backward_share']:.4f} of the "
+              "steady step")
     return s, out
 
 
@@ -3577,7 +3695,8 @@ def profile_lm_steps(cfg, toks, p0, steps=3):
     s = lm_train_session(cfg, toks, p0)
     s.fit(steps=1, batch_size=LM_TRAIN_BATCH, verbose=False)
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            ScanBackwardClock() as clock:
         t0 = time.perf_counter()
         s.fit(steps=steps, batch_size=LM_TRAIN_BATCH, verbose=False)
         torch.cuda.synchronize()
@@ -3597,15 +3716,21 @@ def profile_lm_steps(cfg, toks, p0, steps=3):
           f"{out['read_s']:.2f} s; top kernels (calls, ms):")
     for n, c, ms in out["top_kernels"]:
         print(f"    {ms:10.3f} ms {c:6d}x  {n}")
+    if clock.calls:
+        out["scan_backward"] = {"calls": clock.calls, "ms": clock.ms()}
+        out["scan_backward"]["share_of_wall"] = \
+            out["scan_backward"]["ms"] / out["wall_ms"]
+        print(f"    the scan's backward in these steps: {clock.calls} "
+              f"calls, {out['scan_backward']['ms']:.1f} ms of CUDA event "
+              f"spans = {out['scan_backward']['share_of_wall']:.4f} of the "
+              "profiled wall")
     return out
 
 
 def phase_lm_train(bw, f32_flops):
     """Phase 20: LM training at full width (the dense family)."""
-    import torch
     from repro_torch.configs import get_config
     from repro_torch.data import make_token_dataset
-    from repro_torch.tree import tree_leaves, tree_map
     out = {}
     free_card()                  # what earlier phases left cached
     t = time.time()
@@ -3615,15 +3740,47 @@ def phase_lm_train(bw, f32_flops):
 
     t = time.time()
     cfg = lm_train_cfg()
+    print(f"  (b) {LM} at full width: {LM_TRAIN_LAYERS} layers cut after "
+          f"{LM_TRAIN_CUT}, ", end="")
+    lm_train_full(cfg, out)
+    out["full_width_s"] = time.time() - t
+
+    t = time.time()
+    print("  (c) reduced llama, bf16: owners in spawned workers == the "
+          "queue, bitwise")
+    small = get_config(LM, reduced=True).replace(n_layers=3).with_split(
+        cut_layer=1)
+    lm_process_equals_queue(small, make_token_dataset(16, 64, small.vocab,
+                                                      0))
+    out["process_s"] = time.time() - t
+
+    t = time.time()
+    print("  (d) python -m repro_torch.launch.train --reduced --steps 3")
+    out["launcher_loss"] = run_train_launcher([])
+    out["launcher_s"] = time.time() - t
+    return out
+
+
+def lm_train_full(cfg, out):
+    """Phase 20(b) and 21(b) on ``cfg`` at full width: params from seed
+    0, 64 documents of 256 tokens through PSI, then the joint fit (and
+    three joint steps profiled), the per-owner-clipped oracle, the split
+    lossless fit (== the oracle, bitwise) and the split int8 fit, each
+    with its exact counts (``lm_train_fit``); the int8 fit's step-0 gap
+    to lossless and the wire bytes per owner per step against the
+    frames.  Fills ``out``."""
+    import torch
+    from repro_torch.data import make_token_dataset
+    from repro_torch.tree import tree_leaves, tree_map
     toks = make_token_dataset(LM_TRAIN_DOCS, LM_TRAIN_SEQ, cfg.vocab, 0)
     first = lm_train_session(cfg, toks)
     p0 = tree_map(lambda x: x.cpu(), first.params)
     del first
     n_params = sum(x.numel() for x in tree_leaves(p0))
-    print(f"  (b) {LM} at full width: {LM_TRAIN_LAYERS} layers cut after "
-          f"{LM_TRAIN_CUT}, {n_params / 1e9:.3f} G params (seed 0), "
+    print(f"{n_params / 1e9:.3f} G params ({n_params}, seed 0), "
           f"{LM_TRAIN_DOCS} documents of {LM_TRAIN_SEQ}, {LM_TRAIN_STEPS} "
           f"Adam steps of {LM_TRAIN_BATCH}")
+    out["n_params"] = n_params
     runs = {}
     free_card()
     s, runs["joint"] = lm_train_fit(cfg, toks, p0, "joint")
@@ -3681,15 +3838,13 @@ def phase_lm_train(bw, f32_flops):
                    for k, v in runs.items()}
     out["counts"] = {k: v["counts"] for k, v in runs.items()}
     out["oracle_trail"] = oracle_trail
-    out["full_width_s"] = time.time() - t
-    del p0
 
-    t = time.time()
-    print("  (c) reduced llama, bf16: owners in spawned workers == the "
-          "queue, bitwise")
-    small = get_config(LM, reduced=True).replace(n_layers=3).with_split(
-        cut_layer=1)
-    stoks = make_token_dataset(16, 64, small.vocab, 0)
+
+def lm_process_equals_queue(small, stoks):
+    """Phase 20(c) and 21(c): the int8 split fit of ``small`` (bf16, 3
+    steps of 4) with owners in spawned workers == the queue, bitwise."""
+    import torch
+    from repro_torch.tree import tree_leaves, tree_map
     sp0 = tree_map(lambda x: x.cpu(),
                    lm_train_session(small, stoks).params)
     res = {}
@@ -3705,16 +3860,18 @@ def phase_lm_train(bw, f32_flops):
         raise AssertionError("LM process backend != queue backend")
     print(f"    int8, 3 steps: process == queue bitwise, trail "
           f"{[round(x, 5) for x in res['queue'][0]]}")
-    out["process_s"] = time.time() - t
 
-    t = time.time()
-    print("  (d) python -m repro_torch.launch.train --reduced --steps 3")
+
+def run_train_launcher(args):
+    """``python -m repro_torch.launch.train --reduced --steps 3
+    --log-every 1`` plus ``args`` on the card: its lines, a finite final
+    loss (returned)."""
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
                                           / "src"))
     run = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
-         "--steps", "3", "--log-every", "1"], capture_output=True,
-        text=True, env=env, timeout=300)
+        [sys.executable, "-m", "repro_torch.launch.train", *args,
+         "--reduced", "--steps", "3", "--log-every", "1"],
+        capture_output=True, text=True, env=env, timeout=300)
     print("\n".join(f"    {ln}" for ln in run.stdout.strip().splitlines()))
     if run.returncode != 0:
         raise AssertionError(f"launch.train failed: {run.stderr[-2000:]}")
@@ -3722,7 +3879,240 @@ def phase_lm_train(bw, f32_flops):
     loss = float(last.split("loss=")[1].split()[0])
     if not math.isfinite(loss):
         raise AssertionError(f"launch.train loss {loss}")
-    out["launcher_loss"] = loss
+    return loss
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: LM training at full width (the SSM family: zamba2-2.7b)
+# ---------------------------------------------------------------------------
+
+# (a): the scan Function at zamba2-2.7b's training shapes, batch 8 (80
+# heads of 64, one group of 64 states, chunks of 256): the trunk's scan
+# over the combined 256 tokens, a head's over its 128
+SCAN_TRAIN = {"trunk": (8, 256, 80, 64, 1, 64, 256),
+              "head": (8, 128, 80, 64, 1, 64, 256)}
+# (b): zamba2-2.7b at full width cut in depth to 30 layers (5 units of 5
+# mamba2 + 1 shared_attn), the config's cut after 2 units: two head units
+# per owner, three trunk units; phase 20's documents, batch and steps
+ZAMBA_TRAIN_LAYERS = 30
+
+
+def scan_train_bound(case, dtype, bw, f32_flops):
+    """The least time of the scan's backward at a training shape: x, B,
+    C, dy (``dtype``), dt and A (f32) read once, dx, dB, dC (``dtype``),
+    ddt and dA (f32) written once; the operations of its products over
+    the live (i, j <= i) pairs of each chunk — the scores C·B and dy·x
+    (N + P), dx (P) and dB, dC (2 N): 2 (3 N + 2 P) a pair — and the
+    six (N, P) products a position (the states recomputed, the
+    inter-chunk term's dC, dcum and dS, the states' dx and dB)."""
+    import torch
+    B, S, H, P, G, N, chunk = case
+    L = min(chunk, S)
+    elt = 2 if dtype == torch.bfloat16 else 4
+    nbytes = (elt * (3 * B * S * H * P + 4 * B * S * G * N)
+              + 2 * 4 * (B * S * H + H))
+    flops = 0
+    for c0 in range(0, S, L):
+        live = min(L, S - c0)
+        flops += (2 * (live * (live + 1) // 2) * (3 * N + 2 * P)
+                  + 12 * live * N * P)
+    flops *= B * H
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else f32_flops
+    bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * flops / peak
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations"), flops, nbytes
+
+
+def elementwise_ratio(got, want, tol):
+    """max |got - want| / (tol + tol |want|): at most 1 within the
+    kernel tolerance (atol and rtol ``tol``), in f64."""
+    w = want.double()
+    return ((got.double() - w).abs() / (tol + tol * w.abs())).max().item()
+
+
+def scan_function(bw, f32_flops):
+    """21(a): the scan Function (the kernel forward, a backward of plain
+    products) at the training shapes, bf16 (route chunked) and f32
+    (route serial), x, B and C strided views of one conv_out buffer as
+    the Mamba2 block hands them over: the forward against the plain
+    ``ssd_chunked`` and each gradient against autograd through the plain
+    stages (``ssd_chunk_parallel`` on f32 copies of the same values, the
+    cotangent rounded as y's dtype rounds it), elementwise within 2e-2 /
+    2e-4 (atol + rtol).  In f32 both gradients are also held against an
+    f64 witness (the plain stages in f64 on the same values) and their
+    ratios to the limit printed: information, not a check (ddt parts
+    from it past the limit in either f32 evaluation).  Times of the
+    kernel forward, the backward, the Function's and the plain version's
+    forward + backward, and the backward's bound."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.mamba2_scan import (mamba2_scan, route_of,
+                                                 ssd_backward,
+                                                 ssd_chunk_parallel,
+                                                 ssd_chunked, ssd_fn)
+    tol = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+    want_route = {torch.float32: "serial", torch.bfloat16: "chunked"}
+    parts = ("y", "dx", "ddt", "dA", "dB", "dC")
+    rows, err = {}, {"fwd": {}, "bwd": {}}
+    for name, case in SCAN_TRAIN.items():
+        B, S, H, P, G, N, chunk = case
+        x, dt, A, Bi, Ci = scan_inputs(B, S, H, P, G, N)
+        dy_np = np.random.default_rng(2).normal(
+            size=(B, S, H, P)).astype(np.float32)
+        for dtype in (torch.bfloat16, torch.float32):
+            xv, bv, cv = conv_out_views(x, Bi, Ci, dtype)
+            dtt, At = (torch.from_numpy(a).cuda() for a in (dt, A))
+            dy = torch.from_numpy(dy_np).to("cuda", dtype)
+            ins = (xv, dtt, At, bv, cv)
+            route = route_of(xv, bv, cv)
+            if route != want_route[dtype]:
+                raise AssertionError(f"scan Function {name} {dtype}: route "
+                                     f"{route}, not {want_route[dtype]}")
+
+            def fwd_bwd(fn, args, cot):
+                leaves = [t.detach().requires_grad_() for t in args]
+                y, _ = fn(*leaves)
+                y.backward(cot)
+                return (y.detach(),) + tuple(t.grad for t in leaves)
+
+            def function(*t):
+                return ssd_fn(*t, chunk=chunk)
+
+            def plain(*t):
+                return ssd_chunk_parallel(*t, chunk)
+
+            got = fwd_bwd(function, ins, dy)
+            want = ((ssd_chunked(*ins, chunk)[0],)
+                    + fwd_bwd(plain, [t.float() for t in ins],
+                              dy.float())[1:])
+            witness = (fwd_bwd(plain, [t.double() for t in ins],
+                               dy.double()) if dtype == torch.float32
+                       else None)
+            torch.cuda.synchronize()
+            t_ = tol[dtype]
+            errs, ratios, f64, bad = [], {}, {}, []
+            for i, (part, g, w) in enumerate(zip(parts, got, want)):
+                ratios[part] = elementwise_ratio(g, w, t_)
+                if witness is not None and part != "y":
+                    f64[part] = (elementwise_ratio(g, witness[i], t_),
+                                 elementwise_ratio(w, witness[i], t_))
+                if ratios[part] > 1.0 or not bool(torch.isfinite(g).all()):
+                    bad.append(part)
+                errs.append((g.float() - w.float()).abs().max().item())
+            key = f"{name}:{str(dtype)[6:]}"
+            shown = {p: round(r, 3) for p, r in ratios.items()}
+            witnessed = {p: (round(a, 3), round(b, 3))
+                         for p, (a, b) in f64.items()}
+            print(f"  {key} {tuple(case)} [{route}]: |diff| / (tol + tol "
+                  f"|plain|) (tol {t_}) {shown}"
+                  + (f"; against the f64 witness (the Function's, the "
+                     f"plain f32's) {witnessed}" if f64 else ""))
+            if bad:
+                raise AssertionError(
+                    f"scan Function {name} {dtype}: {bad} beyond the "
+                    f"limit (tol {t_})")
+            err["fwd"][key], err["bwd"][key] = errs[0], max(errs[1:])
+            bound, by, flops, nbytes = scan_train_bound(case, dtype, bw,
+                                                        f32_flops)
+            fbound = scan_bound(case, dtype, bw, f32_flops, False)
+            row = {"shape": list(case), "dtype": str(dtype)[6:],
+                   "route": route,
+                   "fwd_ms": device_ms(lambda: mamba2_scan(
+                       *ins, chunk=chunk), reps=10, rounds=7),
+                   "bwd_ms": device_ms(lambda: ssd_backward(
+                       *ins, dy, chunk=chunk), reps=5, rounds=5),
+                   "fwd_bwd_ms": eager_ms(lambda: fwd_bwd(
+                       function, ins, dy), reps=5, rounds=5),
+                   "plain_ms": device_ms(lambda: ssd_chunked(
+                       *ins, chunk), reps=3, rounds=5),
+                   "plain_fwd_bwd_ms": eager_ms(lambda: fwd_bwd(
+                       plain, ins, dy), reps=3, rounds=5),
+                   "library_ms": None,
+                   "bound_ms": fbound[0], "bound_by": fbound[1],
+                   "bwd_bound_ms": bound, "bwd_bound_by": by,
+                   "bwd_flops": flops, "bwd_bytes": nbytes,
+                   "max_abs_err": errs[0], "grad_max_abs_err":
+                   max(errs[1:]), "elementwise_ratio": ratios,
+                   "f64_witness_ratio": f64}
+            rows[key] = row
+            print(f"    y |diff| {errs[0]:.3e}, grads |diff| "
+                  f"{max(errs[1:]):.3e}; forward {row['fwd_ms']:.6f} ms "
+                  f"(bound {row['bound_ms']:.6f}, {row['bound_by']}; plain "
+                  f"{row['plain_ms']:.6f}); backward {row['bwd_ms']:.6f} ms "
+                  f"(bound {bound:.6f}, {by}: {flops / 1e9:.3f} GFLOP, "
+                  f"{nbytes / 1e6:.3f} MB); forward + backward "
+                  f"{row['fwd_bwd_ms']:.6f} ms (plain "
+                  f"{row['plain_fwd_bwd_ms']:.6f})")
+            del ins, xv, bv, cv, dy, got, want, witness
+    return {"rows": rows, "max_abs_err": err}
+
+
+def zamba_train_cfg():
+    from repro_torch.configs import get_config
+    return get_config(ZAMBA).replace(n_layers=ZAMBA_TRAIN_LAYERS)
+
+
+def zamba_card_vs_cpu(small):
+    """21(c), f32: the reduced config's 3-step joint fit on the card
+    (every scan on the serial route, counted) within rel 1e-4 of the
+    same fit on the CPU."""
+    from repro_torch.data import make_token_dataset
+    from repro_torch.tree import tree_map
+    cfg = small.replace(compute_dtype="float32")
+    toks = make_token_dataset(16, 72, cfg.vocab, 0)
+    cpu = lm_train_session(cfg, toks, device="cpu")
+    p0 = tree_map(lambda x: x.clone(), cpu.params)
+    want = cpu.fit(steps=3, batch_size=4, verbose=False)["loss_trail"]
+    card = lm_train_session(cfg, toks, p0)
+    reset_counts()
+    got = card.fit(steps=3, batch_size=4, verbose=False)["loss_trail"]
+    counts = read_counts()
+    need, _ = lm_train_need(cfg, "joint", 3, 0)
+    need = {"mamba2_scan": need["mamba2_scan"], "mamba2_scan.chunked": 0,
+            "mamba2_scan.serial": need["mamba2_scan"]}
+    check_counts(counts, need, "the f32 joint fit")
+    gap = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    print(f"    f32 joint fit, 3 steps, every scan on the serial route: "
+          f"card vs CPU loss trail rel {gap:.3e} (limit 1e-4)")
+    if gap > 1e-4:
+        raise AssertionError("zamba2 f32 joint fit: card and CPU disagree")
+    return {"rel_gap": gap, "route": "serial", "trail": got}
+
+
+def phase_zamba_train(bw, f32_flops):
+    """Phase 21: LM training at full width on the SSM family
+    (zamba2-2.7b)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_token_dataset
+    out = {}
+    free_card()
+    t = time.time()
+    print("  (a) the scan Function at the training shapes")
+    out["scan"] = scan_function(bw, f32_flops)
+    out["scan_s"] = time.time() - t
+
+    t = time.time()
+    cfg = zamba_train_cfg()
+    print(f"  (b) {ZAMBA} at full width: {ZAMBA_TRAIN_LAYERS} layers (5 "
+          f"units of 5 mamba2 + 1 shared_attn) cut after "
+          f"{cfg.split.cut_layer} units, ", end="")
+    lm_train_full(cfg, out)
+    out["full_width_s"] = time.time() - t
+
+    t = time.time()
+    print("  (c) reduced zamba2, bf16: owners in spawned workers == the "
+          "queue, bitwise")
+    small = get_config(ZAMBA, reduced=True).replace(
+        n_layers=12).with_split(cut_layer=1)
+    lm_process_equals_queue(small, make_token_dataset(16, 64, small.vocab,
+                                                      0))
+    out["process_s"] = time.time() - t
+    out["card_vs_cpu"] = zamba_card_vs_cpu(small)
+
+    t = time.time()
+    print(f"  (d) python -m repro_torch.launch.train --arch {ZAMBA} "
+          "--reduced --steps 3")
+    out["launcher_loss"] = run_train_launcher(["--arch", ZAMBA])
     out["launcher_s"] = time.time() - t
     return out
 
@@ -3854,6 +4244,13 @@ def main():
     lm_train = phase_lm_train(bw, flops)
     print(f"  phase wall {time.time() - t:.2f} s")
 
+    t = time.time()
+    print(f"== 21. LM training at full width ({ZAMBA}, the SSM family): the "
+          "scan Function, joint / split lossless / split int8 fits, "
+          "process == queue, the launcher")
+    zamba_train = phase_zamba_train(bw, flops)
+    print(f"  phase wall {time.time() - t:.2f} s")
+
     print("== 14. results")
     src = "src/repro_torch/csrc/quantize.cu"
     tpu = "src/repro/kernels/quantize/kernel.py"
@@ -3981,8 +4378,13 @@ def main():
     for e in entries:
         e["lm_train_launches"] = sum(c.get(e["name"], 0) for c in
                                      lm_train["counts"].values())
+        # and over phase 21(b)'s (zamba2-2.7b)
+        e["zamba2_train_launches"] = sum(c.get(e["name"], 0) for c in
+                                         zamba_train["counts"].values())
     print(json.dumps({"lm_train": {k: v for k, v in lm_train.items()
                                    if k != "counts"}}))
+    print(json.dumps({"zamba2_train": {k: v for k, v in zamba_train.items()
+                                       if k != "counts"}}))
     print(json.dumps({"serving_continuous": cont}))
     print(json.dumps({"privacy": {k: v for k, v in priv.items()
                                   if k != "counts"}}))

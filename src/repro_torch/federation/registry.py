@@ -39,7 +39,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchConfig, not_ported
+from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.pyvertical_mnist import MLPSplitConfig
 from repro_torch.core import splitnn
 from repro_torch.federation import batching
@@ -111,6 +111,11 @@ class _ProgramCache:
 
     def trunk_optimizer(self, scientist_lr: Optional[float] = None):
         return self._segment_opts(scientist_lr=scientist_lr)["trunk"]
+
+    def owner_kernel_sources(self) -> Tuple[str, ...]:
+        """The kernel sources an owner's programs launch, which a session
+        builds before it spawns owner workers: none here."""
+        return ()
 
     def owner_template(self, p: int):
         """Owner ``p``'s head tree structure, for rebuilding its params
@@ -196,9 +201,6 @@ class MLPAdapter(_ProgramCache):
         return list(slices)
 
 
-_SSM_TRAINING = "item 13b, LM training on the SSM family"
-
-
 @register_model(ArchConfig)
 class SplitLMAdapter(_ProgramCache):
     """Sequence-split language models (``SplitModel``), text modality.
@@ -213,12 +215,14 @@ class SplitLMAdapter(_ProgramCache):
     applied to each owner's slice apart.  No masked_sum (the cuts are
     sequence slices, concatenated: no sum to aggregate) and no NoPeek
     (token inputs have no geometry for its dcor), as in the reference.
-    Configs with ``mamba2``
-    blocks serve but do not train yet (ROADMAP.md item 13b): ``fit`` and
-    the training accessors raise naming it."""
+    Every text config the port builds trains, zamba2's ``mamba2`` blocks
+    included: their scan runs the kernel's forward with a backward of
+    plain products (``kernels.mamba2_scan.ssd_fn``)."""
 
     layout = "sequence"
     supports_serving = True
+    supports_split = True
+    supports_microbatch = True
     #: ``session.build`` draws the params with a generator on the
     #: session's device (billions of them at full width)
     init_on_device = True
@@ -236,17 +240,18 @@ class SplitLMAdapter(_ProgramCache):
         from repro_torch.models.model import SplitModel
         self.cfg = cfg
         self.model = SplitModel(cfg)
-        self.supports_training = "mamba2" not in cfg.block_pattern
-        self.supports_split = self.supports_training
-        self.supports_microbatch = self.supports_training
-
-    def _trainable(self, what: str) -> None:
-        if not self.supports_training:
-            raise not_ported(f"{what} of {self.cfg.name} (mamba2 blocks)",
-                             _SSM_TRAINING)
 
     def init(self, gen: torch.Generator):
         return self.model.init(gen)
+
+    def owner_kernel_sources(self) -> Tuple[str, ...]:
+        """The attention kernels' sources, and the SSD scan's where the
+        blocks include ``mamba2``."""
+        from repro_torch.kernels import block_attention, mamba2_scan
+        names = tuple(block_attention.ops.SOURCES.values())
+        if "mamba2" in self.cfg.block_pattern:
+            names += tuple(mamba2_scan.ops.SOURCES.values())
+        return names
 
     def owner_template(self, p: int):
         """Owner ``p``'s head tree structure without drawing its weights:
@@ -270,12 +275,10 @@ class SplitLMAdapter(_ProgramCache):
     # ------------------------------------------------------- training
 
     def loss_fn(self, params, batch):
-        self._trainable("the loss")
         return self.model.loss_fn(params, batch)
 
     def make_batch(self, owner_arrays: Sequence[np.ndarray],
                    labels: Optional[np.ndarray], idx=None, *, device="cpu"):
-        self._trainable("training batches")
         return batching.sequence_batch(owner_arrays, labels, idx,
                                        device=device)
 
@@ -283,7 +286,6 @@ class SplitLMAdapter(_ProgramCache):
                       scientist_lr: Optional[float] = None):
         """THE per-segment update rules, shared by the joint and split
         paths (see the class docstring for the clip scope)."""
-        self._trainable("the optimizers")
         return {
             "heads": chain(clip_by_global_norm(1.0),
                            adam(owner_lr if owner_lr is not None
@@ -303,7 +305,6 @@ class SplitLMAdapter(_ProgramCache):
         recomputed, then its gradients seeded with the received cut
         gradient (cast to the cut's dtype) and a unit cotangent on the
         owner's aux."""
-        self._trainable("the owner programs")
         model = self.model
 
         def build():
@@ -346,7 +347,6 @@ class SplitLMAdapter(_ProgramCache):
         """The fused scientist step: ``trunk_step(tp, cuts (P-tuple of
         (B, S_p, k)), labels) -> (metrics, trunk_grads, cut_grads
         tuple)``."""
-        self._trainable("the trunk program")
 
         def build():
             def trunk_step(tp, cuts, labels):
@@ -368,7 +368,6 @@ class SplitLMAdapter(_ProgramCache):
         ``cutgrad(tp, cuts, labels, denom, inv_micro) -> (cut_grad
         tuple, parts)``; ``weightgrad(...) -> trunk_grads`` (the trunk's
         forward recomputed)."""
-        self._trainable("the trunk programs")
 
         def build():
             def cutgrad(tp, cuts, labels, denom, inv_micro=1.0):

@@ -87,7 +87,8 @@ widths (``feature_splits`` in the config), and per-party checkpoints
 under ``step_{step:08d}/`` that the reference reads too).
 
 Split LMs (``ArchConfig``): ``build`` draws the LM's params on the
-session's device.  ``fit`` trains a dense LM on sequence-slice owners
+session's device.  ``fit`` trains an LM, dense (llama3.2-3b) or hybrid
+(zamba2-2.7b's Mamba2 blocks), on sequence-slice owners
 (``sequence_parties``): each owner's head runs on its slice of every
 document, the cuts are (B, S_p, k) and the scientist's trunk holds the
 next-token labels; the per-segment rules are clip + Adam
@@ -95,9 +96,8 @@ next-token labels; the per-segment rules are clip + Adam
 ``aggregation="masked_sum"`` and NoPeek (the reference's
 ``ValueError`` s), and each owner's scalar aux loss rides with its cut
 frames.  Split training equals the joint run within a tolerance (the
-clip scope: one global norm jointly, one owner's slice split).  LMs
-with ``mamba2`` blocks serve but do not train yet (ROADMAP.md item
-13b).  ``serve(**engine_kw)`` wraps the params in a
+clip scope: one global norm jointly, one owner's slice split).
+``serve(**engine_kw)`` wraps the params in a
 ``launch.engine.ServingEngine`` (wave or continuous scheduling, the
 direct / queue / process transports, latency, cut codecs, the cut
 cache), and ``serve_dataset`` serves the session's own aligned contexts
@@ -117,7 +117,6 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import restore_split, save_split
-from repro_torch.configs.base import not_ported
 from repro_torch.core import masking, privacy
 from repro_torch.core.modexp import ModexpPool
 from repro_torch.core.psi import (DEFAULT_CHUNK, DEFAULT_MODE, blind_tag,
@@ -614,9 +613,6 @@ class VerticalSession:
         equal the fault-free run's bit for bit.  Any other error
         propagates as it would unsupervised."""
         self._require(resolved=True, built=True)
-        if not getattr(self.adapter, "supports_training", True):
-            raise not_ported(f"fit on {self.config.name} (mamba2 blocks)",
-                             "item 13b, LM training on the SSM family")
         self._require(labels=True)
         if (epochs is None) == (steps is None):
             raise ValueError("pass exactly one of epochs= or steps=")
@@ -978,11 +974,10 @@ class VerticalSession:
         every started one to the caller's clean-up."""
         if backend == "process" and self.device.type == "cuda":
             # build before spawning: the workers (respawns too) load what
-            # is built — the codec's kernel, and an LM head's attention
-            from repro_torch.kernels import block_attention, build
+            # is built — the codec's kernel and the owners' programs'
+            from repro_torch.kernels import build
             names = (["quantize"] if kw["compression"] == "int8" else [])
-            if getattr(self.adapter, "layout", None) == "sequence":
-                names += list(block_attention.ops.SOURCES.values())
+            names += self.adapter.owner_kernel_sources()
             if names:
                 build.build(names)
         for p in range(len(self.owners)):

@@ -26,6 +26,12 @@ from repro_torch.kernels import build
 from repro_torch.kernels.mamba2_scan import plan, ref
 
 _count_lock = threading.Lock()
+#: held across each call into a launcher: a launcher sets its kernels'
+#: dynamic shared memory limit from the chunk length, then launches, and
+#: the limit is one per kernel in the process, so two threads (the
+#: owners' heads and the trunk of a split fit, at chunks of 128 and 256)
+#: must not interleave those two steps
+_launch_lock = threading.Lock()
 #: kernel launches since the last ``reset_launch_counts``
 launch_counts: Dict[str, int] = {
     "mamba2_scan": 0, **{f"mamba2_scan.{r}": 0 for r in plan.ROUTES}}
@@ -169,13 +175,15 @@ def _run(route, x, dt, A, B_in, C_in, chunk, initial_state):
     state = torch.empty((Bb, H, N, P), dtype=torch.float32, device=x.device)
     init = None if initial_state is None else initial_state.data_ptr()
     if route == "serial":
-        err = _library(route).mamba2_scan_launch(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_in.data_ptr(),
-            C_in.data_ptr(), init, y.data_ptr(), state.data_ptr(),
-            DTYPES[x.dtype], Bb, S, H, P, G, N, L,
-            *x.stride()[:3], *dt.stride(), *B_in.stride()[:3],
-            *C_in.stride()[:3], torch.cuda.current_stream(
-                x.device).cuda_stream)
+        lib = _library(route)
+        with _launch_lock:
+            err = lib.mamba2_scan_launch(
+                x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_in.data_ptr(),
+                C_in.data_ptr(), init, y.data_ptr(), state.data_ptr(),
+                DTYPES[x.dtype], Bb, S, H, P, G, N, L,
+                *x.stride()[:3], *dt.stride(), *B_in.stride()[:3],
+                *C_in.stride()[:3], torch.cuda.current_stream(
+                    x.device).cuda_stream)
     elif route == "chunked":
         if route_of(x, B_in, C_in, initial_state) != "chunked":
             raise ValueError(
@@ -221,15 +229,17 @@ def _chunked(stage, x, dt, A, B_in, C_in, initial_state, y, states,
     outputs) or 3 (all three) of the chunked route."""
     Bb, S, H, P = x.shape
     G, N = B_in.shape[2], B_in.shape[3]
-    return _library("chunked").mamba2_scan_chunked_launch(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_in.data_ptr(),
-        C_in.data_ptr(),
-        None if initial_state is None else initial_state.data_ptr(),
-        y.data_ptr(), states.data_ptr(), incoming.data_ptr(),
-        totals.data_ptr(), final.data_ptr(), Bb, S, H, P, G, N, L,
-        *x.stride()[:3], *dt.stride(), *B_in.stride()[:3],
-        *C_in.stride()[:3], stage,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    lib = _library("chunked")
+    with _launch_lock:
+        return lib.mamba2_scan_chunked_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_in.data_ptr(),
+            C_in.data_ptr(),
+            None if initial_state is None else initial_state.data_ptr(),
+            y.data_ptr(), states.data_ptr(), incoming.data_ptr(),
+            totals.data_ptr(), final.data_ptr(), Bb, S, H, P, G, N, L,
+            *x.stride()[:3], *dt.stride(), *B_in.stride()[:3],
+            *C_in.stride()[:3], stage,
+            torch.cuda.current_stream(x.device).cuda_stream)
 
 
 def chunked_stage(stage: str, x, dt, A, B_in, C_in, *, chunk: int,

@@ -90,22 +90,29 @@ def ssd_chunked(x, dt, A, B_in, C_in, chunk: int, initial_state=None):
 # launches (csrc/mamba2_scan_chunked.cu): the chunks' own states, the
 # state passing across chunks, and each chunk's output.  Chained, they
 # compute what ``ssd_chunked`` computes.  Layouts are the kernels':
-# states (B, H, nc, N, P) and totals (B, H, nc), in f32.
+# states (B, H, nc, N, P) and totals (B, H, nc), in f32 — in f64 when x
+# is f64, which makes the stages an f64 witness for f32 gradients.
 # ---------------------------------------------------------------------------
 
+def _work_dtype(x):
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def _chunks(x, dt, B_in, C_in, chunk):
-    """The inputs padded to whole chunks, in f32, per head: x (B, nc, L,
-    H, P), dt (B, nc, L, H), B and C (B, nc, L, H, N); and L."""
+    """The inputs padded to whole chunks, in f32 (f64 for an f64 x), per
+    head: x (B, nc, L, H, P), dt (B, nc, L, H), B and C (B, nc, L, H,
+    N); and L."""
     Bb, S, H, P = x.shape
     G, N = B_in.shape[2], B_in.shape[3]
     L = min(chunk, S)
     nc = -(-S // L)
     pad = nc * L - S
+    work = _work_dtype(x)
 
     def padded(a):
         if pad:
             a = F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad))
-        return a.to(torch.float32)
+        return a.to(work)
 
     xc = padded(x).reshape(Bb, nc, L, H, P)
     dtc = padded(dt).reshape(Bb, nc, L, H)
@@ -117,15 +124,16 @@ def _chunks(x, dt, B_in, C_in, chunk):
 def _cum(dtc, A, L):
     """Inclusive prefix sums of dt A inside each chunk (B, nc, L, H), as a
     product with a triangle of ones (deterministic on the card)."""
-    upper = torch.triu(torch.ones((L, L), dtype=torch.float32,
+    upper = torch.triu(torch.ones((L, L), dtype=dtc.dtype,
                                   device=dtc.device))      # [k, i] = k <= i
-    return torch.einsum("bckh,ki->bcih", dtc * A.to(torch.float32), upper)
+    return torch.einsum("bckh,ki->bcih", dtc * A.to(dtc.dtype), upper)
 
 
 def ssd_chunk_states(x, dt, A, B_in, chunk: int):
     """Stage (a): each chunk's own state, from a zero state,
     s_c = sum_j exp(cum_L - cum_j) dt_j B_j^T x_j, and cum_L.
-    Returns (states (B, H, nc, N, P), totals (B, H, nc)), f32."""
+    Returns (states (B, H, nc, N, P), totals (B, H, nc)), f32 (f64 for
+    an f64 x)."""
     xc, dtc, Bh, _, L = _chunks(x, dt, B_in, B_in, chunk)
     cum = _cum(dtc, A, L)
     total = cum[:, :, -1]                                   # (B, nc, H)
@@ -138,11 +146,11 @@ def ssd_state_passing(states, totals, initial_state=None):
     """Stage (b): S_c = exp(total_c) S_{c-1} + s_c over the chunks in
     order, from ``initial_state`` (zeros when None).  Returns (each
     chunk's incoming state S_{c-1} (B, H, nc, N, P), the final state
-    (B, H, N, P)), f32."""
+    (B, H, N, P)), in the states' dtype."""
     Bb, H, nc, N, P = states.shape
-    s = (torch.zeros((Bb, H, N, P), dtype=torch.float32,
+    s = (torch.zeros((Bb, H, N, P), dtype=states.dtype,
                      device=states.device) if initial_state is None
-         else initial_state.to(torch.float32))
+         else initial_state.to(states.dtype))
     incoming = []
     for c in range(nc):
         incoming.append(s)
@@ -173,8 +181,8 @@ def ssd_chunk_output(x, dt, A, B_in, C_in, incoming, chunk: int):
 def ssd_chunk_parallel(x, dt, A, B_in, C_in, chunk: int,
                        initial_state=None):
     """The three stages chained: what the ``chunked`` route computes.
-    Returns (y (B, S, H, P) in x's dtype, final_state (B, H, N, P) f32),
-    as ``ssd_chunked``."""
+    Returns (y (B, S, H, P) in x's dtype, final_state (B, H, N, P) f32,
+    f64 for an f64 x), as ``ssd_chunked``."""
     states, totals = ssd_chunk_states(x, dt, A, B_in, chunk)
     incoming, final = ssd_state_passing(states, totals, initial_state)
     return ssd_chunk_output(x, dt, A, B_in, C_in, incoming, chunk), final

@@ -3,9 +3,11 @@
 The chunked scan of a prefill (or of a forward without a cache) is the
 kernel's wrapper (``repro_torch.kernels.mamba2_scan``): on a CUDA tensor
 it launches the hand-written SSD scan kernel, on a CPU tensor it runs
-the plain ``ssd_chunked``.  A decode step (one token with a cache) is
-the single-step recurrence :func:`ssd_step` in plain PyTorch, as in the
-reference, where it is not a kernel either.
+the plain ``ssd_chunked``.  A forward without a cache that autograd
+records (training) goes through ``ssd_fn``: the same wrapper forward,
+with a backward of plain products.  A decode step (one token with a
+cache) is the single-step recurrence :func:`ssd_step` in plain PyTorch,
+as in the reference, where it is not a kernel either.
 
 Caches are updated in place (the reference returns updated copies): the
 conv window and the SSM state are copied into the f32 cache.  Left-pad
@@ -16,7 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.mamba2_scan import mamba2_scan
+from repro_torch.kernels.mamba2_scan import mamba2_scan, ssd_fn
 from repro_torch.models import layers
 
 
@@ -132,6 +134,10 @@ def mamba2_apply(params, x, cfg, cache=None):
 
     if cache is not None and S == 1:          # decode: single-step recurrence
         y, new_state = ssd_step(xh, dt, A, Bm, Cm, cache["state"])
+    elif cache is None and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xh, dt, A, Bm, Cm)):
+        # training: the kernel's forward, a backward of plain products
+        y, new_state = ssd_fn(xh, dt, A, Bm, Cm, chunk=s.chunk_size)
     else:                                     # forward / prefill: the kernel
         init = cache["state"] if cache is not None else None
         y, new_state = mamba2_scan(xh, dt, A, Bm, Cm, chunk=s.chunk_size,

@@ -1,7 +1,8 @@
 """The port on the card: the CUDA quantize, attention, SSD scan and
 cut-fusion kernels against their plain versions, and the training and
 serving paths through them (the microbatched and process-backend
-schedules, a supervised crash recovery and LM training included).
+schedules, a supervised crash recovery and LM training, llama3.2-3b's
+and zamba2-2.7b's, included).
 Every test here needs an NVIDIA GPU and skips without one; the file
 imports only ``repro_torch`` (no JAX), so it runs on a machine with a
 card:
@@ -1230,3 +1231,175 @@ def test_lm_joint_fit_card_vs_cpu(cuda_device):
     card = lm_session(cfg, toks, cuda_device, p0)
     got = card.fit(steps=3, batch_size=4, verbose=False)["loss_trail"]
     np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+# the scan Function at zamba2-2.7b's training shapes (80 heads of 64, 64
+# states, chunks of 256), at batch 2: the trunk's 256 tokens, a head's 128
+SCAN_TRAIN = [(2, 256, 80, 64, 1, 64, 256), (2, 128, 80, 64, 1, 64, 256)]
+
+
+def _zamba2_train_cfg(compute):
+    from repro_torch.configs import get_config
+    return get_config("zamba2-2.7b", reduced=True).replace(
+        n_layers=12, compute_dtype=compute).with_split(cut_layer=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SCAN_TRAIN)
+def test_scan_function_on_card(cuda_device, case, dtype):
+    """The scan Function at the training shapes, x, B and C strided views
+    of one buffer: the kernel forward (chunked in bf16, serial in f32)
+    against the plain ``ssd_chunked``, and the plain-product backward
+    against autograd through the plain stages on f32 copies of the same
+    values (the cotangent rounded as y's dtype rounds it), within the
+    kernel tolerances."""
+    B, S, H, P, G, N, chunk = case
+    x, dt, A, Bi, Ci = scan_inputs(B, S, H, P, G, N)
+    xv, bv, cv = conv_out_views(x, Bi, Ci, dtype, cuda_device)
+    ins = (xv,) + tuple(torch.from_numpy(a).to(cuda_device)
+                        for a in (dt, A)) + (bv, cv)
+    dy = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(B, S, H, P)).astype(np.float32)).to(cuda_device, dtype)
+
+    def run(fn, args, cot):
+        leaves = [t.detach().requires_grad_() for t in args]
+        y, _ = fn(*leaves)
+        y.backward(cot)
+        return (y.detach(),) + tuple(t.grad for t in leaves)
+
+    route = "chunked" if dtype == torch.bfloat16 else "serial"
+    assert scan_kernel.route_of(xv, bv, cv) == route
+    n0 = scan_kernel.launch_counts[f"mamba2_scan.{route}"]
+    got = run(lambda *t: scan_kernel.ssd_fn(*t, chunk=chunk), ins, dy)
+    assert scan_kernel.launch_counts[f"mamba2_scan.{route}"] == n0 + 1
+    want = run(lambda *t: scan_kernel.ssd_chunk_parallel(*t, chunk),
+               [t.float() for t in ins], dy.float())
+    plain_y = scan_kernel.ssd_chunked(*ins, chunk)[0]
+    tol = attn_tol(dtype)
+    for g, w in zip(got, (plain_y,) + want[1:]):
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+def test_zamba2_split_equals_owner_clipped_oracle_on_card(cuda_device):
+    """bf16 on the card: zamba2's split lossless training over the queue
+    equals the per-owner-clipped joint oracle bit for bit (params and
+    loss trail), every Mamba2 forward on the chunked scan kernel."""
+    from repro_torch.data import make_token_dataset
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = _zamba2_train_cfg("bfloat16")
+    toks = make_token_dataset(16, 64, cfg.vocab, 0)
+    first = lm_session(cfg, toks, cuda_device)
+    p0 = tree_map(lambda t: t.cpu(), first.params)
+    trail = lm_owner_clipped_oracle(first, 3, 4)
+    want = [t.cpu() for t in tree_leaves(first.params)]
+    del first
+    s = lm_session(cfg, toks, cuda_device, p0)
+    n0 = dict(scan_kernel.launch_counts)
+    h = s.fit(steps=3, batch_size=4, verbose=False, mode="split")
+    assert scan_kernel.launch_counts["mamba2_scan.chunked"] > \
+        n0["mamba2_scan.chunked"]
+    assert scan_kernel.launch_counts["mamba2_scan.serial"] == \
+        n0["mamba2_scan.serial"]
+    assert h["loss_trail"] == trail
+    for a, b in zip(tree_leaves(s.params), want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_zamba2_joint_fit_card_vs_cpu(cuda_device):
+    """f32: zamba2's joint fit on the card (every scan on the serial
+    route) within rel 1e-4 of the CPU's loss trail, from the same
+    params."""
+    from repro_torch.data import make_token_dataset
+    from repro_torch.tree import tree_map
+    cfg = _zamba2_train_cfg("float32")
+    toks = make_token_dataset(16, 72, cfg.vocab, 0)
+    cpu = lm_session(cfg, toks, "cpu")
+    p0 = tree_map(torch.clone, cpu.params)
+    want = cpu.fit(steps=3, batch_size=4, verbose=False)["loss_trail"]
+    card = lm_session(cfg, toks, cuda_device, p0)
+    n0 = dict(scan_kernel.launch_counts)
+    got = card.fit(steps=3, batch_size=4, verbose=False)["loss_trail"]
+    assert scan_kernel.launch_counts["mamba2_scan.serial"] > \
+        n0["mamba2_scan.serial"]
+    assert scan_kernel.launch_counts["mamba2_scan.chunked"] == \
+        n0["mamba2_scan.chunked"]
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_launchers_run_under_the_lock_on_card(cuda_device, dtype,
+                                                  monkeypatch):
+    """A call into a scan launcher (serial in f32, chunked, its three
+    stages in one call, in bf16) holds ``ops._launch_lock``: a launcher
+    sets its kernels' shared memory limit from the chunk and then
+    launches, and another thread's launch must not come between."""
+    ops = scan_kernel.ops
+    real, held = ops._library, []
+
+    class Recorded:
+        def __init__(self, lib):
+            self.lib = lib
+
+        def __getattr__(self, name):
+            fn = getattr(self.lib, name)
+
+            def call(*args):
+                held.append((name, ops._launch_lock.locked()))
+                return fn(*args)
+            return call
+
+    monkeypatch.setattr(ops, "_library", lambda route: Recorded(real(route)))
+    x, dt, A, Bi, Ci = scan_inputs(2, 256, 16, 64, 1, 64)
+    xv, bv, cv = conv_out_views(x, Bi, Ci, dtype, cuda_device)
+    y, _ = scan_kernel.mamba2_scan(
+        xv, torch.from_numpy(dt).to(cuda_device),
+        torch.from_numpy(A).to(cuda_device), bv, cv, chunk=128)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all()
+    name = ("mamba2_scan_launch" if dtype == torch.float32
+            else "mamba2_scan_chunked_launch")
+    assert [n for n, _ in held] == [name]
+    assert all(locked for _, locked in held), held
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_launches_from_two_threads_on_card(cuda_device, dtype):
+    """Two threads launching the scan at once at two chunk lengths (a
+    split fit's heads at 128 and trunk at 256: each launch sets its
+    kernels' shared memory limit from the chunk) all succeed, each
+    thread's outputs equal to the same call alone."""
+    import threading
+    calls = {}
+    for S in (128, 256):
+        x, dt, A, Bi, Ci = scan_inputs(2, S, 16, 64, 1, 64)
+        xv, bv, cv = conv_out_views(x, Bi, Ci, dtype, cuda_device)
+        calls[S] = (xv, torch.from_numpy(dt).to(cuda_device),
+                    torch.from_numpy(A).to(cuda_device), bv, cv)
+    want = {S: scan_kernel.mamba2_scan(*a, chunk=256)[0]
+            for S, a in calls.items()}
+    errors, got = [], {}
+
+    def run(S):
+        try:
+            for _ in range(200):
+                got[S] = scan_kernel.mamba2_scan(*calls[S], chunk=256)[0]
+            torch.cuda.synchronize()
+        except Exception as e:          # noqa: BLE001 — asserted below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(S,)) for S in calls]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    assert not errors, errors
+    for S in calls:
+        assert torch.equal(got[S], want[S])

@@ -17,7 +17,10 @@ rel 1e-4 in loss.  Params after a 3-step joint fit: atol 5e-5 on all but
 at f32 rounding level, ~1e-9, into a step of about lr, and the two
 packages' f32 gradients there differ).  Split lossless equals the
 per-owner-clipped joint oracle (``test_torch_cuda.
-lm_owner_clipped_oracle``) bit for bit, f32 and bf16.
+lm_owner_clipped_oracle``) bit for bit, f32 and bf16.  The checks that
+hold for every LM family are functions of the config (``reference_runs``,
+``loss_and_grads_match``, ``split_equals_oracle`` and the rest), which
+``test_torch_ssm_train.py`` calls on reduced zamba2-2.7b.
 """
 import dataclasses
 import os
@@ -57,12 +60,13 @@ LLAMA = "llama3.2-3b"
 STEPS, BATCH, SEQ, DOCS = 3, 4, 32, 16
 
 
-def cfgs(compute="float32", n_layers=3, **split):
-    """(port config, reference config): reduced llama3.2-3b."""
+def cfgs(compute="float32", n_layers=3, arch=LLAMA, **split):
+    """(port config, reference config): ``arch`` reduced (llama3.2-3b
+    unless given), cut after one unit."""
     kw = dict(n_layers=n_layers, compute_dtype=compute)
     split = {"cut_layer": 1, **split}
-    return (get_config(LLAMA, reduced=True).replace(**kw).with_split(**split),
-            ref_get_config(LLAMA, reduced=True).replace(**kw).with_split(
+    return (get_config(arch, reduced=True).replace(**kw).with_split(**split),
+            ref_get_config(arch, reduced=True).replace(**kw).with_split(
                 **split))
 
 
@@ -89,13 +93,10 @@ def same_leaves(a, b):
     return all(torch.equal(x, y) for x, y in zip(la, lb))
 
 
-@pytest.fixture(scope="module")
-def ref_runs():
-    """The reference's joint and split fits (f32, 3 steps of 4, 25 %
-    held out) and the params they start from."""
-    cfg, rcfg = cfgs()
-    toks = tokens(cfg.vocab)
-    out = {"cfg": cfg, "toks": toks}
+def reference_runs(cfg, rcfg, toks):
+    """The reference's joint and split fits of ``rcfg`` on ``toks`` (3
+    steps of 4, 25 % held out) and the params they start from."""
+    out = {"cfg": cfg, "rcfg": rcfg, "toks": toks}
     for mode in ("joint", "split"):
         s = ref_session(rcfg, toks)
         out["p0"] = port_params(s)
@@ -105,6 +106,13 @@ def ref_runs():
                          eval=h["eval"][-1], params=port_params(s),
                          ts=s.transport_stats)
     return out
+
+
+@pytest.fixture(scope="module")
+def ref_runs():
+    """The reference's joint and split fits of reduced llama (f32)."""
+    cfg, rcfg = cfgs()
+    return reference_runs(cfg, rcfg, tokens(cfg.vocab))
 
 
 # ---------------------------------------------------------------------------
@@ -286,18 +294,18 @@ def test_attention_backward_in_row_blocks(monkeypatch):
 # the LM's loss and gradients
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
-def test_loss_fn_and_grads_match_reference(compute):
+def loss_and_grads_match(cfg, rcfg, compute, seq=SEQ, leafwise=True):
     """``loss_fn`` (masked labels included) and its gradients against
-    the reference's ``jax.value_and_grad``: loss rel 1e-5 (f32) / 2e-2
-    (bf16); every gradient leaf within 1e-3 (f32) / 5e-2 (bf16) of its
-    largest magnitude."""
-    cfg, rcfg = cfgs(compute)
+    the reference's ``jax.value_and_grad`` on 4 documents of ``seq``
+    tokens from the reference's init: loss rel 1e-5 (f32) / 2e-2
+    (bf16); with ``leafwise``, every gradient leaf within 1e-3 (f32) /
+    5e-2 (bf16) of its largest magnitude.  Returns the (reference, port)
+    gradient leaves as numpy arrays, in ``tree_leaves`` order."""
     ref = RefSplitModel(rcfg)
     rp = ref.init(jax.random.PRNGKey(0))
     ours = SplitModel(cfg)
     tp = from_reference(jax.tree.map(np.asarray, rp))
-    toks = tokens(cfg.vocab, n=4)
+    toks = tokens(cfg.vocab, n=4, seq=seq)
     labels = toks[:, 1:].astype(np.int32).copy()
     labels[0, :5] = -100
     labels[3, 20:] = -100
@@ -315,13 +323,23 @@ def test_loss_fn_and_grads_match_reference(compute):
                                rtol=rtol)
     assert float(tm["aux"]) == float(rm["aux"]) == 0.0
     frac = 1e-3 if compute == "float32" else 5e-2
+    want, got = [], []
     for w, t in zip(jax.tree.leaves(rg), tree_leaves(leaves)):
-        w = np.asarray(w)
+        w = np.asarray(w, np.float32)
         g = (t.grad if t.grad is not None else torch.zeros_like(t)).numpy()
         assert g.shape == w.shape
-        if w.size:
+        if w.size and leafwise:
             np.testing.assert_allclose(
                 g, w, atol=frac * max(np.abs(w).max(), 1e-12), rtol=0)
+        want.append(w)
+        got.append(g)
+    return want, got
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_loss_fn_and_grads_match_reference(compute):
+    """:func:`loss_and_grads_match` on reduced llama."""
+    loss_and_grads_match(*cfgs(compute), compute)
 
 
 def test_ce_loss_matches_reference():
@@ -454,10 +472,14 @@ def test_reference_split_smoke_and_cut_bytes():
                                 dict(backend="direct")],
                          ids=["pipelined", "sequential", "direct"])
 def test_split_equals_owner_clipped_oracle(compute, kw):
+    """:func:`split_equals_oracle` on reduced llama."""
+    cfg, _ = cfgs(compute)
+    split_equals_oracle(cfg, tokens(cfg.vocab), **kw)
+
+
+def split_equals_oracle(cfg, toks, **kw):
     """Split lossless == the per-owner-clipped joint oracle, bit for
     bit: params and loss trail."""
-    cfg, _ = cfgs(compute)
-    toks = tokens(cfg.vocab)
     first = lm_session(cfg, toks, "cpu")
     p0 = tree_map(torch.clone, first.params)
     trail = lm_owner_clipped_oracle(first, STEPS, BATCH)
@@ -470,10 +492,14 @@ def test_split_equals_owner_clipped_oracle(compute, kw):
 
 @pytest.mark.parametrize("compute", ["float32", "bfloat16"])
 def test_microbatched_split_equals_microbatched_joint(compute):
+    """:func:`microbatched_split_equals_joint` on reduced llama."""
+    cfg, _ = cfgs(compute)
+    microbatched_split_equals_joint(cfg, tokens(cfg.vocab))
+
+
+def microbatched_split_equals_joint(cfg, toks):
     """``microbatches=2``: split over the queue == the microbatched
     joint oracle bitwise, and within 1e-2 of the whole-batch fit."""
-    cfg, _ = cfgs(compute)
-    toks = tokens(cfg.vocab)
     base = lm_session(cfg, toks, "cpu")
     p0 = tree_map(torch.clone, base.params)
     hw = base.fit(steps=STEPS, batch_size=BATCH, verbose=False,
@@ -491,6 +517,11 @@ def test_microbatched_split_equals_microbatched_joint(compute):
 
 @pytest.mark.parametrize("compression", ["int8", "fp16"])
 def test_lossy_codecs_track_lossless(compression, ref_runs):
+    """:func:`lossy_codec_tracks_lossless` on reduced llama."""
+    lossy_codec_tracks_lossless(compression, ref_runs)
+
+
+def lossy_codec_tracks_lossless(compression, ref_runs):
     """int8 and fp16 cuts and cut gradients: the loss trail within 2e-2
     of lossless; int8 within 2e-2 of the reference's int8 split fit;
     the int8 frames are the codec's (B·S_p rows of k + 4 bytes)."""
@@ -499,14 +530,13 @@ def test_lossy_codecs_track_lossless(compression, ref_runs):
     np.testing.assert_allclose(h["loss_trail"], ref_runs["split"]["loss"],
                                rtol=2e-2)
     if compression == "int8":
-        _, rcfg = cfgs()
-        r = ref_session(rcfg, toks)
+        r = ref_session(ref_runs["rcfg"], toks)
         rh = r.fit(steps=STEPS, batch_size=BATCH, eval_frac=0.25,
                    verbose=False, mode="split", compression="int8")
         np.testing.assert_allclose(h["loss_trail"],
                                    [x["loss"] for x in rh["train"]],
                                    rtol=2e-2)
-        rows = BATCH * SEQ // 2
+        rows = BATCH * (toks.shape[1] - 1) // 2
         for name, o in s.transport_stats["per_owner"].items():
             assert o["cut_payload_bytes"] == \
                 (rows * (cfg.d_model + 4) + 4) * STEPS
@@ -516,12 +546,16 @@ def test_lossy_codecs_track_lossless(compression, ref_runs):
 
 
 def test_supervised_crash_recovers_bitwise():
+    """:func:`supervised_crash_recovers` on reduced llama."""
+    cfg, _ = cfgs()
+    supervised_crash_recovers(cfg, tokens(cfg.vocab))
+
+
+def supervised_crash_recovers(cfg, toks):
     """A crash of owner0 at step 3 on the queue (Adam owners): rolled
     back, respawned, replayed — params and loss trail equal the
     fault-free supervised run's and the unsupervised run's, bit for
     bit."""
-    cfg, _ = cfgs()
-    toks = tokens(cfg.vocab)
     p0 = tree_map(torch.clone, lm_session(cfg, toks, "cpu").params)
     kw = dict(steps=6, batch_size=BATCH, verbose=False, mode="split",
               timeout=15.0)
@@ -550,6 +584,11 @@ def test_supervised_crash_recovers_bitwise():
 
 
 def test_checkpoint_read_by_both_packages(tmp_path, ref_runs):
+    """:func:`checkpoints_cross_packages` on reduced llama."""
+    checkpoints_cross_packages(tmp_path, ref_runs)
+
+
+def checkpoints_cross_packages(tmp_path, ref_runs):
     """``fit(ckpt_dir=, ckpt_every=)`` writes the LM's per-party files
     (stacked heads, leading dim P): the reference's ``restore_split``
     reads them leaf for leaf, a port session restores them and the
@@ -579,22 +618,26 @@ def test_checkpoint_read_by_both_packages(tmp_path, ref_runs):
 
 
 def test_train_launcher_on_cpu(capsys):
-    """``python -m repro_torch.launch.train --device cpu``: the
-    reference's flags and lines, a finite final loss."""
+    """:func:`launcher_runs` on reduced llama."""
+    launcher_runs(capsys, LLAMA)
+
+
+def launcher_runs(capsys, arch):
+    """``python -m repro_torch.launch.train --arch <arch> --device cpu``:
+    the reference's flags and lines, a finite final loss."""
     from repro_torch.launch.train import main
-    loss = main(["--reduced", "--steps", "3", "--batch", "4", "--seq",
-                 "32", "--log-every", "1", "--device", "cpu"])
+    loss = main(["--arch", arch, "--reduced", "--steps", "3", "--batch",
+                 "4", "--seq", "32", "--log-every", "1", "--device", "cpu"])
     assert np.isfinite(loss)
     lines = capsys.readouterr().out.splitlines()
-    assert lines[0].startswith("arch=llama3.2-3b reduced=True params=")
+    assert lines[0].startswith(f"arch={arch} reduced=True params=")
     assert [ln.split()[:3] for ln in lines[1:]] == [
         ["step", str(i), "aux=0.0000"] for i in range(3)]
 
 
 def test_lm_fit_refusals_match_reference(ref_runs):
     """The reference's ``ValueError`` for ``aggregation="masked_sum"`` on
-    the LM; zamba2's ``fit`` and training accessors raise naming item
-    13b."""
+    the LM, from the port and from the reference."""
     cfg, toks, p0 = ref_runs["cfg"], ref_runs["toks"], ref_runs["p0"]
     s = lm_session(cfg, toks, "cpu", p0)
     with pytest.raises(ValueError, match="masked_sum"):
@@ -603,17 +646,6 @@ def test_lm_fit_refusals_match_reference(ref_runs):
     with pytest.raises(ValueError, match="masked_sum"):
         ref_session(rcfg, toks).fit(steps=1, batch_size=4, mode="split",
                                     aggregation="masked_sum")
-    zcfg = get_config("zamba2-2.7b", reduced=True)
-    z = lm_session(zcfg, make_token_dataset(8, 16, zcfg.vocab, 0), "cpu")
-    assert not z.adapter.supports_training
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        z.fit(steps=1, batch_size=2)
-    for call in (lambda: z.adapter.loss_fn(z.params, None),
-                 lambda: z.adapter.owner_programs(0),
-                 lambda: z.adapter.trunk_program(),
-                 lambda: z.adapter.default_optimizer()):
-        with pytest.raises(NotImplementedError, match="item 13b"):
-            call()
 
 
 def test_owner_template_needs_no_full_width_init():

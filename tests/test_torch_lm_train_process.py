@@ -6,7 +6,8 @@ their spec, with a parameter template of the head's structure
 (``owner_template``), never a full-model init.
 
 llama3.2-3b reduced with 3 layers (one attention unit per head), f32
-and bf16 compute; each fit spawns two workers (a few seconds each).
+and bf16 compute, and zamba2-2.7b reduced with 12 layers; each fit
+spawns two workers (a few seconds each).
 """
 import numpy as np
 import pytest
@@ -30,7 +31,23 @@ def _cfg(compute):
     ("float32", None), ("bfloat16", None), ("bfloat16", "int8")])
 def test_process_equals_queue(compute, compression):
     cfg = _cfg(compute)
-    toks = make_token_dataset(16, 32, cfg.vocab, 0)
+    process_equals_queue(cfg, make_token_dataset(16, 32, cfg.vocab, 0),
+                         compression)
+
+
+@pytest.mark.parametrize("compute,compression", [
+    ("float32", None), ("bfloat16", "int8")])
+def test_zamba2_process_equals_queue(compute, compression):
+    """Reduced zamba2-2.7b (12 layers: one unit of five Mamba2 blocks and
+    the shared attention block per head, one in the trunk) over 64
+    tokens: the trunk's scan spans two chunks of 32, each head's one."""
+    cfg = get_config("zamba2-2.7b", reduced=True).replace(
+        n_layers=12, compute_dtype=compute).with_split(cut_layer=1)
+    process_equals_queue(cfg, make_token_dataset(16, 64, cfg.vocab, 0),
+                         compression)
+
+
+def process_equals_queue(cfg, toks, compression):
     p0 = tree_map(torch.clone, lm_session(cfg, toks, "cpu").params)
     runs = {}
     for backend in ("queue", "process"):

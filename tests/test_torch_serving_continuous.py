@@ -740,7 +740,7 @@ def test_lm_session_builds_on_its_device_and_refuses_fit():
     """``build(ArchConfig)`` draws the LM on the session's device and
     the adapter is ``SplitLMAdapter``; a session without labels refuses
     ``fit`` as the reference's does, and an LM with Mamba2 blocks
-    (zamba2) refuses it naming ROADMAP.md item 13b."""
+    (zamba2) supports split and microbatches and trains, as llama does."""
     from repro_torch.federation import PrivacyError
     cfg, _, toks = _sessions()
     s = _port_session(cfg, toks)
@@ -757,14 +757,15 @@ def test_lm_session_builds_on_its_device_and_refuses_fit():
         s.fit(steps=1, batch_size=2)
     zcfg = get_config("zamba2-2.7b", reduced=True)
     z = _port_session(zcfg, make_token_dataset(4, 16, zcfg.vocab, 0)[:, :16])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 13b"):
-        z.adapter.loss_fn(z.params, None)
+    assert z.adapter.supports_split and z.adapter.supports_microbatch
+    with pytest.raises(PrivacyError, match="no labels"):
+        z.fit(steps=1, batch_size=2)
     labelled = VerticalSession(*sequence_parties(
         make_token_dataset(4, 16, zcfg.vocab, 0), 2), device="cpu")
     labelled.resolve(group="modp512")
     labelled.build(zcfg)
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        labelled.fit(steps=1, batch_size=2)
+    h = labelled.fit(steps=1, batch_size=2, verbose=False)
+    assert np.isfinite(h["loss_trail"]).all()
 
 
 def test_lm_adapter_refusals_match_reference():
