@@ -27,12 +27,21 @@ Phases, in order; any failure raises and exits non-zero:
      the card's joint run against the CPU's;
   6. the attention kernels against their plain version on the card, on
      the reference's kernel cases (f32 and bf16), queries over a cache,
-     and the serving path's six shapes, each on the route the wrapper
-     picks (decode: split-KV; tc: wgmma and TMA; fma: CUDA cores), with
+     and the serving paths' ten shapes (llama3.2-3b's, zamba2-2.7b's
+     and gemma2-9b's: hd 256 with softcap 50, causal head and trunk
+     prefills over a cache, a local ring prefill and a bidir ring
+     decode), each on the route the wrapper picks (decode: split-KV;
+     tc: wgmma and TMA; fma: CUDA cores, bf16 at hd 256 too), with
      times beside the fma route's at the same shape, the bound and one
-     PyTorch call (``scaled_dot_product_attention``); then calls in
-     which some query row sees no key (kv_len 0, a local window past
-     kv_len) on every route that takes them;
+     PyTorch call (``scaled_dot_product_attention``; with a softcap,
+     compiled ``flex_attention`` with a tanh ``score_mod``, SDPA's
+     uncapped function timed beside it); in the softcapped cases q is
+     scaled so that the scores reach the cap's bend, and the kernel at
+     cap 30 and at no cap must fail the tolerance; gemma2's ring decode
+     with per-row lengths, each row bitwise a scalar call; then calls
+     in which some query row sees no key
+     (kv_len 0, a local window past kv_len) on every route that takes
+     them;
   7. split-LM serving at full width: llama3.2-3b (random weights from a
      seed) behind the wave engine over the queue transport with the int8
      cut codec, 8 contexts of 1024 tokens in two waves of 4, 32 new
@@ -116,7 +125,7 @@ Phases, in order; any failure raises and exits non-zero:
      unchanged repeat; ``crash_psi`` and ``wedge_psi`` retried once on
      queue and process; the split int8 fit over the queue on the hidden
      alignment, with exact launch counts and its loss trail against the
-     CPU's; one resolve of 20000 subjects (wall, IDs/s, modexps, wire
+     CPU's; one resolve of 10000 subjects (wall, IDs/s, modexps, wire
      bytes by kind);
  18. the rest of ``fit`` on the paper's path: (a) frames at 8 ms one-way
      on a queue channel pair and a process endpoint pair, the receiver's
@@ -179,7 +188,8 @@ Phases, in order; any failure raises and exits non-zero:
      per step against the frames, the steady step and an evaluation;
      (c) the reduced config's int8 split fit with owners in spawned
      workers == the queue, bitwise; (d) ``python -m
-     repro_torch.launch.train --reduced --steps 3`` on the card;
+     repro_torch.launch.train --reduced --steps 3`` on the card, started
+     beside (c);
  21. LM training at full width on the SSM family, after phase 20: (a)
      the scan Function (the kernel forward, a backward of plain
      products) at zamba2-2.7b's training shapes (batch 8, the trunk's 256
@@ -189,14 +199,37 @@ Phases, in order; any failure raises and exits non-zero:
      plain ``ssd_chunked`` and the gradients against autograd through the
      plain stages, within 2e-2 / 2e-4, with the forward's, the
      backward's and the plain version's times beside the backward's
-     bound; (b) zamba2-2.7b at full widths cut in depth to 30 layers (5
+     bound; (b) zamba2-2.7b at full widths cut in depth to 18 layers (3
      units, the cut after 2), phase 20(b)'s data and fits, with exact
      chunked-scan, tc and quantize launches, the scan backward's calls
      and its share of the step, split lossless == the per-owner-clipped
      oracle bitwise; (c) the reduced config's int8 split fit on spawned
      workers == the queue, bitwise; (d) ``python -m
-     repro_torch.launch.train --arch zamba2-2.7b --reduced --steps 3``;
- 14. the results, last (after phases 15, 16, 17, 18, 20 and 21): a
+     repro_torch.launch.train --arch zamba2-2.7b --reduced --steps 3``,
+     started beside (c);
+ 22. KV cache variants on gemma2-9b, after phase 21: (a) gemma2-9b at
+     full width and depth (42 layers, d 3584, 16/8 heads of 256, vocab
+     256000; random weights from seed 0, 52.2 GB of f32 params) served
+     as in phase 7 with ``ring_cache=True`` (every local layer's cache
+     within its 4096-token window: the ring path), with exact launch
+     counts (every prefill on the fma route, every decode call on the
+     decode route, none on tc), the int8 wire bytes against the frame
+     size, peak device memory and a profiled wave; (b) its full widths
+     cut to 8 layers, one row of 8448 tokens (owner slices of 4224 and
+     the trunk's 8448 past the window: ring prefills roll by 128 and
+     256, every decode wraps), 16 teacher-forced decode steps on full,
+     ring, ``swa_override=4096`` without and with ring, and fp8 ring
+     caches: each pair's largest logit gap against the bf16 floor (the
+     full caches' bf16 run against its f32 run), cache bytes (ring below
+     full, fp8 half of bf16), the ring caches after each prefill and
+     step slot by slot against the full caches' positions (bitwise where
+     the prefill or the embedding wrote them, else within twice the
+     bf16 floor of an f32 run on full caches), one more ring step with
+     two rows at different positions == a scalar call at each, bitwise,
+     with the per-row launches counted from 0; (c) reduced gemma2 (f32,
+     window 64, contexts of 160) on ring caches card vs CPU within rel
+     1e-4, wave and continuous tokens equal;
+ 14. the results, last (after phases 15, 16, 17, 18, 20, 21 and 22): a
      ``{"serving_continuous": ...}`` JSON line with phase 19's numbers, a
      ``{"privacy": ...}`` JSON line with phase 15's numbers, a
      ``{"recovery": ...}`` line with phase 16's, a ``{"psi": ...}`` line
@@ -208,11 +241,14 @@ Phases, in order; any failure raises and exits non-zero:
      phase 19's continuous runs; cut fusion's fma entry with phase 18's
      P = 8 timing as ``p8``; the decode route with per-row lengths as
      ``block_attention.per_row``), then the ``{"ok": true, ...}`` JSON
-     line last; before them an ``{"lm_train": ...}`` line with phase
-     20's numbers and a ``{"zamba2_train": ...}`` line with phase 21's,
-     and every kernels entry with its ``lm_train_launches`` over phase
-     20(b)'s three fits and its ``zamba2_train_launches`` over phase
-     21(b)'s.
+     line last; before them a ``{"gemma2": ...}`` line with phase 22's
+     numbers, an ``{"lm_train": ...}`` line with phase 20's and a
+     ``{"zamba2_train": ...}`` line with phase 21's, and every kernels
+     entry with its ``lm_train_launches`` over phase 20(b)'s three fits,
+     its ``zamba2_train_launches`` over phase 21(b)'s and its
+     ``gemma2_launches`` in phase 22(a)'s run (the fma, decode and
+     per-row entries with a ``gemma2`` row: their time at gemma2's
+     shapes).
 
 Without a CUDA device it prints nothing and exits 2.  It imports only
 ``repro_torch`` (never JAX or the JAX package ``repro``).
@@ -227,6 +263,12 @@ import types
 from pathlib import Path
 
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+# compiled flex_attention (phase 6's library time for softcapped
+# attention) builds into the checkout, in this process
+_BUILD = Path(__file__).resolve().parent / "build"
+os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(_BUILD / "inductor"))
+os.environ.setdefault("TRITON_CACHE_DIR", str(_BUILD / "triton"))
+os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 # memory rate (bytes/s) and f32 rate outside the tensor cores (FLOP/s)
@@ -426,16 +468,28 @@ def phase_kernels(bw, flops):
     return out
 
 
+_RESOLVED = {}
+
+
 def mnist_session(device, n=2000, combine="concat", **split):
     """The paper's config at full width with ``combine`` and any other
-    ``SplitConfig`` fields (the privacy defences) replaced."""
+    ``SplitConfig`` fields (the privacy defences) replaced.  The first
+    session of each (n, device) runs PSI (phase 4's is the main path's);
+    later ones start from a copy of that resolved session: the same
+    computation on the same parties, which phase 17 drives in depth."""
+    import copy
     import dataclasses
     from repro_torch.configs import CONFIG
     from repro_torch.data import make_vertical_mnist_parties
     from repro_torch.federation import VerticalSession, feature_parties
-    s = VerticalSession(*feature_parties(*make_vertical_mnist_parties(
-        n, seed=0, keep_frac=0.9)), device=device)
-    stats = s.resolve(group="modp512")
+    key = (n, str(device))
+    if key not in _RESOLVED:
+        s = VerticalSession(*feature_parties(*make_vertical_mnist_parties(
+            n, seed=0, keep_frac=0.9)), device=device)
+        stats = s.resolve(group="modp512")
+        _RESOLVED[key] = (copy.deepcopy(s), stats)
+    base, stats = _RESOLVED[key]
+    s = copy.deepcopy(base)
     s.build(dataclasses.replace(CONFIG, split=dataclasses.replace(
         CONFIG.split, combine=combine, **split)))
     return s, stats
@@ -738,8 +792,32 @@ PATH_CASES = {
                              1024),
     "zamba2_trunk_decode": (4, 1, 1057, 32, 32, 80, "causal", 0, 0.0, 1040,
                             1041),
+    # gemma2-9b's (16 q heads, 8 kv heads, hd 256, softcap 50; phase 22):
+    # a global layer's head prefill over its cache of 512 + 33 and trunk
+    # prefill over 1024 + 33, a local layer's ring prefill over its own
+    # 1024 keys (window 4096), and a local layer's ring decode 16 tokens
+    # in: bidir over the 1057 slots, the first 1041 valid.  hd 256 takes
+    # the fma route in bf16
+    "gemma2_head_prefill": (4, 512, 545, 16, 8, 256, "causal", 0, 50.0, 0,
+                            512),
+    "gemma2_trunk_prefill": (4, 1024, 1057, 16, 8, 256, "causal", 0, 50.0,
+                             0, 1024),
+    "gemma2_trunk_prefill_local": (4, 1024, 1024, 16, 8, 256, "local",
+                                   4096, 50.0, 0, None),
+    "gemma2_trunk_decode_ring": (4, 1, 1057, 16, 8, 256, "bidir", 0, 50.0,
+                                 0, 1041),
 }
 HEADLINE = "trunk_prefill"
+GEMMA_HEADLINE = "gemma2_trunk_prefill"
+# gemma2's ring decode with per-row lengths (continuous batching): the
+# four slots 1 to 32 tokens past the context, bidir over 1057 slots
+GEMMA_RING_ROWS = (1025, 1041, 1057, 1033)
+# q's scale in the softcapped path cases: N(0, 1) inputs at hd 256 give
+# scores of about N(0, 1), where a cap of 50 moves a score by at most
+# ~1e-2 and cannot be told from no cap; x20 gives scores of about N(0,
+# 400), well inside tanh's bend, so a kernel at another cap (30, or none)
+# fails the tolerance (``cap_is_seen``)
+CAP_Q_SCALE = 20.0
 # calls in which some query row sees no key (the reference gives such a
 # row the mean of V over all Skv keys): kv_len 0, a local window wholly
 # past kv_len, windows that leave only the last rows without a key; run
@@ -802,8 +880,10 @@ def phase_attention(bw, f32_flops):
         base = [torch.from_numpy(rng.normal(size=s).astype(np.float32))
                 .cuda() for s in ((B, Sq, nh, hd), (B, Skv, nkv, hd),
                                   (B, Skv, nkv, hd))]
-        dtypes = ([torch.bfloat16] if name.startswith("path")
-                  else [torch.float32, torch.bfloat16])
+        path = name.startswith("path")
+        if path and cap:
+            base[0] *= CAP_Q_SCALE
+        dtypes = [torch.bfloat16] if path else [torch.float32, torch.bfloat16]
         for dt in dtypes:
             q, k, v = (t.to(dt) for t in base)
             kw = dict(kind=kind, window=window, softcap=cap,
@@ -823,18 +903,29 @@ def phase_attention(bw, f32_flops):
             print(f"  {name} {tuple(q.shape)} kv {Skv} {kind} "
                   f"{str(dt)[6:]} [{route}]: max |diff| "
                   f"{e.max().item():.3e} (tol {tol[dt]})")
-            if not name.startswith("path"):
+            if not path:
                 continue
-            need = "decode" if Sq == 1 else "tc"
+            if cap:
+                cap_is_seen(name, lambda c: block_attention(
+                    q, k, v, **dict(kw, softcap=c)), want, tol[dt])
+            need = ("decode" if Sq == 1 else
+                    "tc" if hd <= 128 else "fma")   # bf16 hd 256: fma
             if route != need:
                 raise AssertionError(f"attention {name}: route {route}, "
                                      f"the serving path needs {need}")
             bound, by, flops = attn_bound(case, dt, bw, f32_flops)
-            library = sdpa_call(q, k, v, case, attention_mask)
-            lib_err = (library().float() - want.float()).abs().max().item()
+            # the library: SDPA, which has no softcap; with a cap, compiled
+            # flex_attention, with SDPA's uncapped time beside it
+            sdpa = sdpa_call(q, k, v, case[:8] + (0.0,) + case[9:],
+                             attention_mask)
             # the library's fastest kernels are not deterministic ones
             torch.use_deterministic_algorithms(False)
-            library_ms = device_ms(library, reps=10, rounds=7)
+            sdpa_ms = device_ms(sdpa, reps=10, rounds=7)
+            library, compile_s = (flex_call(q, k, v, case) if cap
+                                  else (sdpa, 0.0))
+            lib_err = library_matches(name, library(), want, tol[dt])
+            library_ms = (device_ms(library, reps=10, rounds=7) if cap
+                          else sdpa_ms)
             torch.use_deterministic_algorithms(True)
             fma = ops._launch("fma", q, k, v, **kw)
             fma_err = (fma.float() - want.float()).abs().max().item()
@@ -850,6 +941,9 @@ def phase_attention(bw, f32_flops):
                                                                **kw),
                                          reps=5, rounds=5),
                    "library_ms": library_ms,
+                   "library": "flex_attention" if cap else "sdpa",
+                   "library_compile_s": compile_s,
+                   "sdpa_uncapped_ms": sdpa_ms if cap else None,
                    "eager_ms": eager_ms(lambda: block_attention(q, k, v,
                                                                 **kw),
                                         reps=10, rounds=5),
@@ -859,15 +953,20 @@ def phase_attention(bw, f32_flops):
             row["tflops"] = flops / row["ms"] / 1e9
             row["fma_over_route"] = row["fma_ms"] / row["ms"]
             rows[name[5:]] = row
+            lib = (f"SDPA {library_ms:.6f} ms (|diff| {lib_err:.2e})"
+                   if not cap else f"flex_attention {library_ms:.6f} ms "
+                   f"(|diff| {lib_err:.2e}, compiled in {compile_s:.2f} s)"
+                   f", SDPA without the softcap (another function) "
+                   f"{sdpa_ms:.6f} ms")
             print(f"    {route} {row['ms']:.6f} ms ({row['tflops']:.2f} "
                   f"TFLOP/s; eager {row['eager_ms']:.6f}); fma route "
                   f"{row['fma_ms']:.6f} ms (x{row['fma_over_route']:.2f}, "
                   f"|diff| {fma_err:.2e}); plain {row['plain_ms']:.6f} ms;"
-                  f" SDPA {row['library_ms']:.6f} ms (|diff| {lib_err:.2e})"
-                  f"; bound {row['bound_ms']:.6f} ms ({by})")
+                  f" {lib}; bound {row['bound_ms']:.6f} ms ({by})")
     missing = [r for r in ROUTES if r not in seen]
     if missing:
         raise AssertionError(f"attention routes never exercised: {missing}")
+    rows["gemma2_ring_per_row"] = gemma_ring_rows(bw, f32_flops, tol)
     empty_seen = set()
     for i, case in enumerate(EMPTY_ROW_CASES):
         B, Sq, Skv, nh, nkv, hd, kind, window, cap, q_off, kv_len = case
@@ -905,6 +1004,161 @@ def phase_attention(bw, f32_flops):
     if missing:
         raise AssertionError(f"rows with no key never run on: {missing}")
     return {"max_abs_err": err, "rows": rows}
+
+
+def gemma_ring_rows(bw, f32_flops, tol):
+    """gemma2's ring decode with one kv length per row
+    (``GEMMA_RING_ROWS``, bidir, q_offset 0): within tolerance of the
+    plain version, every row bitwise a scalar call at its length, timed
+    beside the scalar call at the longest length."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.block_attention import (attention_ref,
+                                                     block_attention)
+    case = PATH_CASES["gemma2_trunk_decode_ring"]
+    B, Sq, Skv, nh, nkv, hd, kind, window, cap = case[:9]
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32)
+                                * scale).cuda().to(torch.bfloat16)
+               for s, scale in (((B, Sq, nh, hd), CAP_Q_SCALE),
+                                ((B, Skv, nkv, hd), 1.0),
+                                ((B, Skv, nkv, hd), 1.0)))
+    lens = torch.tensor(GEMMA_RING_ROWS)
+    lens_dev = lens.cuda()     # the plain version's mask, under a graph
+    kw = dict(kind=kind, window=window, softcap=cap, q_offset=0)
+    got = block_attention(q, k, v, kv_len=lens, **kw)
+    want = attention_ref(q, k, v, kv_len=lens, **kw).float()
+    torch.cuda.synchronize()
+    e = (got.float() - want).abs()
+    if not bool((e <= tol[torch.bfloat16] * (1 + want.abs())).all()):
+        raise AssertionError(f"gemma2 per-row ring decode: max |diff| "
+                             f"{e.max().item():.3e}")
+    cap_is_seen("gemma2 per-row ring decode", lambda c: block_attention(
+        q, k, v, kv_len=lens, **dict(kw, softcap=c)), want,
+        tol[torch.bfloat16])
+    torch.use_deterministic_algorithms(False)
+    library, compile_s = flex_call(q, k, v, case, lens=lens_dev)
+    lib_err = library_matches("gemma2 per-row ring decode", library(), want,
+                              tol[torch.bfloat16])
+    library_ms = device_ms(library, reps=10, rounds=7)
+    torch.use_deterministic_algorithms(True)
+    for b, n in enumerate(GEMMA_RING_ROWS):
+        alone = block_attention(q, k, v, kv_len=n, **kw)
+        if not torch.equal(got[b], alone[b]):
+            raise AssertionError(f"gemma2 per-row ring decode: row {b} != "
+                                 f"a scalar call at kv_len {n}")
+    # each row reads its own keys: bf16 q, o of one row and k, v of its
+    # kv_len slots; 4 hd flops per (query, key) pair
+    nbytes = sum(2 * (2 * Sq * nh * hd + 2 * n * nkv * hd)
+                 for n in GEMMA_RING_ROWS)
+    flops = sum(4 * nh * hd * Sq * n for n in GEMMA_RING_ROWS)
+    bound = max(1e3 * nbytes / bw, 1e3 * flops / BF16_FLOPS)
+    row = {"shape": [list(q.shape), list(k.shape)],
+           "kv_lens": list(GEMMA_RING_ROWS), "route": "decode",
+           "max_abs_err": e.max().item(),
+           "ms": device_ms(lambda: block_attention(q, k, v, kv_len=lens,
+                                                   **kw), reps=10,
+                           rounds=7),
+           "scalar_ms": device_ms(lambda: block_attention(
+               q, k, v, kv_len=max(GEMMA_RING_ROWS), **kw), reps=10,
+               rounds=7),
+           "plain_ms": device_ms(lambda: attention_ref(
+               q, k, v, kv_len=lens_dev, **kw), reps=5, rounds=5),
+           "bound_ms": bound, "bound_by": ("bytes" if nbytes / bw >= flops
+                                           / BF16_FLOPS else "operations"),
+           "library_ms": library_ms, "library": "flex_attention",
+           "library_max_abs_err": lib_err, "library_compile_s": compile_s}
+    print(f"  gemma2 ring decode, per-row kv_len {list(GEMMA_RING_ROWS)} "
+          f"(bidir, softcap {cap}) [decode]: max |diff| "
+          f"{row['max_abs_err']:.3e}; every row == a scalar call at its "
+          f"length, bitwise; {row['ms']:.6f} ms beside the scalar call at "
+          f"{max(GEMMA_RING_ROWS)} {row['scalar_ms']:.6f} ms; plain "
+          f"{row['plain_ms']:.6f} ms; flex_attention {library_ms:.6f} ms "
+          f"(|diff| {lib_err:.2e}, compiled in {compile_s:.2f} s); bound "
+          f"{bound:.6f} ms")
+    return row
+
+
+def cap_is_seen(what, call, want, tol):
+    """The case can tell the softcap: ``call(cap)`` (the kernel at
+    another cap) at cap 30 and at no cap each fail the tolerance against
+    ``want``, the plain version at the case's cap."""
+    import torch
+    want = want.float()
+    lim = tol + tol * want.abs()
+    seen = []
+    for wrong in (30.0, 0.0):
+        got = call(wrong)
+        torch.cuda.synchronize()
+        e = (got.float() - want).abs()
+        n = int((e > lim).sum())
+        if n == 0:
+            raise AssertionError(f"{what}: the kernel at softcap {wrong:g} "
+                                 f"passes atol=rtol={tol}: the case cannot "
+                                 f"see the cap")
+        seen.append(f"cap {wrong:g}: max |diff| {e.max().item():.3e}, "
+                    f"{n} of {e.numel()} values past the tolerance")
+    print(f"    the case sees the cap: the kernel at {'; at '.join(seen)}")
+
+
+def library_matches(what, got, want, tol):
+    """The library's output within the kernel's tolerance of the plain
+    version (the yardstick computes the same function); its max |diff|."""
+    import torch
+    torch.cuda.synchronize()
+    want = want.float()
+    e = (got.float() - want).abs()
+    if not bool((e <= tol + tol * want.abs()).all()):
+        raise AssertionError(f"{what}: the library's call vs plain max "
+                             f"|diff| {e.max().item():.3e} beyond "
+                             f"atol=rtol={tol}")
+    return e.max().item()
+
+
+_FLEX = {}
+
+
+def flex_call(q, k, v, case, lens=None):
+    """One compiled ``flex_attention`` call that computes a softcapped
+    case's function: the cap as a tanh ``score_mod``, the case's mask as
+    a block mask over its valid keys (``lens``: one kv length per row, a
+    (B,) tensor on the card), GQA by ``enable_gqa``.  Compiled (and run
+    once) here; returns (the call, the seconds of that first call).
+    Timed as the library's time for softcapped attention only; the port
+    never calls it."""
+    import torch
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    B, Sq, Skv, nh, nkv, hd, kind, window, cap, q_off, kv_len = case
+    if "fn" not in _FLEX:
+        _FLEX["fn"] = torch.compile(flex_attention, dynamic=False)
+    fn = _FLEX["fn"]
+    if lens is None:
+        lens = torch.full((B,), Skv if kv_len is None else kv_len,
+                          device=q.device)
+
+    def mask_mod(b, h, i, j):
+        qp = i + q_off
+        keep = j < lens[b]
+        if kind == "causal":
+            keep = keep & (j <= qp)
+        elif kind == "local":
+            keep = keep & (j <= qp) & (j > qp - window)
+        return keep
+
+    def score_mod(s, b, h, i, j):
+        return cap * torch.tanh(s / cap)
+
+    mask = create_block_mask(mask_mod, B, None, Sq, Skv, device=q.device)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+
+    def call():
+        return fn(qh, kh, vh, score_mod=score_mod, block_mask=mask,
+                  enable_gqa=True).transpose(1, 2)
+    t = time.time()
+    call()
+    torch.cuda.synchronize()
+    return call, time.time() - t
 
 
 def sdpa_call(q, k, v, case, attention_mask):
@@ -1095,9 +1349,10 @@ def lm_contexts(vocab, n, length, seed=0):
     return make_token_dataset(n, length, vocab, seed)[:, :length]
 
 
-def phase_serving(arch):
-    """Phases 7 and 10: ``arch`` at full width behind the wave engine
-    over the queue transport with the int8 cut codec."""
+def phase_serving(arch, **engine_kw):
+    """Phases 7, 10 and 22(a): ``arch`` at full width behind the wave
+    engine over the queue transport with the int8 cut codec
+    (``engine_kw``: further engine options)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1121,7 +1376,8 @@ def phase_serving(arch):
           f"{model.P} owners, {model.n_trunk_units} trunk units")
     ctxs = lm_contexts(cfg.vocab, 2 * SLOTS, CTX)
     kw = dict(batch_slots=SLOTS, ctx_len=CTX, max_new=NEW,
-              transport="queue", compression="int8", device="cuda")
+              transport="queue", compression="int8", device="cuda",
+              **engine_kw)
 
     warm = ServingEngine(model, params, **dict(kw, max_new=2))
     for c in ctxs[:SLOTS]:
@@ -1136,10 +1392,12 @@ def phase_serving(arch):
     for k in (attn, scan, quantize):
         k.reset_launch_counts()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     out = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     counts = {**attn.launch_counts, **scan.launch_counts,
               **quantize.launch_counts}
     st = eng.stats
@@ -1149,7 +1407,8 @@ def phase_serving(arch):
           f"; decode ms per token (median of {len(dec_s)}) "
           f"{1e3 * float(np.median(dec_s)):.3f}, min "
           f"{1e3 * min(dec_s):.3f}, max {1e3 * max(dec_s):.3f}; "
-          f"{st['tokens_generated'] / wall:.2f} tok/s")
+          f"{st['tokens_generated'] / wall:.2f} tok/s; peak device memory "
+          f"{peak_gb:.2f} GB")
     for r in rids[:2]:
         print(f"    request {r}: ...{ctxs[r][-6:].tolist()} -> "
               f"{out[r].generated[:12]}...")
@@ -1174,12 +1433,14 @@ def phase_serving(arch):
     units = model.P * model.n_head_units + model.n_trunk_units
     n_attn = sum(k != "mamba2" for k in cfg.block_pattern)
     n_ssm = sum(k == "mamba2" for k in cfg.block_pattern)
-    # every bf16 prefill call takes the tc route, every decode call the
-    # decode route, none the fma route; every scan the chunked route
+    # every bf16 prefill call takes the tc route (the fma route at hd
+    # above 128: gemma2's 256), every decode call the decode route;
+    # every scan the chunked route
+    pre, other = ("tc", "fma") if cfg.head_dim <= 128 else ("fma", "tc")
     need = {"block_attention": waves * units * n_attn * (1 + ticks),
-            "block_attention.tc": waves * units * n_attn,
+            f"block_attention.{pre}": waves * units * n_attn,
             "block_attention.decode": waves * units * n_attn * ticks,
-            "block_attention.fma": 0,
+            f"block_attention.{other}": 0,
             "mamba2_scan": waves * units * n_ssm,
             "mamba2_scan.chunked": waves * units * n_ssm,
             "mamba2_scan.serial": 0,
@@ -1194,6 +1455,7 @@ def phase_serving(arch):
             "prefill_ms": [1e3 * s for s in pre_s],
             "decode_ms_median": 1e3 * float(np.median(dec_s)),
             "tok_per_s": st["tokens_generated"] / wall,
+            "peak_gb": peak_gb,
             "cut_wire_bytes": st["cut_wire_bytes"], "busy_share": busy,
             "model": model, "params": params}
 
@@ -1246,8 +1508,9 @@ def profile_wave(model, params, kw, ctxs):
           f"per forward (prefill or decode tick)")
     # the port's kernels on the serving path: attention (tc, decode_mma
     # and its merge), the chunked scan's three launches, int8
-    for tag in ("attn_tc", "decode_mma", "decode_combine", "ssd_chunk_state",
-                "ssd_state_pass", "ssd_chunk_out", "quantize_rows"):
+    for tag in ("attn_tc", "attn_fwd", "decode_mma", "decode_split",
+                "decode_combine", "ssd_chunk_state", "ssd_state_pass",
+                "ssd_chunk_out", "quantize_rows"):
         ours = [v for key, v in kernels.items() if tag in key]
         us = sum(u for _, u in ours)
         print(f"  {tag}: {us:.1f} us over {sum(n for n, _ in ours)} "
@@ -2003,8 +2266,8 @@ PSI_BACKENDS = ("direct", "queue", "process")
 PSI_CHUNK = 256
 
 
-# (f)'s subjects: a third of MNIST's 60000 training subjects
-PSI_SCALE = 20000
+# (f)'s subjects: a sixth of MNIST's 60000 training subjects
+PSI_SCALE = 10000
 # (a)'s subjects: modp2048's modexps are ~8x modp512's, so (a) holds the
 # default group at a quarter of phase 4's population
 PSI_MODP2048 = 500
@@ -2071,7 +2334,7 @@ def phase_psi():
     paper's split int8 fit over the queue on (b)'s hidden alignment,
     then evaluate, with exact kernel launch counts (phase 4's form) and
     a finite, falling loss trail within 2e-2 of the same run on the CPU;
-    (f) one resolve at 20000 subjects, a third of MNIST's 60000
+    (f) one resolve at 10000 subjects, a sixth of MNIST's 60000
     training subjects (modp512, noinv, process, the pool): wall seconds,
     IDs/s, modexp ops, wire bytes by kind.  Seconds are host wall time around each resolve."""
     import numpy as np
@@ -2259,8 +2522,8 @@ def phase_psi():
                       "quantize_pack_int8", "cut_fusion", "cut_fusion.fma",
                       "cut_fusion.tc")}}
 
-    # ---- (f) a third of MNIST's 60000 training subjects (cut from all
-    # 60000 to keep the script inside its time limit)
+    # ---- (f) a sixth of MNIST's 60000 training subjects (cut from all
+    # 60000, then from 20000, to keep the script inside its time limit)
     t = time.time()
     s = psi_session("cuda", n=PSI_SCALE)
     made = time.time() - t
@@ -3746,6 +4009,7 @@ def phase_lm_train(bw, f32_flops):
     out["full_width_s"] = time.time() - t
 
     t = time.time()
+    launcher = start_train_launcher([])      # (d), beside (c)
     print("  (c) reduced llama, bf16: owners in spawned workers == the "
           "queue, bitwise")
     small = get_config(LM, reduced=True).replace(n_layers=3).with_split(
@@ -3755,8 +4019,9 @@ def phase_lm_train(bw, f32_flops):
     out["process_s"] = time.time() - t
 
     t = time.time()
-    print("  (d) python -m repro_torch.launch.train --reduced --steps 3")
-    out["launcher_loss"] = run_train_launcher([])
+    print("  (d) python -m repro_torch.launch.train --reduced --steps 3 "
+          "(started beside (c))")
+    out["launcher_loss"] = finish_train_launcher(launcher)
     out["launcher_s"] = time.time() - t
     return out
 
@@ -3862,20 +4127,32 @@ def lm_process_equals_queue(small, stoks):
           f"{[round(x, 5) for x in res['queue'][0]]}")
 
 
-def run_train_launcher(args):
+def start_train_launcher(args):
     """``python -m repro_torch.launch.train --reduced --steps 3
-    --log-every 1`` plus ``args`` on the card: its lines, a finite final
-    loss (returned)."""
+    --log-every 1`` plus ``args``, started on the card in the background:
+    most of its ~20 s is a fresh process's start-up, which overlaps the
+    (c) check it runs beside."""
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
                                           / "src"))
-    run = subprocess.run(
+    return subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.train", *args,
          "--reduced", "--steps", "3", "--log-every", "1"],
-        capture_output=True, text=True, env=env, timeout=300)
-    print("\n".join(f"    {ln}" for ln in run.stdout.strip().splitlines()))
-    if run.returncode != 0:
-        raise AssertionError(f"launch.train failed: {run.stderr[-2000:]}")
-    last = run.stdout.strip().splitlines()[-1]
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+
+
+def finish_train_launcher(proc):
+    """Wait for :func:`start_train_launcher`'s run: its lines, a finite
+    final loss (returned)."""
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    print("\n".join(f"    {ln}" for ln in stdout.strip().splitlines()))
+    if proc.returncode != 0:
+        raise AssertionError(f"launch.train failed: {stderr[-2000:]}")
+    last = stdout.strip().splitlines()[-1]
     loss = float(last.split("loss=")[1].split()[0])
     if not math.isfinite(loss):
         raise AssertionError(f"launch.train loss {loss}")
@@ -3891,10 +4168,10 @@ def run_train_launcher(args):
 # over the combined 256 tokens, a head's over its 128
 SCAN_TRAIN = {"trunk": (8, 256, 80, 64, 1, 64, 256),
               "head": (8, 128, 80, 64, 1, 64, 256)}
-# (b): zamba2-2.7b at full width cut in depth to 30 layers (5 units of 5
+# (b): zamba2-2.7b at full width cut in depth to 18 layers (3 units of 5
 # mamba2 + 1 shared_attn), the config's cut after 2 units: two head units
 # per owner, three trunk units; phase 20's documents, batch and steps
-ZAMBA_TRAIN_LAYERS = 30
+ZAMBA_TRAIN_LAYERS = 18
 
 
 def scan_train_bound(case, dtype, bw, f32_flops):
@@ -4093,13 +4370,14 @@ def phase_zamba_train(bw, f32_flops):
 
     t = time.time()
     cfg = zamba_train_cfg()
-    print(f"  (b) {ZAMBA} at full width: {ZAMBA_TRAIN_LAYERS} layers (5 "
-          f"units of 5 mamba2 + 1 shared_attn) cut after "
-          f"{cfg.split.cut_layer} units, ", end="")
+    print(f"  (b) {ZAMBA} at full width: {ZAMBA_TRAIN_LAYERS} layers "
+          f"({cfg.n_superblocks} units of 5 mamba2 + 1 shared_attn) cut "
+          f"after {cfg.split.cut_layer} units, ", end="")
     lm_train_full(cfg, out)
     out["full_width_s"] = time.time() - t
 
     t = time.time()
+    launcher = start_train_launcher(["--arch", ZAMBA])    # (d), beside (c)
     print("  (c) reduced zamba2, bf16: owners in spawned workers == the "
           "queue, bitwise")
     small = get_config(ZAMBA, reduced=True).replace(
@@ -4111,9 +4389,375 @@ def phase_zamba_train(bw, f32_flops):
 
     t = time.time()
     print(f"  (d) python -m repro_torch.launch.train --arch {ZAMBA} "
-          "--reduced --steps 3")
-    out["launcher_loss"] = run_train_launcher(["--arch", ZAMBA])
+          "--reduced --steps 3 (started beside (c))")
+    out["launcher_loss"] = finish_train_launcher(launcher)
     out["launcher_s"] = time.time() - t
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 22: KV cache variants on gemma2-9b (ring caches, swa_override, fp8)
+# ---------------------------------------------------------------------------
+
+GEMMA = "gemma2-9b"
+# (b): gemma2-9b at full widths cut to 8 layers (4 units of a local and a
+# global layer, the cut after 3: three head units per owner, one trunk
+# unit), one row of 8448 tokens: each owner's 4224 and the trunk's 8448
+# pass the 4096-token window, so the ring prefills roll by 128 and 256
+# and every decode step wraps; 16 decode steps, teacher-forced
+RING_LAYERS, RING_CUT, RING_CTX, RING_STEPS = 8, 3, 8448, 16
+# (b)'s limits on each pair's largest logit gap over the prefill and the
+# 16 steps, as multiples of the bf16 floor (the bf16 run on full caches
+# against the f32 run on full caches, same inputs): two bf16 runs of one
+# function part by at most the sum of their roundings (2x the floor);
+# an fp8 e4m3 cache rounds keys and values with a unit roundoff of 2^-4,
+# 16x bf16's 2^-8
+BF16_PAIR_LIMIT, FP8_PAIR_LIMIT = 2.0, 16.0
+
+
+def kv_bytes(caches):
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(caches))
+
+
+def teacher_forced(model, params, toks, steps, on_step=None, **opts):
+    """Prefill ``toks[:, :S]`` (S = its length - ``steps``) on the params'
+    device, then ``steps`` decode steps fed the next tokens of ``toks``
+    (``opts``: ``cache_init``'s ring, swa_override, cache_dtype; the
+    override goes to every program).  ``on_step(t, caches)`` runs after
+    the prefill (t = 0) and after each step t.  Returns (last-token
+    logits of the prefill and each step (steps + 1, B, vocab) f32, the
+    final caches, their bytes)."""
+    import numpy as np
+    import torch
+    from repro_torch.tree import tree_leaves
+    dev = tree_leaves(params)[0].device
+    ov = opts.get("swa_override") or None
+    B, P = toks.shape[0], model.P
+    S = toks.shape[1] - steps
+    ot = torch.from_numpy(np.ascontiguousarray(
+        toks[:, :S].reshape(B, P, S // P).transpose(1, 0, 2))).to(dev)
+    nxt = torch.from_numpy(toks[:, S:].astype(np.int32)).to(dev)
+    with torch.inference_mode():
+        caches = model.cache_init(B, S, n_new=steps + 1, device=dev, **opts)
+        nbytes = kv_bytes(caches)
+        logits, caches = model.prefill(params, {"owner_tokens": ot}, caches,
+                                       swa_override=ov)
+        out = [logits.clone()]      # a view of every position's logits
+        del logits
+        if on_step is not None:
+            on_step(0, caches)
+        for t in range(steps):
+            logits, caches = model.decode_step(
+                params, caches, nxt[:, t:t + 1], S + t, S // P + t,
+                swa_override=ov)
+            out.append(logits)
+            if on_step is not None:
+                on_step(t + 1, caches)
+        out = torch.stack(out).float()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out, caches, nbytes
+
+
+def ring_span(caches, ring_slots, n0, steps):
+    """From a run on full caches (its final ``caches``), each KV leaf that
+    the ring run trims to W slots (``ring_slots``: the ring run's slot
+    count per leaf, by part): positions [n0 - W, n0 + steps), every
+    position a ring of W slots holds after the prefill or a step (``n0``:
+    the positions the prefill wrote, by part); None where not trimmed."""
+    from repro_torch.tree import tree_leaves
+    return {part: [None if W == a.shape[-3] else
+                   a.narrow(-3, n0[part] - W, W + steps).clone()
+                   for a, W in zip(tree_leaves(caches[part]),
+                                   ring_slots[part])]
+            for part in ("heads", "trunk")}
+
+
+def ring_checker(span, f32_span, n0, tally):
+    """``on_step`` for a ring run: after the prefill and after step t,
+    every trimmed leaf slot by slot against ``span`` (the full-cache run
+    of the same inputs, ``ring_span``), position p read at slot p mod W.
+    Positions the prefill wrote must be equal bitwise (both prefills run
+    the same kernel tiles over the same keys); so must the decode
+    positions of the head's first unit's local layer, which the token's
+    embedding alone feeds.  The decode positions of the other layers
+    follow attention over the slots in ring order, not position order,
+    so they are held to ``BF16_PAIR_LIMIT`` x the bf16 floor of the same
+    positions (the full run against ``f32_span``, the f32 run's on full
+    caches with the same options).  A slot
+    written or rolled wrong holds another token's key: off by the keys'
+    own size."""
+    import torch
+    from repro_torch.tree import tree_leaves
+
+    def check(t, caches):
+        for part in ("heads", "trunk"):
+            for i, (a, want, w32) in enumerate(zip(
+                    tree_leaves(caches[part]), span[part], f32_span[part])):
+                if want is None:
+                    continue
+                W = a.shape[-3]
+                n = n0[part] + t
+                held = a.index_select(-3, torch.arange(
+                    n - W, n, device=a.device) % W)
+                want = want.narrow(-3, t, W)
+                pre = W - t            # held positions the prefill wrote
+                if not torch.equal(held.narrow(-3, 0, pre),
+                                   want.narrow(-3, 0, pre)):
+                    raise AssertionError(
+                        f"22(b) ring cache {part} leaf {i} after step {t}: "
+                        f"a slot the prefill wrote != the full cache's "
+                        f"position, bitwise")
+                tally["bitwise"] += pre * want[..., 0, :, :].numel()
+                if t == 0:
+                    continue
+                got_d = held.narrow(-3, pre, t).float()
+                want_d = want.narrow(-3, pre, t).float()
+                if part == "heads" and i < 2:      # b0 (local) k and v
+                    if not torch.equal(got_d[:, 0], want_d[:, 0]):
+                        raise AssertionError(
+                            f"22(b) ring cache: the first local layer's "
+                            f"decode slots != the full cache's, bitwise "
+                            f"(step {t})")
+                gap = (got_d - want_d).abs().max().item()
+                floor = (want_d - w32.narrow(-3, W, t).float()
+                         ).abs().max().item()
+                tally["gap"] = max(tally["gap"], gap / max(floor, 1e-30))
+                if not gap <= BF16_PAIR_LIMIT * floor:
+                    raise AssertionError(
+                        f"22(b) ring cache {part} leaf {i} step {t}: decode "
+                        f"slots off the full cache's by {gap:.4e}, past "
+                        f"{BF16_PAIR_LIMIT:g} x their bf16 floor "
+                        f"{floor:.4e}")
+        tally["checks"] += 1
+    return check
+
+
+def ring_rows_equal_scalar(model, params, caches, tok, pos, pos_local):
+    """One more decode step on the B = 1 ring ``caches`` doubled to two
+    rows at different positions (``pos``, ``pos_local``: one per row;
+    ``tok`` (2, 1)) through ``RowPositions``, against a scalar call at
+    each row's position on the same two rows: that row's logits and
+    caches bitwise.  The per-row call's launches are counted from 0: one
+    per-row decode launch for each attention layer, no other attention
+    launch.  Returns the count."""
+    import torch
+    from repro_torch.models.attention import RowPositions
+    from repro_torch.tree import tree_leaves, tree_map
+    two = tree_map(lambda a: torch.cat([a, a], dim=-4), caches)
+    n_attn = ((model.P * model.n_head_units + model.n_trunk_units)
+              * len(model.cfg.block_pattern))
+    with torch.inference_mode():
+        got_c = tree_map(torch.clone, two)
+        reset_counts()
+        got, got_c = model.decode_step(
+            params, got_c, tok, RowPositions(pos, tok.device),
+            RowPositions(pos_local, tok.device))
+        counts = read_counts()
+        for b in range(2):
+            c = tree_map(torch.clone, two)
+            want, c = model.decode_step(params, c, tok, pos[b], pos_local[b])
+            torch.cuda.synchronize()
+            same = torch.equal(got[b], want[b]) and all(
+                torch.equal(x.select(-4, b), y.select(-4, b))
+                for x, y in zip(tree_leaves(got_c), tree_leaves(c)))
+            if not same:
+                raise AssertionError(
+                    f"per-row ring decode row {b} (position {pos[b]}, "
+                    f"{pos_local[b]}) != the scalar call, bitwise")
+    n = counts["block_attention.per_row"]
+    if n != n_attn or counts["block_attention"] != n_attn:
+        raise AssertionError(
+            f"per-row ring decode: {n} per-row launches of "
+            f"{counts['block_attention']} attention launches, needed "
+            f"exactly {n_attn} of {n_attn}")
+    return n
+
+
+def ring_caches_in_earnest():
+    """22(b): the KV cache variants at full widths past the window."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import SplitModel
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(GEMMA).replace(n_layers=RING_LAYERS).with_split(
+        cut_layer=RING_CUT)
+    model = SplitModel(cfg)
+    f32_model = SplitModel(cfg.replace(compute_dtype="float32"))
+    t = time.time()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    W = cfg.swa_window
+    print(f"  (b) {GEMMA} at full widths, {RING_LAYERS} layers ("
+          f"{model.n_head_units} head units x {model.P} owners, "
+          f"{model.n_trunk_units} trunk unit; {n_params / 1e9:.3f} G "
+          f"params, {4 * n_params / 1e9:.2f} GB, {time.time() - t:.2f} s), "
+          f"one row of {RING_CTX} tokens (owner slices of "
+          f"{RING_CTX // model.P}, window {W}: ring prefills roll by "
+          f"{RING_CTX // model.P % W} and {RING_CTX % W}), {RING_STEPS} "
+          f"decode steps teacher-forced")
+    toks = lm_contexts(cfg.vocab, 1, RING_CTX + RING_STEPS, seed=3)
+    fp8 = torch.float8_e4m3fn
+    ov = dict(swa_override=W)
+    variants = [("f32 full", f32_model, {}), ("full", model, {}),
+                ("ring", model, dict(ring=True)),
+                ("f32 override", f32_model, ov), ("override", model, ov),
+                ("override ring", model, dict(ring=True, **ov)),
+                ("fp8 ring", model, dict(ring=True, cache_dtype=fp8))]
+    S = RING_CTX
+    n0 = {"heads": S // model.P, "trunk": S}    # positions a prefill writes
+
+    def slots_of(opts):
+        c = model.cache_init(1, S, n_new=RING_STEPS + 1, device="meta",
+                             **opts)
+        return {part: [a.shape[-3] for a in tree_leaves(c[part])]
+                for part in ("heads", "trunk")}
+    trim = {"ring": slots_of(dict(ring=True)),
+            "override ring": slots_of(dict(ring=True, **ov))}
+    # each ring run checked slot by slot against two full-cache runs
+    against = {"ring": ("full", "f32 full"),
+               "override ring": ("override", "f32 override")}
+    span_for = {f: r for r, fs in against.items() for f in fs}
+    spans, tally = {}, {"bitwise": 0, "gap": 0.0, "checks": 0}
+    logits, nbytes, out = {}, {}, {"params": n_params, "runs": {}}
+    for name, m, opts in variants:
+        t = time.time()
+        check = (ring_checker(*(spans.pop(f) for f in against[name]), n0,
+                              tally) if name in against else None)
+        logits[name], caches, nbytes[name] = teacher_forced(
+            m, params, toks, RING_STEPS, on_step=check, **opts)
+        if name in span_for:
+            spans[name] = ring_span(caches, trim[span_for[name]], n0,
+                                    RING_STEPS)
+        if name == "ring":
+            # row 0 continues the sequence (the ring wraps); row 1 sits
+            # inside the window (fewer valid slots, another write slot)
+            pos = [S + RING_STEPS, W - 96]
+            pos_local = [S // m.P + RING_STEPS, W // 2 - 48]
+            tok = torch.tensor([[int(toks[0, -1])], [int(toks[0, 0])]],
+                               dtype=torch.int32, device="cuda")
+            n = ring_rows_equal_scalar(m, params, caches, tok, pos,
+                                       pos_local)
+            out["per_row_launches"] = n
+            print(f"    one more ring decode step, two rows at positions "
+                  f"{pos} (owner {pos_local}) through RowPositions == a "
+                  f"scalar call at each row's position, logits and caches "
+                  f"bitwise; {n} per-row decode launches, counted from 0 "
+                  f"(one per attention layer, as needed)")
+        del caches, check
+        wall = time.time() - t
+        out["runs"][name] = {"cache_bytes": nbytes[name], "s": wall}
+        print(f"    {name}: KV cache {nbytes[name]} bytes; prefill + "
+              f"{RING_STEPS} steps in {wall:.2f} s")
+    out["ring_slots"] = tally
+    print(f"    ring caches slot by slot against the full caches' positions"
+          f" after each prefill and step ({tally['checks']} checks): "
+          f"{tally['bitwise']} prefill-written values bitwise equal; the "
+          f"decode slots past the embedding-fed layer at most "
+          f"{tally['gap']:.3f} x their bf16 floor (limit "
+          f"{BF16_PAIR_LIMIT:g} x)")
+    floor = (logits["full"] - logits["f32 full"]).abs().max().item()
+    out["bf16_floor"] = floor
+    print(f"    bf16 floor (full caches, bf16 vs f32 compute): largest "
+          f"logit gap {floor:.4e} (logits up to "
+          f"{logits['f32 full'].abs().max().item():.3f})")
+    for a, b, lim in (("ring", "full", BF16_PAIR_LIMIT),
+                      ("override ring", "override", BF16_PAIR_LIMIT),
+                      ("fp8 ring", "ring", FP8_PAIR_LIMIT)):
+        gap = (logits[a] - logits[b]).abs().max().item()
+        out[f"{a} vs {b}"] = {"gap": gap, "limit": lim * floor}
+        print(f"    {a} vs {b}: largest logit gap {gap:.4e} = "
+              f"{gap / floor:.3f} x the floor (limit {lim:g} x = "
+              f"{lim * floor:.4e})")
+        if not gap <= lim * floor:
+            raise AssertionError(f"22(b) {a} vs {b}: logit gap {gap:.4e} "
+                                 f"past {lim:g} x the bf16 floor")
+    if not (nbytes["ring"] < nbytes["full"]
+            and nbytes["override ring"] < nbytes["override"]
+            and 2 * nbytes["fp8 ring"] == nbytes["ring"]):
+        raise AssertionError(f"22(b) cache bytes: {nbytes}")
+    print(f"    cache bytes: ring {nbytes['ring'] / nbytes['full']:.4f} of "
+          f"full, override ring "
+          f"{nbytes['override ring'] / nbytes['override']:.4f} of "
+          f"override, fp8 ring exactly half of bf16 ring")
+    del params
+    free_card()
+    return out
+
+
+def gemma_card_vs_cpu():
+    """22(c): reduced gemma2 (f32, window 64, 4 layers) on ring caches,
+    contexts of 160 (owner slices of 80: every ring wraps), prefill and 5
+    teacher-forced steps, card against CPU within rel 1e-4; the engine's
+    wave and continuous tokens on the card equal the CPU's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.engine import ServingEngine
+    from repro_torch.models.model import SplitModel
+    from repro_torch.tree import tree_map
+    cfg = get_config(GEMMA, reduced=True).replace(n_layers=4,
+                                                  compute_dtype="float32")
+    model = SplitModel(cfg)
+    cpu_params = model.init(torch.Generator().manual_seed(0))
+    card_params = tree_map(lambda a: a.cuda(), cpu_params)
+    C, steps = 160, 5
+    toks = lm_contexts(cfg.vocab, 2, C + steps, seed=4)
+    got = teacher_forced(model, card_params, toks, steps, ring=True)[0]
+    want = teacher_forced(model, cpu_params, toks, steps, ring=True)[0]
+    rel = ((got.cpu() - want).abs().max() / want.abs().max()).item()
+    ctxs = lm_contexts(cfg.vocab, 5, C, seed=5)
+    mixed = [2, 6, 1, 5, 3]
+    runs = {}
+    for dev, p in (("cuda", card_params), ("cpu", cpu_params)):
+        for sched in ("wave", "continuous"):
+            e = ServingEngine(model, p, batch_slots=2, ctx_len=C,
+                              max_new=6, ring_cache=True, scheduler=sched,
+                              transport="queue", device=dev)
+            rids = [e.submit(c, max_new=m) for c, m in zip(ctxs, mixed)]
+            res = e.run()
+            runs[dev, sched] = [res[r].generated for r in rids]
+    same = len({str(v) for v in runs.values()}) == 1
+    print(f"  (c) reduced {GEMMA} (f32, window {cfg.swa_window}, contexts "
+          f"of {C}, ring caches): card vs CPU logits over the prefill and "
+          f"{steps} steps max rel {rel:.3e} (limit 1e-4); engine tokens "
+          f"(wave, continuous) on the card == the CPU's: {same}")
+    if rel > 1e-4 or not same:
+        raise AssertionError("reduced gemma2: card and CPU disagree")
+    return {"rel": rel, "tokens_equal": same}
+
+
+def phase_gemma():
+    """Phase 22: gemma2-9b served at full width and depth on ring caches;
+    the cache variants at full widths past the window; reduced gemma2
+    card vs CPU."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    out = {}
+    free_card()                  # what earlier phases left cached
+    print(f"  free before (a): {torch.cuda.memory_allocated() / 1e9:.2f} "
+          f"GB allocated")
+    t = time.time()
+    a = phase_serving(GEMMA, ring_cache=True)
+    model = a.pop("model")
+    del a["params"]              # 52 GB: (b) needs the card
+    slots = sorted({x.shape[-3] for x in tree_leaves(model.cache_init(
+        SLOTS, CTX, n_new=NEW + 1, ring=True, device="meta"))})
+    print(f"  every local layer on the ring path: KV caches of {slots} "
+          f"slots, none past the {model.cfg.swa_window}-token window")
+    if max(slots) > model.cfg.swa_window:
+        raise AssertionError("22(a): a local layer off the ring path")
+    del model
+    free_card()
+    out["serving"] = a
+    out["serving_s"] = time.time() - t
+    t = time.time()
+    out["ring"] = ring_caches_in_earnest()
+    out["ring_s"] = time.time() - t
+    t = time.time()
+    out["card_vs_cpu"] = gemma_card_vs_cpu()
+    out["card_vs_cpu_s"] = time.time() - t
     return out
 
 
@@ -4251,6 +4895,13 @@ def main():
     zamba_train = phase_zamba_train(bw, flops)
     print(f"  phase wall {time.time() - t:.2f} s")
 
+    t = time.time()
+    print(f"== 22. KV cache variants on {GEMMA}: served at full width and "
+          "depth on ring caches, ring / swa_override / fp8 caches past the "
+          "window, card vs CPU")
+    gemma = phase_gemma()
+    print(f"  phase wall {time.time() - t:.2f} s")
+
     print("== 14. results")
     src = "src/repro_torch/csrc/quantize.cu"
     tpu = "src/repro/kernels/quantize/kernel.py"
@@ -4381,6 +5032,22 @@ def main():
         # and over phase 21(b)'s (zamba2-2.7b)
         e["zamba2_train_launches"] = sum(c.get(e["name"], 0) for c in
                                          zamba_train["counts"].values())
+        # and in phase 22(a)'s gemma2-9b wave run (which puts the fma
+        # route on a serving path)
+        e["gemma2_launches"] = gemma["serving"]["counts"].get(e["name"], 0)
+        e["on_path"] = e["on_path"] or e["gemma2_launches"] > 0
+    # gemma2's attention at hd 256 (phase 6): the fma route's prefill,
+    # the decode route's ring decode (bidir) and its per-row lengths
+    for e in entries:
+        shape = {"block_attention.fma": GEMMA_HEADLINE,
+                 "block_attention.decode": "gemma2_trunk_decode_ring",
+                 "block_attention.per_row": "gemma2_ring_per_row"}.get(
+            e["name"])
+        if shape is not None:
+            e["gemma2"] = dict(att["rows"][shape], shape_name=shape)
+    print(json.dumps({"gemma2": {k: v if k != "serving" else {
+        x: y for x, y in v.items() if x != "counts"}
+        for k, v in gemma.items()}}))
     print(json.dumps({"lm_train": {k: v for k, v in lm_train.items()
                                    if k != "counts"}}))
     print(json.dumps({"zamba2_train": {k: v for k, v in zamba_train.items()

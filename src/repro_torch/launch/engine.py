@@ -45,9 +45,14 @@ with a service-wide cut cache.  Admission is a bounded queue per session
 the in-flight and queued requests one by one (``Result.error``) and the
 engine keeps serving.
 
+``ring_cache=True`` trims every sliding-window layer's KV cache to a
+ring buffer of its window (``SplitModel.cache_init(ring=True)``) in
+every cache the engine makes: a wave's, the continuous run's live
+caches and each refill's.  (A local layer whose cache holds at most its
+window takes the ring path whatever the flag, as in the reference.)
+
 The engine runs on the CUDA card unless built with ``device="cpu"``;
-the params must already live on that device.  Ring caches (ROADMAP.md
-item 12) raise ``NotImplementedError``.
+the params must already live on that device.
 """
 from __future__ import annotations
 
@@ -60,7 +65,6 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import not_ported
 from repro_torch.device import resolve_device
 from repro_torch.federation import batching, cut_codec
 from repro_torch.federation import transport as transport_mod
@@ -198,14 +202,13 @@ class ServingEngine:
         multiplexes sessions onto one channel."""
         if scheduler not in ("wave", "continuous"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
-        if ring_cache:
-            raise not_ported("ring caches", "item 12, KV cache variants")
         self.device = resolve_device(device)
         leaf = tree_leaves(params)[0]
         if leaf.device.type != self.device.type:
             raise ValueError(f"params live on {leaf.device}, the engine "
                              f"on {self.device}")
         self.model, self.params = model, params
+        self.ring = ring_cache
         self.B, self.S, self.max_new = batch_slots, ctx_len, max_new
         self.P = model.cfg.split.n_owners
         self.eos = eos_token
@@ -374,7 +377,7 @@ class ServingEngine:
         toks = batching.pad_contexts([r.tokens for r in wave], B, S,
                                      pad=self.pad, pad_side="left")
         caches = self.model.cache_init(B, S, n_new=self.max_new + 1,
-                                       device=self.device)
+                                       device=self.device, ring=self.ring)
         owner_tokens = batching.serving_owner_slices(toks, self.P,
                                                      self.device)
         if self._ep_owner is not None:
@@ -424,11 +427,11 @@ class ServingEngine:
 
     def _entity_tag(self, row: np.ndarray) -> str:
         """Cache key = content tag x everything that changes the stored
-        rows bit for bit: geometry, codec, and which prefill program
-        (fused or transport-split) produced them."""
+        rows bit for bit: geometry, ring caches, codec, and which prefill
+        program (fused or transport-split) produced them."""
         path = "t" if self._ep_owner is not None else "l"
-        return (f"{self.B}x{self.S}+{self.max_new}:0:{path}:"
-                f"{self._codec.name}:{batching.context_tag(row)}")
+        return (f"{self.B}x{self.S}+{self.max_new}:{int(self.ring)}:"
+                f"{path}:{self._codec.name}:{batching.context_tag(row)}")
 
     def _admit(self, free: List[int]):
         """Pop up to ``len(free)`` queued requests into free slots:
@@ -478,7 +481,7 @@ class ServingEngine:
             if entry is None:
                 ctx[slot] = row
         fresh = self.model.cache_init(B, S, n_new=self.max_new + 1,
-                                      device=self.device)
+                                      device=self.device, ring=self.ring)
         owner_tokens = batching.serving_owner_slices(ctx, P, self.device)
         idx_np = np.asarray([s for s, _ in fresh_slots], np.int64)
         ship = {"fresh": fresh, "idx": self._on_device(idx_np),
@@ -586,7 +589,7 @@ class ServingEngine:
         t0 = time.time()
         B = self.B
         caches = self.model.cache_init(B, self.S, n_new=self.max_new + 1,
-                                       device=self.device)
+                                       device=self.device, ring=self.ring)
         slots: List[Optional[Request]] = [None] * B
         results: Dict[int, Result] = {}
         gen = np.zeros(B, np.int64)        # tokens appended per slot

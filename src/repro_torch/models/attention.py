@@ -14,6 +14,13 @@ a cache is allocated once per request wave and written at ``pos``.  A
 decode step of continuous batching gives every row its own position
 (:class:`RowPositions`): each row's key and value land at its position,
 and the kernel masks each row at its own length.
+
+A ``local`` layer whose cache holds at most ``window`` slots keeps a
+ring buffer (:func:`update_kv_cache_ring`, slot = position mod W), as
+in the reference: a decode step attends ``bidir`` over the valid slots,
+a prefill attends over its own keys with the local mask.  A cache in
+``float8_e4m3fn`` stores what JAX's cast stores, byte for byte
+(:func:`to_cache_dtype`).
 """
 from __future__ import annotations
 
@@ -77,24 +84,80 @@ def init_kv_cache(batch: int, s_max: int, n_kv: int, head_dim: int,
                              device=device)}
 
 
-def update_kv_cache(cache, k_new, v_new, pos):
-    """Write k/v (B, Sq, nkv, hd) at position ``pos``, in place; with
-    :class:`RowPositions` (Sq = 1), row b's key and value at position
-    ``pos.host[b]``: one plain copy per row.  (An index_put would be one
-    call, but in deterministic mode the card runs it through a sort and
-    bounds checks: ~370 us of host time per call on an H100 host.)"""
+#: the largest magnitude that JAX's cast to float8_e4m3fn rounds to a
+#: finite value: past it (448 + half an ulp of 32) the cast gives NaN,
+#: where torch's saturates to +-448
+FP8_E4M3_NAN_PAST = 464.0
+
+
+def to_cache_dtype(x, dtype):
+    """``x`` cast to a cache's ``dtype``.  For ``float8_e4m3fn`` the
+    bytes are the reference's (``jnp.astype``): a NaN, or a value whose
+    magnitude passes 464 (inf included), becomes the NaN byte of its
+    sign (0x7f / 0xff), as JAX's cast rounds it past 448 and has no inf;
+    the rest round to nearest even in both packages.  The NaN bytes are
+    written explicitly: torch's cast saturates past 448, and on the card
+    drops a NaN's sign."""
+    if x.dtype == dtype:
+        return x
+    y = x.to(dtype)
+    if dtype != torch.float8_e4m3fn:
+        return y
+    nan = torch.isnan(x) | (x.abs() > FP8_E4M3_NAN_PAST)
+    code = torch.where(torch.signbit(x), 0xff, 0x7f).to(torch.uint8)
+    return torch.where(nan, code, y.view(torch.uint8)).view(dtype)
+
+
+def _write(cache, k_new, v_new, at):
+    """Write k/v (B, Sq, nkv, hd) into the cache in place: at slot ``at``
+    (an int) for every row, or at ``at[b]`` for row b (a list of ints,
+    Sq = 1: one plain copy per row — an index_put would be one call, but
+    in deterministic mode the card runs it through a sort and bounds
+    checks, ~370 us of host time per call on an H100 host)."""
+    k_new = to_cache_dtype(k_new, cache["k"].dtype)
+    v_new = to_cache_dtype(v_new, cache["v"].dtype)
     Sq = k_new.shape[1]
-    if isinstance(pos, RowPositions):
+    if isinstance(at, list):
         if Sq != 1:
             raise ValueError(f"per-row positions take one query per row, "
                              f"got {Sq}")
-        for b, p in enumerate(pos.host.tolist()):
+        for b, p in enumerate(at):
             cache["k"][b, p].copy_(k_new[b, 0])
             cache["v"][b, p].copy_(v_new[b, 0])
-        return cache
-    cache["k"][:, pos:pos + Sq] = k_new
-    cache["v"][:, pos:pos + Sq] = v_new
+    else:
+        cache["k"][:, at:at + Sq] = k_new
+        cache["v"][:, at:at + Sq] = v_new
     return cache
+
+
+def update_kv_cache(cache, k_new, v_new, pos):
+    """Write k/v (B, Sq, nkv, hd) at position ``pos``, in place; with
+    :class:`RowPositions` (Sq = 1), row b's key and value at position
+    ``pos.host[b]``."""
+    if isinstance(pos, RowPositions):
+        return _write(cache, k_new, v_new, pos.host.tolist())
+    return _write(cache, k_new, v_new, int(pos))
+
+
+def update_kv_cache_ring(cache, k_new, v_new, pos):
+    """Ring-buffer write for window-trimmed caches (W slots, W =
+    window), in place: slot(p) = p mod W.
+
+    Decode (Sq == 1): write at slot pos % W (row b at ``pos.host[b] %
+    W`` for :class:`RowPositions`).  Prefill with Sq >= W (from position
+    0): keep only the last W tokens, rolled so the element at slot i has
+    position p = i (mod W).  A shorter prefill from ``pos`` is a plain
+    write (no wrap), as in the reference."""
+    W = cache["k"].shape[1]
+    Sq = k_new.shape[1]
+    if Sq == 1:
+        if isinstance(pos, RowPositions):
+            return _write(cache, k_new, v_new, (pos.host % W).tolist())
+        return _write(cache, k_new, v_new, int(pos) % W)
+    if Sq >= W:
+        return _write(cache, torch.roll(k_new[:, -W:], Sq % W, dims=1),
+                      torch.roll(v_new[:, -W:], Sq % W, dims=1), 0)
+    return update_kv_cache(cache, k_new, v_new, pos)
 
 
 def attn_apply(params, x, *, cfg, kind: str, positions=None, window: int = 0,
@@ -108,7 +171,8 @@ def attn_apply(params, x, *, cfg, kind: str, positions=None, window: int = 0,
     """
     if kv_x is not None:
         raise not_ported("cross-attention (kv_x)",
-                         "item 12, KV cache variants")
+                         "item 8, the other architecture families "
+                         "(enc-dec: whisper-tiny)")
     B, Sq, _ = x.shape
     hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     q = layers.dense_apply(params["wq"], x).reshape(B, Sq, nh, hd)
@@ -125,13 +189,27 @@ def attn_apply(params, x, *, cfg, kind: str, positions=None, window: int = 0,
 
     q_offset, kv_len = 0, None
     if cache is not None:
-        if kind == "local" and window > 0 and cache["k"].shape[1] <= window:
-            raise not_ported("ring-buffer KV caches",
-                             "item 12, KV cache variants")
-        cache = update_kv_cache(cache, k, v, pos)
-        k, v = cache["k"], cache["v"]
-        q_offset = pos.host if isinstance(pos, RowPositions) else pos
-        kv_len = q_offset + Sq
+        # window-trimmed ring cache: a local-attention layer whose cache
+        # holds at most `window` slots (slot = position mod W)
+        W = cache["k"].shape[1]
+        if kind == "local" and window > 0 and W <= window:
+            cache = update_kv_cache_ring(cache, k, v, pos)
+            if Sq == 1:
+                # the slots hold the last min(pos + 1, W) positions in
+                # some order, all inside the window: the mask is slot
+                # validity alone (rope was applied at the write)
+                k, v = cache["k"], cache["v"]
+                kind, window = "bidir", 0
+                kv_len = (torch.clamp(pos.host + 1, max=W)
+                          if isinstance(pos, RowPositions)
+                          else min(int(pos) + 1, W))
+            # prefill: attend over the in-call k/v with the plain local
+            # mask; the ring cache is storage for later decode steps
+        else:
+            cache = update_kv_cache(cache, k, v, pos)
+            k, v = cache["k"], cache["v"]
+            q_offset = pos.host if isinstance(pos, RowPositions) else pos
+            kv_len = q_offset + Sq
 
     k, v = k.to(q.dtype), v.to(q.dtype)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

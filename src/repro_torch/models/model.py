@@ -40,8 +40,16 @@ position: the wave engine) or as one position per batch row (continuous
 batching: a (B,) int array or CPU tensor, or a
 :class:`~repro_torch.models.attention.RowPositions`).
 
+KV cache variants (as in the reference): ``cache_init(ring=True)``
+trims sliding-window layers' caches to ring buffers of their window,
+``swa_override`` (on ``cache_init`` and every forward, prefill and
+decode program) runs ``attn:global`` and ``shared_attn`` as
+sliding-window attention with that window, and ``cache_dtype`` stores
+the KV caches in another dtype (``torch.float8_e4m3fn``: half the bytes
+of bf16).
+
 Only the text modality is ported; the vision/audio modalities and the
-encoder-decoder raise, and so do ring caches (in the engine).
+encoder-decoder raise.
 """
 from __future__ import annotations
 
@@ -122,19 +130,21 @@ class SplitModel:
             return offset.dev[:, None] + base
         return offset + base
 
-    def _head_one(self, hp, owner_inputs, positions, caches=None, pos=None):
+    def _head_one(self, hp, owner_inputs, positions, caches=None, pos=None,
+                  swa_override=None):
         cfg = self.cfg
         x = layers.embed_apply(hp["embed"], owner_inputs, _cdtype(cfg))
         if cfg.rope == "sincos":
             raise not_ported("sin-cos positions", "item 8")
         x, caches = transformer.stack_apply(
             hp["blocks"], x, cfg=cfg, positions=positions, caches=caches,
-            pos=pos)
+            pos=pos, swa_override=swa_override)
         if cfg.split.cut_dim > 0:
             x = layers.dense_apply(hp["cut_proj"], x)
         return x, caches
 
-    def heads_forward(self, heads, owner_inputs, *, caches=None, pos=None):
+    def heads_forward(self, heads, owner_inputs, *, caches=None, pos=None,
+                      swa_override=None):
         """owner_inputs: (P, B, S_p) token ids.  Returns (cut (P, B, S_p,
         k), caches); the head caches (leaves (P, n_units, ...)) are
         updated in place."""
@@ -145,7 +155,8 @@ class SplitModel:
                                         owner_inputs.device)
             hc = None if caches is None else transformer.unit(caches, p)
             cut, _ = self._head_one(transformer.unit(heads, p),
-                                    owner_inputs[p], positions, hc, pos)
+                                    owner_inputs[p], positions, hc, pos,
+                                    swa_override)
             cuts.append(cut)
         return torch.stack(cuts), caches
 
@@ -176,7 +187,8 @@ class SplitModel:
 
     # ---------------------------------------------------------- trunk pass
 
-    def trunk_forward(self, trunk, z, *, caches=None, pos=None):
+    def trunk_forward(self, trunk, z, *, caches=None, pos=None,
+                      swa_override=None):
         """z: combined cut (B, S, k).  Returns (logits (B, S, vocab) f32,
         caches)."""
         cfg = self.cfg
@@ -190,7 +202,7 @@ class SplitModel:
             positions = pos + positions
         x, caches = transformer.stack_apply(
             trunk["blocks"], z, cfg=cfg, positions=positions, caches=caches,
-            pos=pos)
+            pos=pos, swa_override=swa_override)
         x = layers.norm_apply(trunk["out_norm"], x, cfg.norm, cfg.norm_eps)
         logits = layers.dense_apply(trunk["lm_head"], x.to(torch.float32))
         logits = layers.softcap(logits, cfg.logit_softcap)
@@ -212,15 +224,17 @@ class SplitModel:
         device (no block the port builds has one)."""
         return torch.zeros((), dtype=torch.float32, device=like.device)
 
-    def forward(self, params, batch, gen=None):
+    def forward(self, params, batch, gen=None, *, swa_override=None):
         """Full-sequence forward (train / prefill without a cache).
         Returns ``(logits (B, S, vocab) f32, aux)``: the heads' aux
         summed over owners plus the trunk's.  ``gen``: the cut noise's
         generator (see :meth:`combine`)."""
         cut, _ = self.heads_forward(params["heads"],
-                                    self.split_owner_inputs(batch))
+                                    self.split_owner_inputs(batch),
+                                    swa_override=swa_override)
         z = self.combine(cut.to(self.cdtype), gen=gen)
-        logits, _ = self.trunk_forward(params["trunk"], z)
+        logits, _ = self.trunk_forward(params["trunk"], z,
+                                       swa_override=swa_override)
         return logits, self.aux_zero(logits) + self.aux_zero(logits)
 
     @staticmethod
@@ -239,40 +253,51 @@ class SplitModel:
         n = valid.sum().clamp(min=1)
         return -(ll * valid).sum() / n
 
-    def loss_fn(self, params, batch, gen=None):
+    def loss_fn(self, params, batch, gen=None, *, swa_override=None):
         """``(ce + aux, {"loss": ce, "aux": aux})``."""
-        logits, aux = self.forward(params, batch, gen=gen)
+        logits, aux = self.forward(params, batch, gen=gen,
+                                   swa_override=swa_override)
         loss = self.ce_loss(logits, batch["labels"])
         return loss + aux, {"loss": loss, "aux": aux}
 
     # ------------------------------------------------------------ serving
 
     def cache_init(self, batch_size: int, s_max: int, n_new: int = 8,
-                   device="cpu"):
-        """Decode caches: KV caches in the compute dtype, Mamba2 caches
-        (conv window, SSM state) in f32 whatever it is, as in the
-        reference.  The trunk cache covers the combined sequence; head
-        caches (stacked over owners) cover each owner's slice + room for
-        generated tokens."""
+                   device="cpu", *, ring: bool = False,
+                   swa_override: int = 0, cache_dtype=None):
+        """Decode caches: KV caches in ``cache_dtype`` (a torch dtype or
+        its name, e.g. ``torch.float8_e4m3fn``; default the compute
+        dtype), Mamba2 caches (conv window, SSM state) in f32 whatever it
+        is, as in the reference.  The trunk cache covers the combined
+        sequence; head caches (stacked over owners) cover each owner's
+        slice + room for generated tokens.  ``ring`` / ``swa_override``:
+        see ``transformer.stack_cache_init``."""
         cfg = self.cfg
         dt = _cdtype(cfg)
+        if cache_dtype is not None:
+            dt = (layers.dtype_of(cache_dtype)
+                  if isinstance(cache_dtype, str) else cache_dtype)
+        kw = dict(ring=ring, swa_override=swa_override)
         s_head = s_max // self.P + n_new
         one = transformer.stack_cache_init(
-            batch_size, cfg, self.n_head_units, s_head, dt, device)
+            batch_size, cfg, self.n_head_units, s_head, dt, device, **kw)
         heads = tree_map(
             lambda a: a[None].repeat((self.P,) + (1,) * a.dim()), one)
         trunk = transformer.stack_cache_init(
-            batch_size, cfg, self.n_trunk_units, s_max + n_new, dt, device)
+            batch_size, cfg, self.n_trunk_units, s_max + n_new, dt, device,
+            **kw)
         return {"heads": heads, "trunk": trunk}
 
-    def prefill(self, params, batch, caches):
+    def prefill(self, params, batch, caches, *, swa_override=None):
         """Process the full context, filling the caches.  Returns
         (last-token logits, caches)."""
         cut, hc = self.heads_forward(params["heads"],
                                      self.split_owner_inputs(batch),
-                                     caches=caches["heads"], pos=0)
+                                     caches=caches["heads"], pos=0,
+                                     swa_override=swa_override)
         logits, tc = self.trunk_forward(params["trunk"], self.combine(cut),
-                                        caches=caches["trunk"], pos=0)
+                                        caches=caches["trunk"], pos=0,
+                                        swa_override=swa_override)
         return logits[:, -1], {"heads": hc, "trunk": tc}
 
     # ------------------------------------------- per-segment serving programs
@@ -281,41 +306,47 @@ class SplitModel:
     # engine serves through a transport-backed boundary it uses these
     # halves instead, so the cut activations are a real wire payload.
 
-    def prefill_heads(self, heads, owner_inputs, head_caches):
+    def prefill_heads(self, heads, owner_inputs, head_caches, *,
+                      swa_override=None):
         """Owner side of prefill: (cut (P, B, S_p, k), head caches)."""
         return self.heads_forward(heads, owner_inputs, caches=head_caches,
-                                  pos=0)
+                                  pos=0, swa_override=swa_override)
 
-    def prefill_trunk(self, trunk, cut, trunk_caches):
+    def prefill_trunk(self, trunk, cut, trunk_caches, *, swa_override=None):
         """Scientist side of prefill: combine the received cut and run
         the trunk.  Returns (last-token logits, trunk caches)."""
         logits, tc = self.trunk_forward(trunk, self.combine(cut),
-                                        caches=trunk_caches, pos=0)
+                                        caches=trunk_caches, pos=0,
+                                        swa_override=swa_override)
         return logits[:, -1], tc
 
-    def decode_heads(self, heads, token, head_caches, pos_local):
+    def decode_heads(self, heads, token, head_caches, pos_local, *,
+                     swa_override=None):
         """Owner side of one decode step: the generation owner's cut
         slice (B, 1, k) plus updated head caches.  ``pos_local``: an int,
         or one position per row (see the module docstring)."""
         pos_local = RowPositions.of(pos_local, token.device)
         oi = token[None].expand((self.P,) + tuple(token.shape))
         cut, hc = self.heads_forward(heads, oi, caches=head_caches,
-                                     pos=pos_local)
+                                     pos=pos_local,
+                                     swa_override=swa_override)
         return cut[0], hc
 
-    def decode_trunk(self, trunk, z, trunk_caches, pos):
+    def decode_trunk(self, trunk, z, trunk_caches, pos, *,
+                     swa_override=None):
         pos = RowPositions.of(pos, z.device)
         logits, tc = self.trunk_forward(trunk, z, caches=trunk_caches,
-                                        pos=pos)
+                                        pos=pos, swa_override=swa_override)
         return logits[:, -1], tc
 
-    def decode_step(self, params, caches, token, pos, pos_local):
+    def decode_step(self, params, caches, token, pos, pos_local, *,
+                    swa_override=None):
         """One new token (B, 1).  The generation owner is owner 0.
         ``pos``: global position in the combined sequence;
         ``pos_local``: position within owner 0's slice/cache; each an
         int, or one position per row."""
         z, hc = self.decode_heads(params["heads"], token, caches["heads"],
-                                  pos_local)
+                                  pos_local, swa_override=swa_override)
         logits, tc = self.decode_trunk(params["trunk"], z, caches["trunk"],
-                                       pos)
+                                       pos, swa_override=swa_override)
         return logits, {"heads": hc, "trunk": tc}

@@ -62,12 +62,16 @@ def block_init(gen, cfg, kind: str):
 
 
 def block_cache_init(batch: int, cfg, kind: str, s_max: int,
-                     dtype=torch.bfloat16, device="cpu"):
-    """KV caches in ``dtype``; the Mamba2 caches in f32 whatever it is."""
+                     dtype=torch.bfloat16, device="cpu",
+                     window_slots: int = 0):
+    """KV caches in ``dtype`` of ``min(s_max, window_slots)`` slots
+    (``s_max`` when ``window_slots`` is 0); the Mamba2 caches in f32
+    whatever ``dtype`` is."""
     _check_kind(cfg, kind)
     if kind == "mamba2":
         return ssm.mamba2_cache_init(batch, cfg, device)
-    return attention.init_kv_cache(batch, s_max, cfg.n_kv_heads,
+    s_eff = min(s_max, window_slots) if window_slots else s_max
+    return attention.init_kv_cache(batch, s_eff, cfg.n_kv_heads,
                                    cfg.head_dim, dtype, device)
 
 
@@ -116,11 +120,27 @@ def stack_init(gen, cfg, n_units: int):
 
 
 def stack_cache_init(batch: int, cfg, n_units: int, s_max: int,
-                     dtype=torch.bfloat16, device="cpu"):
-    """Caches of every unit, stacked on a leading dim (n_units, ...)."""
+                     dtype=torch.bfloat16, device="cpu", ring: bool = False,
+                     swa_override: int = 0):
+    """Caches of every unit, stacked on a leading dim (n_units, ...).
+    ``ring=True`` trims sliding-window layers' caches to their window
+    (ring-buffer slots): ``attn:local`` to ``cfg.swa_window``, and with
+    ``swa_override`` set (the long-context variant) ``attn:global`` and
+    ``shared_attn`` to that window."""
+
+    def slots(kind):
+        if not ring:
+            return 0
+        if kind == "attn:local":
+            return cfg.swa_window
+        if kind in ("attn:global", "shared_attn") and swa_override:
+            return swa_override
+        return 0
+
     return {f"b{i}": tree_map(
         lambda a: a[None].repeat((n_units,) + (1,) * a.dim()),
-        block_cache_init(batch, cfg, kind, s_max, dtype, device))
+        block_cache_init(batch, cfg, kind, s_max, dtype, device,
+                         window_slots=slots(kind)))
         for i, kind in enumerate(cfg.block_pattern)}
 
 
@@ -129,9 +149,12 @@ def unit(tree, u: int):
     return tree_map(lambda a: a[u], tree)
 
 
-def stack_apply(params, x, *, cfg, positions=None, caches=None, pos=None):
+def stack_apply(params, x, *, cfg, positions=None, caches=None, pos=None,
+                swa_override=None):
     """Apply all super-blocks.  Returns (x, caches); the caches are
-    updated in place."""
+    updated in place.  ``swa_override``: when set, every ``attn:global``
+    and ``shared_attn`` block runs as sliding-window attention with this
+    window (the long-context variant)."""
     units, shared = params["units"], params["shared"]
     n_units = _n_units(units)
     for u in range(n_units):
@@ -141,6 +164,8 @@ def stack_apply(params, x, *, cfg, positions=None, caches=None, pos=None):
             attn_kind, window = "causal", 0
             if kind == "attn:local":
                 attn_kind, window = "local", cfg.swa_window
+            elif kind in ("attn:global", "shared_attn") and swa_override:
+                attn_kind, window = "local", swa_override
             bp = (shared["shared_attn"] if kind == "shared_attn"
                   else up[f"b{i}"])
             x, _ = block_apply(

@@ -1403,3 +1403,81 @@ def test_scan_launches_from_two_threads_on_card(cuda_device, dtype):
     assert not errors, errors
     for S in calls:
         assert torch.equal(got[S], want[S])
+
+
+# ---------------------------------------------------------------------------
+# KV cache variants: fp8 writes and ring decode rows on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src", [torch.float32, torch.bfloat16])
+def test_fp8_cache_write_on_card_equals_cpu(cuda_device, src):
+    """A float8_e4m3fn cache written on the card holds the CPU write's
+    bytes (the reference's, ``test_torch_kv_cache.py``): every bf16 bit
+    pattern and f32 values at the overflow edge, NaN past 464 and 448 at
+    460 and 464."""
+    from repro_torch.models import attention
+    bits = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16)
+    every_bf16 = bits.view(torch.bfloat16).float()
+    edge = torch.tensor([448, 460, 463.99997, 464, 464.00003, 466, 470, 1e4,
+                         float("inf"), float("nan")])
+    x = torch.cat([every_bf16, edge, -edge])
+    x = torch.nn.functional.pad(x, (0, -x.numel() % 16)).reshape(
+        1, -1, 2, 8).to(src)
+    # negated once, on the CPU: both writes get the same bits (NaN signs
+    # included), so the two devices' casts are all that is compared
+    neg = -x
+    S = x.shape[1]
+    out = {}
+    for dev in ("cpu", cuda_device):
+        cache = attention.init_kv_cache(1, S, 2, 8, torch.float8_e4m3fn,
+                                        dev)
+        attention.update_kv_cache(cache, x.to(dev), neg.to(dev), 0)
+        out[str(dev)] = {n: c.cpu().view(torch.uint8) for n, c in
+                         cache.items()}
+    cpu, card = out["cpu"], out[str(cuda_device)]
+    for n in ("k", "v"):
+        assert torch.equal(card[n], cpu[n]), n
+    got = card["k"].view(torch.float8_e4m3fn).float().ravel()
+    xf = x.float().ravel()
+    assert torch.isnan(got[xf.abs() > 464]).all()
+    assert (got[(xf == 460) | (xf == 464)] == 448).all()
+
+
+@pytest.mark.cuda
+def test_ring_decode_rows_equal_the_scalar_call_on_card(cuda_device):
+    """Reduced gemma2 (bf16, window 64) on ring caches past the window:
+    a decode step with one position per row (continuous batching, every
+    row at the same position) gives the scalar call's logits and caches
+    bit for bit, every attention call on the decode route."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import RowPositions
+    from repro_torch.models.model import SplitModel
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_config("gemma2-9b", reduced=True).replace(n_layers=4)
+    model = SplitModel(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    B, S, P = 3, 160, 2
+    rng = np.random.default_rng(0)
+    ot = torch.from_numpy(rng.integers(0, cfg.vocab, (P, B, S // P)).astype(
+        np.int32)).cuda()
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (B, 1)).astype(
+        np.int32)).cuda()
+    with torch.inference_mode():
+        caches = model.cache_init(B, S, n_new=8, device="cuda", ring=True)
+        _, caches = model.prefill(params, {"owner_tokens": ot}, caches)
+        row_caches = tree_map(torch.clone, caches)
+        n0 = dict(attn_kernel.launch_counts)
+        want, caches = model.decode_step(params, caches, tok, S + 3,
+                                         S // P + 3)
+        got, row_caches = model.decode_step(
+            params, row_caches, tok, RowPositions([S + 3] * B, "cuda"),
+            RowPositions([S // P + 3] * B, "cuda"))
+        torch.cuda.synchronize()
+    n = {k: attn_kernel.launch_counts[k] - n0[k] for k in n0}
+    assert n["block_attention.decode"] == n["block_attention"] > 0
+    assert n["block_attention.per_row"] == n["block_attention"] // 2
+    assert torch.equal(got, want)
+    for a, b in zip(tree_leaves(row_caches), tree_leaves(caches)):
+        assert torch.equal(a, b)

@@ -197,14 +197,6 @@ def test_queue_full_carries_backpressure_signal(f32_models):
     assert eng.stats["rejected"] == 2 and eng.stats["peak_queue_depth"] == 2
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(ring_cache=True), "item 12")])
-def test_unported_serving_options_raise(f32_models, kw, item):
-    _, _, model, params = f32_models
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
-        ServingEngine(model, params, device="cpu", **kw)
-
-
 def test_engine_without_device_needs_a_card(f32_models):
     _, _, model, params = f32_models
     if torch.cuda.is_available():
