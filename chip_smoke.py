@@ -48,8 +48,7 @@ Phases, in order; any failure raises and exits non-zero:
      tokens each, with the kernel launch counts read around it (every
      prefill attention call on the tc route, every decode call on the
      decode route), the cut
-     bytes held against the frame size, and one more wave under
-     torch.profiler;
+     bytes held against the frame size;
   8. engine == prefill + decode_step by hand on the card (greedy tokens
      identical), and the card against the CPU at full width with 2
      layers in f32 compute (identical greedy tokens, first-token logits
@@ -65,8 +64,7 @@ Phases, in order; any failure raises and exits non-zero:
  10. zamba2-2.7b (Mamba2 + shared attention, random weights from a
      seed) served at full width and depth as in phase 7, with the exact
      launch counts of all three kernels (every scan on the chunked
-     route) and the cut bytes checked, and one more wave under
-     torch.profiler;
+     route) and the cut bytes checked;
  11. phase 8's checks for zamba2-2.7b: engine == by hand at full width,
      and card == CPU at reduced widths with 18 layers in f32;
  12. the cut-fusion kernel against its plain version on the card, on the
@@ -137,7 +135,8 @@ Phases, in order; any failure raises and exits non-zero:
      pipelined below sequential, params and loss trail bitwise those of
      the same fit at latency 0, with phase 4's and phase 13's exact
      launch counts; (c) owners of widths 588 + 196 (queue and process)
-     and the reference's eight uneven owners (queue): lossless split ==
+     and the reference's eight uneven owners (queue, 1000 subjects):
+     lossless split ==
      joint bitwise, one cut byte count for every owner, int8 fits with
      exact counts, and cut fusion at P = 8 against its plain version
      (2e-4), timed beside the library call and the bound; (d) a 10-step
@@ -178,7 +177,7 @@ Phases, in order; any failure raises and exits non-zero:
      a head's 128; 24/8 heads, hd 128), bf16 (route tc) and f32 (route
      fma), with the forward's, the backward's, the plain version's and
      SDPA's forward and forward + backward times beside the bounds; (b)
-     llama3.2-3b at full widths, 8 layers cut after 2 (params from seed
+     llama3.2-3b at full widths, 4 layers cut after 2 (params from seed
      0), 64 documents of 256 tokens (8 held out) through PSI into 10
      Adam steps of 8: joint, split lossless over the queue (its params
      and loss trail bitwise those of the per-owner-clipped joint
@@ -228,8 +227,25 @@ Phases, in order; any failure raises and exits non-zero:
      two rows at different positions == a scalar call at each, bitwise,
      with the per-row launches counted from 0; (c) reduced gemma2 (f32,
      window 64, contexts of 160) on ring caches card vs CPU within rel
-     1e-4, wave and continuous tokens equal;
- 14. the results, last (after phases 15, 16, 17, 18, 20, 21 and 22): a
+     1e-4 (``card_vs_cpu``: ``configure_cuda``'s numerics asserted and
+     printed, the CPU on one thread, the largest gap's step,
+     row and logit), wave and continuous tokens equal;
+ 23. the xLSTM and MoE families and the last two dense configs, after
+     phase 22: (a) xlstm-125m at full width and depth (12 layers of
+     sLSTM and mLSTM units, random weights from a seed) served as in
+     phase 7 with exactly 0 attention and 66 quantize launches, and one
+     more wave under torch.profiler; (b) its training at full depth, 3
+     Adam steps of phase 20's batch (8 x 256) on 9 documents, one held
+     out: joint, the per-owner-clipped oracle and split lossless (== the
+     oracle, bitwise), exact launch counts, a falling loss;
+     (c) llama3-405b and nemotron-4-15b at full width cut to 2 layers,
+     served as in phase 7 with exact tc, decode and quantize counts and
+     the peak memory; (d) deepseek-moe-16b and mixtral-8x7b the same
+     way, with the top-k choices each call dropped past its capacity,
+     and deepseek's training (5 steps, as (b)); (e) reduced xlstm-125m
+     and deepseek-moe-16b (f32) card vs CPU within rel 1e-4, as 22(c);
+ 14. the results, last (after phases 15, 16, 17, 18, 20, 21, 22 and
+     23): a
      ``{"serving_continuous": ...}`` JSON line with phase 19's numbers, a
      ``{"privacy": ...}`` JSON line with phase 15's numbers, a
      ``{"recovery": ...}`` line with phase 16's, a ``{"psi": ...}`` line
@@ -248,7 +264,9 @@ Phases, in order; any failure raises and exits non-zero:
      its ``zamba2_train_launches`` over phase 21(b)'s and its
      ``gemma2_launches`` in phase 22(a)'s run (the fma, decode and
      per-row entries with a ``gemma2`` row: their time at gemma2's
-     shapes).
+     shapes), and its ``families_launches`` over phase 23's runs; a
+     ``{"families": ...}`` line with phase 23's numbers and a
+     ``{"phase_seconds": ...}`` line with each phase's wall seconds.
 
 Without a CUDA device it prints nothing and exits 2.  It imports only
 ``repro_torch`` (never JAX or the JAX package ``repro``).
@@ -1349,10 +1367,13 @@ def lm_contexts(vocab, n, length, seed=0):
     return make_token_dataset(n, length, vocab, seed)[:, :length]
 
 
-def phase_serving(arch, **engine_kw):
-    """Phases 7, 10 and 22(a): ``arch`` at full width behind the wave
-    engine over the queue transport with the int8 cut codec
-    (``engine_kw``: further engine options)."""
+def phase_serving(arch, n_layers=None, profile=False, **engine_kw):
+    """Phases 7, 10, 22(a) and 23: ``arch`` at full width (at its depth,
+    or cut to ``n_layers``) behind the wave engine over the queue
+    transport with the int8 cut codec (``engine_kw``: further engine
+    options); ``profile``: one more wave under torch.profiler for the
+    busy share.  With an MoE FFN, the choices each call dropped past
+    its capacity are counted (the reference's rule)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1360,9 +1381,13 @@ def phase_serving(arch, **engine_kw):
     from repro_torch.kernels import mamba2_scan as scan
     from repro_torch.kernels import quantize
     from repro_torch.launch.engine import ServingEngine
+    from repro_torch.models import moe
     from repro_torch.models.model import SplitModel
+    from repro_torch.models.transformer import ATTENTION
     from repro_torch.tree import tree_leaves
     cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
     model = SplitModel(cfg)
     t = time.time()
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
@@ -1393,10 +1418,23 @@ def phase_serving(arch, **engine_kw):
         k.reset_launch_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t = time.perf_counter()
-    out = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
+    keeps, route = [], moe.route
+    if cfg.moe is not None:
+        # every routed group's keep mask (route's sixth output), counted
+        # after the run: no sync inside the wave
+        def counted(*a):
+            r = route(*a)
+            keeps.append(r[5])
+            return r
+        moe.route = counted
+    try:
+        t = time.perf_counter()
+        out = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        moe.route = route
+    drops = [(k.numel(), int((~k).sum())) for k in keeps]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     counts = {**attn.launch_counts, **scan.launch_counts,
               **quantize.launch_counts}
@@ -1431,7 +1469,7 @@ def phase_serving(arch, **engine_kw):
     # Mamba2 block of a prefill (decode is the plain single-step
     # recurrence), one quantize per cut message
     units = model.P * model.n_head_units + model.n_trunk_units
-    n_attn = sum(k != "mamba2" for k in cfg.block_pattern)
+    n_attn = sum(k in ATTENTION for k in cfg.block_pattern)
     n_ssm = sum(k == "mamba2" for k in cfg.block_pattern)
     # every bf16 prefill call takes the tc route (the fma route at hd
     # above 128: gemma2's 256), every decode call the decode route;
@@ -1450,14 +1488,32 @@ def phase_serving(arch, **engine_kw):
     for k, n in need.items():
         if counts[k] != n:
             raise AssertionError(f"{k} launched {counts[k]} != {n} times")
-    busy = profile_wave(model, params, kw, ctxs[:SLOTS])
-    return {"counts": counts, "wall_ms": 1e3 * wall,
-            "prefill_ms": [1e3 * s for s in pre_s],
-            "decode_ms_median": 1e3 * float(np.median(dec_s)),
-            "tok_per_s": st["tokens_generated"] / wall,
-            "peak_gb": peak_gb,
-            "cut_wire_bytes": st["cut_wire_bytes"], "busy_share": busy,
-            "model": model, "params": params}
+    res = {"counts": counts, "wall_ms": 1e3 * wall,
+           "prefill_ms": [1e3 * s for s in pre_s],
+           "decode_ms_median": 1e3 * float(np.median(dec_s)),
+           "tok_per_s": st["tokens_generated"] / wall,
+           "peak_gb": peak_gb, "n_params": n_params,
+           "cut_wire_bytes": st["cut_wire_bytes"]}
+    if cfg.moe is not None:
+        # per call (each owner's head and the trunk, per MoE layer; one
+        # routed group a call, as every config's dispatch_groups is 1):
+        # its tokens' top-k choices and those past the capacity
+        pre = [d for d in drops if d[0] > SLOTS * cfg.moe.top_k]
+        res["moe_drops"] = {
+            "calls": len(drops), "choices": sum(c for c, _ in drops),
+            "dropped": sum(d for _, d in drops),
+            "prefill_calls": [list(d) for d in pre],
+            "decode_dropped": sum(d for c, d in drops
+                                  if c <= SLOTS * cfg.moe.top_k)}
+        print(f"  MoE dispatch: {len(drops)} calls, "
+              f"{res['moe_drops']['dropped']} of "
+              f"{res['moe_drops']['choices']} top-{cfg.moe.top_k} choices "
+              f"dropped past capacity (prefill calls (choices, dropped): "
+              f"{res['moe_drops']['prefill_calls']}; decode ticks "
+              f"{res['moe_drops']['decode_dropped']})")
+    res["busy_share"] = (profile_wave(model, params, kw, ctxs[:SLOTS])
+                         if profile else None)
+    return dict(res, model=model, params=params)
 
 
 def synced(fn, times):
@@ -2651,15 +2707,17 @@ def same_leaves(a, b):
                                     for x, y in zip(a, b))
 
 
-def owners_session(device, splits, keep_frac, parallelism=0, **split):
-    """Phase 4's 2000 subjects split across owners of widths ``splits``,
-    resolved (modp512) and built with the paper's head and trunk."""
+def owners_session(device, splits, keep_frac, parallelism=0, n=2000,
+                   **split):
+    """Phase 4's ``n`` (2000) subjects split across owners of widths
+    ``splits``, resolved (modp512) and built with the paper's head and
+    trunk."""
     import dataclasses
     from repro_torch.configs import CONFIG
     from repro_torch.data import make_vertical_mnist_parties
     from repro_torch.federation import VerticalSession, feature_parties
     s = VerticalSession(*feature_parties(*make_vertical_mnist_parties(
-        2000, n_owners=len(splits), seed=0, keep_frac=keep_frac,
+        n, n_owners=len(splits), seed=0, keep_frac=keep_frac,
         feature_splits=splits)), device=device)
     s.resolve(group="modp512", parallelism=parallelism)
     return s.build(dataclasses.replace(
@@ -2826,7 +2884,8 @@ def phase_fit_options(bw, f32_flops):
             out["imbalanced"]["588+196/process"]["int8_loss_trail"]:
         raise AssertionError("588 + 196 int8: process != queue")
     t = time.time()
-    s8 = owners_session("cuda", EIGHT_OWNERS, 0.95, parallelism=N)
+    # half phase 4's subjects: an eight-owner PSI is the phase's longest
+    s8 = owners_session("cuda", EIGHT_OWNERS, 0.95, parallelism=N, n=1000)
     resolve_s = time.time() - t
     run_fit(s8, total, "the joint fit (eight owners)",
             lambda x: {"cut_fusion": trunk_forwards(x, "joint",
@@ -3598,10 +3657,10 @@ def phase_continuous_zamba(model, params):
 # (a): the attention Function at llama3.2-3b's training shapes, batch 8:
 # the trunk over the combined 256 tokens, a head over its 128
 LM_TRAIN_ATTN = {"trunk": (8, 256, 24, 8, 128), "head": (8, 128, 24, 8, 128)}
-# (b): llama3.2-3b at full width, 8 layers cut after 2 (two head units per
-# owner, six trunk units), 64 documents of 256 tokens, 8 held out, 10
+# (b): llama3.2-3b at full width, 4 layers cut after 2 (two head units per
+# owner, two trunk units), 64 documents of 256 tokens, 8 held out, 10
 # Adam steps of 8 documents
-LM_TRAIN_LAYERS, LM_TRAIN_CUT, LM_TRAIN_DOCS, LM_TRAIN_SEQ = 8, 2, 64, 256
+LM_TRAIN_LAYERS, LM_TRAIN_CUT, LM_TRAIN_DOCS, LM_TRAIN_SEQ = 4, 2, 64, 256
 LM_TRAIN_BATCH, LM_TRAIN_STEPS, LM_TRAIN_EVAL = 8, 10, 0.125
 
 
@@ -3820,8 +3879,9 @@ def lm_train_need(cfg, mode, steps, evaluations, int8=False):
     model = SplitModel(cfg)
     P, head, trunk = (cfg.split.n_owners, model.n_head_units,
                       model.n_trunk_units)
+    from repro_torch.models.transformer import ATTENTION
     n_scan = sum(k == "mamba2" for k in cfg.block_pattern)
-    n_attn = len(cfg.block_pattern) - n_scan
+    n_attn = sum(k in ATTENTION for k in cfg.block_pattern)
     fwd = P * head + trunk
     if mode == "joint":
         units, back = steps * fwd, steps * fwd
@@ -3878,18 +3938,19 @@ class ScanBackwardClock:
         return sum(a.elapsed_time(b) for a, b in self.events)
 
 
-def lm_train_fit(cfg, toks, p0, name, **kw):
-    """One 10-step fit of phase 20(b) from the host params ``p0``, with
-    its counts (reset just before, read just after), step times, loss
-    trail, evaluation and wire bytes; the session is returned for the
-    caller to compare and free."""
+def lm_train_fit(cfg, toks, p0, name, steps=None, **kw):
+    """One fit of phase 20(b) (10 steps, or ``steps``) from the host
+    params ``p0``, with its counts (reset just before, read just after),
+    step times, loss trail, evaluation and wire bytes; the session is
+    returned for the caller to compare and free."""
     import torch
+    steps = steps or LM_TRAIN_STEPS
     s = lm_train_session(cfg, toks, p0)
     marks = step_clock(s)
     reset_counts()
     t0 = time.perf_counter()
     with ScanBackwardClock() as clock:
-        h = s.fit(steps=LM_TRAIN_STEPS, batch_size=LM_TRAIN_BATCH,
+        h = s.fit(steps=steps, batch_size=LM_TRAIN_BATCH,
                   eval_frac=LM_TRAIN_EVAL, verbose=False, **kw)
         ev = s.evaluate(batch_size=LM_TRAIN_BATCH)
     counts = read_counts()
@@ -3897,18 +3958,18 @@ def lm_train_fit(cfg, toks, p0, name, **kw):
     del s._after_step            # the hook: a cycle that would keep s
     split = kw.get("mode") == "split"
     need, back = lm_train_need(cfg, "split" if split else "joint",
-                               LM_TRAIN_STEPS, 2,
+                               steps, 2,
                                int8=kw.get("compression") == "int8")
     check_counts(counts, need, name)
     if clock.calls != back:
         raise AssertionError(f"{name}: the scan's backward ran "
                              f"{clock.calls} times, not {back}")
     trail = h["loss_trail"]
-    if len(trail) != LM_TRAIN_STEPS or not all(map(math.isfinite, trail)):
+    if len(trail) != steps or not all(map(math.isfinite, trail)):
         raise AssertionError(f"{name}: bad loss trail {trail}")
     if not trail[-1] < trail[0]:
-        raise AssertionError(f"{name}: step 9's loss {trail[-1]} is not "
-                             f"below step 0's {trail[0]}")
+        raise AssertionError(f"{name}: step {steps - 1}'s loss {trail[-1]}"
+                             f" is not below step 0's {trail[0]}")
     steps_ms = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
     out = {"loss_trail": trail, "eval": ev, "counts": counts,
            "wall_s": wall, "steady_step_ms": sorted(steps_ms)[
@@ -3917,7 +3978,7 @@ def lm_train_fit(cfg, toks, p0, name, **kw):
            / 1e9}
     if back:
         # the backward's spans per step (the split warmup's included)
-        per_step = clock.ms() / (LM_TRAIN_STEPS + split)
+        per_step = clock.ms() / (steps + split)
         out.update(scan_backward_calls=back, scan_backward_ms_per_step=
                    per_step, scan_backward_share=per_step
                    / out["steady_step_ms"])
@@ -3927,7 +3988,7 @@ def lm_train_fit(cfg, toks, p0, name, **kw):
         out["per_owner"] = ts["per_owner"]
     print(f"  {name}: loss {trail[0]:.4f} -> {trail[-1]:.4f}; eval "
           f"{ev['loss']:.4f}; steady step {out['steady_step_ms']:.3f} ms "
-          f"(median of steps 1-9 between device syncs"
+          f"(median of steps 1-{steps - 1} between device syncs"
           + (f"; transport's {out['transport_steady_step_ms']:.3f}"
              if split else "") + f"); wall {wall:.2f} s; peak "
           f"{out['peak_gb']:.2f} GB")
@@ -4687,6 +4748,83 @@ def ring_caches_in_earnest():
     return out
 
 
+#: the numerics ``repro_torch.device.configure_cuda`` sets on the card
+CONFIGURED = {"allow_tf32": False, "cudnn_allow_tf32": False,
+              "float32_matmul_precision": "highest", "deterministic": True,
+              "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+
+
+def numerics_state():
+    """The settings a card-vs-CPU check relies on: TF32 and the matmul
+    precision, deterministic algorithms, the cuBLAS workspace, and the
+    CPU's thread count, vector instruction set and model (printed: CPU
+    reductions round by them)."""
+    import torch
+    model = next((ln.split(":", 1)[1].strip() for ln in Path(
+        "/proc/cpuinfo").read_text().splitlines()
+        if ln.startswith("model name")), None) \
+        if Path("/proc/cpuinfo").exists() else None
+    return {"allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+            "float32_matmul_precision": torch.get_float32_matmul_precision(),
+            "deterministic": torch.are_deterministic_algorithms_enabled(),
+            "num_threads": torch.get_num_threads(),
+            "CUBLAS_WORKSPACE_CONFIG": os.environ.get(
+                "CUBLAS_WORKSPACE_CONFIG"),
+            "cpu_capability": torch.backends.cpu.get_cpu_capability(),
+            "cpu_model": model}
+
+
+def assert_configured(what):
+    """Print the numerics state and fail unless it is ``configure_cuda``'s
+    (the CPU's thread count is printed, not checked: the check pins
+    it)."""
+    st = numerics_state()
+    bad = {k: st[k] for k, v in CONFIGURED.items() if st[k] != v}
+    print(f"  {what}: numerics {st}")
+    if bad:
+        raise AssertionError(f"{what}: not configure_cuda's numerics: {bad}")
+    return st
+
+
+def gap_at(got, want):
+    """The largest |got - want| of (steps + 1, B, vocab) logits, its rel
+    to max |want| and where it sits (step, row, logit)."""
+    import numpy as np
+    d = (got - want).abs()
+    step, row, logit = np.unravel_index(int(d.argmax()), tuple(d.shape))
+    return {"rel": (d.max() / want.abs().max()).item(),
+            "abs": d.max().item(), "step": int(step), "row": int(row),
+            "logit": int(logit), "value": want[step, row, logit].item()}
+
+
+def card_vs_cpu(model, cpu_params, toks, steps, what, **opts):
+    """Teacher-forced logits (the prefill and ``steps`` decode steps) of
+    ``model`` on the card against the CPU, under ``configure_cuda``'s
+    numerics (asserted) with the CPU on one thread, as the CPU tests
+    pin it: a reduction split across threads rounds otherwise, and the
+    thread count is the host's.  Returns the gap."""
+    import torch
+    from repro_torch.tree import tree_map
+    st = assert_configured(what)
+    card_params = tree_map(lambda a: a.cuda(), cpu_params)
+    got = teacher_forced(model, card_params, toks, steps, **opts)[0].cpu()
+    del card_params
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        want = teacher_forced(model, cpu_params, toks, steps, **opts)[0]
+    finally:
+        torch.set_num_threads(n)
+    gap = gap_at(got, want)
+    S = toks.shape[1] - steps
+    print(f"  {what}: card vs CPU (1 thread) max rel {gap['rel']:.3e} at "
+          f"step {gap['step']} (position {S - 1 + gap['step']}), row "
+          f"{gap['row']}, logit {gap['logit']} (|diff| {gap['abs']:.3e} on "
+          f"{gap['value']:.4f})")
+    return {"rel": gap["rel"], "at": gap, "numerics": st}
+
+
 def gemma_card_vs_cpu():
     """22(c): reduced gemma2 (f32, window 64, 4 layers) on ring caches,
     contexts of 160 (owner slices of 80: every ring wraps), prefill and 5
@@ -4704,9 +4842,9 @@ def gemma_card_vs_cpu():
     card_params = tree_map(lambda a: a.cuda(), cpu_params)
     C, steps = 160, 5
     toks = lm_contexts(cfg.vocab, 2, C + steps, seed=4)
-    got = teacher_forced(model, card_params, toks, steps, ring=True)[0]
-    want = teacher_forced(model, cpu_params, toks, steps, ring=True)[0]
-    rel = ((got.cpu() - want).abs().max() / want.abs().max()).item()
+    gap = card_vs_cpu(model, cpu_params, toks, steps, "(c) reduced gemma2",
+                      ring=True)
+    rel = gap["rel"]
     ctxs = lm_contexts(cfg.vocab, 5, C, seed=5)
     mixed = [2, 6, 1, 5, 3]
     runs = {}
@@ -4725,7 +4863,7 @@ def gemma_card_vs_cpu():
           f"(wave, continuous) on the card == the CPU's: {same}")
     if rel > 1e-4 or not same:
         raise AssertionError("reduced gemma2: card and CPU disagree")
-    return {"rel": rel, "tokens_equal": same}
+    return dict(gap, tokens_equal=same)
 
 
 def phase_gemma():
@@ -4761,6 +4899,145 @@ def phase_gemma():
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the xLSTM and MoE families, and the last two dense configs
+# ---------------------------------------------------------------------------
+
+XLSTM = "xlstm-125m"
+DENSE_BIG = ("llama3-405b", "nemotron-4-15b")
+MOE_ARCHS = ("deepseek-moe-16b", "mixtral-8x7b")
+# (c) and (d) at full width cut in depth: one head unit per owner, one
+# trunk unit; (b) and (d)'s fits: this many Adam steps on phase 20's
+# batch of 8 x 256, from 9 documents (one held out): random tokens carry
+# nothing a model can learn but the rows themselves, so every step
+# revisits its one training batch and the loss falls within a few steps
+# (on phase 20's 56 rows it falls only once an epoch ends, at step 7)
+FAMILY_LAYERS, FAMILY_STEPS = 2, 5
+FAMILY_DOCS = LM_TRAIN_BATCH + 1
+
+
+def family_train(cfg, name, steps=FAMILY_STEPS):
+    """23(b) and (d): ``cfg`` at full width through PSI on
+    ``FAMILY_DOCS`` documents of 256 tokens, batches of 8, for ``steps``
+    Adam steps: the joint fit, the per-owner-clipped joint oracle and
+    the split lossless fit over the queue (== the oracle, params and
+    loss trail bitwise), each fit with its exact launch counts and a
+    falling loss (``lm_train_fit``)."""
+    import torch
+    from repro_torch.data import make_token_dataset
+    from repro_torch.tree import tree_leaves, tree_map
+    toks = make_token_dataset(FAMILY_DOCS, LM_TRAIN_SEQ, cfg.vocab, 0)
+    first = lm_train_session(cfg, toks)
+    p0 = tree_map(lambda x: x.cpu(), first.params)
+    del first
+    n_params = sum(x.numel() for x in tree_leaves(p0))
+    print(f"    {name}: {cfg.n_layers} layers, {n_params / 1e9:.3f} G params"
+          f" (seed 0), {steps} Adam steps of {LM_TRAIN_BATCH} x "
+          f"{LM_TRAIN_SEQ} on {FAMILY_DOCS} documents (one held out)")
+    out = {"n_params": n_params, "n_layers": cfg.n_layers}
+    free_card()
+    s, out["joint"] = lm_train_fit(cfg, toks, p0, f"{name} joint",
+                                   steps=steps)
+    del s
+    free_card()
+    o = lm_train_session(cfg, toks, p0)
+    trail = owner_clipped_oracle(o, steps, LM_TRAIN_BATCH)
+    oracle = [x.cpu() for x in tree_leaves(o.params)]
+    del o
+    free_card()
+    s, out["split"] = lm_train_fit(cfg, toks, p0,
+                                   f"{name} split lossless, queue",
+                                   steps=steps, mode="split")
+    same = out["split"]["loss_trail"] == trail and all(
+        torch.equal(a.cpu(), b) for a, b in zip(tree_leaves(s.params),
+                                                oracle))
+    if not same:
+        raise AssertionError(f"{name}: split lossless != the per-owner-"
+                             "clipped joint oracle")
+    print("      split lossless == the per-owner-clipped joint oracle: "
+          "params and loss trail bitwise equal")
+    del s, oracle
+    free_card()
+    out["counts"] = {k: out[k].pop("counts") for k in ("joint", "split")}
+    return out
+
+
+def families_card_vs_cpu():
+    """23(e): reduced xlstm-125m (4 layers) and reduced deepseek-moe-16b
+    (2 layers) in f32, contexts of 96 (the mLSTM's head chunks ragged),
+    prefill and 5 teacher-forced steps, card against CPU within rel 1e-4
+    (``card_vs_cpu``: under ``configure_cuda``'s numerics, the CPU on
+    one thread)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import SplitModel
+    out = {}
+    for arch, n_layers in ((XLSTM, 4), (MOE_ARCHS[0], 2)):
+        cfg = get_config(arch, reduced=True).replace(
+            n_layers=n_layers, compute_dtype="float32")
+        model = SplitModel(cfg)
+        cpu_params = model.init(torch.Generator().manual_seed(0))
+        toks = lm_contexts(cfg.vocab, 2, 96 + 5, seed=6)
+        gap = card_vs_cpu(model, cpu_params, toks, 5,
+                          f"(e) reduced {arch}")
+        if gap["rel"] > 1e-4:
+            raise AssertionError(f"reduced {arch}: card and CPU disagree")
+        out[arch] = gap
+    return out
+
+
+def phase_families():
+    """Phase 23: xlstm-125m served and trained at full width and depth;
+    llama3-405b and nemotron-4-15b served at full width, cut depth;
+    deepseek-moe-16b and mixtral-8x7b served at full width, cut depth,
+    deepseek trained there too; reduced xLSTM and MoE card vs CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    out = {}
+    free_card()
+    t = time.time()
+    print(f"  (a) {XLSTM} at full width and depth (no attention: every "
+          "launch is the int8 codec's)")
+    a = phase_serving(XLSTM, profile=True)
+    del a["model"], a["params"]
+    # phase 7's 66: two waves of 2 prefill cuts and 31 decode ticks
+    if a["counts"]["block_attention"] or \
+            a["counts"]["quantize_pack_int8"] != 2 * (2 + NEW - 1):
+        raise AssertionError(f"{XLSTM}: launches {a['counts']}")
+    out["xlstm_serving"] = a
+    out["xlstm_serving_s"] = time.time() - t
+    free_card()
+    t = time.time()
+    print(f"  (b) {XLSTM} training at full depth")
+    # 3 steps: each is ~3.4 s jointly (host-bound: 1536 sequential
+    # sLSTM cell steps a forward, their backward too)
+    out["xlstm_train"] = family_train(get_config(XLSTM), XLSTM, steps=3)
+    out["xlstm_train_s"] = time.time() - t
+    for arch in DENSE_BIG + MOE_ARCHS:
+        t = time.time()
+        part = "(c)" if arch in DENSE_BIG else "(d)"
+        print(f"  {part} {arch} at full width, {FAMILY_LAYERS} layers")
+        r = phase_serving(arch, n_layers=FAMILY_LAYERS)
+        del r["model"], r["params"]
+        free_card()
+        out[arch] = r
+        out[f"{arch}_s"] = time.time() - t
+    t = time.time()
+    print(f"  (d) {MOE_ARCHS[0]} training at full width, {FAMILY_LAYERS} "
+          "layers")
+    out["moe_train"] = family_train(get_config(MOE_ARCHS[0]).replace(
+        n_layers=FAMILY_LAYERS), MOE_ARCHS[0])
+    out["moe_train_s"] = time.time() - t
+    t = time.time()
+    out["card_vs_cpu"] = families_card_vs_cpu()
+    out["card_vs_cpu_s"] = time.time() - t
+    free_card()
+    print(f"  peak device memory: " + ", ".join(
+        f"{k} {out[k]['peak_gb']:.2f} GB" for k in DENSE_BIG + MOE_ARCHS)
+        + f"; {XLSTM} {out['xlstm_serving']['peak_gb']:.2f} GB")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4770,6 +5047,14 @@ def main():
     from repro_torch.device import configure_cuda
     from repro_torch.kernels import build
     configure_cuda()
+    phase_s, last = {}, [None, time.time()]
+
+    def mark(label):
+        """Each phase's wall seconds, from its header to the next's."""
+        now = time.time()
+        if last[0] is not None:
+            phase_s[last[0]] = round(now - last[1], 2)
+        last[:] = [label, now]
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4777,11 +5062,13 @@ def main():
         check=True, timeout=60).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
     bw, flops = peaks(name)
+    mark("1")
     print("== 1. device")
     print(smi)
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}; peaks "
           f"used for bounds: {bw / 1e12} TB/s, {flops / 1e12} TFLOP/s f32")
 
+    mark("2")
     print("== 2. build")
     t = time.time()
     build.build(["quantize", "block_attention", "attention_decode",
@@ -4792,22 +5079,28 @@ def main():
         print("\n".join(f"  nvcc {src}: {line}" for line in
                         log.strip().splitlines()))
 
+    mark("3")
     print("== 3. kernels vs plain versions on the card")
     kern = phase_kernels(bw, flops)
+    mark("4")
     print("== 4. main path: PSI -> SplitNN -> split int8 fit -> evaluate")
     counts, _, path_cut = phase_main_path()
+    mark("5")
     print("== 5. split == joint on the card")
     phase_split_equals_joint()
     t = time.time()
+    mark("6")
     print("== 6. attention kernel vs plain version on the card")
     att = phase_attention(bw, flops)
     print(f"  phase wall {time.time() - t:.2f} s")
     t = time.time()
+    mark("7")
     print(f"== 7. split-LM serving at full width: {LM}, wave engine, "
           "queue transport, int8 cut codec")
     serving = phase_serving(LM)
     print(f"  phase wall {time.time() - t:.2f} s")
     t = time.time()
+    mark("8")
     print("== 8. engine == manual decode; card vs CPU")
     lm_model, lm_params = serving.pop("model"), serving.pop("params")
     phase_lm_checks(lm_model, lm_params,
@@ -4815,6 +5108,7 @@ def main():
                                            compute_dtype="float32"), 64)
     print(f"  phase wall {time.time() - t:.2f} s")
     t = time.time()
+    mark("19")
     print(f"== 19. the rest of LM serving at full width ({LM}, run here "
           "while phase 7's params are alive): continuous batching, "
           "process transport, cut cache, sessions, latency, degraded "
@@ -4828,15 +5122,18 @@ def main():
     torch.cuda.empty_cache()
     print(f"  phase wall {time.time() - t:.2f} s")
     t = time.time()
+    mark("9")
     print("== 9. SSD scan kernel vs plain version on the card")
     ssd = phase_scan(bw, flops)
     print(f"  phase wall {time.time() - t:.2f} s")
     t = time.time()
+    mark("10")
     print(f"== 10. split-LM serving at full width: {ZAMBA}, wave engine, "
           "queue transport, int8 cut codec")
     zamba = phase_serving(ZAMBA)
     print(f"  phase wall {time.time() - t:.2f} s")
     t = time.time()
+    mark("11")
     print("== 11. engine == manual decode; card vs CPU (zamba2-2.7b)")
     z_model, z_params = zamba.pop("model"), zamba.pop("params")
     phase_lm_checks(z_model, z_params,
@@ -4844,44 +5141,52 @@ def main():
                         n_layers=18, compute_dtype="float32"), 128)
     print(f"  phase wall {time.time() - t:.2f} s")
     t = time.time()
+    mark("19(i)")
     print("== 19(i). zamba2-2.7b continuous == wave (phase 10's params)")
     cont["zamba2"] = phase_continuous_zamba(z_model, z_params)
     del z_model, z_params
     torch.cuda.empty_cache()
     print(f"  phase wall {time.time() - t:.2f} s")
     t = time.time()
+    mark("12")
     print("== 12. cut-fusion kernel vs plain version on the card")
     cut = phase_cut_fusion(bw, flops)
     print(f"  phase wall {time.time() - t:.2f} s")
     t = time.time()
+    mark("13")
     print("== 13. the training path through the other schedules: "
           "microbatches, worker processes, combines")
     phase_schedules()
     print(f"  phase wall {time.time() - t:.2f} s")
     t = time.time()
+    mark("15")
     print("== 15. secure forward aggregation and the cut-layer defences")
     priv = phase_privacy()
     print(f"  phase wall {time.time() - t:.2f} s")
 
     t = time.time()
+    mark("16")
     print("== 16. supervised crash recovery: faults, rollback, respawn, "
           "replay")
     rec = phase_recovery()
     print(f"  phase wall {time.time() - t:.2f} s")
 
     t = time.time()
+    mark("17")
     print("== 17. PSI entity resolution: every mode and backend, the pool, "
           "delta rounds, retries, into the split int8 fit")
     psi_out, psi_counts = phase_psi()
     print(f"  phase wall {time.time() - t:.2f} s")
 
     t = time.time()
+    mark("18")
     print("== 18. the rest of fit: wire latency and bandwidth, owners of "
           "unequal widths, checkpoints")
     fit_out, fit_counts_18 = phase_fit_options(bw, flops)
     print(f"  phase wall {time.time() - t:.2f} s")
 
     t = time.time()
+    mark("20")
     print(f"== 20. LM training at full width ({LM}, the dense family): the "
           "attention Function, joint / split lossless / split int8 fits, "
           "process == queue, the launcher")
@@ -4889,6 +5194,7 @@ def main():
     print(f"  phase wall {time.time() - t:.2f} s")
 
     t = time.time()
+    mark("21")
     print(f"== 21. LM training at full width ({ZAMBA}, the SSM family): the "
           "scan Function, joint / split lossless / split int8 fits, "
           "process == queue, the launcher")
@@ -4896,12 +5202,22 @@ def main():
     print(f"  phase wall {time.time() - t:.2f} s")
 
     t = time.time()
+    mark("22")
     print(f"== 22. KV cache variants on {GEMMA}: served at full width and "
           "depth on ring caches, ring / swa_override / fp8 caches past the "
           "window, card vs CPU")
     gemma = phase_gemma()
     print(f"  phase wall {time.time() - t:.2f} s")
 
+    t = time.time()
+    mark("23")
+    print("== 23. the xLSTM and MoE families and the last two dense "
+          f"configs: {XLSTM} served and trained at full width and depth; "
+          f"{', '.join(DENSE_BIG + MOE_ARCHS)} at full width, cut depth")
+    families = phase_families()
+    print(f"  phase wall {time.time() - t:.2f} s")
+
+    mark("14")
     print("== 14. results")
     src = "src/repro_torch/csrc/quantize.cu"
     tpu = "src/repro/kernels/quantize/kernel.py"
@@ -5045,6 +5361,18 @@ def main():
             e["name"])
         if shape is not None:
             e["gemma2"] = dict(att["rows"][shape], shape_name=shape)
+    # and in phase 23's runs: every wave (xlstm-125m's, the dense and
+    # MoE configs') and the fits of (b) and (d)
+    for e in entries:
+        e["families_launches"] = sum(
+            families[k]["counts"].get(e["name"], 0) for k in
+            DENSE_BIG + MOE_ARCHS) + \
+            families["xlstm_serving"]["counts"].get(e["name"], 0) + sum(
+            c.get(e["name"], 0) for k in ("xlstm_train", "moe_train")
+            for c in families[k]["counts"].values())
+    print(json.dumps({"families": {
+        k: ({x: y for x, y in v.items() if x != "counts"}
+            if isinstance(v, dict) else v) for k, v in families.items()}}))
     print(json.dumps({"gemma2": {k: v if k != "serving" else {
         x: y for x, y in v.items() if x != "counts"}
         for k, v in gemma.items()}}))
@@ -5058,6 +5386,10 @@ def main():
     print(json.dumps({"recovery": without(rec, "all_counts")}))
     print(json.dumps({"psi": psi_out}))
     print(json.dumps({"fit_options": fit_out}))
+    mark(None)
+    print(f"  seconds by phase: {phase_s}; total "
+          f"{sum(phase_s.values()):.1f}")
+    print(json.dumps({"phase_seconds": phase_s}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,5 +1,6 @@
 """Configuration dataclasses (copies of ``repro.configs.base``'s
-``SplitConfig``, ``SSMConfig`` and ``ArchConfig``).
+``SplitConfig``, ``MoEConfig``, ``SSMConfig``, ``XLSTMConfig`` and
+``ArchConfig``).
 
 ``SplitConfig``: ``n_owners`` data owners each hold a vertical slice of
 the inputs of the same data subjects.  Each owner runs ``cut_layer``
@@ -10,9 +11,9 @@ defences) train on the MLP SplitNN; the LM trains and serves with a
 ``cut_dim`` bottleneck and cut noise.
 
 ``ArchConfig``: one architecture, field for field as in the reference.
-The port builds the dense attention family and the Mamba2 hybrid
-(``ssm``: an :class:`SSMConfig`); ``moe`` and ``xlstm`` stay ``None``
-here (the models raise otherwise).
+The port builds the dense attention family, the MoE FFN (``moe``: a
+:class:`MoEConfig`), the Mamba2 hybrid (``ssm``: an :class:`SSMConfig`)
+and the xLSTM blocks (``xlstm``: an :class:`XLSTMConfig`).
 """
 from __future__ import annotations
 
@@ -44,6 +45,22 @@ class SplitConfig:
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts block configuration."""
+
+    n_experts: int
+    top_k: int
+    d_expert: int              # hidden dim of a single routed expert
+    n_shared: int = 0          # always-on shared experts (DeepSeekMoE)
+    d_shared: int = 0          # hidden dim of the shared expert(s)
+    capacity_factor: float = 1.25
+    aux_loss_weight: float = 0.01
+    # tokens are dispatched within G groups (group-local capacity);
+    # 1 = one global dispatch
+    dispatch_groups: int = 1
+
+
+@dataclass(frozen=True)
 class SSMConfig:
     """Mamba2 / SSD block configuration."""
 
@@ -52,6 +69,16 @@ class SSMConfig:
     expand: int = 2
     head_dim: int = 64         # SSD head dim (P in the SSD paper)
     n_groups: int = 1
+    chunk_size: int = 256
+
+
+@dataclass(frozen=True)
+class XLSTMConfig:
+    """xLSTM block configuration (sLSTM + mLSTM)."""
+
+    m_proj_factor: float = 2.0    # mLSTM up-projection factor
+    s_proj_factor: float = 4.0 / 3.0  # sLSTM FFN projection factor
+    conv_width: int = 4
     chunk_size: int = 256
 
 
@@ -82,9 +109,9 @@ class ArchConfig:
     # the repeating unit of blocks; n_layers is a multiple of its length
     block_pattern: Tuple[str, ...] = ("attn:global",)
 
-    moe: Optional[object] = None   # MoE / xLSTM: not ported
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
-    xlstm: Optional[object] = None
+    xlstm: Optional[XLSTMConfig] = None
 
     enc_dec: bool = False
     n_enc_layers: int = 0
@@ -136,8 +163,6 @@ class ArchConfig:
 
     def reduced(self) -> "ArchConfig":
         """The smoke-test variant: same family/block pattern, tiny dims."""
-        if self.moe is not None or self.xlstm is not None:
-            raise not_ported("MoE/xLSTM configs", "item 8")
         d_model = min(self.d_model, 256)
         n_heads = min(self.n_heads, 4)
         kw = dict(
@@ -154,7 +179,17 @@ class ArchConfig:
         )
         if self.enc_dec:
             kw["n_enc_layers"] = 2
+        if self.moe is not None:
+            kw["moe"] = dataclasses.replace(
+                self.moe,
+                n_experts=min(self.moe.n_experts, 4),
+                top_k=min(self.moe.top_k, 2),
+                d_expert=min(self.moe.d_expert, 128),
+                d_shared=min(self.moe.d_shared, 128) if self.moe.d_shared
+                else 0)
         if self.ssm is not None:
             kw["ssm"] = dataclasses.replace(
                 self.ssm, d_state=16, head_dim=32, chunk_size=32)
+        if self.xlstm is not None:
+            kw["xlstm"] = dataclasses.replace(self.xlstm, chunk_size=32)
         return dataclasses.replace(self, **kw)

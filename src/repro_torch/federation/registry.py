@@ -217,7 +217,9 @@ class SplitLMAdapter(_ProgramCache):
     (token inputs have no geometry for its dcor), as in the reference.
     Every text config the port builds trains, zamba2's ``mamba2`` blocks
     included: their scan runs the kernel's forward with a backward of
-    plain products (``kernels.mamba2_scan.ssd_fn``)."""
+    plain products (``kernels.mamba2_scan.ssd_fn``).  An MoE FFN's
+    balance loss is the blocks' aux: each owner differentiates its own
+    (``head_bwd``), the trunk its own in the objective."""
 
     layout = "sequence"
     supports_serving = True
@@ -245,11 +247,16 @@ class SplitLMAdapter(_ProgramCache):
         return self.model.init(gen)
 
     def owner_kernel_sources(self) -> Tuple[str, ...]:
-        """The attention kernels' sources, and the SSD scan's where the
-        blocks include ``mamba2``."""
+        """The kernel sources an owner's head launches: the attention
+        kernels' where its blocks include attention, the SSD scan's where
+        they include ``mamba2``; none for xLSTM heads."""
         from repro_torch.kernels import block_attention, mamba2_scan
-        names = tuple(block_attention.ops.SOURCES.values())
-        if "mamba2" in self.cfg.block_pattern:
+        from repro_torch.models.transformer import ATTENTION
+        pattern = self.cfg.block_pattern
+        names: Tuple[str, ...] = ()
+        if any(k in ATTENTION for k in pattern):
+            names += tuple(block_attention.ops.SOURCES.values())
+        if "mamba2" in pattern:
             names += tuple(mamba2_scan.ops.SOURCES.values())
         return names
 
@@ -300,19 +307,20 @@ class SplitLMAdapter(_ProgramCache):
         """Owner ``owner_index``'s programs.  ``head_fwd(hp, tokens) ->
         (cut, aux)``: the embedding and head blocks on the owner's
         sequence slice (rope at the slice's global positions); the
-        scalar aux rides along so split metrics match the joint path's
-        heads + trunk aux.  ``head_bwd(hp, tokens, g)``: the forward
-        recomputed, then its gradients seeded with the received cut
-        gradient (cast to the cut's dtype) and a unit cotangent on the
-        owner's aux."""
+        scalar aux (the MoE balance loss of the owner's blocks) rides
+        along so split metrics match the joint path's heads + trunk aux.
+        ``head_bwd(hp, tokens, g)``: the forward recomputed, then its
+        gradients seeded with the received cut gradient (cast to the
+        cut's dtype) and a unit cotangent on the owner's aux, which is
+        the owner's own term of the joint objective."""
         model = self.model
 
         def build():
             def head_apply(hp, tokens):
                 positions = model._positions(tokens.shape[-1], owner_index,
                                              0, tokens.device)
-                cut, _ = model._head_one(hp, tokens, positions)
-                return cut, model.aux_zero(cut)
+                cut, _, aux = model._head_one(hp, tokens, positions)
+                return cut, aux
 
             def head_fwd(hp, tokens):
                 with torch.no_grad():
@@ -338,8 +346,8 @@ class SplitLMAdapter(_ProgramCache):
         inv_micro, {"loss", "aux"})``."""
         model = self.model
         z = model.combine(torch.stack(tuple(cuts)).to(model.cdtype))
-        logits, _ = model.trunk_forward(tp, z)
-        aux = model.aux_zero(logits) * inv_micro
+        logits, _, aux = model.trunk_forward(tp, z)
+        aux = aux * inv_micro
         ce = model.ce_loss(logits, labels) * scale
         return ce + aux, {"loss": ce, "aux": aux}
 

@@ -152,17 +152,26 @@ def _scalars(m):
             for k, v in m.items()}
 
 
-def _join_or_warn(th: threading.Thread, limit: float, context: str) -> None:
+#: leaked-actor accounting: party threads that outlived their join
+#: deadline (process-wide; a wedged actor sleeping through its stop is
+#: the common producer)
+leak_stats = {"leaked_threads": 0}
+
+
+def _join_or_warn(th: threading.Thread, limit: float, context: str) -> bool:
     """``th.join(limit)`` that surfaces a party thread still alive after
     its deadline (a wedged actor, a stuck receive) as a loud
-    ``RuntimeWarning`` instead of letting it outlive the session
-    silently."""
+    ``RuntimeWarning`` and a ``leak_stats`` bump instead of letting it
+    outlive the session silently.  Returns whether the thread ended."""
     th.join(timeout=limit)
     if th.is_alive():
+        leak_stats["leaked_threads"] += 1
         warnings.warn(
             f"{context}: thread {th.name!r} still alive after "
             f"{limit:.1f}s join — leaked (wedged actor?)",
             RuntimeWarning, stacklevel=3)
+        return False
+    return True
 
 
 class VerticalSession:

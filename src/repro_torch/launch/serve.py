@@ -6,9 +6,9 @@ generation-owner head + scientist trunk.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
         --reduced --batch 4 --ctx 128 --new 16 [--device cpu]
 
-``--arch`` is ``llama3.2-3b``, ``zamba2-2.7b`` or ``gemma2-9b`` (whose
-local layers keep ring caches whenever a cache holds at most the
-window).  It runs on the CUDA
+``--arch`` is any text architecture ``configs.get_config`` builds
+(gemma2-9b's and mixtral-8x7b's local layers keep ring caches whenever a
+cache holds at most the window).  It runs on the CUDA
 card unless ``--device cpu`` is given; the weights are random, drawn
 from ``--seed``.
 """

@@ -22,10 +22,10 @@ computed in f32.
 Training: ``forward`` returns ``(logits, aux)`` and ``loss_fn`` the
 objective ``ce + aux`` with ``{"loss": ce, "aux": aux}``, as in the
 reference; ``ce_loss`` is the causal LM loss (labels -100 are masked).
-``aux`` is the blocks' auxiliary loss, a scalar 0 for the dense and
-Mamba2 blocks the port builds (MoE's balance loss is item 8), carried
-where the reference carries it.  Attention under autograd runs the
-kernel forward and a backward of plain products
+``aux`` is the blocks' auxiliary loss (the MoE FFN's balance loss; an
+f32 zero for every other family): ``heads_forward`` sums it over the
+owners, ``forward`` adds the trunk's, as in the reference.  Attention
+under autograd runs the kernel forward and a backward of plain products
 (``kernels.block_attention.attention_fn``).
 
 ``SplitConfig.cut_dim > 0`` puts a bottleneck at the cut: each head ends
@@ -61,7 +61,7 @@ from repro_torch.configs.base import ArchConfig, not_ported
 from repro_torch.core.privacy import gaussian_cut_noise
 from repro_torch.models import layers, transformer
 from repro_torch.models.attention import RowPositions
-from repro_torch.tree import tree_map
+from repro_torch.tree import stack_draws, tree_map
 
 Params = Dict[str, Any]
 
@@ -106,8 +106,7 @@ class SplitModel:
                 hp["cut_proj"] = layers.dense_init(gen, cfg.d_model, self.k)
             return hp
 
-        heads = [head_one() for _ in range(self.P)]
-        heads = tree_map(lambda *ls: torch.stack(ls), *heads)
+        heads = stack_draws(head_one, self.P)
         trunk: Params = {"blocks": transformer.stack_init(
             gen, cfg, self.n_trunk_units)}
         if bottleneck:
@@ -132,33 +131,36 @@ class SplitModel:
 
     def _head_one(self, hp, owner_inputs, positions, caches=None, pos=None,
                   swa_override=None):
+        """One owner's head: (cut, caches, aux)."""
         cfg = self.cfg
         x = layers.embed_apply(hp["embed"], owner_inputs, _cdtype(cfg))
         if cfg.rope == "sincos":
             raise not_ported("sin-cos positions", "item 8")
-        x, caches = transformer.stack_apply(
+        x, caches, aux = transformer.stack_apply(
             hp["blocks"], x, cfg=cfg, positions=positions, caches=caches,
             pos=pos, swa_override=swa_override)
         if cfg.split.cut_dim > 0:
             x = layers.dense_apply(hp["cut_proj"], x)
-        return x, caches
+        return x, caches, aux
 
     def heads_forward(self, heads, owner_inputs, *, caches=None, pos=None,
                       swa_override=None):
         """owner_inputs: (P, B, S_p) token ids.  Returns (cut (P, B, S_p,
-        k), caches); the head caches (leaves (P, n_units, ...)) are
-        updated in place."""
+        k), caches, aux): the head caches (leaves (P, n_units, ...)) are
+        updated in place; ``aux`` is the owners' auxiliary losses summed
+        in owner order."""
         S_p = owner_inputs.shape[-1]
-        cuts = []
+        cuts, aux = [], None
         for p in range(self.P):
             positions = self._positions(S_p, p, 0 if pos is None else pos,
                                         owner_inputs.device)
             hc = None if caches is None else transformer.unit(caches, p)
-            cut, _ = self._head_one(transformer.unit(heads, p),
-                                    owner_inputs[p], positions, hc, pos,
-                                    swa_override)
+            cut, _, a = self._head_one(transformer.unit(heads, p),
+                                       owner_inputs[p], positions, hc, pos,
+                                       swa_override)
             cuts.append(cut)
-        return torch.stack(cuts), caches
+            aux = a if aux is None else aux + a
+        return torch.stack(cuts), caches, aux
 
     # ------------------------------------------------------------- combine
 
@@ -190,7 +192,7 @@ class SplitModel:
     def trunk_forward(self, trunk, z, *, caches=None, pos=None,
                       swa_override=None):
         """z: combined cut (B, S, k).  Returns (logits (B, S, vocab) f32,
-        caches)."""
+        caches, aux)."""
         cfg = self.cfg
         if cfg.split.cut_dim > 0:
             z = layers.dense_apply(trunk["in_proj"], z)
@@ -200,13 +202,13 @@ class SplitModel:
             positions = pos.dev[:, None] + positions
         elif pos is not None:
             positions = pos + positions
-        x, caches = transformer.stack_apply(
+        x, caches, aux = transformer.stack_apply(
             trunk["blocks"], z, cfg=cfg, positions=positions, caches=caches,
             pos=pos, swa_override=swa_override)
         x = layers.norm_apply(trunk["out_norm"], x, cfg.norm, cfg.norm_eps)
         logits = layers.dense_apply(trunk["lm_head"], x.to(torch.float32))
         logits = layers.softcap(logits, cfg.logit_softcap)
-        return logits, caches
+        return logits, caches, aux
 
     # ------------------------------------------------------------- forward
 
@@ -218,24 +220,18 @@ class SplitModel:
         B, S = t.shape
         return t.reshape(B, self.P, S // self.P).permute(1, 0, 2)
 
-    @staticmethod
-    def aux_zero(like: torch.Tensor) -> torch.Tensor:
-        """The blocks' auxiliary loss: a scalar f32 0 on ``like``'s
-        device (no block the port builds has one)."""
-        return torch.zeros((), dtype=torch.float32, device=like.device)
-
     def forward(self, params, batch, gen=None, *, swa_override=None):
         """Full-sequence forward (train / prefill without a cache).
         Returns ``(logits (B, S, vocab) f32, aux)``: the heads' aux
         summed over owners plus the trunk's.  ``gen``: the cut noise's
         generator (see :meth:`combine`)."""
-        cut, _ = self.heads_forward(params["heads"],
-                                    self.split_owner_inputs(batch),
-                                    swa_override=swa_override)
+        cut, _, aux_h = self.heads_forward(params["heads"],
+                                           self.split_owner_inputs(batch),
+                                           swa_override=swa_override)
         z = self.combine(cut.to(self.cdtype), gen=gen)
-        logits, _ = self.trunk_forward(params["trunk"], z,
-                                       swa_override=swa_override)
-        return logits, self.aux_zero(logits) + self.aux_zero(logits)
+        logits, _, aux_t = self.trunk_forward(params["trunk"], z,
+                                              swa_override=swa_override)
+        return logits, aux_h + aux_t
 
     @staticmethod
     def ce_loss(logits, labels):
@@ -291,13 +287,13 @@ class SplitModel:
     def prefill(self, params, batch, caches, *, swa_override=None):
         """Process the full context, filling the caches.  Returns
         (last-token logits, caches)."""
-        cut, hc = self.heads_forward(params["heads"],
-                                     self.split_owner_inputs(batch),
-                                     caches=caches["heads"], pos=0,
-                                     swa_override=swa_override)
-        logits, tc = self.trunk_forward(params["trunk"], self.combine(cut),
-                                        caches=caches["trunk"], pos=0,
+        cut, hc, _ = self.heads_forward(params["heads"],
+                                        self.split_owner_inputs(batch),
+                                        caches=caches["heads"], pos=0,
                                         swa_override=swa_override)
+        logits, tc, _ = self.trunk_forward(
+            params["trunk"], self.combine(cut), caches=caches["trunk"],
+            pos=0, swa_override=swa_override)
         return logits[:, -1], {"heads": hc, "trunk": tc}
 
     # ------------------------------------------- per-segment serving programs
@@ -309,15 +305,17 @@ class SplitModel:
     def prefill_heads(self, heads, owner_inputs, head_caches, *,
                       swa_override=None):
         """Owner side of prefill: (cut (P, B, S_p, k), head caches)."""
-        return self.heads_forward(heads, owner_inputs, caches=head_caches,
-                                  pos=0, swa_override=swa_override)
+        cut, hc, _ = self.heads_forward(heads, owner_inputs,
+                                        caches=head_caches, pos=0,
+                                        swa_override=swa_override)
+        return cut, hc
 
     def prefill_trunk(self, trunk, cut, trunk_caches, *, swa_override=None):
         """Scientist side of prefill: combine the received cut and run
         the trunk.  Returns (last-token logits, trunk caches)."""
-        logits, tc = self.trunk_forward(trunk, self.combine(cut),
-                                        caches=trunk_caches, pos=0,
-                                        swa_override=swa_override)
+        logits, tc, _ = self.trunk_forward(trunk, self.combine(cut),
+                                           caches=trunk_caches, pos=0,
+                                           swa_override=swa_override)
         return logits[:, -1], tc
 
     def decode_heads(self, heads, token, head_caches, pos_local, *,
@@ -327,16 +325,17 @@ class SplitModel:
         or one position per row (see the module docstring)."""
         pos_local = RowPositions.of(pos_local, token.device)
         oi = token[None].expand((self.P,) + tuple(token.shape))
-        cut, hc = self.heads_forward(heads, oi, caches=head_caches,
-                                     pos=pos_local,
-                                     swa_override=swa_override)
+        cut, hc, _ = self.heads_forward(heads, oi, caches=head_caches,
+                                        pos=pos_local,
+                                        swa_override=swa_override)
         return cut[0], hc
 
     def decode_trunk(self, trunk, z, trunk_caches, pos, *,
                      swa_override=None):
         pos = RowPositions.of(pos, z.device)
-        logits, tc = self.trunk_forward(trunk, z, caches=trunk_caches,
-                                        pos=pos, swa_override=swa_override)
+        logits, tc, _ = self.trunk_forward(trunk, z, caches=trunk_caches,
+                                           pos=pos,
+                                           swa_override=swa_override)
         return logits[:, -1], tc
 
     def decode_step(self, params, caches, token, pos, pos_local, *,

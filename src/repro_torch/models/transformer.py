@@ -9,33 +9,58 @@ reduced llama's and zamba2's heads): the stack then returns its input
 unchanged.
 
 The port builds ``attn:global``, ``attn:local`` and ``shared_attn``
-blocks (attention with the dense FFN; the shared block's params live
-once in ``shared`` and every unit's slot for it is ``{}``) and
-``mamba2`` blocks.  The other block kinds (xLSTM, the whisper decoder)
-and MoE raise ``NotImplementedError``.
+blocks (attention with the dense or the MoE FFN; the shared block's
+params live once in ``shared`` and every unit's slot for it is ``{}``),
+``mamba2`` blocks and the xLSTM's ``slstm`` and ``mlstm`` blocks.  The
+whisper decoder block (``dec``) raises ``NotImplementedError``.  A block
+with the MoE FFN returns its balance loss as an auxiliary loss, which
+``stack_apply`` sums from an f32 zero as the reference does.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import not_ported
-from repro_torch.models import attention, layers, mlp as mlp_mod, ssm
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.models import (attention, layers, mlp as mlp_mod,
+                                moe as moe_mod, ssm, xlstm)
+from repro_torch.tree import stack_draws, tree_leaves, tree_map
 
-KINDS = ("attn:global", "attn:local", "shared_attn", "mamba2")
+KINDS = ("attn:global", "attn:local", "shared_attn", "mamba2", "slstm",
+         "mlstm")
+#: the kinds that run attention
+ATTENTION = ("attn:global", "attn:local", "shared_attn")
+#: the recurrent kinds: (params key, init, f32 cache init, apply)
+RECURRENT = {
+    "mamba2": ("mamba", ssm.mamba2_init, ssm.mamba2_cache_init,
+               ssm.mamba2_apply),
+    "slstm": ("cell", xlstm.slstm_init, xlstm.slstm_cache_init,
+              xlstm.slstm_apply),
+    "mlstm": ("cell", xlstm.mlstm_init, xlstm.mlstm_cache_init,
+              xlstm.mlstm_apply)}
 
 
-def _check_kind(cfg, kind: str) -> None:
+def _check_kind(kind: str) -> None:
     if kind not in KINDS:
         raise not_ported(f"block kind {kind!r}",
                          "item 8, the other architecture families")
-    if cfg.moe is not None:
-        raise not_ported("MoE FFNs", "item 8, the other architecture "
-                         "families")
 
 
 def _has_ffn(cfg) -> bool:
-    return cfg.d_ff > 0 and cfg.mlp != "none"
+    return cfg.moe is not None or (cfg.d_ff > 0 and cfg.mlp != "none")
+
+
+def _ffn_init(gen, cfg):
+    if cfg.moe is not None:
+        return moe_mod.moe_init(gen, cfg.d_model, cfg.moe, cfg.mlp)
+    return mlp_mod.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp)
+
+
+def _ffn_apply(params, x, cfg):
+    """(y, aux): the MoE FFN's balance loss, or ``None`` for the dense
+    FFN."""
+    if cfg.moe is not None:
+        return moe_mod.moe_apply(params, x, cfg.moe, cfg.mlp)
+    return mlp_mod.mlp_apply(params, x, cfg.mlp), None
 
 
 # ---------------------------------------------------------------------------
@@ -44,16 +69,17 @@ def _has_ffn(cfg) -> bool:
 
 
 def block_init(gen, cfg, kind: str):
-    _check_kind(cfg, kind)
+    _check_kind(kind)
     d, dev = cfg.d_model, gen.device
     p = {"norm1": layers.norm_init(d, cfg.norm, dev)}
-    if kind == "mamba2":
-        p["mamba"] = ssm.mamba2_init(gen, cfg)
+    if kind in RECURRENT:
+        key, init, _, _ = RECURRENT[kind]
+        p[key] = init(gen, cfg)
         return p
     p["attn"] = attention.attn_init(gen, cfg)
     if _has_ffn(cfg):
         p["norm2"] = layers.norm_init(d, cfg.norm, dev)
-        p["ffn"] = mlp_mod.mlp_init(gen, d, cfg.d_ff, cfg.mlp)
+        p["ffn"] = _ffn_init(gen, cfg)
     if cfg.post_block_norm:
         p["post1"] = layers.norm_init(d, cfg.norm, dev)
         if _has_ffn(cfg):
@@ -65,11 +91,11 @@ def block_cache_init(batch: int, cfg, kind: str, s_max: int,
                      dtype=torch.bfloat16, device="cpu",
                      window_slots: int = 0):
     """KV caches in ``dtype`` of ``min(s_max, window_slots)`` slots
-    (``s_max`` when ``window_slots`` is 0); the Mamba2 caches in f32
-    whatever ``dtype`` is."""
-    _check_kind(cfg, kind)
-    if kind == "mamba2":
-        return ssm.mamba2_cache_init(batch, cfg, device)
+    (``s_max`` when ``window_slots`` is 0); the Mamba2 and xLSTM caches
+    in f32 whatever ``dtype`` and ``window_slots`` are."""
+    _check_kind(kind)
+    if kind in RECURRENT:
+        return RECURRENT[kind][2](batch, cfg, device)
     s_eff = min(s_max, window_slots) if window_slots else s_max
     return attention.init_kv_cache(batch, s_eff, cfg.n_kv_heads,
                                    cfg.head_dim, dtype, device)
@@ -78,12 +104,15 @@ def block_cache_init(batch: int, cfg, kind: str, s_max: int,
 def block_apply(params, x, *, cfg, kind: str, positions=None,
                 attn_kind: str = "causal", window: int = 0, cache=None,
                 pos=None):
-    """Returns (x_out, cache)."""
-    _check_kind(cfg, kind)
+    """Returns (x_out, cache, aux): ``aux`` the MoE FFN's balance loss,
+    ``None`` for every other block."""
+    _check_kind(kind)
     h = layers.norm_apply(params["norm1"], x, cfg.norm, cfg.norm_eps)
-    if kind == "mamba2":
-        y, cache = ssm.mamba2_apply(params["mamba"], h, cfg, cache)
-        return x + y.to(x.dtype), cache
+    if kind in RECURRENT:
+        key, _, _, apply = RECURRENT[kind]
+        y, cache = apply(params[key], h, cfg, cache)
+        return x + y.to(x.dtype), cache, None
+    aux = None
     a, cache = attention.attn_apply(
         params["attn"], h, cfg=cfg, kind=attn_kind, positions=positions,
         window=window, cache=cache, pos=pos)
@@ -92,11 +121,11 @@ def block_apply(params, x, *, cfg, kind: str, positions=None,
     x = x + a
     if _has_ffn(cfg):
         h = layers.norm_apply(params["norm2"], x, cfg.norm, cfg.norm_eps)
-        f = mlp_mod.mlp_apply(params["ffn"], h, cfg.mlp)
+        f, aux = _ffn_apply(params["ffn"], h, cfg)
         if cfg.post_block_norm:
             f = layers.norm_apply(params["post2"], f, cfg.norm, cfg.norm_eps)
         x = x + f
-    return x, cache
+    return x, cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -111,12 +140,12 @@ def stack_init(gen, cfg, n_units: int):
     shared = {}
     if "shared_attn" in cfg.block_pattern:
         shared["shared_attn"] = block_init(gen, cfg, "shared_attn")
-    units = [{f"b{i}": ({} if kind == "shared_attn"   # params in `shared`
-                        else block_init(gen, cfg, kind))
-              for i, kind in enumerate(cfg.block_pattern)}
-             for _ in range(max(n_units, 1))]
-    return {"units": tree_map(lambda *ls: torch.stack(ls)[:n_units], *units),
-            "shared": shared}
+
+    def draw_unit():
+        return {f"b{i}": ({} if kind == "shared_attn"   # params in `shared`
+                          else block_init(gen, cfg, kind))
+                for i, kind in enumerate(cfg.block_pattern)}
+    return {"units": stack_draws(draw_unit, n_units), "shared": shared}
 
 
 def stack_cache_init(batch: int, cfg, n_units: int, s_max: int,
@@ -151,12 +180,14 @@ def unit(tree, u: int):
 
 def stack_apply(params, x, *, cfg, positions=None, caches=None, pos=None,
                 swa_override=None):
-    """Apply all super-blocks.  Returns (x, caches); the caches are
-    updated in place.  ``swa_override``: when set, every ``attn:global``
-    and ``shared_attn`` block runs as sliding-window attention with this
-    window (the long-context variant)."""
+    """Apply all super-blocks.  Returns (x, caches, aux); the caches are
+    updated in place, ``aux`` is the blocks' auxiliary losses summed
+    from an f32 zero on x's device.  ``swa_override``: when set, every
+    ``attn:global`` and ``shared_attn`` block runs as sliding-window
+    attention with this window (the long-context variant)."""
     units, shared = params["units"], params["shared"]
     n_units = _n_units(units)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for u in range(n_units):
         up = unit(units, u)
         uc = None if caches is None else unit(caches, u)
@@ -168,11 +199,13 @@ def stack_apply(params, x, *, cfg, positions=None, caches=None, pos=None,
                 attn_kind, window = "local", swa_override
             bp = (shared["shared_attn"] if kind == "shared_attn"
                   else up[f"b{i}"])
-            x, _ = block_apply(
+            x, _, aux_i = block_apply(
                 bp, x, cfg=cfg, kind=kind, positions=positions,
                 attn_kind=attn_kind, window=window,
                 cache=None if uc is None else uc[f"b{i}"], pos=pos)
-    return x, caches
+            if aux_i is not None:
+                aux = aux + aux_i
+    return x, caches, aux
 
 
 def _n_units(units) -> int:

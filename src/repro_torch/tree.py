@@ -43,3 +43,21 @@ def tree_add(acc, tree):
     """``tree`` added leaf by leaf onto ``acc``; ``acc=None`` starts the
     sum (gradients and metrics accumulated over chunks, in order)."""
     return tree if acc is None else tree_map(lambda a, b: a + b, acc, tree)
+
+
+def stack_draws(draw: Callable[[], Any], n: int):
+    """``tree_map(torch.stack, *[draw() for _ in range(n)])`` holding one
+    draw at a time: every leaf is allocated once at ``(n, ...)`` and
+    filled draw by draw (one draw is a view, not a copy; ``n = 0`` still
+    draws once, for the shapes).  At full width a model's stacked heads
+    would otherwise need twice their memory while they are stacked."""
+    first = draw()
+    if n == 1:
+        return tree_map(lambda a: a[None], first)
+    out = tree_map(lambda a: a.new_empty((n,) + tuple(a.shape)), first)
+    for i in range(n):
+        tree, first = (first if i == 0 else draw()), None
+        for dst, src in zip(tree_leaves(out), tree_leaves(tree)):
+            dst[i].copy_(src)
+        del tree
+    return out

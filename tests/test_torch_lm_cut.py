@@ -130,8 +130,9 @@ def test_bottleneck_forward_matches_reference(arch, n_layers, cut_dim,
     want, _ = ref.forward(ref_params, {"tokens": jnp.asarray(toks)})
     got, _ = ours.forward(params, {"tokens": torch.from_numpy(toks)})
     _check(got, want, compute, BF16_ATOL.get((arch, n_layers), 5e-2))
-    cut, _ = ours.heads_forward(params["heads"], ours.split_owner_inputs(
-        {"tokens": torch.from_numpy(toks)}))
+    cut, _, _ = ours.heads_forward(params["heads"],
+                                   ours.split_owner_inputs(
+                                       {"tokens": torch.from_numpy(toks)}))
     assert cut.shape[-1] == cut_dim
 
 

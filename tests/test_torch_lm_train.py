@@ -103,6 +103,7 @@ def reference_runs(cfg, rcfg, toks):
         h = s.fit(steps=STEPS, batch_size=BATCH, eval_frac=0.25,
                   verbose=False, mode=mode)
         out[mode] = dict(loss=[r["loss"] for r in h["train"]],
+                         aux=[float(r["aux"]) for r in h["train"]],
                          eval=h["eval"][-1], params=port_params(s),
                          ts=s.transport_stats)
     return out
@@ -298,9 +299,11 @@ def loss_and_grads_match(cfg, rcfg, compute, seq=SEQ, leafwise=True):
     """``loss_fn`` (masked labels included) and its gradients against
     the reference's ``jax.value_and_grad`` on 4 documents of ``seq``
     tokens from the reference's init: loss rel 1e-5 (f32) / 2e-2
-    (bf16); with ``leafwise``, every gradient leaf within 1e-3 (f32) /
-    5e-2 (bf16) of its largest magnitude.  Returns the (reference, port)
-    gradient leaves as numpy arrays, in ``tree_leaves`` order."""
+    (bf16); the aux 0 in both where the config has no MoE FFN, else
+    within the loss's tolerance; with ``leafwise``, every gradient leaf
+    within 1e-3 (f32) / 5e-2 (bf16) of its largest magnitude.  Returns
+    the (reference, port) gradient leaves as numpy arrays, in
+    ``tree_leaves`` order."""
     ref = RefSplitModel(rcfg)
     rp = ref.init(jax.random.PRNGKey(0))
     ours = SplitModel(cfg)
@@ -321,7 +324,12 @@ def loss_and_grads_match(cfg, rcfg, compute, seq=SEQ, leafwise=True):
     np.testing.assert_allclose(float(tl), float(rl), rtol=rtol)
     np.testing.assert_allclose(float(tm["loss"]), float(rm["loss"]),
                                rtol=rtol)
-    assert float(tm["aux"]) == float(rm["aux"]) == 0.0
+    if cfg.moe is None:
+        assert float(tm["aux"]) == float(rm["aux"]) == 0.0
+    else:
+        assert float(rm["aux"]) > 0.0
+        np.testing.assert_allclose(float(tm["aux"]), float(rm["aux"]),
+                                   rtol=rtol)
     frac = 1e-3 if compute == "float32" else 5e-2
     want, got = [], []
     for w, t in zip(jax.tree.leaves(rg), tree_leaves(leaves)):

@@ -453,6 +453,32 @@ def test_supervisor_restart_budget_and_backoff():
     assert sup.stats["respawns"] == 2
 
 
+def test_join_or_warn_flags_leaked_thread():
+    """The reference's ``tests/test_recovery.py`` case on the port: a
+    thread that outlives its join window is a loud leak (a RuntimeWarning
+    and a ``leak_stats`` bump, a False return), and a thread that ends
+    returns True and counts nothing; both packages count alike."""
+    import warnings
+    from repro.federation import session as ref_session
+    from repro_torch.federation import session as port_session
+    for mod in (port_session, ref_session):
+        ev = threading.Event()
+        th = threading.Thread(target=ev.wait, daemon=True, name="wedged")
+        th.start()
+        before = mod.leak_stats["leaked_threads"]
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            assert mod._join_or_warn(th, 0.05, "test") is False
+        assert mod.leak_stats["leaked_threads"] == before + 1
+        assert any("leaked" in str(x.message) for x in w)
+        ev.set()
+        th.join(timeout=5.0)
+        ok = threading.Thread(target=lambda: None)
+        ok.start()
+        assert mod._join_or_warn(ok, 5.0, "test") is True
+        assert mod.leak_stats["leaked_threads"] == before + 1
+
+
 # ---------------------------------------------------------------------------
 # supervised fits on thread owners over the queue
 # ---------------------------------------------------------------------------

@@ -485,7 +485,8 @@ def test_owner_template_at_full_width():
 
 def test_owner_kernel_sources():
     """The sources a session builds before it spawns CUDA owner workers:
-    the attention kernels' for every LM, the scan's too for zamba2,
+    the attention kernels' for every attention LM, the scan's too for
+    zamba2, none for xlstm-125m's heads (no attention, no scan) and
     none for the paper's MLP."""
     from repro_torch.configs import CONFIG as mlp
     from repro_torch.kernels import block_attention
@@ -495,6 +496,8 @@ def test_owner_kernel_sources():
         attention + scan
     assert build_adapter(get_config(
         "llama3.2-3b")).owner_kernel_sources() == attention
+    assert build_adapter(get_config(
+        "xlstm-125m")).owner_kernel_sources() == ()
     assert build_adapter(mlp).owner_kernel_sources() == ()
 
 
