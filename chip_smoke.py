@@ -244,8 +244,23 @@ Phases, in order; any failure raises and exits non-zero:
      way, with the top-k choices each call dropped past its capacity,
      and deepseek's training (5 steps, as (b)); (e) reduced xlstm-125m
      and deepseek-moe-16b (f32) card vs CPU within rel 1e-4, as 22(c);
- 14. the results, last (after phases 15, 16, 17, 18, 20, 21, 22 and
-     23): a
+ 24. the enc-dec and vision families, after phase 23, through
+     ``SplitModel``'s own programs (the engine drives text archs only):
+     (a) whisper-tiny at full width and depth, 8 rows of 1500 frames
+     (the conv stem a stub) and a 64-token prompt, prefill + 31 greedy
+     decode ticks at a context of 448, with exact attention launches
+     by route (the encoder's on tc, every decoder call on decode: self-
+     and cross-attention, Sq != Skv), and in f32 a decode step's logits
+     == ``forward``'s within 2e-3; (b) its training, 5 steps of clip +
+     Adam on one batch of 8 x (1500 frames, 224 tokens): a falling loss,
+     exact tc launches; (c) qwen2-vl-72b at full width, 2 layers, 4 rows
+     of 1024 patches (a 32 x 32 M-RoPE grid) + 1024 tokens, 3 tc per
+     wave and 2 decode per tick; (d) both reduced (f32) card vs CPU within
+     rel 1e-4, the logits and a 3-step trail; (e) the attention kernel
+     at these paths' calls, beside the plain version, SDPA and the
+     bound;
+ 14. the results, last (after phases 15, 16, 17, 18, 20, 21, 22, 23
+     and 24): a
      ``{"serving_continuous": ...}`` JSON line with phase 19's numbers, a
      ``{"privacy": ...}`` JSON line with phase 15's numbers, a
      ``{"recovery": ...}`` line with phase 16's, a ``{"psi": ...}`` line
@@ -264,8 +279,11 @@ Phases, in order; any failure raises and exits non-zero:
      its ``zamba2_train_launches`` over phase 21(b)'s and its
      ``gemma2_launches`` in phase 22(a)'s run (the fma, decode and
      per-row entries with a ``gemma2`` row: their time at gemma2's
-     shapes), and its ``families_launches`` over phase 23's runs; a
-     ``{"families": ...}`` line with phase 23's numbers and a
+     shapes), its ``families_launches`` over phase 23's runs and its
+     ``enc_dec_vision_launches`` over phase 24's (the tc and decode
+     entries with an ``enc_dec_vision`` table: their time at phase 24's
+     calls); a ``{"families": ...}`` line with phase 23's numbers, an
+     ``{"enc_dec_vision": ...}`` line with phase 24's and a
      ``{"phase_seconds": ...}`` line with each phase's wall seconds.
 
 Without a CUDA device it prints nothing and exits 2.  It imports only
@@ -1183,7 +1201,8 @@ def sdpa_call(q, k, v, case, attention_mask):
     """One ``scaled_dot_product_attention`` call that computes the case's
     function, in its fastest form: the valid keys ``[:kv_len]`` sliced
     (views), ``is_causal`` for a causal prefill from position 0, no mask
-    for a decode step that sees every valid key, else a boolean mask.
+    for bidir or for a decode step that sees every valid key, else a
+    boolean mask.
     Timed as a yardstick only; the port never calls it."""
     import torch
     B, Sq, Skv, nh, nkv, hd, kind, window, cap, q_off, kv_len = case
@@ -1195,7 +1214,8 @@ def sdpa_call(q, k, v, case, attention_mask):
     kw = dict(enable_gqa=True)
     if kind == "causal" and q_off == 0:
         kw["is_causal"] = True
-    elif not (kind == "causal" and Sq == 1 and kv_lim <= q_off + 1):
+    elif kind != "bidir" and not (kind == "causal" and Sq == 1
+                                  and kv_lim <= q_off + 1):
         kw["attn_mask"] = attention_mask(
             q_off + torch.arange(Sq, device=q.device),
             torch.arange(kv_lim, device=q.device), kind, window, None)
@@ -4798,24 +4818,35 @@ def gap_at(got, want):
             "logit": int(logit), "value": want[step, row, logit].item()}
 
 
-def card_vs_cpu(model, cpu_params, toks, steps, what, **opts):
-    """Teacher-forced logits (the prefill and ``steps`` decode steps) of
-    ``model`` on the card against the CPU, under ``configure_cuda``'s
-    numerics (asserted) with the CPU on one thread, as the CPU tests
-    pin it: a reduction split across threads rounds otherwise, and the
-    thread count is the host's.  Returns the gap."""
+def on_card_and_cpu(run, cpu_params, what):
+    """``run(params)`` on the card (the params moved there) and on the
+    CPU, under ``configure_cuda``'s numerics (asserted) with the CPU on
+    one thread, as the CPU tests pin it: a reduction split across
+    threads rounds otherwise, and the thread count is the host's.
+    Returns (the card's result, the CPU's, the numerics)."""
     import torch
     from repro_torch.tree import tree_map
     st = assert_configured(what)
     card_params = tree_map(lambda a: a.cuda(), cpu_params)
-    got = teacher_forced(model, card_params, toks, steps, **opts)[0].cpu()
+    got = run(card_params)
     del card_params
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        want = teacher_forced(model, cpu_params, toks, steps, **opts)[0]
+        want = run(cpu_params)
     finally:
         torch.set_num_threads(n)
+    return got, want, st
+
+
+def card_vs_cpu(model, cpu_params, toks, steps, what,
+                forced=teacher_forced, **opts):
+    """Teacher-forced logits (the prefill and ``steps`` decode steps,
+    ``forced``'s: the text LM's by default) of ``model`` on the card
+    against the CPU (``on_card_and_cpu``).  Returns the gap."""
+    got, want, st = on_card_and_cpu(
+        lambda p: forced(model, p, toks, steps, **opts)[0].cpu(),
+        cpu_params, what)
     gap = gap_at(got, want)
     S = toks.shape[1] - steps
     print(f"  {what}: card vs CPU (1 thread) max rel {gap['rel']:.3e} at "
@@ -5038,6 +5069,434 @@ def phase_families():
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the enc-dec and vision families
+# ---------------------------------------------------------------------------
+
+WHISPER = "whisper-tiny"
+QWEN_VL = "qwen2-vl-72b"
+# (a) whisper's 30 s window after its conv stem (the frontend stub): 1500
+# frames; its decoder context of 448 tokens; a 64-token prompt and NEW
+# greedy tokens for 8 rows.  (b) 224 decoder tokens a row, 5 Adam steps
+# on one fixed batch (random tokens teach nothing until a batch is
+# revisited).  (c) qwen2-vl at 2 layers (one head unit per owner, one
+# trunk unit): 1024 patch embeddings (a 32 x 32 grid; the ViT is a
+# stub) and 1024 text tokens for 4 rows
+W_SLOTS, W_FRAMES, W_CTX, W_PROMPT = 8, 1500, 448, 64
+W_TRAIN_TOKENS, W_TRAIN_STEPS = 224, 5
+V_SLOTS, V_PATCHES, V_TOKENS, V_LAYERS = 4, 1024, 1024, 2
+# kernel 4 at these paths' calls (B, Sq, Skv, nh, nkv, hd, kind, window,
+# softcap, q_offset, kv_len) and the route each takes: the encoder's
+# bidir prefill, cross-attention (Sq != Skv, 1500 keys: no tile
+# multiple) at prefill, in training and at a decode tick, the decoder's
+# self-attention 16 ticks in (a cache of 448 + 32), and qwen2-vl's head
+# and trunk prefills (caches of 1024 + 32 and 2048 + 32) and trunk decode
+XPATH_CASES = {
+    "whisper_encoder": ((8, 1500, 1500, 6, 6, 64, "bidir", 0, 0.0, 0,
+                         None), "tc"),
+    "whisper_cross_prefill": ((8, 64, 1500, 6, 6, 64, "bidir", 0, 0.0, 0,
+                               None), "decode"),
+    "whisper_cross_train": ((8, 224, 1500, 6, 6, 64, "bidir", 0, 0.0, 0,
+                             None), "tc"),
+    "whisper_cross_decode": ((8, 1, 1500, 6, 6, 64, "bidir", 0, 0.0, 0,
+                              None), "decode"),
+    "whisper_self_decode": ((8, 1, 480, 6, 6, 64, "causal", 0, 0.0, 80,
+                             81), "decode"),
+    "qwen2vl_head_prefill": ((4, 1024, 1056, 64, 8, 128, "causal", 0, 0.0,
+                              0, 1024), "tc"),
+    "qwen2vl_trunk_prefill": ((4, 2048, 2080, 64, 8, 128, "causal", 0, 0.0,
+                               0, 2048), "tc"),
+    "qwen2vl_trunk_decode": ((4, 1, 2080, 64, 8, 128, "causal", 0, 0.0,
+                              2064, 2065), "decode"),
+}
+
+
+def check_attention_counts(counts, tc, decode, what):
+    """Exactly ``tc`` and ``decode`` attention launches, none on fma."""
+    need = {"block_attention": tc + decode, "block_attention.tc": tc,
+            "block_attention.decode": decode, "block_attention.fma": 0}
+    got = {k: counts[k] for k in need}
+    print(f"    {what}: attention launches {got} (needed exactly {need})")
+    if got != need:
+        raise AssertionError(f"{what}: attention launches {got} != {need}")
+
+
+def modal_wave(model, params, inputs, prompt, new, pos0, local0):
+    """One wave through ``SplitModel``'s own programs (the engine drives
+    text archs only): prefill ``inputs`` (the frames or patches) with the
+    ``prompt`` tokens, then ``new - 1`` greedy decode steps at global
+    position ``pos0 + t`` and local position ``local0 + t``.  Returns
+    (prefill s, per-tick s, tokens (B, new), the last logits)."""
+    import torch
+    enc_dec = model.cfg.enc_dec
+    # the decoder's context (whisper's), or the combined sequence
+    s_max = W_CTX if enc_dec else inputs.shape[1] + prompt.shape[1]
+    with torch.inference_mode():
+        caches = model.cache_init(prompt.shape[0], s_max, n_new=NEW,
+                                  device="cuda")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, caches = model.prefill(
+            params, {"frames" if enc_dec else "patches": inputs,
+                     "tokens": prompt}, caches)
+        tok = logits.argmax(-1)[:, None]
+        del logits
+        torch.cuda.synchronize()
+        pre = time.perf_counter() - t
+        out, ticks = [tok], []
+        for i in range(new - 1):
+            t = time.perf_counter()
+            logits, caches = model.decode_step(params, caches, tok,
+                                               pos0 + i, local0 + i)
+            tok = logits.argmax(-1)[:, None]
+            torch.cuda.synchronize()
+            ticks.append(time.perf_counter() - t)
+            out.append(tok)
+    return pre, ticks, torch.cat(out, 1), logits
+
+
+def report_wave(what, pre, ticks, toks, vocab, logits):
+    import numpy as np
+    import torch
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    wall = pre + sum(ticks)
+    res = {"prefill_ms": 1e3 * pre,
+           "decode_ms_median": 1e3 * float(np.median(ticks)),
+           "decode_ms_max": 1e3 * max(ticks),
+           "tok_per_s": toks.numel() / wall, "peak_gb": peak}
+    print(f"    {what}: prefill {res['prefill_ms']:.3f} ms; decode ms per "
+          f"tick (median of {len(ticks)}) {res['decode_ms_median']:.3f}, "
+          f"max {res['decode_ms_max']:.3f}; {res['tok_per_s']:.2f} tok/s; "
+          f"peak device memory {peak:.2f} GB; row 0 -> "
+          f"{toks[0, :12].tolist()}...")
+    if not (bool(((toks >= 0) & (toks < vocab)).all())
+            and bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"{what}: tokens out of range or logits not "
+                             "finite")
+    return res
+
+
+def whisper_serving():
+    """24(a): whisper-tiny at full width and depth: prefill (the encoder
+    over 1500 frames, the decoder over the prompt), NEW - 1 decode ticks
+    (the decoder alone, cross-attending the stashed encoder output),
+    exact launches by route; then, in f32 at full size, a decode step's
+    logits against ``forward`` over the same tokens within 2e-3."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import block_attention as attn
+    from repro_torch.models.model import SplitModel
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(WHISPER)
+    model = SplitModel(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    print(f"  (a) {WHISPER}: {n_params / 1e9:.4f} G params (f32, "
+          f"{4 * n_params / 1e9:.3f} GB), {model.n_head_units} encoder + "
+          f"{model.n_trunk_units} decoder layers, d {cfg.d_model}; "
+          f"{W_SLOTS} rows x {W_FRAMES} frames of {cfg.d_frontend}, a "
+          f"{W_PROMPT}-token prompt, {NEW} new tokens, context {W_CTX}")
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.normal(size=(
+        W_SLOTS, W_FRAMES, cfg.d_frontend)).astype(np.float32)).cuda()
+    toks = torch.from_numpy(lm_contexts(cfg.vocab, W_SLOTS, W_PROMPT + 1,
+                                        seed=1).astype(np.int64)).cuda()
+    prompt = toks[:, :W_PROMPT]
+    modal_wave(model, params, frames, prompt, 2, W_PROMPT, 0)     # warm
+    attn.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    pre, ticks, out, logits = modal_wave(model, params, frames, prompt,
+                                         NEW, W_PROMPT, 0)
+    counts = dict(attn.launch_counts)
+    res = report_wave(WHISPER, pre, ticks, out, cfg.vocab, logits)
+    # the encoder's layers once (tc: 1500 rows); per decoder layer, self-
+    # and cross-attention at the prefill (64 rows: decode) and at every
+    # tick
+    n_enc, n_dec = model.P * model.n_head_units, model.n_trunk_units
+    check_attention_counts(counts, n_enc, 2 * n_dec * NEW, WHISPER)
+    res["counts"] = counts
+    f32 = SplitModel(cfg.replace(compute_dtype="float32"))
+    with torch.inference_mode():
+        want = f32.forward(params, {"frames": frames, "tokens": toks})[0][
+            :, -1]
+        caches = f32.cache_init(W_SLOTS, W_CTX, n_new=NEW, device="cuda")
+        _, caches = f32.prefill(params, {"frames": frames,
+                                         "tokens": prompt}, caches)
+        got, _ = f32.decode_step(params, caches, toks[:, -1:], W_PROMPT, 0)
+        torch.cuda.synchronize()
+    gap = (got - want).abs().max().item()
+    ok = bool(torch.allclose(got, want, atol=2e-3, rtol=2e-3))
+    print(f"    f32 at full size: decode_step's logits at position "
+          f"{W_PROMPT} vs forward over {W_PROMPT + 1} tokens: max |diff| "
+          f"{gap:.3e} (atol = rtol = 2e-3): {ok}")
+    if not ok:
+        raise AssertionError(f"{WHISPER}: decode != forward in f32")
+    res.update(n_params=n_params, decode_vs_forward=gap)
+    return res
+
+
+def whisper_train():
+    """24(b): whisper-tiny trained at full size: W_TRAIN_STEPS steps of
+    ``chain(clip_by_global_norm(1.0), adam(3e-4))`` (the reference's
+    ``launch/steps.py::make_optimizer``) on one batch of 8 x 1500 frames
+    and 224 decoder tokens (labels the next tokens); the loss falls, the
+    attention forwards are exact (every call past 64 rows: tc)."""
+    import numpy as np
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.core.splitnn import make_split_train_step
+    from repro_torch.kernels import block_attention as attn
+    from repro_torch.models.model import SplitModel
+    cfg = get_config(WHISPER)
+    model = SplitModel(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(lm_contexts(
+        cfg.vocab, W_SLOTS, W_TRAIN_TOKENS + 1, seed=2).astype(
+        np.int64)).cuda()
+    batch = {"frames": torch.from_numpy(rng.normal(size=(
+        W_SLOTS, W_FRAMES, cfg.d_frontend)).astype(np.float32)).cuda(),
+        "tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    opt = optim.chain(optim.clip_by_global_norm(1.0), optim.adam(3e-4))
+    step = make_split_train_step(model.loss_fn, opt)
+    state = opt.init(params)
+    attn.reset_launch_counts()
+    free_card()
+    losses, times = [], []
+    for t in range(W_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch, t)
+        losses.append(m["loss"].item())
+        times.append(time.perf_counter() - t0)
+    counts = dict(attn.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    steady = 1e3 * float(np.median(times[1:]))
+    print(f"  (b) {WHISPER} training at full size: {W_TRAIN_STEPS} steps "
+          f"of {W_SLOTS} x ({W_FRAMES} frames, {W_TRAIN_TOKENS} tokens); "
+          f"loss trail {[round(x, 5) for x in losses]}; step ms "
+          f"{[round(1e3 * x, 3) for x in times]} (steady {steady:.3f}); "
+          f"peak device memory {peak:.2f} GB")
+    n_enc, n_dec = model.P * model.n_head_units, model.n_trunk_units
+    check_attention_counts(counts, W_TRAIN_STEPS * (n_enc + 2 * n_dec), 0,
+                           f"{WHISPER} training")
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"{WHISPER}: the loss did not fall: {losses}")
+    return {"loss_trail": losses, "step_ms": [1e3 * x for x in times],
+            "steady_step_ms": steady, "peak_gb": peak, "counts": counts}
+
+
+def vlm_serving():
+    """24(c): qwen2-vl-72b at full width, V_LAYERS layers: prefill the
+    vision owner's patches and the text owner's tokens (M-RoPE: the
+    patches on a 32 x 32 grid), NEW - 1 decode ticks through the text
+    owner's head and the trunk, exact launches by route."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import block_attention as attn
+    from repro_torch.models.model import SplitModel
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(QWEN_VL).replace(n_layers=V_LAYERS)
+    model = SplitModel(cfg)
+    t = time.time()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    print(f"  (c) {QWEN_VL} at full width, {V_LAYERS} layers: "
+          f"{n_params / 1e9:.3f} G params (f32, {4 * n_params / 1e9:.2f} "
+          f"GB) on the card in {time.time() - t:.2f} s; "
+          f"{model.n_head_units} head unit x {model.P} owners, "
+          f"{model.n_trunk_units} trunk unit; {V_SLOTS} rows of "
+          f"{V_PATCHES} patches ({cfg.d_frontend}) + {V_TOKENS} tokens, "
+          f"{NEW} new tokens")
+    rng = np.random.default_rng(3)
+    patches = torch.from_numpy(rng.normal(size=(
+        V_SLOTS, V_PATCHES, cfg.d_frontend)).astype(np.float32)).cuda()
+    prompt = torch.from_numpy(lm_contexts(cfg.vocab, V_SLOTS, V_TOKENS,
+                                          seed=3).astype(np.int64)).cuda()
+    S = V_PATCHES + V_TOKENS
+    modal_wave(model, params, patches, prompt, 2, S, V_TOKENS)    # warm
+    attn.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    pre, ticks, out, logits = modal_wave(model, params, patches, prompt,
+                                         NEW, S, V_TOKENS)
+    counts = dict(attn.launch_counts)
+    res = report_wave(QWEN_VL, pre, ticks, out, cfg.vocab, logits)
+    # the prefill: each owner's head layer and the trunk's (1024 / 2048
+    # rows of 8 query heads per kv head: tc); a tick: the text owner's
+    # head layer and the trunk's (8 rows: decode)
+    units = model.P * model.n_head_units + model.n_trunk_units
+    check_attention_counts(counts, units,
+                           (model.n_head_units + model.n_trunk_units)
+                           * (NEW - 1), QWEN_VL)
+    res.update(n_params=n_params, counts=counts)
+    return res
+
+
+def modal_forced(model, params, toks, steps, inputs=None):
+    """``teacher_forced`` for the vision and audio models: prefill
+    ``inputs`` (frames or patches, a numpy array) with ``toks[:, :S]``
+    (S = its length - ``steps``), then ``steps`` decode steps fed the
+    next tokens.  Returns (last-token logits (steps + 1, B, vocab) f32,)."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    dev = tree_leaves(params)[0].device
+    enc_dec = model.cfg.enc_dec
+    B, S = toks.shape[0], toks.shape[1] - steps
+    x = torch.from_numpy(inputs).to(dev)
+    t = torch.from_numpy(toks.astype("int64")).to(dev)
+    s_max = S if enc_dec else x.shape[1] + S
+    with torch.inference_mode():
+        caches = model.cache_init(B, s_max, n_new=steps + 1, device=dev)
+        logits, caches = model.prefill(
+            params, {"frames" if enc_dec else "patches": x,
+                     "tokens": t[:, :S]}, caches)
+        out = [logits.clone()]
+        del logits
+        for i in range(steps):
+            logits, caches = model.decode_step(
+                params, caches, t[:, S + i:S + i + 1],
+                S + i if enc_dec else x.shape[1] + S + i,
+                0 if enc_dec else S + i)
+            out.append(logits)
+        out = torch.stack(out).float()
+    return (out,)
+
+
+def modal_trail(model, params, batch, steps=3):
+    """``steps`` steps of ``chain(clip_by_global_norm(1.0), adam(3e-4))``
+    on one batch of numpy arrays: the loss trail."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.core.splitnn import make_split_train_step
+    from repro_torch.tree import tree_leaves
+    dev = tree_leaves(params)[0].device
+    b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    opt = optim.chain(optim.clip_by_global_norm(1.0), optim.adam(3e-4))
+    step, state, trail = make_split_train_step(model.loss_fn, opt), \
+        opt.init(params), []
+    for t in range(steps):
+        params, state, m = step(params, state, b, t)
+        trail.append(m["loss"].item())
+    return trail
+
+
+def modal_card_vs_cpu():
+    """24(d): reduced whisper-tiny (2 + 2 layers) and qwen2-vl-72b (4
+    layers) in f32: the prefill and 5 teacher-forced steps' logits and
+    a 3-step clip + Adam trail, card against CPU within rel 1e-4
+    (``on_card_and_cpu``: under ``configure_cuda``'s numerics, the CPU
+    on one thread)."""
+    import functools
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import SplitModel
+    out = {}
+    for arch, n_layers, n_in in ((WHISPER, None, 96), (QWEN_VL, 4, 64)):
+        cfg = get_config(arch, reduced=True).replace(compute_dtype="float32")
+        if n_layers:
+            cfg = cfg.replace(n_layers=n_layers)
+        model = SplitModel(cfg)
+        cpu_params = model.init(torch.Generator().manual_seed(0))
+        rng = np.random.default_rng(7)
+        x = rng.normal(size=(2, n_in, cfg.d_frontend)).astype(np.float32)
+        toks = lm_contexts(cfg.vocab, 2, 64 + 5, seed=7)
+        gap = card_vs_cpu(model, cpu_params, toks, 5, f"(d) reduced {arch}",
+                          forced=functools.partial(modal_forced, inputs=x))
+        lab = toks[:, 1:65].astype(np.int64)
+        if not cfg.enc_dec:          # labels over patches + tokens
+            lab = np.concatenate([np.full((2, n_in), -100), lab], 1)
+        batch = {"frames" if cfg.enc_dec else "patches": x,
+                 "tokens": toks[:, :64].astype(np.int64), "labels": lab}
+        got, want, _ = on_card_and_cpu(
+            lambda p: modal_trail(model, p, batch), cpu_params,
+            f"(d) reduced {arch} trail")
+        trail_rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        print(f"    (d) reduced {arch}: 3-step clip + Adam trail card "
+              f"{got} vs CPU {want}: max rel {trail_rel:.3e}")
+        if gap["rel"] > 1e-4 or trail_rel > 1e-4:
+            raise AssertionError(f"reduced {arch}: card and CPU disagree")
+        out[arch] = dict(gap, trail=got, trail_rel=trail_rel)
+    return out
+
+
+def xpath_attention_rows(bw, f32_flops):
+    """24(e): kernel 4 at these paths' calls (``XPATH_CASES``, bf16): the
+    route taken, agreement with the plain version (2e-2), the kernel's
+    time beside the plain version's, SDPA's and the bound."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.block_attention import (attention_ref,
+                                                     block_attention,
+                                                     route_of)
+    from repro_torch.kernels.block_attention.ref import attention_mask
+    rows = {}
+    for name, (case, need) in XPATH_CASES.items():
+        B, Sq, Skv, nh, nkv, hd, kind, window, cap, q_off, kv_len = case
+        rng = np.random.default_rng(0)
+        q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                   .cuda().to(torch.bfloat16)
+                   for s in ((B, Sq, nh, hd), (B, Skv, nkv, hd),
+                             (B, Skv, nkv, hd)))
+        kw = dict(kind=kind, window=window, softcap=cap, q_offset=q_off,
+                  kv_len=kv_len)
+        route = route_of(q, k, v)
+        if route != need:
+            raise AssertionError(f"attention {name}: route {route}, the "
+                                 f"path takes {need}")
+        got = block_attention(q, k, v, **kw)
+        want = attention_ref(q, k, v, **kw)
+        err = library_matches(f"attention {name} (kernel)", got, want, 2e-2)
+        sdpa = sdpa_call(q, k, v, case, attention_mask)
+        torch.use_deterministic_algorithms(False)
+        lib_err = library_matches(f"attention {name}", sdpa(), want, 2e-2)
+        sdpa_ms = device_ms(sdpa, reps=10, rounds=7)
+        torch.use_deterministic_algorithms(True)
+        bound, by, flops = attn_bound(case, torch.bfloat16, bw, f32_flops)
+        row = {"shape": [list(q.shape), list(k.shape)], "kind": kind,
+               "q_offset": q_off, "kv_len": kv_len, "route": route,
+               "ms": device_ms(lambda: block_attention(q, k, v, **kw),
+                               reps=10, rounds=7),
+               "plain_ms": device_ms(lambda: attention_ref(q, k, v, **kw),
+                                     reps=2, rounds=3),
+               "library_ms": sdpa_ms, "library": "sdpa",
+               "bound_ms": bound, "bound_by": by, "flops": flops,
+               "max_abs_err": err, "library_max_abs_err": lib_err}
+        rows[name] = row
+        print(f"    {name} {tuple(q.shape)} kv {Skv} {kind} [{route}]: "
+              f"|diff| {err:.2e}; {row['ms']:.6f} ms, plain "
+              f"{row['plain_ms']:.6f}, SDPA {sdpa_ms:.6f} (|diff| "
+              f"{lib_err:.2e}), bound {bound:.6f} ({by})")
+        del q, k, v, got, want
+        free_card()
+    return rows
+
+
+def phase_enc_dec_vision(bw, f32_flops):
+    """Phase 24: whisper-tiny served and trained at full width and depth,
+    qwen2-vl-72b served at full width and cut depth, both reduced card
+    vs CPU, and kernel 4 at their calls."""
+    out = {}
+    for key, fn in (("whisper_serving", whisper_serving),
+                    ("whisper_train", whisper_train),
+                    ("vlm_serving", vlm_serving),
+                    ("card_vs_cpu", modal_card_vs_cpu)):
+        free_card()
+        t = time.time()
+        out[key] = fn()
+        out[f"{key}_s"] = time.time() - t
+    free_card()
+    t = time.time()
+    print("  (e) the attention kernel at these paths' calls (bf16)")
+    out["attention_rows"] = xpath_attention_rows(bw, f32_flops)
+    out["attention_rows_s"] = time.time() - t
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5217,6 +5676,15 @@ def main():
     families = phase_families()
     print(f"  phase wall {time.time() - t:.2f} s")
 
+    t = time.time()
+    mark("24")
+    print(f"== 24. the enc-dec and vision families: {WHISPER} served and "
+          f"trained at full width and depth, {QWEN_VL} served at full "
+          f"width, {V_LAYERS} layers (cross-attention and M-RoPE on the "
+          "attention kernel), both reduced card vs CPU")
+    modal = phase_enc_dec_vision(bw, flops)
+    print(f"  phase wall {time.time() - t:.2f} s")
+
     mark("14")
     print("== 14. results")
     src = "src/repro_torch/csrc/quantize.cu"
@@ -5370,6 +5838,20 @@ def main():
             families["xlstm_serving"]["counts"].get(e["name"], 0) + sum(
             c.get(e["name"], 0) for k in ("xlstm_train", "moe_train")
             for c in families[k]["counts"].values())
+    # and in phase 24's runs (whisper-tiny's wave and fit, qwen2-vl's
+    # wave), with kernel 4's time at their calls on the entry of the
+    # route each takes
+    for e in entries:
+        e["enc_dec_vision_launches"] = sum(
+            modal[k]["counts"].get(e["name"], 0) for k in
+            ("whisper_serving", "whisper_train", "vlm_serving"))
+        if e["name"] in ("block_attention.tc", "block_attention.decode"):
+            e["enc_dec_vision"] = {
+                k: r for k, r in modal["attention_rows"].items()
+                if f"block_attention.{r['route']}" == e["name"]}
+    print(json.dumps({"enc_dec_vision": {
+        k: ({x: y for x, y in v.items() if x != "counts"}
+            if isinstance(v, dict) else v) for k, v in modal.items()}}))
     print(json.dumps({"families": {
         k: ({x: y for x, y in v.items() if x != "counts"}
             if isinstance(v, dict) else v) for k, v in families.items()}}))

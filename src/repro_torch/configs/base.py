@@ -11,23 +11,17 @@ defences) train on the MLP SplitNN; the LM trains and serves with a
 ``cut_dim`` bottleneck and cut noise.
 
 ``ArchConfig``: one architecture, field for field as in the reference.
-The port builds the dense attention family, the MoE FFN (``moe``: a
-:class:`MoEConfig`), the Mamba2 hybrid (``ssm``: an :class:`SSMConfig`)
-and the xLSTM blocks (``xlstm``: an :class:`XLSTMConfig`).
+The port builds every family of the reference's: the dense attention
+family, the MoE FFN (``moe``: a :class:`MoEConfig`), the Mamba2 hybrid
+(``ssm``: an :class:`SSMConfig`), the xLSTM blocks (``xlstm``: an
+:class:`XLSTMConfig`), the encoder-decoder (``enc_dec``: whisper) and
+the vision-text modality with M-RoPE (qwen2-vl).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error every unported option raises, naming its ROADMAP.md
-    item."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, port "
-        f"queue: {item})")
 
 
 @dataclass(frozen=True)

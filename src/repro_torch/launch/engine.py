@@ -200,6 +200,8 @@ class ServingEngine:
         a shared :class:`CutCache`); ``endpoints`` injects a pre-built
         (owner, scientist) endpoint pair — how :class:`ServingService`
         multiplexes sessions onto one channel."""
+        if model.cfg.modality != "text":
+            raise ValueError("ServingEngine drives text archs")
         if scheduler not in ("wave", "continuous"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
         self.device = resolve_device(device)

@@ -6,7 +6,8 @@ generation-owner head + scientist trunk.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
         --reduced --batch 4 --ctx 128 --new 16 [--device cpu]
 
-``--arch`` is any text architecture ``configs.get_config`` builds
+``--arch`` is any text architecture ``configs.get_config`` builds (the
+vision and audio ones exit, as in the reference)
 (gemma2-9b's and mixtral-8x7b's local layers keep ring caches whenever a
 cache holds at most the window).  It runs on the CUDA
 card unless ``--device cpu`` is given; the weights are random, drawn
@@ -46,6 +47,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, reduced=args.reduced)
+    if cfg.modality != "text":
+        raise SystemExit("serve.py drives text archs")
     device = resolve_device(args.device)
     model = SplitModel(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)

@@ -7,7 +7,10 @@ the hand-written flash kernel, on a CPU tensor it runs the plain masked
 softmax.  The reference computes the same function with a jnp scan
 (``repro.models.attention.attention``).  When autograd records (a
 training forward), the call goes through ``attention_fn``: the same
-forward, and a backward of plain products.
+forward, and a backward of plain products.  Cross-attention (``kv_x``,
+the whisper decoder's) runs the same kernel with Sq queries over the
+encoder's Skv frames under the ``bidir`` mask; M-RoPE (qwen2-vl)
+rotates q and k before it, with three position streams.
 
 KV caches are updated in place (the reference returns an updated copy):
 a cache is allocated once per request wave and written at ``pos``.  A
@@ -27,7 +30,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.configs.base import not_ported
 from repro_torch.kernels.block_attention import attention_fn, block_attention
 from repro_torch.models import layers
 
@@ -164,25 +166,32 @@ def attn_apply(params, x, *, cfg, kind: str, positions=None, window: int = 0,
                cache=None, pos=None, kv_x=None):
     """Full attention sub-layer (no norm/residual — caller owns those).
 
-    x: (B, Sq, d).  ``cache``/``pos``: decode-mode KV cache handling (the
-    cache is written in place; ``pos`` an int or :class:`RowPositions`,
-    whose host values go to the kernel as per-row ``q_offset`` and
-    ``kv_len``).  Returns (out, cache).
+    x: (B, Sq, d).  ``kv_x``: the cross-attention source (B, Skv, d) —
+    when given, k and v come from it, the mask is bidirectional and no
+    rotary is applied (the whisper decoder passes no cache with it, so
+    it projects the encoder's output again at every call, decode steps
+    included, as the reference does).  ``cache``/``pos``:
+    decode-mode KV cache handling (the cache is written in place;
+    ``pos`` an int or :class:`RowPositions`, whose host values go to the
+    kernel as per-row ``q_offset`` and ``kv_len``).  ``positions``: the
+    rope input, (..., Sq) for ``rope`` and (..., Sq, 3) for ``mrope``.
+    Returns (out, cache).
     """
-    if kv_x is not None:
-        raise not_ported("cross-attention (kv_x)",
-                         "item 8, the other architecture families "
-                         "(enc-dec: whisper-tiny)")
     B, Sq, _ = x.shape
     hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    src = x if kv_x is None else kv_x
+    Skv = src.shape[1]
     q = layers.dense_apply(params["wq"], x).reshape(B, Sq, nh, hd)
-    k = layers.dense_apply(params["wk"], x).reshape(B, Sq, nkv, hd)
-    v = layers.dense_apply(params["wv"], x).reshape(B, Sq, nkv, hd)
+    k = layers.dense_apply(params["wk"], src).reshape(B, Skv, nkv, hd)
+    v = layers.dense_apply(params["wv"], src).reshape(B, Skv, nkv, hd)
 
-    if positions is not None and cfg.rope != "none":
+    if kv_x is not None:
+        kind = "bidir"
+    elif positions is not None:
         if cfg.rope == "mrope":
-            raise not_ported("M-RoPE (qwen2-vl)", "item 8")
-        if cfg.rope == "rope":
+            q = layers.apply_mrope(q, positions, cfg.rope_theta)
+            k = layers.apply_mrope(k, positions, cfg.rope_theta)
+        elif cfg.rope == "rope":
             q = layers.apply_rope(q, positions, cfg.rope_theta)
             k = layers.apply_rope(k, positions, cfg.rope_theta)
         # sincos positions are added at the embedding, not rotary.

@@ -1,5 +1,5 @@
-"""Basic layers: norms, embeddings, rotary positions (the port's
-counterpart of ``repro.models.layers``).
+"""Basic layers: norms, embeddings, rotary and sin-cos positions (the
+port's counterpart of ``repro.models.layers``).
 
 All layers are functional: ``*_init(gen, ...) -> params`` (a dict of
 tensors) plus an apply function.  Params are kept in the arch's
@@ -117,3 +117,49 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def mrope_sections(half: int, sections=(2, 3, 3)):
+    """The M-RoPE stream (0 = t, 1 = h, 2 = w) of each of the ``half``
+    frequency slots: the slots split in proportion to ``sections``, the
+    bounds ``int(half * s / sum(sections))`` cumulated and the last one
+    forced to ``half``, as in the reference (hd 128: 16 / 40 / 64)."""
+    total, bounds, acc = sum(sections), [], 0
+    for s in sections:
+        acc += int(half * s / total)
+        bounds.append(acc)
+    bounds[-1] = half
+    slot, prev = [], 0
+    for i, b in enumerate(bounds):
+        slot += [i] * (b - prev)
+        prev = b
+    return slot
+
+
+def apply_mrope(x, positions3, theta: float, sections=(2, 3, 3)):
+    """Qwen2-VL M-RoPE: rotary with 3 position streams (t, h, w).
+    x: (..., S, H, head_dim); ``positions3``: (..., S, 3).  Frequency
+    slot i rotates by the position of stream ``mrope_sections[i]``."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = rope_freqs(hd, theta, x.device)                  # (half,)
+    slot = torch.tensor(mrope_sections(half, tuple(sections)),
+                        device=positions3.device)
+    ang = positions3.to(torch.float32)[..., slot] * freqs    # (..., S, half)
+    ang = ang[..., None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def sincos_positions(positions, d: int):
+    """Whisper's fixed sinusoidal position embeddings, (..., S) ->
+    (..., S, d) in f32: ``[sin(p f), cos(p f)]`` with ``f_i = exp(-i
+    log(10000) / max(d/2 - 1, 1))``."""
+    half = d // 2
+    freqs = torch.exp(torch.arange(half, dtype=torch.float32,
+                                   device=positions.device)
+                      * -(math.log(10000.0) / max(half - 1, 1)))
+    ang = positions[..., None].to(torch.float32) * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

@@ -10,7 +10,13 @@ owner dim in the heads).  ``shared`` is ``{}`` for llama and
 ``{"shared_attn": block}`` for zamba2, whose units hold ``{}`` in the
 shared block's slot (``b5``) and ``{"norm1", "mamba"}`` in the others;
 in the heads the shared block is stacked over owners too.  The
-reference's params cross as numpy leaves (``jax.tree.map(np.asarray,
+vision-text model (qwen2-vl) adds ``front_proj`` beside ``embed`` in
+every head (both owners hold both).  The encoder-decoder (whisper):
+``{"heads": {"blocks", "front_proj"}, "trunk": {"blocks", "embed",
+"out_norm", "lm_head"}}``, the head's units ``{"b0": attention block}``
+(the encoder), the trunk's ``{"b0": dec block}`` with ``norm_x`` and
+``xattn`` beside the self-attention's ``attn``.  The reference's params
+cross as numpy leaves (``jax.tree.map(np.asarray,
 params)``), leaf for leaf, empty dicts and zero-length unit stacks
 included, so both packages start from identical weights.
 """

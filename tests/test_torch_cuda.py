@@ -1481,3 +1481,87 @@ def test_ring_decode_rows_equal_the_scalar_call_on_card(cuda_device):
     assert torch.equal(got, want)
     for a, b in zip(tree_leaves(row_caches), tree_leaves(caches)):
         assert torch.equal(a, b)
+
+
+# cross-attention (the whisper decoder's): queries over another
+# sequence's keys under the bidir mask, Sq != Skv (150 keys: no tile
+# multiple), on each route — decode for at most 64 rows per kv head, tc
+# in bf16 and fma in f32 past that
+XATTN_CASES = [
+    (2, 1, 150, 6, 6, 64, "bidir", 0, 0.0, 0, None),
+    (2, 64, 150, 6, 6, 64, "bidir", 0, 0.0, 0, None),
+    (1, 200, 150, 4, 4, 64, "bidir", 0, 0.0, 0, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", XATTN_CASES)
+def test_cross_attention_on_every_route_on_card(cuda_device, case, dtype):
+    """Bidir with Sq != Skv: the wrapper's route (decode, or tc / fma)
+    and every other route that takes the call agree with the plain
+    version at the kernels' tolerances; the attention Function's
+    gradients (its forward on the wrapper's route) agree with autograd
+    through the plain version."""
+    B, Sq, Skv, nh, nkv, hd, kind, window, cap, q_offset, kv_len = case
+    base = [torch.from_numpy(a).to(cuda_device)
+            for a in attn_inputs(B, Sq, Skv, nh, nkv, hd)]
+    q, k, v = (t.to(dtype) for t in base)
+    tol = attn_tol(dtype)
+    want = attn_kernel.attention_ref(q, k, v, kind=kind)
+    route = attn_plan.choose_route(dtype, Sq, nh, nkv, hd)
+    assert route == ("decode" if Sq * nh // nkv <= 64 else
+                     "tc" if dtype == torch.bfloat16 else "fma")
+    routes = [r for r in attn_plan.ROUTES
+              if (r != "decode" or Sq * nh // nkv <= 64)
+              and (r != "tc" or dtype == torch.bfloat16)]
+    for r in routes:
+        n0 = attn_kernel.launch_counts[f"block_attention.{r}"]
+        got = attn_kernel.ops._launch(r, q, k, v, kind=kind)
+        torch.cuda.synchronize()
+        assert attn_kernel.launch_counts[f"block_attention.{r}"] == n0 + 1
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+    dout = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(B, Sq, nh, hd)).astype(np.float32)).to(cuda_device, dtype)
+
+    def run(fn):
+        q, k, v = (t.to(dtype).requires_grad_() for t in base)
+        out = fn(q, k, v)
+        out.backward(dout)
+        return out.detach(), q.grad, k.grad, v.grad
+
+    n0 = attn_kernel.launch_counts[f"block_attention.{route}"]
+    got = run(lambda q, k, v: attn_kernel.attention_fn(q, k, v, kind=kind))
+    assert attn_kernel.launch_counts[f"block_attention.{route}"] == n0 + 1
+    want = run(lambda q, k, v: attn_kernel.attention_ref(q, k, v,
+                                                         kind=kind))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grid", [True, False], ids=["vision", "text"])
+def test_mrope_prefill_on_card(cuda_device, grid, dtype):
+    """A causal prefill of M-RoPE-rotated q and k at hd 128 with a GQA
+    group of 8 (qwen2-vl-72b's head geometry, 16 query heads over 2 KV
+    heads): the vision owner's (t=0, h, w) grid of side 16, or text
+    positions ``[base]*3`` from 256; tc in bf16, fma in f32, against
+    the plain version on the same rotated inputs."""
+    from repro_torch.models.layers import apply_mrope
+    B, S, nh, nkv, hd = 2, 256, 16, 2, 128
+    q, k, v = (torch.from_numpy(a).to(cuda_device)
+               for a in attn_inputs(B, S, S, nh, nkv, hd))
+    ar = torch.arange(S, device=cuda_device)
+    p3 = (torch.stack([torch.zeros_like(ar), ar // 16, ar % 16], -1) if grid
+          else torch.stack([256 + ar] * 3, -1))
+    q, k = (apply_mrope(t, p3, 1e6).to(dtype) for t in (q, k))
+    v = v.to(dtype)
+    route = "tc" if dtype == torch.bfloat16 else "fma"
+    n0 = attn_kernel.launch_counts[f"block_attention.{route}"]
+    got = attn_kernel.block_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attn_kernel.launch_counts[f"block_attention.{route}"] == n0 + 1
+    torch.testing.assert_close(got.float(), attn_kernel.attention_ref(
+        q, k, v).float(), **attn_tol(dtype))

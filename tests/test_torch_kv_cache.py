@@ -364,13 +364,3 @@ def test_cut_cache_tag_carries_the_ring_flag(ring, transport):
     eng.close()
     ref_eng.close()
 
-
-def test_cross_attention_names_its_roadmap_item():
-    """``kv_x`` (the whisper decoder's cross-attention) stays refused,
-    naming item 8's enc-dec entry."""
-    cfg = get_config(GEMMA, reduced=True)
-    params = attention.attn_init(torch.Generator().manual_seed(0), cfg)
-    x = torch.zeros((1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md.*item 8.*enc-dec"):
-        attention.attn_apply(params, x, cfg=cfg, kind="causal", kv_x=x)

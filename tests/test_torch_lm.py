@@ -91,12 +91,6 @@ def test_config_matches_reference():
         (64, 64, 256)
 
 
-@pytest.mark.parametrize("name", ["qwen2-vl-72b", "whisper-tiny"])
-def test_other_configs_name_their_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 8"):
-        get_config(name)
-
-
 @pytest.mark.parametrize("arch,n_layers,units", [
     pytest.param(LLAMA, 4, (3, 1), id="4-units0"),
     pytest.param(LLAMA, 1, (0, 1), id="1-units1"),
