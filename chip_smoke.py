@@ -259,8 +259,35 @@ Phases, in order; any failure raises and exits non-zero:
      rel 1e-4, the logits and a 3-step trail; (e) the attention kernel
      at these paths' calls, beside the plain version, SDPA and the
      bound;
- 14. the results, last (after phases 15, 16, 17, 18, 20, 21, 22, 23
-     and 24): a
+ 25. the step builders (``repro_torch.launch.steps``), run right after
+     phase 19(b)-(i) on phase 7's llama3.2-3b params: (a) the long_500k
+     decode step that ``steps.build(cfg, LONG_500K, make_host_mesh(),
+     ring_cache=True)`` builds, at full width and depth, its ring
+     caches (8192 slots in every layer) drawn from a seed, 8 ticks at
+     positions 524288-524295 with 35 decode launches a tick (2 owners x
+     7 head layers + 21 trunk layers), the tick ms and the peak; each
+     attention call of a tick against the plain version (atol 2e-3),
+     the logits against the same ticks on the plain attention from the
+     same caches (2x the bf16 floor of two plain versions, measured in
+     the run) and, in f32 compute, within rel 1e-4; (b) the same with
+     ``cache_dtype=torch.float8_e4m3fn`` and no ring: the full
+     524296-slot trunk cache and 262152-slot head caches (bytes against
+     the analytic size), the tick ms and the peak, the fp8 caches'
+     upcast to bf16 in one tick (CUDA events around it), and the same
+     checks, the f32 run on (b)'s own fp8 caches; (c)
+     ``build_prefill`` at phase 7's 8 contexts of 1024 == ``prefill``
+     called directly, bitwise; (g) kernel 4 at the long_500k calls (a
+     row over 524296 keys under the 8192-token window; 8192 ring slots,
+     bidir) against the plain version, timed beside it, SDPA and the
+     bound; then, with phase 7's params freed, (d) ``build_train`` at
+     full width, 4 layers cut after 2, 8 x 256: losses in 1 and 4
+     microbatches within rel 1e-4, a bf16 optimizer state, ms a step;
+     (e) reduced llama3.2-3b through the builders, card vs CPU: prefill
+     and decode ticks on ring caches, 3 train steps; (f) the sharded
+     leaves of every spec tree for the ten archs x the four shapes x
+     both production meshes;
+ 14. the results, last (after phases 15, 16, 17, 18, 20, 21, 22, 23,
+     24 and 25): a
      ``{"serving_continuous": ...}`` JSON line with phase 19's numbers, a
      ``{"privacy": ...}`` JSON line with phase 15's numbers, a
      ``{"recovery": ...}`` line with phase 16's, a ``{"psi": ...}`` line
@@ -282,13 +309,17 @@ Phases, in order; any failure raises and exits non-zero:
      shapes), its ``families_launches`` over phase 23's runs and its
      ``enc_dec_vision_launches`` over phase 24's (the tc and decode
      entries with an ``enc_dec_vision`` table: their time at phase 24's
-     calls); a ``{"families": ...}`` line with phase 23's numbers, an
+     calls) and its ``steps_launches`` over phase 25's built steps (the
+     decode entry with a ``long_500k`` table: kernel 4 at 25(g)'s
+     calls); a ``{"steps": ...}`` line with phase 25's numbers, a
+     ``{"families": ...}`` line with phase 23's, an
      ``{"enc_dec_vision": ...}`` line with phase 24's and a
      ``{"phase_seconds": ...}`` line with each phase's wall seconds.
 
 Without a CUDA device it prints nothing and exits 2.  It imports only
 ``repro_torch`` (never JAX or the JAX package ``repro``).
 """
+import contextlib
 import json
 import math
 import os
@@ -307,10 +338,6 @@ os.environ.setdefault("TRITON_CACHE_DIR", str(_BUILD / "triton"))
 os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-# memory rate (bytes/s) and f32 rate outside the tensor cores (FLOP/s)
-# by card, from NVIDIA's data sheets; the SXM H100 is the default
-CARD_PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
-              "H200": (4.8e12, 67e12), "H100": (3.35e12, 67e12)}
 # the kernel's shapes: the path's, a ragged block, one row, odd K with
 # an unaligned scale, a large one, and the serving paths' cuts (a
 # prefill owner slice of 4 x 512 rows, a decode tick's 4 rows) of
@@ -319,13 +346,6 @@ SHAPES = [(128, 64), (130, 64), (1, 128), (257, 10), (65536, 64),
           (2048, 3072), (4, 3072), (2048, 2560), (4, 2560)]
 PATH_SHAPE = (128, 64)
 OPS_PER_ELEMENT = 6     # abs, max, divide, round, two clamps
-
-
-def peaks(name):
-    for key, rates in CARD_PEAKS.items():
-        if key in name:
-            return rates
-    raise RuntimeError(f"no published peaks on record for {name!r}")
 
 
 def inputs(shape, seed=0, specials=True, planted=True):
@@ -5497,6 +5517,690 @@ def phase_enc_dec_vision(bw, f32_flops):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: the step builders (shapes, specs, steps) on llama3.2-3b
+# ---------------------------------------------------------------------------
+
+# (a), (b): 8 decode ticks at long_500k's positions 524288-524295 (owner
+# 0's slice 262144-262151); a tick launches the decode route once per
+# attention layer: every owner's head (2 x 7) and the trunk (21)
+LONG_TICKS = 8
+# kernel 4 at the long_500k decode calls (bf16, llama's 24/8 heads of
+# 128): a row at 524288 over the full 524296-slot cache under the
+# 8192-token window, and a ring decode over the 8192 slots
+# kernel 4 against its plain version at these calls (bf16): an output
+# row is a softmax-weighted mean of ~8192 N(0, 1) values, |out| < ~0.1,
+# so the reference's atol of 2e-2 would pass a wrong window; 2e-3 is ~4
+# bf16 ulps of the largest outputs
+LONG_CALL_ATOL = 2e-3
+LONG_ATTN = {"long_500k_window": (1, 1, 524_296, 24, 8, 128, "local", 8192,
+                                  0.0, 524_288, 524_289),
+             "long_500k_ring": (1, 1, 8192, 24, 8, 128, "bidir", 0, 0.0,
+                                0, 8192)}
+# (e): reduced llama3.2-3b in f32, 3 layers cut after one; contexts of
+# 320 at a long_500k-named shape (the reduced window of 128, ring caches)
+STEPS_SMALL_LAYERS, STEPS_SMALL_CTX, STEPS_SMALL_TICKS = 3, 320, 5
+
+
+def zeros_like_structs(structs, device="cuda"):
+    import torch
+    from repro_torch.tree import tree_map
+    return tree_map(lambda s: None if s is None else torch.zeros(
+        s.shape, dtype=s.dtype, device=device), structs)
+
+
+def owner_tokens(toks, P, device):
+    """(B, S) numpy tokens as the (P, B, S / P) int32 owner slices."""
+    import numpy as np
+    import torch
+    B, S = toks.shape
+    return torch.from_numpy(np.ascontiguousarray(
+        toks.reshape(B, P, S // P).transpose(1, 0, 2)).astype(
+        np.int32)).to(device)
+
+
+def tick_slots(caches, pos0, local0, n):
+    """The KV slots ``n`` decode ticks from (``pos0``, ``local0``) write
+    (slot = position mod the cache's slots: ring and full caches
+    alike), saved; returns a function that puts them back."""
+    from repro_torch.tree import tree_leaves
+    saved = []
+    for part, p0 in (("trunk", pos0), ("heads", local0)):
+        for leaf in tree_leaves(caches[part]):
+            lo = p0 % leaf.shape[-3]
+            if lo + n > leaf.shape[-3]:
+                raise AssertionError("the ticks' slots wrap")
+            saved.append((leaf, lo, leaf.narrow(-3, lo, n).clone()))
+
+    def restore():
+        for leaf, lo, s in saved:
+            leaf.narrow(-3, lo, n).copy_(s)
+    return restore
+
+
+def run_ticks(fn, params, caches, toks, pos0, local0):
+    """Teacher-forced decode ticks through a built ``serve_step``:
+    (logits (ticks, B, vocab) f32, each tick's ms on the host clock
+    between device syncs)."""
+    import torch
+    out, ms = [], []
+    for t in range(toks.shape[0]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = fn(params, caches, toks[t], pos0 + t, local0 + t)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        out.append(logits.float())
+    return torch.stack(out), ms
+
+
+@contextlib.contextmanager
+def patched(module, **attrs):
+    """``module``'s attributes set to ``attrs`` for the ``with`` block,
+    then put back."""
+    saved = {k: getattr(module, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(module, k, v)
+
+
+def plain_attention(fn=None):
+    """The model's attention through ``fn`` for the ``with`` block (the
+    plain version ``attention_ref`` by default)."""
+    from repro_torch.kernels.block_attention import attention_ref
+    from repro_torch.models import attention
+    return patched(attention, block_attention=fn or attention_ref)
+
+
+def long_call_gap(got, want, what):
+    """A kernel-4 output at a long_500k decode call against the plain
+    version's: (max |got - want|, max |want|); raises past
+    ``LONG_CALL_ATOL``."""
+    want = want.float()
+    gap = (got.float() - want).abs().max().item()
+    if not gap <= LONG_CALL_ATOL:
+        raise AssertionError(f"{what} parts from the plain version by "
+                             f"{gap:.3e} (atol {LONG_CALL_ATOL})")
+    return gap, want.abs().max().item()
+
+
+def checked_tick(fn, params, caches, tok, pos, local):
+    """One tick in which every attention call is also run through the
+    plain version on the same inputs: (the largest |kernel - plain|, the
+    largest |plain|, calls); raises past ``LONG_CALL_ATOL``."""
+    from repro_torch.kernels.block_attention import attention_ref
+    from repro_torch.models import attention
+    real, seen = attention.block_attention, []
+
+    def checked(q, k, v, **kw):
+        got = real(q, k, v, **kw)
+        seen.append(long_call_gap(got, attention_ref(q, k, v, **kw),
+                                  "an attention call of the tick"))
+        return got
+
+    with plain_attention(checked):
+        fn(params, caches, tok, pos, local)
+    return (max(g for g, _ in seen), max(w for _, w in seen), len(seen))
+
+
+def upcast_ms(fn, params, caches, tok, pos, local):
+    """One tick with CUDA events after each KV write and before each
+    attention call: between them on the stream, only the cache's upcast
+    to the compute dtype (``attn_apply``'s ``k.to(q.dtype), v.to(...)``).
+    Returns (the upcasts' ms summed over the tick's layers, layers)."""
+    import torch
+    from repro_torch.models import attention
+    spans = []
+    write, attend = attention.update_kv_cache, attention.block_attention
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def timed_write(*a, **kw):
+        out = write(*a, **kw)
+        spans.append([event()])
+        return out
+
+    def timed_attend(*a, **kw):
+        spans[-1].append(event())
+        return attend(*a, **kw)
+
+    with patched(attention, update_kv_cache=timed_write,
+                 block_attention=timed_attend):
+        fn(params, caches, tok, pos, local)
+        torch.cuda.synchronize()
+    if any(len(s) != 2 for s in spans):
+        raise AssertionError("a KV write without its attention call")
+    return sum(e0.elapsed_time(e1) for e0, e1 in spans), len(spans)
+
+
+def constrain_cost(fn, params, caches, tok, pos, local, tick_ms):
+    """The activation constraints' host cost in a built decode tick: the
+    calls one tick makes (counted), times one call's host microseconds
+    under the step's one-device sharding context (10^5 calls)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as model_mod, moe
+    from repro_torch.sharding import specs
+    calls = [0]
+    real = specs.constrain
+
+    def counted(x, name):
+        calls[0] += 1
+        return real(x, name)
+
+    with patched(model_mod, constrain=counted), patched(moe,
+                                                        constrain=counted):
+        fn(params, caches, tok, pos, local)
+    mesh = make_host_mesh()
+    x = torch.empty(1)
+    with specs.sharding_context(mesh, specs.make_rules(mesh,
+                                                       get_config(LM))):
+        t = time.perf_counter()
+        for _ in range(100_000):
+            specs.constrain(x, "logits")
+        us = (time.perf_counter() - t) * 10
+    out = {"calls_per_tick": calls[0], "us_per_call": us,
+           "share_of_tick": calls[0] * us / 1e3 / tick_ms}
+    print(f"  (a) the activation constraints: {calls[0]} calls a tick, "
+          f"{us:.3f} us each on the host: {out['share_of_tick']:.2e} of the "
+          f"median tick")
+    return out
+
+
+def f32_ticks(model, params, toks, what, opts, caches=None, rel=1e-4):
+    """(a) / (b) in f32 compute (the decode route's f32 path): the 8
+    ticks' logits against the same ticks on the plain attention within
+    rel ``rel`` (max |diff| / max |logit|), full width and depth.  (a)
+    draws f32 ring caches from the same seed; (b) passes its own fp8
+    caches, upcast to f32 at every layer (the ticks' slots put back
+    after each run)."""
+    import torch
+    from repro_torch.configs import LONG_500K
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.tree import tree_leaves
+    cfg = model.cfg.replace(compute_dtype="float32")
+    fn, args, _, _ = steps.build(cfg, LONG_500K, make_host_mesh(), **opts)
+    if caches is None:
+        caches = steps.materialize(args[1], torch.Generator(
+            device="cuda").manual_seed(25), "cuda")
+    elif [(t.shape, t.dtype) for t in tree_leaves(caches)] != [
+            (t.shape, t.dtype) for t in tree_leaves(args[1])]:
+        raise AssertionError(f"{what}: the f32 step's caches differ")
+    S, P = LONG_500K.seq_len, model.P
+    restore = tick_slots(caches, S, S // P, LONG_TICKS)
+    got, ms = run_ticks(fn, params, caches, toks, S, S // P)
+    restore()
+    with plain_attention():
+        want, _ = run_ticks(fn, params, caches, toks, S, S // P)
+    restore()
+    gap = ((got - want).abs().max() / want.abs().max()).item()
+    print(f"  {what} in f32 compute: logits vs the plain attention's max "
+          f"rel {gap:.3e} (limit {rel}); tick ms "
+          f"{[round(x, 3) for x in ms]}")
+    if not gap <= rel or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what} f32: logits part from the plain "
+                             f"attention's")
+    return {"rel": gap, "tick_ms": ms}
+
+
+def long_decode(model, params, ring):
+    """25(a) / (b): ``build(cfg, LONG_500K, make_host_mesh(), ...)`` on
+    ``params`` (phase 7's), the caches drawn from a seed, 8 ticks timed,
+    the launch counts, then the plain-attention checks from the same
+    caches (the ticks' slots put back before each run)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import LONG_500K
+    from repro_torch.kernels import block_attention as attn
+    from repro_torch.kernels.block_attention import (attention_ref,
+                                                     attention_split_kv_ref)
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.tree import tree_leaves
+    cfg, P = model.cfg, model.P
+    what = "(a) ring caches" if ring else "(b) fp8 caches, full length"
+    opts = (dict(ring_cache=True) if ring
+            else dict(cache_dtype=torch.float8_e4m3fn))
+    fn, args, _, donate = steps.build(cfg, LONG_500K, make_host_mesh(),
+                                      **opts)
+    S, B = LONG_500K.seq_len, LONG_500K.global_batch
+    slots = sorted({t.shape[-3] for t in tree_leaves(args[1])})
+    nbytes = kv_bytes(args[1])
+    W = cfg.long_context_window
+    units = P * model.n_head_units + model.n_trunk_units
+    per = 2 * cfg.n_kv_heads * cfg.head_dim * B
+    if ring:
+        want_slots = [W]
+        want_bytes = 2 * per * W * units
+    else:
+        want_slots = [S // P + 8, S + 8]
+        want_bytes = per * (model.n_trunk_units * (S + 8)
+                            + P * model.n_head_units * (S // P + 8))
+    print(f"  {what}: swa_override {steps.swa_for(cfg, LONG_500K)}, KV "
+          f"slots {slots} (needed {want_slots}), {nbytes / 1e9:.3f} GB of "
+          f"caches (analytic {want_bytes / 1e9:.3f} GB), donate {donate}")
+    if slots != want_slots or nbytes != want_bytes:
+        raise AssertionError(f"{what}: slots or cache bytes wrong")
+    free_card()
+    t = time.time()
+    caches = steps.materialize(args[1], torch.Generator(
+        device="cuda").manual_seed(25), "cuda")
+    torch.cuda.synchronize()
+    fill_s = time.time() - t
+    toks = torch.from_numpy(np.random.default_rng(25).integers(
+        0, cfg.vocab, (LONG_TICKS, B, 1)).astype(np.int32)).cuda()
+    pos0, local0 = S, S // P
+    restore = tick_slots(caches, pos0, local0, LONG_TICKS)
+    attn.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    got, ms = run_ticks(fn, params, caches, toks, pos0, local0)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = dict(attn.launch_counts)
+    need = {"block_attention": units * LONG_TICKS,
+            "block_attention.decode": units * LONG_TICKS,
+            "block_attention.tc": 0, "block_attention.fma": 0}
+    print(f"  {what}: filled from a seed in {fill_s:.2f} s; {LONG_TICKS} "
+          f"ticks at {pos0}-{pos0 + LONG_TICKS - 1}: ms {[round(x, 3) for x in ms]}"
+          f", median {float(np.median(ms)):.3f}; peak device memory "
+          f"{peak_gb:.2f} GB; launches {counts} (needed {need}: {units} a "
+          f"tick)")
+    for k, n in need.items():
+        if counts[k] != n:
+            raise AssertionError(f"{what}: {k} launched {counts[k]} != {n}")
+    out = {"slots": slots, "cache_bytes": nbytes, "fill_s": fill_s,
+           "tick_ms": ms, "tick_ms_median": float(np.median(ms)),
+           "peak_gb": peak_gb, "counts": counts, "launches_per_tick": units}
+    if not ring:
+        up, layers = upcast_ms(fn, params, caches, toks[-1],
+                               pos0 + LONG_TICKS - 1, local0 + LONG_TICKS - 1)
+        out.update(upcast_ms=up, upcast_layers=layers,
+                   upcast_share=up / out["tick_ms_median"])
+        print(f"  {what}: the fp8 caches' upcast to bf16 in one tick "
+              f"(CUDA events around it, {layers} layers) {up:.3f} ms, "
+              f"{out['upcast_share']:.3f} of the median tick")
+    # the plain-attention checks: every call of a tick against the plain
+    # version on its inputs (LONG_CALL_ATOL); the logits of the 8 ticks
+    # against the same ticks on the plain version, held to twice the
+    # bf16 floor of 28 layers: the gap between two plain versions that
+    # differ only in their f32 summation order (attention_ref,
+    # attention_split_kv_ref); then the same ticks in f32 compute
+    restore()
+    (out["per_call_max_abs_err"], out["per_call_max_abs_want"],
+     calls) = checked_tick(fn, params, caches, toks[0], pos0, local0)
+    print(f"  {what}: each of the tick's {calls} attention calls against "
+          f"the plain version on its inputs: max |diff| "
+          f"{out['per_call_max_abs_err']:.3e} (atol {LONG_CALL_ATOL}) on "
+          f"outputs up to {out['per_call_max_abs_want']:.3e}")
+    runs = {}
+    for name, plain in (("ref", attention_ref),
+                        ("split_ref", attention_split_kv_ref)):
+        restore()
+        with plain_attention(plain):
+            runs[name], _ = run_ticks(fn, params, caches, toks, pos0,
+                                      local0)
+    gap = (got - runs["ref"]).abs().max().item()
+    floor = (runs["ref"] - runs["split_ref"]).abs().max().item()
+    out.update(max_abs_err=gap, bf16_floor=floor)
+    print(f"  {what}: logits vs the same ticks on the plain attention: max "
+          f"|diff| {gap:.3e}; the bf16 floor (two plain versions) "
+          f"{floor:.3e}; limit {BF16_PAIR_LIMIT} x the floor (max |logit| "
+          f"{runs['ref'].abs().max().item():.3f})")
+    if not gap <= BF16_PAIR_LIMIT * floor or not bool(
+            torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: logits part from the plain "
+                             f"attention's past the bf16 floor")
+    restore()
+    if ring:
+        out["constrain"] = constrain_cost(fn, params, caches, toks[0], pos0,
+                                          local0, out["tick_ms_median"])
+        out["f32"] = f32_ticks(model, params, toks, what, opts)
+    else:
+        out["f32"] = f32_ticks(model, params, toks, what, opts, caches)
+    del caches, restore
+    return out
+
+
+def built_prefill_is_direct(model, params):
+    """25(c): ``build_prefill`` at phase 7's 8 contexts of 1024 ==
+    ``SplitModel.prefill`` called directly, bitwise (logits and
+    caches)."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import block_attention as attn
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.tree import tree_leaves
+    B = 2 * SLOTS
+    shape = ShapeConfig("prefill_card", CTX, B, "prefill")
+    fn, args, _, _ = steps.build(model.cfg, shape, make_host_mesh())
+    ot = owner_tokens(lm_contexts(model.cfg.vocab, B, CTX), model.P, "cuda")
+    caches = zeros_like_structs(args[2])
+    fn(params, {"owner_tokens": ot}, zeros_like_structs(args[2]))  # warm
+    attn.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got, caches = fn(params, {"owner_tokens": ot}, caches)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t)
+    counts = dict(attn.launch_counts)
+    with torch.no_grad():
+        want, direct = model.prefill(params, {"owner_tokens": ot},
+                                     model.cache_init(B, CTX, 8,
+                                                      device="cuda"))
+    same = torch.equal(got, want) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(caches),
+                                          tree_leaves(direct)))
+    units = model.P * model.n_head_units + model.n_trunk_units
+    print(f"  (c) build_prefill {tuple(ot.shape)}: {ms:.3f} ms; launches "
+          f"{counts} (tc needed {units}); logits and caches == "
+          f"SplitModel.prefill bitwise: {same}")
+    if not same or counts["block_attention.tc"] != units or \
+            counts["block_attention"] != units:
+        raise AssertionError("(c) the prefill builder parts from prefill")
+    return {"ms": ms, "counts": counts, "bitwise": same}
+
+
+def built_train():
+    """25(d): ``build_train`` at full width, 4 layers cut after 2, one
+    batch of 8 x 256: 1 and 4 microbatches (losses within rel 1e-4),
+    the bf16 optimizer state, ms a step."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import block_attention as attn
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import SplitModel
+    from repro_torch.tree import tree_leaves
+    cfg = lm_train_cfg()
+    model = SplitModel(cfg)
+    mesh = make_host_mesh()
+    shape = ShapeConfig("train_card", LM_TRAIN_SEQ, LM_TRAIN_BATCH, "train")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    toks = lm_contexts(cfg.vocab, LM_TRAIN_BATCH, LM_TRAIN_SEQ + 1, seed=7)
+    batch = {"owner_tokens": owner_tokens(toks[:, :-1], model.P, "cuda"),
+             "labels": torch.from_numpy(np.ascontiguousarray(
+                 toks[:, 1:]).astype(np.int32)).cuda()}
+    units = model.P * model.n_head_units + model.n_trunk_units
+    out = {"losses": {}, "counts": {}}
+    for nm in (1, 4):
+        fn, args, _, _ = steps.build(cfg, shape, mesh, n_microbatches=nm)
+        state = steps.make_optimizer(cfg).init(params)
+        attn.reset_launch_counts()
+        _, _, m = fn(params, state, batch, 0)
+        out["losses"][nm] = float(m["loss"])
+        out["counts"][nm] = dict(attn.launch_counts)
+        if out["counts"][nm]["block_attention.tc"] != units * nm:
+            raise AssertionError(f"(d) {nm} microbatches: tc launched "
+                                 f"{out['counts'][nm]['block_attention.tc']}"
+                                 f" != {units * nm}")
+        del state, m
+    rel = abs(out["losses"][1] - out["losses"][4]) / abs(out["losses"][1])
+    out["micro_rel"] = rel
+    fn, args, _, _ = steps.build(cfg, shape, mesh,
+                                 opt_state_dtype=torch.bfloat16)
+    state = steps.make_optimizer(cfg, torch.bfloat16).init(params)
+    p, state, m = fn(params, state, batch, 0)
+    dtypes = sorted({str(t.dtype) for t in tree_leaves(args[1])}
+                    | {str(t.dtype) for t in tree_leaves(state)})
+    del p, state
+    fn, _, _, _ = steps.build(cfg, shape, mesh)
+    p, state = params, steps.make_optimizer(cfg).init(params)
+    del params
+    free_card()
+    ms = []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p, state, m = fn(p, state, batch, i)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+    out.update(step_ms=ms[1:], step_ms_median=float(np.median(ms[1:])),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               bf16_state_dtypes=dtypes, n_params=sum(
+                   t.numel() for t in tree_leaves(p)))
+    print(f"  (d) build_train, {cfg.n_layers} layers cut after "
+          f"{cfg.split.cut_layer}, {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}: loss "
+          f"{out['losses'][1]:.6f} in one batch, {out['losses'][4]:.6f} in "
+          f"4 microbatches (rel {rel:.3e}, limit 1e-4); tc launches "
+          f"{units} / {4 * units}; opt_state_dtype=bfloat16 state dtypes "
+          f"{dtypes}; steps ms {[round(x, 3) for x in ms]} (median of the "
+          f"last 3 {out['step_ms_median']:.3f}); peak "
+          f"{out['peak_gb']:.2f} GB")
+    if rel > 1e-4 or dtypes != ["torch.bfloat16"] or \
+            not np.isfinite(float(m["loss"])):
+        raise AssertionError("(d) the train builder's checks failed")
+    del p, state
+    return out
+
+
+def built_forced(model, params, toks, n_ticks, **_):
+    """Teacher-forced logits through the builders at a long_500k-named
+    shape (the window as ``swa_override``): ``build_prefill`` into
+    ``build_decode``'s ring caches, then ``n_ticks`` built decode ticks
+    (``teacher_forced``'s contract, for ``card_vs_cpu``)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.tree import tree_leaves
+    dev = tree_leaves(params)[0].device
+    mesh = make_host_mesh(device=dev.type)
+    B, P = toks.shape[0], model.P
+    S = toks.shape[1] - n_ticks
+    pre, _, _, _ = steps.build(model.cfg, ShapeConfig("long_500k", S, B,
+                                                      "prefill"), mesh)
+    dec, args, _, _ = steps.build(model.cfg, ShapeConfig(
+        "long_500k", S, B, "decode"), mesh, ring_cache=True)
+    caches = zeros_like_structs(args[1], dev)
+    logits, caches = pre(params, {"owner_tokens": owner_tokens(
+        toks[:, :S], P, dev)}, caches)
+    out = [logits]
+    nxt = torch.from_numpy(toks[:, S:].astype(np.int32)).to(dev)
+    for t in range(n_ticks):
+        logits, caches = dec(params, caches, nxt[:, t:t + 1], S + t,
+                             S // P + t)
+        out.append(logits)
+    return torch.stack(out).float(), caches, None
+
+
+def built_card_vs_cpu():
+    """25(e): reduced llama3.2-3b (f32) through the builders, card
+    against CPU (``card_vs_cpu``): the prefill and decode ticks on ring
+    caches at a long_500k-named shape, and 3 train steps in 2
+    microbatches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import SplitModel
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(LM, reduced=True).replace(
+        n_layers=STEPS_SMALL_LAYERS, compute_dtype="float32").with_split(
+        cut_layer=1)
+    model = SplitModel(cfg)
+    cpu_params = model.init(torch.Generator().manual_seed(0))
+    toks = lm_contexts(cfg.vocab, 2, STEPS_SMALL_CTX + STEPS_SMALL_TICKS,
+                       seed=8)
+    dec = card_vs_cpu(model, cpu_params, toks, STEPS_SMALL_TICKS,
+                      "(e) reduced llama, built prefill + decode (ring)",
+                      forced=built_forced)
+    ttoks = lm_contexts(cfg.vocab, 4, 65, seed=9)
+
+    def trail(params):
+        dev = tree_leaves(params)[0].device
+        fn, _, _, _ = steps.build(cfg, ShapeConfig("t", 64, 4, "train"),
+                                  make_host_mesh(device=dev.type),
+                                  n_microbatches=2)
+        batch = {"owner_tokens": owner_tokens(ttoks[:, :-1], model.P, dev),
+                 "labels": torch.from_numpy(np.ascontiguousarray(
+                     ttoks[:, 1:]).astype(np.int32)).to(dev)}
+        state = steps.make_optimizer(cfg).init(params)
+        losses = []
+        for i in range(3):
+            params, state, m = fn(params, state, batch, i)
+            losses.append(m["loss"])
+        return torch.stack(losses).cpu()
+
+    got, want, _ = on_card_and_cpu(trail, cpu_params,
+                                   "(e) reduced llama, built train steps")
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    print(f"  (e) built train steps, card vs CPU (1 thread): losses "
+          f"{got.tolist()} / {want.tolist()}, max rel {rel:.3e}")
+    if dec["rel"] > 1e-4 or rel > 1e-4:
+        raise AssertionError("(e) card and CPU part past rel 1e-4")
+    return {"decode": dec, "train_rel": rel}
+
+
+def spec_census():
+    """25(f): for every arch x shape x production mesh, the sharded
+    leaves of each spec tree (no device: the trees are ``meta``)."""
+    from repro_torch.configs import SHAPES, get_config, list_archs
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.model import SplitModel
+    from repro_torch.sharding import specs
+    out = {}
+    meshes = {"16x16": make_production_mesh(),
+              "2x16x16": make_production_mesh(multi_pod=True)}
+
+    def sharded(tree):
+        leaves = specs.spec_leaves(tree)
+        return [sum(any(e is not None for e in s) for s in leaves),
+                len(leaves)]
+
+    for arch in list_archs():
+        cfg = get_config(arch)
+        model = SplitModel(cfg)
+        p = model.param_specs()
+        o = steps.make_optimizer(cfg).init(p)
+        row = {}
+        for name, shape in SHAPES.items():
+            B, S = shape.global_batch, shape.seq_len
+            swa = steps.swa_for(cfg, shape) or 0
+            b = steps.batch_structs(cfg, shape, shape.kind == "train")
+            c = model.cache_init(B, S, 8, device="meta", swa_override=swa)
+            for mname, mesh in meshes.items():
+                r = specs.make_rules(mesh, cfg)
+                row[f"{name}/{mname}"] = {
+                    "params": sharded(specs.param_specs(p, cfg, mesh, r)),
+                    "opt": sharded(specs.param_specs(o, cfg, mesh, r)),
+                    "batch": sharded(specs.batch_specs(b, cfg, mesh, r)),
+                    "cache": sharded(specs.cache_specs(c, cfg, mesh, r))}
+        out[arch] = row
+        print(f"  (f) {arch}: sharded / all leaves (params, opt, batch, "
+              f"cache) by shape/mesh: " + "; ".join(
+                  f"{k} {v['params']} {v['opt']} {v['batch']} {v['cache']}"
+                  for k, v in row.items()))
+    return out
+
+
+def long_attention_rows(bw, f32_flops):
+    """25(g): kernel 4 at the long_500k decode calls, bf16, against the
+    plain version, timed beside it, SDPA and the bound (the keys the
+    window needs: the route walks the window, not the cache)."""
+    import torch
+    from repro_torch.kernels.block_attention import (attention_ref,
+                                                     block_attention,
+                                                     route_of)
+    from repro_torch.kernels.block_attention.ref import attention_mask
+    rows = {}
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    for name, case in LONG_ATTN.items():
+        B, Sq, Skv, nh, nkv, hd, kind, window, cap, q_off, kv_len = case
+        q = torch.randn((B, Sq, nh, hd), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn((B, Skv, nkv, hd), generator=gen, device="cuda",
+                            dtype=torch.bfloat16) for _ in range(2))
+        kw = dict(kind=kind, window=window, q_offset=q_off, kv_len=kv_len)
+        if route_of(q, k, v) != "decode":
+            raise AssertionError(f"{name}: not on the decode route")
+        want = attention_ref(q, k, v, **kw)
+        gap, want_max = long_call_gap(block_attention(q, k, v, **kw), want,
+                                      name)
+        pairs, _ = live_pairs(Sq, Skv, kind, window, q_off, kv_len)
+        nbytes = 2 * (2 * B * Sq * nh * hd + 2 * B * pairs * nkv * hd)
+        flops = 4 * B * nh * hd * pairs
+        bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * flops / BF16_FLOPS
+        lo = kv_len - pairs // Sq          # the keys the row needs
+        window_keys = (k[:, lo:kv_len], v[:, lo:kv_len])
+        torch.use_deterministic_algorithms(False)
+        library = sdpa_call(q, *window_keys, (B, Sq, kv_len - lo, nh, nkv,
+                                              hd, "bidir", 0, 0.0, 0, None),
+                            attention_mask)
+        lib_err = (library().float() - want.float()).abs().max().item()
+        row = {"shape": [list(q.shape), list(k.shape)], "route": "decode",
+               "kind": kind, "window": window, "q_offset": q_off,
+               "kv_len": kv_len, "keys_needed": pairs,
+               "ms": device_ms(lambda: block_attention(q, k, v, **kw),
+                               reps=10, rounds=7),
+               "plain_ms": device_ms(lambda: attention_ref(q, k, v, **kw),
+                                     reps=2, rounds=3),
+               "library_ms": device_ms(library, reps=10, rounds=7),
+               "library": "sdpa over the window's keys",
+               "library_max_abs_err": lib_err,
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "max_abs_err": gap, "max_abs_want": want_max}
+        if kind == "local":
+            masked = sdpa_call(q, k, v, case, attention_mask)
+            row["library_masked_ms"] = device_ms(masked, reps=3, rounds=5)
+        torch.use_deterministic_algorithms(True)
+        rows[name] = row
+        print(f"  (g) {name} {row['shape']} {kind} window {window} at "
+              f"{q_off}: decode {row['ms']:.6f} ms; plain "
+              f"{row['plain_ms']:.6f}; SDPA over the window's {pairs} keys "
+              f"{row['library_ms']:.6f} (|diff| {lib_err:.2e})"
+              + (f", SDPA masked over the whole cache "
+                 f"{row['library_masked_ms']:.6f}" if kind == "local" else "")
+              + f"; bound {row['bound_ms']:.6f} ({row['bound_by']}); max "
+              f"|diff| {gap:.3e} (atol {LONG_CALL_ATOL}) on outputs up to "
+              f"{want_max:.3e}")
+        del q, k, v, window_keys, library
+    return rows
+
+
+def phase_steps_serving(model, params, bw, f32_flops):
+    """Phase 25(a)-(c) and (g), on phase 7's llama3.2-3b params."""
+    out = {}
+    for key, fn in (("ring", lambda: long_decode(model, params, True)),
+                    ("fp8", lambda: long_decode(model, params, False)),
+                    ("prefill", lambda: built_prefill_is_direct(model,
+                                                                params)),
+                    ("attention_rows", lambda: long_attention_rows(
+                        bw, f32_flops))):
+        free_card()
+        t = time.time()
+        out[key] = fn()
+        out[f"{key}_s"] = time.time() - t
+    return out
+
+
+def phase_steps_train():
+    """Phase 25(d)-(f)."""
+    out = {}
+    for key, fn in (("train", built_train),
+                    ("card_vs_cpu", built_card_vs_cpu),
+                    ("specs", spec_census)):
+        free_card()
+        t = time.time()
+        out[key] = fn()
+        out[f"{key}_s"] = time.time() - t
+    free_card()
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5505,6 +6209,7 @@ def main():
     from repro_torch.configs import get_config
     from repro_torch.device import configure_cuda
     from repro_torch.kernels import build
+    from repro_torch.launch.mesh import peaks
     configure_cuda()
     phase_s, last = {}, [None, time.time()]
 
@@ -5573,8 +6278,20 @@ def main():
           "process transport, cut cache, sessions, latency, degraded "
           "service, cut bottleneck, the session entry point")
     cont = phase_continuous(lm_model, lm_params, bw)
+    print(f"  phase wall {time.time() - t:.2f} s")
+    t = time.time()
+    mark("25")
+    print(f"== 25. the step builders on {LM} ({LM}'s params from phase 7): "
+          "long_500k decode built by steps.build on ring caches and on a "
+          "full-length fp8 cache, the prefill and train builders, card vs "
+          "CPU, the spec trees of every arch, shape and production mesh")
+    built = phase_steps_serving(lm_model, lm_params, bw, flops)
     del lm_model, lm_params
     torch.cuda.empty_cache()       # the llama params are gone
+    built.update(phase_steps_train())
+    print(f"  phase wall {time.time() - t:.2f} s")
+    t = time.time()
+    mark("19(j)")
     print("  (j) VerticalSession -> resolve -> build -> serve_dataset "
           "(continuous, process, int8)")
     cont["session"] = phase_continuous_session()
@@ -5849,6 +6566,19 @@ def main():
             e["enc_dec_vision"] = {
                 k: r for k, r in modal["attention_rows"].items()
                 if f"block_attention.{r['route']}" == e["name"]}
+    # and in phase 25's built steps ((a) ring and (b) fp8 long_500k
+    # ticks, (c) the prefill, (d) the train steps), with kernel 4's time
+    # at the long_500k decode calls on the decode entry
+    for e in entries:
+        e["steps_launches"] = sum(
+            built[k]["counts"].get(e["name"], 0)
+            for k in ("ring", "fp8", "prefill")) + sum(
+            c.get(e["name"], 0) for c in built["train"]["counts"].values())
+        if e["name"] == "block_attention.decode":
+            e["long_500k"] = built["attention_rows"]
+    print(json.dumps({"steps": {
+        k: ({x: y for x, y in v.items() if x != "counts"}
+            if isinstance(v, dict) else v) for k, v in built.items()}}))
     print(json.dumps({"enc_dec_vision": {
         k: ({x: y for x, y in v.items() if x != "counts"}
             if isinstance(v, dict) else v) for k, v in modal.items()}}))

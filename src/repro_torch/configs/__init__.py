@@ -3,13 +3,15 @@
 ``CONFIG`` is the paper's MLP SplitNN (slice 1).  ``get_config(name,
 reduced=False)`` returns an architecture config as the reference's
 registry does, and ``list_archs()`` names every architecture, in the
-reference's order.
+reference's order.  ``get_shape(name)`` returns one of the reference's
+four input shapes (``SHAPES``).
 """
 import importlib
 from typing import List
 
-from repro_torch.configs.base import (ArchConfig, MoEConfig,  # noqa: F401
-                                      SplitConfig, SSMConfig, XLSTMConfig)
+from repro_torch.configs.base import (  # noqa: F401
+    DECODE_32K, LONG_500K, PREFILL_32K, SHAPES, TRAIN_4K, ArchConfig,
+    MoEConfig, ShapeConfig, SplitConfig, SSMConfig, XLSTMConfig)
 from repro_torch.configs.pyvertical_mnist import (CONFIG,  # noqa: F401
                                                   MLPSplitConfig)
 
@@ -37,3 +39,7 @@ def get_config(name: str, reduced: bool = False) -> ArchConfig:
     cfg = importlib.import_module(
         f"repro_torch.configs.{_ARCH_MODULES[name]}").CONFIG
     return cfg.reduced() if reduced else cfg
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]

@@ -16,6 +16,11 @@ family, the MoE FFN (``moe``: a :class:`MoEConfig`), the Mamba2 hybrid
 (``ssm``: an :class:`SSMConfig`), the xLSTM blocks (``xlstm``: an
 :class:`XLSTMConfig`), the encoder-decoder (``enc_dec``: whisper) and
 the vision-text modality with M-RoPE (qwen2-vl).
+``ArchConfig.param_count`` is the reference's analytic count.
+
+``ShapeConfig``: one input shape (sequence length, global batch, and
+the step it drives: ``train``, ``prefill`` or ``decode``); ``SHAPES``
+holds the reference's four.
 """
 from __future__ import annotations
 
@@ -187,3 +192,77 @@ class ArchConfig:
         if self.xlstm is not None:
             kw["xlstm"] = dataclasses.replace(self.xlstm, chunk_size=32)
         return dataclasses.replace(self, **kw)
+
+    def param_count(self, active_only: bool = False) -> int:
+        """The reference's analytic parameter count (approximate: norms
+        and biases are left out).  ``active_only`` counts only the
+        routed experts a token uses (top_k of n_experts), the MoE
+        "active parameters" convention."""
+        d, v = self.d_model, self.vocab
+        total = v * d                       # embedding
+        if not self.tie_embeddings:
+            total += v * d                  # lm head
+        per_layer = {}
+
+        def attn_params():
+            return d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+
+        def mlp_params(d_ff):
+            if self.mlp in ("swiglu", "geglu"):
+                return 3 * d * d_ff
+            return 2 * d * d_ff
+
+        for kind in set(self.block_pattern):
+            if kind.startswith("attn") or kind == "shared_attn":
+                p = attn_params()
+                if self.moe is not None:
+                    e = self.moe
+                    routed = e.top_k if active_only else e.n_experts
+                    p += routed * 3 * d * e.d_expert
+                    p += e.n_shared * 3 * d * max(e.d_shared, e.d_expert)
+                    p += d * e.n_experts    # router
+                elif self.d_ff:
+                    p += mlp_params(self.d_ff)
+            elif kind == "mamba2":
+                s = self.ssm
+                d_in = s.expand * d
+                p = d * (2 * d_in + 2 * s.n_groups * s.d_state) + d_in * d
+                p += d_in                   # dt, A, D (order-d_in terms)
+            elif kind in ("slstm", "mlstm"):
+                x = self.xlstm
+                f = x.m_proj_factor if kind == "mlstm" else x.s_proj_factor
+                d_in = int(f * d)
+                p = 2 * d * d_in + d_in * d + 4 * d_in * d_in // 4
+            else:
+                raise ValueError(kind)
+            per_layer[kind] = p
+
+        shared_counted = False
+        for kind in self.block_pattern:
+            if kind == "shared_attn":
+                if not shared_counted:      # one set, shared by every use
+                    total += per_layer[kind]
+                    shared_counted = True
+            else:
+                total += self.n_superblocks * per_layer[kind]
+        if self.enc_dec:
+            # decoder layers: self-attention, cross-attention, MLP
+            total += self.n_layers * (2 * attn_params()
+                                      + mlp_params(self.d_ff))
+        return total
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}

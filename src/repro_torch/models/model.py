@@ -47,6 +47,12 @@ computed in f32.  Of the other modalities:
 * sin-cos positions are added at the embeddings: the encoder's from
   ``pos`` (0 at prefill), the decoder's from ``pos``.
 
+``param_specs()`` is ``init``'s tree as ``meta`` tensors (nothing is
+allocated or drawn).  The reference's sharding constraints are called at
+its four sites (``sharding.specs.constrain``: the stacked cut, the
+combined cut, the trunk's last hidden state and the logits): no-ops
+without a sharding context and on a step builder's one-device mesh.
+
 The vision and audio modalities take int positions only (no engine of
 the reference drives them per row): a per-row position raises
 ``ValueError``.
@@ -92,6 +98,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.privacy import gaussian_cut_noise
 from repro_torch.models import layers, transformer
 from repro_torch.models.attention import RowPositions
+from repro_torch.sharding.specs import constrain
 from repro_torch.tree import stack_draws, tree_map
 
 Params = Dict[str, Any]
@@ -108,6 +115,15 @@ def _int_pos(pos):
         return pos
     raise ValueError("the vision and audio modalities take one int "
                      "position for every row, not per-row positions")
+
+
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws land on the ``meta`` device: ``init``
+    with it allocates nothing."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
 
 
 class SplitModel:
@@ -168,6 +184,11 @@ class SplitModel:
         if cfg.enc_dec:
             trunk["embed"] = layers.embed_init(gen, cfg.vocab, cfg.d_model)
         return {"heads": heads, "trunk": trunk}
+
+    def param_specs(self) -> Params:
+        """``init``'s param tree as ``meta`` tensors: its structure,
+        shapes and dtypes, with nothing allocated."""
+        return self.init(_MetaGenerator())
 
     # ------------------------------------------------------------ head pass
 
@@ -333,8 +354,10 @@ class SplitModel:
             positions=positions, caches=caches, pos=pos, enc_out=enc_out,
             swa_override=swa_override)
         x = layers.norm_apply(trunk["out_norm"], x, cfg.norm, cfg.norm_eps)
+        x = constrain(x, "trunk_hidden")
         logits = layers.dense_apply(trunk["lm_head"], x.to(torch.float32))
         logits = layers.softcap(logits, cfg.logit_softcap)
+        logits = constrain(logits, "logits")
         return logits, caches, aux
 
     # ------------------------------------------------------------- forward
@@ -365,9 +388,10 @@ class SplitModel:
                                            self.split_owner_inputs(batch),
                                            swa_override=swa_override)
         if not isinstance(cut, list):
-            cut = cut.to(self.cdtype)
+            cut = constrain(cut.to(self.cdtype), "cut_stacked")
+        z = constrain(self.combine(cut, gen=gen), "combined")
         logits, _, aux_t = self.trunk_forward(
-            params["trunk"], self.combine(cut, gen=gen),
+            params["trunk"], z,
             dec_tokens=batch["tokens"] if self.cfg.enc_dec else None,
             swa_override=swa_override)
         return logits, aux_h + aux_t

@@ -21,8 +21,10 @@ accumulating ``index_put_``, which deterministic mode serialises on the
 card, so neither the forward nor the backward makes an accumulating
 write.
 ``dispatch_groups = G > 1`` routes G equal groups of tokens apart, each
-with its own capacity.  The reference's sharding constraints are no-ops
-on one device and have no counterpart.
+with its own capacity.  The reference's sharding constraints on the
+dispatch and combine buffers are called here too (``_constrain``):
+no-ops without a sharding context and on a step builder's one-device
+mesh.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers, mlp as mlp_mod
+from repro_torch.sharding.specs import constrain
 
 
 def moe_init(gen, d: int, moe_cfg, mlp_kind: str):
@@ -151,6 +154,15 @@ def _experts(params, buf, mlp_kind: str):
                         layers.cast(params["w_out"], h.dtype))
 
 
+def _constrain(buf):
+    """The reference's constraint on a (G, E, C, d) buffer: its one
+    group's (E, C, d) as "moe_buffer", or all G as
+    "moe_buffer_grouped"."""
+    if buf.shape[0] == 1:
+        return constrain(buf[0], "moe_buffer")[None]
+    return constrain(buf, "moe_buffer_grouped")
+
+
 def moe_apply(params, x, moe_cfg, mlp_kind: str):
     """x: (B, S, d) -> (out (B, S, d), aux_loss scalar f32)."""
     B, S, d = x.shape
@@ -168,7 +180,7 @@ def moe_apply(params, x, moe_cfg, mlp_kind: str):
               for r in routes]
     buf = torch.stack([_Dispatch.apply(xg[g], *tb)
                        for g, tb in enumerate(tables)])  # (G, E, C, d)
-    out_buf = _experts(params, buf, mlp_kind)
+    out_buf = _constrain(_experts(params, _constrain(buf), mlp_kind))
 
     outs = []
     for g, (r, tb) in enumerate(zip(routes, tables)):

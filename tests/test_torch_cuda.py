@@ -3,7 +3,8 @@ cut-fusion kernels against their plain versions, and the training and
 serving paths through them (the microbatched and process-backend
 schedules, a supervised crash recovery and LM training, llama3.2-3b's
 and zamba2-2.7b's, included).
-Every test here needs an NVIDIA GPU and skips without one; the file
+Every test here but ``test_host_mesh_needs_a_visible_card`` (which
+hides the card) needs an NVIDIA GPU and skips without one; the file
 imports only ``repro_torch`` (no JAX), so it runs on a machine with a
 card:
 
@@ -1565,3 +1566,72 @@ def test_mrope_prefill_on_card(cuda_device, grid, dtype):
     assert attn_kernel.launch_counts[f"block_attention.{route}"] == n0 + 1
     torch.testing.assert_close(got.float(), attn_kernel.attention_ref(
         q, k, v).float(), **attn_tol(dtype))
+
+
+# llama3.2-3b's long_500k decode (24/8 heads of 128, B 1): the full
+# 524296-slot cache under the 8192-token window the builder's
+# swa_override sets, and the ring cache's 8192 slots, bidir.  An output
+# row is a softmax-weighted mean of ~8192 N(0, 1) values (|out| < ~0.1),
+# so these calls are held to ~4 bf16 ulps of the largest outputs, not to
+# the reference's atol of 2e-2, which would pass a wrong window
+LONG_KEYS, LONG_WINDOW = 524_288 + 8, 8192
+LONG_TOL = dict(atol=2e-3, rtol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fp8", [False, True], ids=["bf16", "fp8"])
+def test_decode_route_over_the_long_500k_cache_on_card(cuda_device, fp8):
+    """One decode row at position 524288 over a 524296-key cache with a
+    local window of 8192: the decode route walks the window alone
+    (``plan.live_range``) and agrees with the plain version, the cache
+    in bf16 or stored as fp8 and upcast (the model's path)."""
+    from repro_torch.models.attention import to_cache_dtype
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    pos = LONG_KEYS - 8
+    q = torch.randn((1, 1, 24, 128), generator=gen, device=cuda_device,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((1, LONG_KEYS, 8, 128), generator=gen,
+                        device=cuda_device, dtype=torch.bfloat16)
+            for _ in range(2))
+    if fp8:
+        k, v = (to_cache_dtype(t, torch.float8_e4m3fn).to(torch.bfloat16)
+                for t in (k, v))
+    kw = dict(kind="local", window=LONG_WINDOW, q_offset=pos,
+              kv_len=pos + 1)
+    lo, hi = attn_plan.live_range(1, "local", LONG_WINDOW, pos, pos + 1,
+                                  LONG_KEYS)
+    assert (lo, hi) == (516_096, pos + 1)   # the window, from a whole tile
+    n0 = attn_kernel.launch_counts["block_attention.decode"]
+    got = attn_kernel.block_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert attn_kernel.launch_counts["block_attention.decode"] == n0 + 1
+    want = attn_kernel.attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **LONG_TOL)
+
+
+@pytest.mark.cuda
+def test_decode_route_over_ring_slots_on_card(cuda_device):
+    """The ring cache's decode call: 8192 slots, bidir over all of them
+    (every slot holds a position inside the window)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    q = torch.randn((1, 1, 24, 128), generator=gen, device=cuda_device,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((1, LONG_WINDOW, 8, 128), generator=gen,
+                        device=cuda_device, dtype=torch.bfloat16)
+            for _ in range(2))
+    kw = dict(kind="bidir", kv_len=LONG_WINDOW)
+    n0 = attn_kernel.launch_counts["block_attention.decode"]
+    got = attn_kernel.block_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert attn_kernel.launch_counts["block_attention.decode"] == n0 + 1
+    torch.testing.assert_close(got.float(), attn_kernel.attention_ref(
+        q, k, v, **kw).float(), **LONG_TOL)
+
+
+def test_host_mesh_needs_a_visible_card(monkeypatch):
+    """``make_host_mesh()`` means the card: with none visible it raises
+    (runs everywhere, with the card hidden)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device is visible"):
+        make_host_mesh()
