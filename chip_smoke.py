@@ -198,8 +198,8 @@ Phases, in order; any failure raises and exits non-zero:
      plain ``ssd_chunked`` and the gradients against autograd through the
      plain stages, within 2e-2 / 2e-4, with the forward's, the
      backward's and the plain version's times beside the backward's
-     bound; (b) zamba2-2.7b at full widths cut in depth to 18 layers (3
-     units, the cut after 2), phase 20(b)'s data and fits, with exact
+     bound; (b) zamba2-2.7b at full widths cut in depth to 12 layers (2
+     units, the cut after 1), phase 20(b)'s data and fits, with exact
      chunked-scan, tc and quantize launches, the scan backward's calls
      and its share of the step, split lossless == the per-owner-clipped
      oracle bitwise; (c) the reduced config's int8 split fit on spawned
@@ -214,7 +214,7 @@ Phases, in order; any failure raises and exits non-zero:
      counts (every prefill on the fma route, every decode call on the
      decode route, none on tc), the int8 wire bytes against the frame
      size, peak device memory and a profiled wave; (b) its full widths
-     cut to 8 layers, one row of 8448 tokens (owner slices of 4224 and
+     cut to 4 layers, one row of 8448 tokens (owner slices of 4224 and
      the trunk's 8448 past the window: ring prefills roll by 128 and
      256, every decode wraps), 16 teacher-forced decode steps on full,
      ring, ``swa_override=4096`` without and with ring, and fp8 ring
@@ -234,8 +234,9 @@ Phases, in order; any failure raises and exits non-zero:
      phase 22: (a) xlstm-125m at full width and depth (12 layers of
      sLSTM and mLSTM units, random weights from a seed) served as in
      phase 7 with exactly 0 attention and 66 quantize launches, and one
-     more wave under torch.profiler; (b) its training at full depth, 3
-     Adam steps of phase 20's batch (8 x 256) on 9 documents, one held
+     more wave under torch.profiler; (b) its training at full width,
+     6 of its 12 layers, 2 Adam steps of phase 20's batch (8 x 256) on 9
+     documents, one held
      out: joint, the per-owner-clipped oracle and split lossless (== the
      oracle, bitwise), exact launch counts, a falling loss;
      (c) llama3-405b and nemotron-4-15b at full width cut to 2 layers,
@@ -285,7 +286,22 @@ Phases, in order; any failure raises and exits non-zero:
      (e) reduced llama3.2-3b through the builders, card vs CPU: prefill
      and decode ticks on ring caches, 3 train steps; (f) the sharded
      leaves of every spec tree for the ten archs x the four shapes x
-     both production meshes;
+     both production meshes; (a)-(d) each read the card's peak over one
+     step with its inputs in place, for phase 26;
+ 26. the dry-run (``repro_torch.launch.dryrun``), after phase 25: (a)
+     ``python -m repro_torch.launch.dryrun --arch llama3.2-3b
+     --both-meshes`` at full width and depth in a subprocess, its four
+     shapes traced on fake meshes of 256 and 512 ranks: every record
+     "ok", per-device GiB, FLOPs, collective MiB and trace seconds
+     printed; on (2, 16, 16) cross-pod bytes only at the cut's sites
+     ("cut_stacked", "combined": forward, or their gradients) and in 0-d
+     reductions (claim C4 per collective), none on (16, 16); (b) phase
+     25's four steps traced on a one-device fake mesh: the traced
+     launches by route equal phase 25's on the card exactly, the trace's
+     ``hbm_per_device`` within 10% of the card's one-step peak, and
+     whether the fp8 tick's transient is the whole-cache upcast; (c)
+     each step's traced FLOPs over the card's ms, beside the card's
+     peaks (information, no limit);
  14. the results, last (after phases 15, 16, 17, 18, 20, 21, 22, 23,
      24 and 25): a
      ``{"serving_continuous": ...}`` JSON line with phase 19's numbers, a
@@ -311,7 +327,8 @@ Phases, in order; any failure raises and exits non-zero:
      entries with an ``enc_dec_vision`` table: their time at phase 24's
      calls) and its ``steps_launches`` over phase 25's built steps (the
      decode entry with a ``long_500k`` table: kernel 4 at 25(g)'s
-     calls); a ``{"steps": ...}`` line with phase 25's numbers, a
+     calls); a ``{"dryrun": ...}`` line with phase 26's numbers, a
+     ``{"steps": ...}`` line with phase 25's numbers, a
      ``{"families": ...}`` line with phase 23's, an
      ``{"enc_dec_vision": ...}`` line with phase 24's and a
      ``{"phase_seconds": ...}`` line with each phase's wall seconds.
@@ -889,24 +906,21 @@ EMPTY_ROW_CASES = [
 
 
 def live_pairs(Sq, Skv, kind, window, q_offset, kv_len):
-    """(query, key) pairs the mask keeps — the work these inputs need."""
-    kv_lim = min(Skv, kv_len if kv_len is not None else Skv)
-    n = 0
-    for i in range(Sq):
-        qp = q_offset + i
-        hi = kv_lim if kind == "bidir" else min(kv_lim, qp + 1)
-        lo = max(0, qp - window + 1) if kind == "local" else 0
-        n += max(0, hi - lo)
-    return n, kv_lim
+    """(query, key) pairs the mask keeps — the work these inputs need
+    (the port's count, which the dry-run's trace adds per launch)."""
+    from repro_torch.kernels.block_attention import plan
+    return plan.live_pairs(Sq, Skv, kind, window, q_offset, kv_len)
 
 
 def attn_bound(case, dtype, bw, f32_flops):
+    """4·nh·hd FLOP a live pair; q, o and the keys and values up to
+    ``kv_lim`` moved once (``plan.work``, the trace's count too)."""
     B, Sq, Skv, nh, nkv, hd, kind, window, _cap, q_off, kv_len = case
     import torch
-    pairs, kv_lim = live_pairs(Sq, Skv, kind, window, q_off, kv_len)
-    flops = 4 * B * nh * hd * pairs
+    from repro_torch.kernels.block_attention import plan
     elt = 2 if dtype == torch.bfloat16 else 4
-    nbytes = elt * (2 * B * Sq * nh * hd + 2 * B * kv_lim * nkv * hd)
+    flops, nbytes = plan.work(B, Sq, Skv, nh, nkv, hd, elt, kind, window,
+                              [q_off] * B, [kv_len] * B)
     peak = BF16_FLOPS if dtype == torch.bfloat16 else f32_flops
     bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * flops / peak
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
@@ -1298,16 +1312,10 @@ def scan_bound(case, dtype, bw, f32_flops, with_init):
     causal work (scores and M.x over the live (i, j <= i) pairs, the
     inter-chunk term and the state update) over the peak rate."""
     import torch
+    from repro_torch.kernels.mamba2_scan import plan
     B, S, H, P, G, N, chunk = case
-    L = min(chunk, S)
     elt = 2 if dtype == torch.bfloat16 else 4
-    nbytes = (elt * (2 * B * S * H * P + 2 * B * S * G * N) + 4 * B * S * H
-              + 4 * H + 4 * B * H * N * P * (2 if with_init else 1))
-    flops = 0
-    for c0 in range(0, S, L):
-        live = min(L, S - c0)
-        flops += 2 * (live * (live + 1) // 2) * (N + P) + 4 * live * N * P
-    flops *= B * H
+    flops, nbytes = plan.work(B, S, H, P, G, N, chunk, elt, with_init)
     peak = BF16_FLOPS if dtype == torch.bfloat16 else f32_flops
     bytes_ms, ops_ms = 1e3 * nbytes / bw, 1e3 * flops / peak
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
@@ -4269,10 +4277,11 @@ def finish_train_launcher(proc):
 # over the combined 256 tokens, a head's over its 128
 SCAN_TRAIN = {"trunk": (8, 256, 80, 64, 1, 64, 256),
               "head": (8, 128, 80, 64, 1, 64, 256)}
-# (b): zamba2-2.7b at full width cut in depth to 18 layers (3 units of 5
-# mamba2 + 1 shared_attn), the config's cut after 2 units: two head units
-# per owner, three trunk units; phase 20's documents, batch and steps
-ZAMBA_TRAIN_LAYERS = 18
+# (b): zamba2-2.7b at full width cut in depth to 12 layers (2 units of 5
+# mamba2 + 1 shared_attn; 18 until the dry-run's phase 26 took the
+# seconds), the config's cut after 2 units clipped to 1: one head unit
+# per owner, one trunk unit; phase 20's documents, batch and steps
+ZAMBA_TRAIN_LAYERS = 12
 
 
 def scan_train_bound(case, dtype, bw, f32_flops):
@@ -4501,12 +4510,13 @@ def phase_zamba_train(bw, f32_flops):
 # ---------------------------------------------------------------------------
 
 GEMMA = "gemma2-9b"
-# (b): gemma2-9b at full widths cut to 8 layers (4 units of a local and a
-# global layer, the cut after 3: three head units per owner, one trunk
-# unit), one row of 8448 tokens: each owner's 4224 and the trunk's 8448
-# pass the 4096-token window, so the ring prefills roll by 128 and 256
-# and every decode step wraps; 16 decode steps, teacher-forced
-RING_LAYERS, RING_CUT, RING_CTX, RING_STEPS = 8, 3, 8448, 16
+# (b): gemma2-9b at full widths cut to 4 layers (2 units of a local and a
+# global layer, the cut after 1: one head unit per owner, one trunk unit;
+# 8 layers until phase 26 took the seconds), one row of 8448 tokens: each
+# owner's 4224 and the trunk's 8448 pass the 4096-token window, so the
+# ring prefills roll by 128 and 256 and every decode step wraps; 16
+# decode steps, teacher-forced
+RING_LAYERS, RING_CUT, RING_CTX, RING_STEPS = 4, 1, 8448, 16
 # (b)'s limits on each pair's largest logit gap over the prefill and the
 # 16 steps, as multiples of the bf16 floor (the bf16 run on full caches
 # against the f32 run on full caches, same inputs): two bf16 runs of one
@@ -4965,6 +4975,9 @@ MOE_ARCHS = ("deepseek-moe-16b", "mixtral-8x7b")
 # (on phase 20's 56 rows it falls only once an epoch ends, at step 7)
 FAMILY_LAYERS, FAMILY_STEPS = 2, 5
 FAMILY_DOCS = LM_TRAIN_BATCH + 1
+# (b): xlstm-125m trained at full width, half its 12 layers (3 units of an
+# sLSTM and an mLSTM block: one head unit per owner, two trunk units)
+XLSTM_TRAIN_LAYERS = 6
 
 
 def family_train(cfg, name, steps=FAMILY_STEPS):
@@ -5059,10 +5072,14 @@ def phase_families():
     out["xlstm_serving_s"] = time.time() - t
     free_card()
     t = time.time()
-    print(f"  (b) {XLSTM} training at full depth")
-    # 3 steps: each is ~3.4 s jointly (host-bound: 1536 sequential
-    # sLSTM cell steps a forward, their backward too)
-    out["xlstm_train"] = family_train(get_config(XLSTM), XLSTM, steps=3)
+    print(f"  (b) {XLSTM} training at full width, {XLSTM_TRAIN_LAYERS} "
+          "layers")
+    # 2 steps (a falling loss needs two): each was ~3.4 s jointly at 12
+    # layers (host-bound: 1536 sequential sLSTM cell steps a forward,
+    # their backward too); 3 steps at full depth until phase 26 took the
+    # seconds
+    out["xlstm_train"] = family_train(get_config(XLSTM).replace(
+        n_layers=XLSTM_TRAIN_LAYERS), XLSTM, steps=2)
     out["xlstm_train_s"] = time.time() - t
     for arch in DENSE_BIG + MOE_ARCHS:
         t = time.time()
@@ -5594,6 +5611,17 @@ def run_ticks(fn, params, caches, toks, pos0, local0):
     return torch.stack(out), ms
 
 
+def step_peak(step):
+    """The card's peak allocated bytes over one ``step()``, its inputs
+    already in place (the peak reset just before it)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
 @contextlib.contextmanager
 def patched(module, **attrs):
     """``module``'s attributes set to ``attrs`` for the ``with`` block,
@@ -5681,37 +5709,61 @@ def upcast_ms(fn, params, caches, tok, pos, local):
 
 
 def constrain_cost(fn, params, caches, tok, pos, local, tick_ms):
-    """The activation constraints' host cost in a built decode tick: the
-    calls one tick makes (counted), times one call's host microseconds
-    under the step's one-device sharding context (10^5 calls)."""
+    """The host cost, in a built decode tick, of the activation
+    constraints and of the dry-run's DTensor helpers on the real path
+    (``sharding.dtensor``: each returns at once on a plain tensor): the
+    calls one tick makes (counted), times each one's host microseconds
+    on the tick's kind of input (10^5 calls; the constraints under the
+    step's one-device sharding context)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import model as model_mod, moe
-    from repro_torch.sharding import specs
-    calls = [0]
-    real = specs.constrain
+    from repro_torch.models import attention, model as model_mod, moe
+    from repro_torch.sharding import dtensor, specs
+    calls = {}
 
-    def counted(x, name):
-        calls[0] += 1
-        return real(x, name)
+    def counted(name, real):
+        def call(*a, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return real(*a, **kw)
+        return call
 
-    with patched(model_mod, constrain=counted), patched(moe,
-                                                        constrain=counted):
+    helpers = {attention: ("split_heads", "on_shards", "pinned"),
+               model_mod: ("constrain", "owners", "stack_owners", "on_pod"),
+               moe: ("constrain", "replicas")}
+    with contextlib.ExitStack() as stack:
+        for mod, names in helpers.items():
+            stack.enter_context(patched(mod, **{
+                n: counted(n, getattr(mod, n)) for n in names}))
         fn(params, caches, tok, pos, local)
     mesh = make_host_mesh()
-    x = torch.empty(1)
+    x = torch.empty((4, 1, 3072), device="cuda")
+    ident = (lambda *a: a[0])
+    probes = {"constrain": (specs.constrain, (x, "logits")),
+              "split_heads": (dtensor.split_heads, (x, 24, 128)),
+              "on_shards": (dtensor.on_shards, (ident, (x,), [(0, 2)],
+                                                 [(0, 2)])),
+              "pinned": (dtensor.pinned, (x,)),
+              "owners": (dtensor.owners, ({"w": x}, 2)),
+              "stack_owners": (dtensor.stack_owners, ([x, x], x)),
+              "on_pod": (dtensor.on_pod, (ident, {"w": x})),
+              "replicas": (dtensor.replicas, (x,))}
+    us = {}
     with specs.sharding_context(mesh, specs.make_rules(mesh,
                                                        get_config(LM))):
-        t = time.perf_counter()
-        for _ in range(100_000):
-            specs.constrain(x, "logits")
-        us = (time.perf_counter() - t) * 10
-    out = {"calls_per_tick": calls[0], "us_per_call": us,
-           "share_of_tick": calls[0] * us / 1e3 / tick_ms}
-    print(f"  (a) the activation constraints: {calls[0]} calls a tick, "
-          f"{us:.3f} us each on the host: {out['share_of_tick']:.2e} of the "
-          f"median tick")
+        for name in calls:
+            f, args = probes[name]
+            t = time.perf_counter()
+            for _ in range(100_000):
+                f(*args)
+            us[name] = (time.perf_counter() - t) * 10
+    total = sum(calls[k] * us[k] for k in calls)
+    out = {"calls_per_tick": calls, "us_per_call": us,
+           "us_per_tick": total, "share_of_tick": total / 1e3 / tick_ms}
+    print(f"  (a) the activation constraints and DTensor helpers on the "
+          f"real path: calls a tick {calls}, host us each "
+          f"{ {k: round(v, 3) for k, v in us.items()} }: {total:.1f} us a "
+          f"tick, {out['share_of_tick']:.2e} of the median tick")
     return out
 
 
@@ -5816,9 +5868,14 @@ def long_decode(model, params, ring):
     for k, n in need.items():
         if counts[k] != n:
             raise AssertionError(f"{what}: {k} launched {counts[k]} != {n}")
+    restore()
     out = {"slots": slots, "cache_bytes": nbytes, "fill_s": fill_s,
            "tick_ms": ms, "tick_ms_median": float(np.median(ms)),
-           "peak_gb": peak_gb, "counts": counts, "launches_per_tick": units}
+           "peak_gb": peak_gb, "counts": counts, "launches_per_tick": units,
+           "step_peak_bytes": step_peak(lambda: fn(
+               params, caches, toks[0], pos0, local0))}
+    print(f"  {what}: one tick alone, its inputs in place: peak "
+          f"{out['step_peak_bytes'] / 1e9:.3f} GB")
     if not ring:
         up, layers = upcast_ms(fn, params, caches, toks[-1],
                                pos0 + LONG_TICKS - 1, local0 + LONG_TICKS - 1)
@@ -5887,10 +5944,12 @@ def built_prefill_is_direct(model, params):
     fn(params, {"owner_tokens": ot}, zeros_like_structs(args[2]))  # warm
     attn.reset_launch_counts()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     got, caches = fn(params, {"owner_tokens": ot}, caches)
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated()
     counts = dict(attn.launch_counts)
     with torch.no_grad():
         want, direct = model.prefill(params, {"owner_tokens": ot},
@@ -5900,13 +5959,15 @@ def built_prefill_is_direct(model, params):
         torch.equal(a, b) for a, b in zip(tree_leaves(caches),
                                           tree_leaves(direct)))
     units = model.P * model.n_head_units + model.n_trunk_units
-    print(f"  (c) build_prefill {tuple(ot.shape)}: {ms:.3f} ms; launches "
+    print(f"  (c) build_prefill {tuple(ot.shape)}: {ms:.3f} ms, peak "
+          f"{peak / 1e9:.3f} GB (its inputs in place); launches "
           f"{counts} (tc needed {units}); logits and caches == "
           f"SplitModel.prefill bitwise: {same}")
     if not same or counts["block_attention.tc"] != units or \
             counts["block_attention"] != units:
         raise AssertionError("(c) the prefill builder parts from prefill")
-    return {"ms": ms, "counts": counts, "bitwise": same}
+    return {"ms": ms, "counts": counts, "bitwise": same,
+            "step_peak_bytes": peak}
 
 
 def built_train():
@@ -5957,15 +6018,18 @@ def built_train():
     p, state = params, steps.make_optimizer(cfg).init(params)
     del params
     free_card()
-    ms = []
+    ms, peaks = [], []
     for i in range(4):
         torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()    # each step's own peak
         t = time.perf_counter()
         p, state, m = fn(p, state, batch, i)
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t))
+        peaks.append(torch.cuda.max_memory_allocated())
     out.update(step_ms=ms[1:], step_ms_median=float(np.median(ms[1:])),
-               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               peak_gb=max(peaks) / 1e9, step_peak_bytes=peaks[-1],
                bf16_state_dtypes=dtypes, n_params=sum(
                    t.numel() for t in tree_leaves(p)))
     print(f"  (d) build_train, {cfg.n_layers} layers cut after "
@@ -5975,7 +6039,8 @@ def built_train():
           f"{units} / {4 * units}; opt_state_dtype=bfloat16 state dtypes "
           f"{dtypes}; steps ms {[round(x, 3) for x in ms]} (median of the "
           f"last 3 {out['step_ms_median']:.3f}); peak "
-          f"{out['peak_gb']:.2f} GB")
+          f"{out['peak_gb']:.2f} GB, the last step's own "
+          f"{out['step_peak_bytes'] / 1e9:.3f} GB")
     if rel > 1e-4 or dtypes != ["torch.bfloat16"] or \
             not np.isfinite(float(m["loss"])):
         raise AssertionError("(d) the train builder's checks failed")
@@ -6201,6 +6266,153 @@ def phase_steps_train():
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the dry-run and its analysis
+# ---------------------------------------------------------------------------
+
+#: the cut's activation sites: the only collectives besides 0-d
+#: reductions that may cross the pods (claim C4)
+CUT_SITES = ("cut_stacked", "combined")
+#: the one-card trace's memory against the card's one-step peak
+HBM_RTOL = 0.10
+
+
+def dryrun_cli():
+    """26(a): ``python -m repro_torch.launch.dryrun --arch llama3.2-3b
+    --both-meshes`` at full width and depth in a subprocess: every record
+    "ok"; on (2, 16, 16) cross-pod bytes only at the cut's sites and in
+    0-d reductions, and some at the cut; on (16, 16) none."""
+    import tempfile
+    from repro_torch.launch.analysis import shape_bytes
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.time()
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", LM,
+             "--both-meshes", "--out", tmp], cwd=root, capture_output=True,
+            text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=str(root / "src")))
+        wall = time.time() - t
+        recs = [json.loads((Path(tmp) / f).read_text())
+                for f in sorted(os.listdir(tmp))]
+    if r.returncode:
+        print(r.stdout[-3000:], r.stderr[-6000:])
+        raise AssertionError(f"26(a): the dry-run CLI exited {r.returncode}")
+    out = {"wall_s": wall, "records": {}}
+    for rec in recs:
+        key = f"{rec['shape']}/{rec['mesh']}"
+        c = rec["collectives"]
+        cut = sum(shape_bytes(x["dtype"], x["shape"])
+                  for x in rec["cross_pod"] if x["site"] in CUT_SITES)
+        other = [x for x in rec["cross_pod"]
+                 if x["site"] not in CUT_SITES and x["shape"]]
+        row = {"status": rec["status"], "trace_s": rec["trace_s"],
+               "hbm_gib": rec["hbm_per_device_bytes"] / 2**30,
+               "flops": rec["cost"]["flops"],
+               "coll_mib": c["total_bytes"] / 2**20,
+               "cross_pod_bytes": c["cross_pod_bytes"], "cut_bytes": cut,
+               "zero_d_reductions": sum(
+                   1 for x in rec["cross_pod"] if not x["shape"]),
+               "kernels": rec["kernels"]}
+        out["records"][key] = row
+        print(f"  (a) {key}: {rec['status']}, trace {rec['trace_s']} s, "
+              f"{row['hbm_gib']:.2f} GiB a device, {row['flops']:.4e} FLOPs,"
+              f" {row['coll_mib']:.1f} MiB of collectives, cross-pod "
+              f"{c['cross_pod_bytes']} B ({cut} B at the cut's sites, "
+              f"{row['zero_d_reductions']} 0-d reductions), kernels "
+              f"{rec['kernels']}")
+        if rec["status"] != "ok":
+            raise AssertionError(f"26(a) {key}: {rec['status']}")
+        if rec["mesh"] == "2x16x16":
+            if not cut or other or c["cross_pod_bytes"] <= 0:
+                raise AssertionError(f"26(a) {key}: cross-pod traffic off "
+                                     f"the cut: {other[:4]}")
+        elif c["cross_pod_bytes"]:
+            raise AssertionError(f"26(a) {key}: cross-pod bytes on one pod")
+    if len(recs) != 8:
+        raise AssertionError(f"26(a): {len(recs)} records, not 8")
+    print(f"  (a) the CLI: 8 records in {wall:.1f} s")
+    return out
+
+
+def one_card_traces(built):
+    """26(b)-(c): the dry-run's trace on a one-device fake mesh of the
+    four steps phase 25 ran on the card: its launches by route equal
+    phase 25's, its ``hbm_per_device`` is within ``HBM_RTOL`` of the
+    card's peak over one step, and its FLOPs over the card's ms."""
+    import torch
+    from repro_torch.configs import LONG_500K, ShapeConfig, get_config
+    from repro_torch.launch import analysis, dryrun
+    from repro_torch.launch.mesh import peaks
+    f32_peak = peaks(torch.cuda.get_device_name(0))[1]
+    cfg = get_config(LM)
+    steps = {
+        "ring": (cfg, LONG_500K, dict(ring_cache=True),
+                 built["ring"]["tick_ms_median"], LONG_TICKS),
+        "fp8": (cfg, LONG_500K, dict(cache_dtype=torch.float8_e4m3fn),
+                built["fp8"]["tick_ms_median"], LONG_TICKS),
+        "prefill": (cfg, ShapeConfig("prefill_card", CTX, 2 * SLOTS,
+                                     "prefill"), {},
+                    built["prefill"]["ms"], 1),
+        "train": (lm_train_cfg(), ShapeConfig(
+            "train_card", LM_TRAIN_SEQ, LM_TRAIN_BATCH, "train"), {},
+            built["train"]["step_ms_median"], 1)}
+    out = {}
+    for name, (c, shape, kw, card_ms, per) in steps.items():
+        with dryrun.fake_world(1):
+            tr = dryrun.trace_step(c, shape, dryrun.fake_mesh(
+                (1, 1), ("data", "model")), **kw)
+        card = (built[name]["counts"] if name != "train"
+                else built["train"]["counts"][1])
+        want = {k: v // per for k, v in card.items()
+                if k.startswith("block_attention.") and v}
+        hbm = analysis.hbm_per_device(tr["memory"])
+        peak = built[name]["step_peak_bytes"]
+        tflops = tr["cost"]["flops"] / (card_ms / 1e3) / 1e12
+        row = {"kernels": tr["kernels"], "card_launches": want,
+               "hbm_bytes": hbm, "card_peak_bytes": peak,
+               "ratio": hbm / peak, "memory": tr["memory"],
+               "flops": tr["cost"]["flops"], "card_ms": card_ms,
+               "achieved_tflops": tflops, "trace_s": tr["trace_s"]}
+        out[name] = row
+        print(f"  (b) {name}: traced {tr['kernels']} vs the card's "
+              f"{want}{' a tick' if per > 1 else ''}; hbm_per_device "
+              f"{hbm / 1e9:.3f} GB vs the card's one-step peak "
+              f"{peak / 1e9:.3f} GB (ratio {hbm / peak:.4f}, limit 1 +- "
+              f"{HBM_RTOL}); temp {tr['memory']['temp_bytes'] / 1e9:.3f} GB")
+        print(f"  (c) {name}: {tr['cost']['flops']:.4e} FLOPs over the "
+              f"card's {card_ms:.3f} ms = {tflops:.2f} TFLOP/s (f32 peak "
+              f"{f32_peak / 1e12:.0f}, bf16 {BF16_FLOPS / 1e12:.0f})")
+        if tr["kernels"] != want:
+            raise AssertionError(f"26(b) {name}: traced launches "
+                                 f"{tr['kernels']} != the card's {want}")
+        if abs(hbm / peak - 1) > HBM_RTOL:
+            raise AssertionError(f"26(b) {name}: hbm_per_device {hbm} vs "
+                                 f"the card's {peak}")
+    # the fp8 step's transient: a trunk layer's whole cache upcast to bf16
+    # (K and V), the largest a tick makes
+    S, W = LONG_500K.seq_len + 8, 2 * cfg.n_kv_heads * cfg.head_dim * 2
+    upcast = LONG_500K.global_batch * S * W
+    temp = out["fp8"]["memory"]["temp_bytes"]
+    out["fp8"]["upcast_bytes"] = upcast
+    print(f"  (b) fp8: the trace's temp bytes {temp / 1e9:.3f} GB against "
+          f"one trunk layer's K and V upcast to bf16, {upcast / 1e9:.3f} GB:"
+          f" the upcast is the tick's transient: {upcast <= temp < 1.1 * upcast}")
+    return out
+
+
+def phase_dryrun(built):
+    """Phase 26: the dry-run (``repro_torch.launch.dryrun``)."""
+    out = {}
+    t = time.time()
+    out["cli"] = dryrun_cli()
+    out["cli_s"] = time.time() - t
+    t = time.time()
+    out["one_card"] = one_card_traces(built)
+    out["one_card_s"] = time.time() - t
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6289,6 +6501,14 @@ def main():
     del lm_model, lm_params
     torch.cuda.empty_cache()       # the llama params are gone
     built.update(phase_steps_train())
+    print(f"  phase wall {time.time() - t:.2f} s")
+    t = time.time()
+    mark("26")
+    print(f"== 26. the dry-run: {LM}'s four shapes traced on fake "
+          "production meshes of 256 and 512 ranks (claim C4 per "
+          "collective), and phase 25's steps traced on one device against "
+          "the card")
+    dry = phase_dryrun(built)
     print(f"  phase wall {time.time() - t:.2f} s")
     t = time.time()
     mark("19(j)")
@@ -6576,6 +6796,7 @@ def main():
             c.get(e["name"], 0) for c in built["train"]["counts"].values())
         if e["name"] == "block_attention.decode":
             e["long_500k"] = built["attention_rows"]
+    print(json.dumps({"dryrun": dry}))
     print(json.dumps({"steps": {
         k: ({x: y for x, y in v.items() if x != "counts"}
             if isinstance(v, dict) else v) for k, v in built.items()}}))

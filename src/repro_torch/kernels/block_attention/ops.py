@@ -17,7 +17,9 @@ launches (``launch_counts``): ``block_attention`` once per call, and
 ``block_attention.<route>`` for the route it took, so a run can show
 which kernels its path went through; ``block_attention.per_row`` counts
 the decode launches with per-row lengths (a part of
-``block_attention.decode``).
+``block_attention.decode``).  Fake or ``meta`` tensors launch nothing:
+they describe the card's launch to the dry-run's trace
+(``kernels/fake.py``), uncounted here.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.device import sm_count
-from repro_torch.kernels import build
+from repro_torch.kernels import build, fake
 from repro_torch.kernels.block_attention import plan, ref
 
 _count_lock = threading.Lock()
@@ -88,6 +90,10 @@ def _check(q, k, v, kind):
         raise ValueError(f"block_attention needs q, k, v all on one CUDA "
                          f"device or all on the CPU, got {q.device}, "
                          f"{k.device}, {v.device}")
+    _check_args(q, k, v, kind)
+
+
+def _check_args(q, k, v, kind):
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"block_attention takes float32 or bfloat16 "
                          f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
@@ -137,6 +143,8 @@ def block_attention(q, k, v, *, kind: str = "causal", window: int = 0,
         return ref.attention_ref(q, k, v, kind=kind, window=window,
                                  softcap=softcap, q_offset=q_offset,
                                  kv_len=kv_len, scale=scale)
+    if fake.described(q, k, v):
+        return _describe(q, k, v, kind, window, q_offset, kv_len)
     _check(q, k, v, kind)
     per_row = _per_row(q_offset, kv_len)
     return _run(route_of(q, k, v, per_row), q, k, v, kind, window, softcap,
@@ -151,6 +159,47 @@ def _launch(route, q, k, v, *, kind="causal", window=0, softcap=0.0,
     _check(q, k, v, kind)
     return _run(route, q, k, v, kind, window, softcap, q_offset, kv_len,
                 scale)
+
+
+def _describe(q, k, v, kind, window, q_offset, kv_len):
+    """The launch on described tensors (``kernels/fake.py``): the route
+    the card takes, its output and its split-KV workspace allocated, its
+    work reported to the open tally; nothing launched."""
+    _check_args(q, k, v, kind)
+    B, Sq, nh, hd = q.shape
+    Skv, nkv = k.shape[1], k.shape[2]
+    per_row = _per_row(q_offset, kv_len)
+    route = plan.choose_route(q.dtype, Sq, nh, nkv, hd,
+                              tma_aligned=fake.aligned16(q, k, v),
+                              per_row=per_row)
+    if route == "tc" and (hd % 16 or hd > plan.TC_MAX_HEAD_DIM):
+        raise ValueError(f"the tc route takes hd a multiple of 16 up to "
+                         f"{plan.TC_MAX_HEAD_DIM}, got {hd}")
+    q_offsets = _host_rows(q_offset, B, 0)
+    kv_lens = (_host_rows(kv_len, B, Skv) if kv_len is not None
+               else [None] * B)
+    out = torch.empty((B, Sq, nh, hd), dtype=q.dtype, device=q.device)
+    if route == "decode":
+        rows = Sq * (nh // nkv)
+        if rows > plan.DECODE_MAX_ROWS:
+            raise ValueError(f"the decode route takes at most "
+                             f"{plan.DECODE_MAX_ROWS} query rows per kv "
+                             f"head, got {rows}")
+        n_split = 0
+        for qo, kl in zip(q_offsets, kv_lens):
+            kv_lim = Skv if kl is None else max(0, min(int(kl), Skv))
+            k_begin, k_end = plan.live_range(Sq, kind, int(window), int(qo),
+                                             kv_lim, Skv)
+            n_split = max(n_split, plan.split_plan(
+                k_begin, k_end, B * nkv, fake.sm_count())[1])
+        n = max(1, n_split * B * nkv * rows)
+        torch.empty(n * (hd + 2), dtype=torch.float32, device=q.device)
+    flops, nbytes = plan.work(B, Sq, Skv, nh, nkv, hd, q.element_size(),
+                              kind, int(window), q_offsets, kv_lens)
+    fake.record(f"block_attention.{route}", flops, nbytes)
+    if per_row:
+        fake.record("block_attention.per_row", 0, 0)
+    return out
 
 
 _table_lock = threading.Lock()

@@ -145,3 +145,31 @@ def row_plans(Sq: int, kind: str, window: int, q_offsets: Sequence[int],
         split_len, n_split = split_plan(k_begin, k_end, n_bh, n_sm, tile)
         out[b] = (qo, kv_lim, k_begin, k_end, split_len, n_split)
     return out
+
+
+def live_pairs(Sq: int, Skv: int, kind: str, window: int, q_offset: int,
+               kv_len: Optional[int]) -> Tuple[int, int]:
+    """The (query, key) pairs the mask keeps and ``kv_lim``: the work
+    these inputs need (``chip_smoke.py``'s bounds count the same)."""
+    kv_lim = min(Skv, kv_len if kv_len is not None else Skv)
+    qp = q_offset + np.arange(Sq, dtype=np.int64)
+    hi = (np.full(Sq, kv_lim, np.int64) if kind == "bidir"
+          else np.minimum(kv_lim, qp + 1))
+    lo = (np.maximum(0, qp - window + 1) if kind == "local"
+          else np.zeros(Sq, np.int64))
+    return int(np.maximum(0, hi - lo).sum()), kv_lim
+
+
+def work(B: int, Sq: int, Skv: int, nh: int, nkv: int, hd: int, elt: int,
+         kind: str, window: int, q_offsets: Sequence[int],
+         kv_lens: Sequence[Optional[int]]) -> Tuple[int, int]:
+    """A call's (FLOPs, bytes): 4·nh·hd FLOP a live (query, key) pair of
+    each row; q and o, and the keys and values up to each row's
+    ``kv_lim``, moved once (the bound of ``chip_smoke.py``'s
+    ``attn_bound``).  ``q_offsets`` / ``kv_lens``: one per batch row."""
+    flops = nbytes = 0
+    for qo, kl in zip(q_offsets, kv_lens):
+        pairs, kv_lim = live_pairs(Sq, Skv, kind, window, int(qo), kl)
+        flops += 4 * nh * hd * pairs
+        nbytes += elt * (2 * Sq * nh * hd + 2 * kv_lim * nkv * hd)
+    return flops, nbytes

@@ -12,7 +12,9 @@ transposes to (B, H, S, P) first): x (B, S, H, P), B_in and C_in
 raises; nothing falls back to another route or to the plain version.
 The wrapper counts its calls (``launch_counts``): ``mamba2_scan`` once
 per call and ``mamba2_scan.<route>`` for the route it took, so a run can
-show which kernels its path went through.
+show which kernels its path went through.  Fake or ``meta`` tensors
+launch nothing: they describe the card's launch to the dry-run's trace
+(``kernels/fake.py``), uncounted here.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, fake
 from repro_torch.kernels.mamba2_scan import plan, ref
 
 _count_lock = threading.Lock()
@@ -91,6 +93,10 @@ def _check(x, dt, A, B_in, C_in, initial_state):
         raise ValueError(f"mamba2_scan needs every input on one CUDA device "
                          f"or all on the CPU, got "
                          f"{[str(t.device) for t in ts]}")
+    _check_args(x, dt, A, B_in, C_in, initial_state)
+
+
+def _check_args(x, dt, A, B_in, C_in, initial_state):
     if x.dtype not in DTYPES or B_in.dtype != x.dtype or \
             C_in.dtype != x.dtype:
         raise ValueError(f"mamba2_scan takes float32 or bfloat16 x, B, C of "
@@ -146,6 +152,9 @@ def mamba2_scan(x, dt, A, B_in, C_in, *, chunk: int,
     if x.device.type == "cpu":
         return ref.ssd_chunked(x, dt, A, B_in, C_in, chunk,
                                initial_state=initial_state)
+    extra = () if initial_state is None else (initial_state,)
+    if fake.described(x, dt, A, B_in, C_in, *extra):
+        return _describe(x, dt, A, B_in, C_in, chunk, initial_state)
     _check(x, dt, A, B_in, C_in, initial_state)
     return _run(route_of(x, B_in, C_in, initial_state), x, dt, A, B_in,
                 C_in, chunk, initial_state)
@@ -157,6 +166,28 @@ def _launch(route, x, dt, A, B_in, C_in, *, chunk: int, initial_state=None):
     one input; ``mamba2_scan`` picks the route itself."""
     _check(x, dt, A, B_in, C_in, initial_state)
     return _run(route, x, dt, A, B_in, C_in, chunk, initial_state)
+
+
+def _describe(x, dt, A, B_in, C_in, chunk, initial_state):
+    """The launch on described tensors (``kernels/fake.py``): the route
+    the card takes, its outputs and the chunked route's scratch
+    allocated, its work reported to the open tally; nothing launched."""
+    _check_args(x, dt, A, B_in, C_in, initial_state)
+    Bb, S, H, P = x.shape
+    G, N = B_in.shape[2], B_in.shape[3]
+    L = _chunk_len(chunk, S)
+    extra = () if initial_state is None else (initial_state,)
+    route = plan.choose_route(x.dtype, N, P, Bb * H,
+                              aligned=fake.aligned16(x, B_in, C_in, *extra,
+                                                     dims=-1))
+    y = torch.empty((Bb, S, H, P), dtype=x.dtype, device=x.device)
+    state = torch.empty((Bb, H, N, P), dtype=torch.float32, device=x.device)
+    if route == "chunked":
+        _chunked_scratch(Bb, H, -(-S // L), N, P, x.device)
+    flops, nbytes = plan.work(Bb, S, H, P, G, N, L, x.element_size(),
+                              initial_state is not None)
+    fake.record(f"mamba2_scan.{route}", flops, nbytes)
+    return y, state
 
 
 def _chunk_len(chunk, S):

@@ -28,3 +28,20 @@ def choose_route(dtype, N: int, P: int, n_bh: int,
             and n_bh <= MAX_GRID_Y and aligned):
         return "chunked"
     return "serial"
+
+
+def work(B: int, S: int, H: int, P: int, G: int, N: int, chunk: int,
+         elt: int, with_init: bool):
+    """A call's (FLOPs, bytes): x, y, B and C in the inputs' dtype (``elt``
+    bytes), dt, A and the states in f32, each moved once; the causal
+    work of each chunk (scores and M·x over its live (i, j <= i) pairs,
+    the inter-chunk term and the state update), as ``chip_smoke.py``'s
+    ``scan_bound`` counts them."""
+    L = min(chunk, S)
+    nbytes = (elt * (2 * B * S * H * P + 2 * B * S * G * N) + 4 * B * S * H
+              + 4 * H + 4 * B * H * N * P * (2 if with_init else 1))
+    flops = 0
+    for c0 in range(0, S, L):
+        live = min(L, S - c0)
+        flops += 2 * (live * (live + 1) // 2) * (N + P) + 4 * live * N * P
+    return flops * B * H, nbytes

@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.kernels.block_attention import attention_fn, block_attention
 from repro_torch.models import layers
+from repro_torch.sharding.dtensor import on_shards, pinned, split_heads
 
 
 # ---------------------------------------------------------------------------
@@ -181,9 +182,9 @@ def attn_apply(params, x, *, cfg, kind: str, positions=None, window: int = 0,
     hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     src = x if kv_x is None else kv_x
     Skv = src.shape[1]
-    q = layers.dense_apply(params["wq"], x).reshape(B, Sq, nh, hd)
-    k = layers.dense_apply(params["wk"], src).reshape(B, Skv, nkv, hd)
-    v = layers.dense_apply(params["wv"], src).reshape(B, Skv, nkv, hd)
+    q = split_heads(layers.dense_apply(params["wq"], x), nh, hd)
+    k = split_heads(layers.dense_apply(params["wk"], src), nkv, hd)
+    v = split_heads(layers.dense_apply(params["wv"], src), nkv, hd)
 
     if kv_x is not None:
         kind = "bidir"
@@ -222,12 +223,15 @@ def attn_apply(params, x, *, cfg, kind: str, positions=None, window: int = 0,
 
     k, v = k.to(q.dtype), v.to(q.dtype)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        out = attention_fn(q, k, v, kind=kind, window=window,
-                           softcap=cfg.attn_softcap, q_offset=q_offset,
-                           kv_len=kv_len)
+        attend = attention_fn
     else:
-        out = block_attention(q, k, v, kind=kind, window=window,
-                              softcap=cfg.attn_softcap, q_offset=q_offset,
-                              kv_len=kv_len)
-    out = layers.dense_apply(params["wo"], out.reshape(B, Sq, nh * hd))
+        attend = block_attention
+    # on the dry-run's DTensors the kernel runs on each rank's rows and
+    # heads (batch over data, heads over model)
+    out = on_shards(lambda q, k, v: attend(
+        q, k, v, kind=kind, window=window, softcap=cfg.attn_softcap,
+        q_offset=q_offset, kv_len=kv_len), (q, k, v), [(0, 2)] * 3,
+        [(0, 2)])
+    out = layers.dense_apply(params["wo"], pinned(out.reshape(B, Sq,
+                                                          nh * hd)))
     return out, cache

@@ -14,6 +14,8 @@ import math
 
 import torch
 
+from repro_torch.sharding.dtensor import is_dtensor, summed
+
 
 def dtype_of(name: str) -> torch.dtype:
     """A config dtype name (``"bfloat16"``) as a torch dtype."""
@@ -82,7 +84,13 @@ def embed_init(gen, vocab: int, d: int):
 
 
 def embed_apply(params, ids, dtype):
-    return cast(params["table"], dtype)[ids]
+    table = cast(params["table"], dtype)
+    if is_dtensor(table):
+        # a DTensor of the dry-run: DTensor places ``embedding`` (a
+        # vocabulary-sharded table gathers its rows, masked, and sums
+        # once), not an index
+        return summed(torch.nn.functional.embedding(ids, table))
+    return table[ids]
 
 
 def softcap(x, cap: float):

@@ -50,8 +50,14 @@ computed in f32.  Of the other modalities:
 ``param_specs()`` is ``init``'s tree as ``meta`` tensors (nothing is
 allocated or drawn).  The reference's sharding constraints are called at
 its four sites (``sharding.specs.constrain``: the stacked cut, the
-combined cut, the trunk's last hidden state and the logits): no-ops
-without a sharding context and on a step builder's one-device mesh.
+combined cut, the trunk's last hidden state and the logits), and the
+combined cut of ``prefill`` too: no-ops without a sharding context and
+on a step builder's one-device mesh; on the dry-run's DTensors they
+place the activation.  There the heads run owner-parallel: with the
+owner dim over "pod", each pod runs its own owners' heads
+(``sharding.dtensor.owners``), so only the cut crosses the party
+boundary; a trunk replicated over the pods runs on its pod
+(``sharding.dtensor.on_pod``).
 
 The vision and audio modalities take int positions only (no engine of
 the reference drives them per row): a per-row position raises
@@ -98,6 +104,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.privacy import gaussian_cut_noise
 from repro_torch.models import layers, transformer
 from repro_torch.models.attention import RowPositions
+from repro_torch.sharding.dtensor import (first_tensor, on_pod, owners,
+                                          site, stack_owners)
 from repro_torch.sharding.specs import constrain
 from repro_torch.tree import stack_draws, tree_map
 
@@ -257,17 +265,21 @@ class SplitModel:
             return self._modal_heads(heads, owner_inputs, caches,
                                      _int_pos(pos), swa_override)
         S_p = owner_inputs.shape[-1]
-        cuts, aux = [], None
-        for p in range(self.P):
+        # the owners this rank runs: all of them, or on a dry-run mesh
+        # with the owner dim over "pod" the pod's own (sharding.dtensor)
+        mine, take = owners(heads, self.P)
+        cuts, auxes = [], []
+        for p in mine:
             positions = self._positions(S_p, p, 0 if pos is None else pos,
                                         owner_inputs.device)
-            hc = None if caches is None else transformer.unit(caches, p)
-            cut, _, a = self._head_one(transformer.unit(heads, p),
-                                       owner_inputs[p], positions, 0, hc,
-                                       pos, swa_override)
+            hc = None if caches is None else take(caches, p)
+            cut, _, a = self._head_one(take(heads, p), take(owner_inputs, p),
+                                       positions, 0, hc, pos, swa_override)
             cuts.append(cut)
-            aux = a if aux is None else aux + a
-        return torch.stack(cuts), caches, aux
+            auxes.append(a)
+        like = first_tensor(heads)
+        return (stack_owners(cuts, like), caches,
+                stack_owners(auxes, like))
 
     def _modal_heads(self, heads, owner_inputs, caches, pos, swa_override):
         """The vision / audio heads, owner by owner (asymmetric inputs)."""
@@ -390,8 +402,8 @@ class SplitModel:
         if not isinstance(cut, list):
             cut = constrain(cut.to(self.cdtype), "cut_stacked")
         z = constrain(self.combine(cut, gen=gen), "combined")
-        logits, _, aux_t = self.trunk_forward(
-            params["trunk"], z,
+        logits, _, aux_t = on_pod(
+            self.trunk_forward, params["trunk"], z,
             dec_tokens=batch["tokens"] if self.cfg.enc_dec else None,
             swa_override=swa_override)
         return logits, aux_h + aux_t
@@ -472,9 +484,10 @@ class SplitModel:
                                         self.split_owner_inputs(batch),
                                         caches=caches["heads"], pos=0,
                                         swa_override=swa_override)
-        z = self.combine(cut)
-        logits, tc, _ = self.trunk_forward(
-            params["trunk"], z, caches=caches["trunk"], pos=0,
+        z = constrain(self.combine(cut), "combined")
+        logits, tc, _ = on_pod(
+            self.trunk_forward, params["trunk"], z, caches=caches["trunk"],
+            pos=0,
             dec_tokens=batch["tokens"] if cfg.enc_dec else None,
             swa_override=swa_override)
         out = {"heads": hc, "trunk": tc}
@@ -515,7 +528,8 @@ class SplitModel:
         cut, hc, _ = self.heads_forward(heads, oi, caches=head_caches,
                                         pos=pos_local,
                                         swa_override=swa_override)
-        return cut[0], hc
+        with site("cut_stacked"):       # owner 0's cut reaches the trunk
+            return cut[0], hc
 
     def decode_trunk(self, trunk, z, trunk_caches, pos, *,
                      swa_override=None):
@@ -554,6 +568,6 @@ class SplitModel:
                 transformer.unit(params["heads"], 1), token, positions, 1,
                 caches["heads"]["tokens"], pos_local, swa_override)
             hc = caches["heads"]
-        logits, tc = self.decode_trunk(params["trunk"], z, caches["trunk"],
-                                       pos, swa_override=swa_override)
+        logits, tc = on_pod(self.decode_trunk, params["trunk"], z,
+                            caches["trunk"], pos, swa_override=swa_override)
         return logits, {"heads": hc, "trunk": tc}

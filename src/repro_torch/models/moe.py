@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers, mlp as mlp_mod
+from repro_torch.sharding.dtensor import replicas
 from repro_torch.sharding.specs import constrain
 
 
@@ -171,16 +172,21 @@ def moe_apply(params, x, moe_cfg, mlp_kind: str):
     E, K = moe_cfg.n_experts, moe_cfg.top_k
     Tg = T // G
     C = capacity(Tg, moe_cfg)
-    xg = x.reshape(G, Tg, d)
-    routes = [route(xg[g], params["router"]["w"], moe_cfg, C)
-              for g in range(G)]
+    # on the dry-run's DTensors the routing, the dispatch and the
+    # combine run on every rank over all tokens (their sorts and gathers
+    # have no DTensor placement); the experts run on the constrained
+    # buffers
+    xg, lift = replicas(x.reshape(G, Tg, d))
+    router_w, _ = replicas(params["router"]["w"])
+    routes = [route(xg[g], router_w, moe_cfg, C) for g in range(G)]
     # each group's (slot_choice, e_flat, pos_safe, keep): the gathers'
     # tables
     tables = [(r[6], r[3], torch.where(r[5], r[4], 0), r[5])
               for r in routes]
-    buf = torch.stack([_Dispatch.apply(xg[g], *tb)
-                       for g, tb in enumerate(tables)])  # (G, E, C, d)
-    out_buf = _constrain(_experts(params, _constrain(buf), mlp_kind))
+    buf = lift(torch.stack([_Dispatch.apply(xg[g], *tb)
+                            for g, tb in enumerate(tables)]))  # (G,E,C,d)
+    out_buf, _ = replicas(_constrain(_experts(params, _constrain(buf),
+                                              mlp_kind)))
 
     outs = []
     for g, (r, tb) in enumerate(zip(routes, tables)):
@@ -189,7 +195,7 @@ def moe_apply(params, x, moe_cfg, mlp_kind: str):
         w_flat = (top_w.t().reshape(Tg * K, 1) * keep[:, None]).to(
             gathered.dtype)
         outs.append((gathered * w_flat).reshape(K, Tg, d).sum(0))
-    out = torch.stack(outs).reshape(B, S, d)
+    out = lift(torch.stack(outs).reshape(B, S, d))
 
     if moe_cfg.n_shared:
         out = out + mlp_mod.mlp_apply(params["shared"], x, mlp_kind)
@@ -198,5 +204,5 @@ def moe_apply(params, x, moe_cfg, mlp_kind: str):
     top1 = torch.cat([r[2][:, 0] for r in routes])
     f_e = F.one_hot(top1, E).to(torch.float32).mean(0)
     p_e = torch.cat([r[0] for r in routes]).mean(0)
-    aux = E * (f_e * p_e).sum() * moe_cfg.aux_loss_weight
+    aux = lift(E * (f_e * p_e).sum() * moe_cfg.aux_loss_weight)
     return out, aux

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.mamba2_scan import mamba2_scan, ssd_fn
 from repro_torch.models import layers
+from repro_torch.sharding.dtensor import is_dtensor, on_shards
 
 
 # ---------------------------------------------------------------------------
@@ -33,7 +34,13 @@ def conv1d_apply(w, x, state=None):
     ``state``: (B, W-1, C) previous inputs for decode.  Returns (y,
     new_state).  The reference's sum of W shifted products in x's dtype,
     in its order (not ``F.conv1d``: cuDNN would take TF32 and another
-    summation order)."""
+    summation order).  On the dry-run's DTensors each rank convolves its
+    rows and channels (DTensor cannot place the padding)."""
+    if is_dtensor(x):
+        args = (x, w) + (() if state is None else (state,))
+        return on_shards(lambda x, w, *st: conv1d_apply(w, x, *st), args,
+                         [(0, 2), (None, 1), (0, 2)][:len(args)],
+                         [(0, 2), (0, 2)])
     W = w.shape[0]
     if state is None:
         x_pad = F.pad(x, (0, 0, W - 1, 0))
@@ -134,14 +141,24 @@ def mamba2_apply(params, x, cfg, cache=None):
 
     if cache is not None and S == 1:          # decode: single-step recurrence
         y, new_state = ssd_step(xh, dt, A, Bm, Cm, cache["state"])
-    elif cache is None and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (xh, dt, A, Bm, Cm)):
-        # training: the kernel's forward, a backward of plain products
-        y, new_state = ssd_fn(xh, dt, A, Bm, Cm, chunk=s.chunk_size)
-    else:                                     # forward / prefill: the kernel
-        init = cache["state"] if cache is not None else None
-        y, new_state = mamba2_scan(xh, dt, A, Bm, Cm, chunk=s.chunk_size,
-                                   initial_state=init)
+    else:
+        # training: the kernel's forward, a backward of plain products;
+        # forward / prefill: the kernel.  On the dry-run's DTensors it
+        # runs on each rank's rows and heads (and groups, when G > 1)
+        if cache is None and torch.is_grad_enabled() and any(
+                t.requires_grad for t in (xh, dt, A, Bm, Cm)):
+            def scan(*a):
+                return ssd_fn(*a, chunk=s.chunk_size)
+            args = (xh, dt, A, Bm, Cm)
+        else:
+            def scan(*a):
+                return mamba2_scan(*a[:5], chunk=s.chunk_size,
+                                   initial_state=a[5])
+            args = (xh, dt, A, Bm, Cm,
+                    cache["state"] if cache is not None else None)
+        g = (0, 2) if s.n_groups > 1 else (0, None)
+        dims = [(0, 2), (0, 2), (None, 0), g, g, (0, 1)][:len(args)]
+        y, new_state = on_shards(scan, args, dims, [(0, 2), (0, 1)])
 
     y = y + params["D"].to(torch.float32)[None, None, :, None] \
         * xh.to(torch.float32)

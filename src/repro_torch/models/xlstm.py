@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers
 from repro_torch.models.ssm import conv1d_apply
+from repro_torch.sharding.dtensor import split_heads
 
 NEG = -2.0 ** 30
 
@@ -177,9 +178,9 @@ def mlstm_apply(params, x, cfg, cache=None):
     conv_state = cache["conv"] if cache is not None else None
     xconv, new_conv = conv1d_apply(params["conv_w"], xi, conv_state)
     xconv = F.silu(xconv)
-    q = layers.dense_apply(params["wq"], xconv).reshape(Bb, S, H, D)
-    k = layers.dense_apply(params["wk"], xconv).reshape(Bb, S, H, D)
-    v = layers.dense_apply(params["wv"], xi).reshape(Bb, S, H, D)
+    q = split_heads(layers.dense_apply(params["wq"], xconv), H, D)
+    k = split_heads(layers.dense_apply(params["wk"], xconv), H, D)
+    v = split_heads(layers.dense_apply(params["wv"], xi), H, D)
     gates = layers.dense_apply(params["w_if"], xconv) \
         + layers.cast(params["if_bias"], x.dtype)
     i_raw, f_raw = gates[..., :H], gates[..., H:]         # (B,S,H)
@@ -263,7 +264,7 @@ def slstm_apply(params, x, cfg, cache=None):
     gx = layers.dense_apply(params["w_gates"], x) \
         + layers.cast(params["gate_bias"], x.dtype)
     # (S, H, B, 4*hd) in f32: each step's preacts contiguous
-    gx = gx.reshape(Bb, S, H, 4 * hd).permute(1, 2, 0, 3).to(
+    gx = split_heads(gx, H, 4 * hd).permute(1, 2, 0, 3).to(
         f32).contiguous()
     r = layers.cast(params["r_gates"], f32)
 

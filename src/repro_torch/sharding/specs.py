@@ -23,7 +23,9 @@ sites.  The port runs a step on one device: under a one-device mesh
 (``launch.mesh.make_host_mesh()``) every spec resolves to replication
 and ``constrain`` returns its input; under an abstract mesh, or a mesh
 of several devices, a step has nothing to run on and ``constrain``
-raises.  ``activation_spec`` is the reference's table of activation
+raises.  The dry-run's mesh (a ``DeviceMesh`` over a fake process
+group, ``Mesh.device_mesh``) runs a step as one rank on DTensors, and
+there ``constrain`` places each activation (``sharding.dtensor``).  ``activation_spec`` is the reference's table of activation
 specs, the function its ``with_sharding_constraint`` is given.
 """
 from __future__ import annotations
@@ -32,9 +34,11 @@ import contextlib
 import contextvars
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+from repro_torch.sharding.dtensor import constrain_to
 
 
 class PartitionSpec(tuple):
@@ -54,10 +58,14 @@ P = PartitionSpec
 @dataclass(frozen=True)
 class Mesh:
     """A mesh: ``axis_names`` and their ``axis_sizes``, and the devices
-    it spans in row-major order (``None``: an abstract mesh)."""
+    it spans in row-major order (``None``: an abstract mesh).  A mesh of
+    the dry-run also carries ``device_mesh``, a ``DeviceMesh`` over a
+    fake process group (``launch/dryrun.py``): its steps run on DTensors
+    of ``meta`` shards, one rank's program."""
     axis_sizes: Tuple[int, ...]
     axis_names: Tuple[str, ...]
     devices: Optional[Tuple[torch.device, ...]] = None
+    device_mesh: Any = None
 
     def __post_init__(self):
         if len(self.axis_sizes) != len(self.axis_names):
@@ -78,7 +86,7 @@ class Mesh:
 
     @property
     def abstract(self) -> bool:
-        return self.devices is None
+        return self.devices is None and self.device_mesh is None
 
 
 def abstract_mesh(axis_sizes, axis_names) -> Mesh:
@@ -327,13 +335,13 @@ def cache_specs(cache_shapes, cfg, mesh: Mesh, rules: ShardingRules):
     return _map(leaf, cache_shapes)
 
 
-def _placements(mesh: Mesh, spec: PartitionSpec):
+def _placements(mesh: Mesh, spec: PartitionSpec, names=None):
     """``spec`` as one ``torch.distributed.tensor`` placement per mesh
-    dim: ``Shard(d)`` where the mesh axis shards tensor dim d, else
-    ``Replicate()``."""
+    dim (of ``names``, default the mesh's): ``Shard(d)`` where the mesh
+    axis shards tensor dim d, else ``Replicate()``."""
     from torch.distributed.tensor import Replicate, Shard
     out = []
-    for name in mesh.axis_names:
+    for name in (mesh.axis_names if names is None else names):
         dim = next((i for i, e in enumerate(spec) if e == name or (
             isinstance(e, tuple) and name in e)), None)
         out.append(Replicate() if dim is None else Shard(dim))
@@ -385,8 +393,17 @@ def activation_spec(name: str, shape, mesh: Mesh, rules: ShardingRules):
 
 def check_runnable(mesh: Mesh) -> None:
     """Raise unless a step can run on ``mesh``: the port runs a step on
-    one device, so an abstract mesh (no devices) and a mesh of several
-    devices cannot."""
+    one device, or traces it on the dry-run's mesh over a fake process
+    group (a ``device_mesh`` while the "fake" backend is up); an abstract
+    mesh (no devices), a ``DeviceMesh`` over any other process group and
+    a mesh of several devices cannot run it."""
+    if mesh.device_mesh is not None:
+        import torch.distributed as dist
+        if dist.is_initialized() and dist.get_backend() == "fake":
+            return
+        raise ValueError("a DeviceMesh over a real process group: the "
+                         "port runs a step on one device, and traces "
+                         "one over a fake process group only")
     if mesh.abstract:
         raise ValueError("an abstract mesh has no devices to run on (its "
                          "specs are for reading)")
@@ -396,10 +413,22 @@ def check_runnable(mesh: Mesh) -> None:
 
 
 def constrain(x, name: str):
-    """Mark the model activation ``name``: a no-op without a sharding
-    context and on a one-device mesh; raises on a mesh a step cannot
-    run on (``check_runnable``)."""
+    """Mark the model activation ``name`` (the reference's
+    ``with_sharding_constraint``): a DTensor is redistributed to
+    ``activation_spec``'s placements on its mesh, its collectives
+    labelled ``name`` (``dtensor.site``); a plain tensor, as on a step's
+    one-device mesh, is returned as it is.  Raises on a mesh a step
+    cannot run on (``check_runnable``)."""
     ctx = _CTX.get()
-    if ctx is not None:
-        check_runnable(ctx[0])
-    return x
+    if ctx is None:
+        return x
+    mesh, rules = ctx
+    check_runnable(mesh)
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    spec = activation_spec(name, x.shape, mesh, rules)
+    if spec is None:
+        return x
+    return constrain_to(x, _placements(mesh, spec,
+                                       x.device_mesh.mesh_dim_names), name)

@@ -1635,3 +1635,45 @@ def test_host_mesh_needs_a_visible_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device is visible"):
         make_host_mesh()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["decode", "train"])
+def test_one_device_trace_launches_equal_the_card(cuda_device, monkeypatch,
+                                                  kind):
+    """A reduced llama3.2-3b step run for real on the card and traced by
+    the dry-run on a one-device fake mesh: the same launches by route;
+    the real run never takes the wrappers' described branch."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.block_attention import ops as attn_ops
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import SplitModel
+    cfg = get_config("llama3.2-3b", reduced=True).replace(n_layers=3)
+    shape = ShapeConfig("t", 64, 4, kind)
+    fn, args, _, _ = steps.build(cfg, shape, make_host_mesh())
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = SplitModel(cfg).init(gen)
+    described = []
+    real = attn_ops._describe
+    monkeypatch.setattr(attn_ops, "_describe",
+                        lambda *a: described.append(a) or real(*a))
+    attn_kernel.reset_launch_counts()
+    if kind == "decode":
+        caches = steps.materialize(args[1], gen, cuda_device)
+        token = torch.zeros((4, 1), dtype=torch.int32, device=cuda_device)
+        fn(params, caches, token, 64, 32)     # the trace's positions
+    else:
+        batch = {k: torch.zeros(v.shape, dtype=v.dtype, device=cuda_device)
+                 for k, v in args[2].items()}
+        fn(params, steps.make_optimizer(cfg).init(params), batch, 0)
+    torch.cuda.synchronize()
+    card = {k: n for k, n in attn_kernel.launch_counts.items()
+            if k.startswith("block_attention.") and n}
+    assert card and not described
+    with dryrun.fake_world(1):
+        traced = dryrun.trace_step(cfg, shape, dryrun.fake_mesh(
+            (1, 1), ("data", "model")))
+    assert traced["kernels"] == card
+    assert len(described) == sum(card.values())

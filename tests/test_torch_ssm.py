@@ -111,8 +111,10 @@ def test_plain_scan_is_chunk_independent():
 
 
 def test_wrapper_runs_the_plain_version_only_on_the_cpu(monkeypatch):
-    """A CPU tensor takes the plain version (and counts no launch); any
-    other device is checked for the kernel and never reaches it."""
+    """A CPU tensor takes the plain version (and counts no launch); a
+    mix of devices is checked for the kernel and never reaches it; meta
+    tensors describe the card's launch (the dry-run's trace): no plain
+    version, no launch counted."""
     calls = []
 
     def spy(*a, **kw):
@@ -126,8 +128,12 @@ def test_wrapper_runs_the_plain_version_only_on_the_cpu(monkeypatch):
     assert scan_kernel.launch_counts["mamba2_scan"] == n0
     meta = [a.to("meta") for a in t]
     with pytest.raises(ValueError, match="one CUDA device"):
-        scan_kernel.mamba2_scan(*meta, chunk=32)
+        scan_kernel.mamba2_scan(meta[0], *t[1:], chunk=32)
+    y, state = scan_kernel.mamba2_scan(*meta, chunk=32)
+    assert y.device.type == "meta" and y.shape == t[0].shape
+    assert state.shape == (1, 2, 8, 16)
     assert calls == ["cpu"]
+    assert scan_kernel.launch_counts["mamba2_scan"] == n0
     src = inspect.getsource(scan_ops.mamba2_scan)
     assert src.count("ref.") == 1 and 'x.device.type == "cpu"' in src
 
