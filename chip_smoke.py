@@ -183,7 +183,9 @@ Phases, in order; any failure raises and exits non-zero:
      and loss trail bitwise those of the per-owner-clipped joint
      oracle) and split int8 (within 2e-2 of lossless), each with exact
      tc attention and quantize launch counts (the split head backward
-     recomputes its forward), a falling loss, the wire bytes per owner
+     recomputes its forward; with ``remat``, the configs' default, every
+     unit a backward goes through runs its forward once more there), a
+     falling loss, the wire bytes per owner
      per step against the frames, the steady step and an evaluation;
      (c) the reduced config's int8 split fit with owners in spawned
      workers == the queue, bitwise; (d) ``python -m
@@ -281,8 +283,14 @@ Phases, in order; any failure raises and exits non-zero:
      row over 524296 keys under the 8192-token window; 8192 ring slots,
      bidir) against the plain version, timed beside it, SDPA and the
      bound; then, with phase 7's params freed, (d) ``build_train`` at
-     full width, 4 layers cut after 2, 8 x 256: losses in 1 and 4
-     microbatches within rel 1e-4, a bf16 optimizer state, ms a step;
+     full width, 4 layers cut after 2, 8 x 256: one step with ``remat``
+     off and one with it on (the config's default: every stack unit
+     checkpointed) from the same params, the loss and every updated leaf
+     bitwise equal, tc launched once and twice a unit, the bytes
+     allocated between the loss and the backward lower with it on and
+     the one-step peak no higher, both printed with the card's name and
+     power limit; losses in 1 and 4 microbatches within rel 1e-4, a
+     bf16 optimizer state, ms a step;
      (e) reduced llama3.2-3b through the builders, card vs CPU: prefill
      and decode ticks on ring caches, 3 train steps; (f) the sharded
      leaves of every spec tree for the ten archs x the four shapes x
@@ -3917,12 +3925,15 @@ def lm_train_need(cfg, mode, steps, evaluations, int8=False):
     every forward — per joint step the heads' and the trunk's; per split
     step (and once in the warmup) each owner's forward and its
     backward's recompute, and the trunk's cut-gradient and
-    weight-gradient passes — plus one forward per evaluation; the int8
-    codec on every cut and cut gradient, the warmup's included.  The
-    scan's backward runs once per ``mamba2`` block of every unit a
-    backward pass goes through: per joint step the heads' and the
-    trunk's, per split step (and in the warmup) each owner's head and
-    the trunk's two passes."""
+    weight-gradient passes — plus one forward per evaluation; with
+    ``cfg.remat`` each unit a backward pass goes through runs its
+    forward once more, in that backward (the checkpoint's recompute;
+    the owners' first forward and the evaluations record no autograd and
+    are not checkpointed); the int8 codec on every cut and cut gradient,
+    the warmup's included.  The scan's backward runs once per ``mamba2``
+    block of every unit a backward pass goes through: per joint step
+    the heads' and the trunk's, per split step (and in the warmup) each
+    owner's head and the trunk's two passes."""
     from repro_torch.models.model import SplitModel
     model = SplitModel(cfg)
     P, head, trunk = (cfg.split.n_owners, model.n_head_units,
@@ -3932,10 +3943,11 @@ def lm_train_need(cfg, mode, steps, evaluations, int8=False):
     n_attn = sum(k in ATTENTION for k in cfg.block_pattern)
     fwd = P * head + trunk
     if mode == "joint":
-        units, back = steps * fwd, steps * fwd
+        back = steps * fwd
+        units = steps * fwd + cfg.remat * back
     else:
-        units = (steps + 1) * (2 * P * head + 2 * trunk)
         back = (steps + 1) * (P * head + 2 * trunk)
+        units = (steps + 1) * (2 * P * head + 2 * trunk) + cfg.remat * back
     units += evaluations * fwd
     tc, scans = units * n_attn, units * n_scan
     need = {"block_attention": tc, "block_attention.tc": tc,
@@ -5315,9 +5327,13 @@ def whisper_train():
           f"loss trail {[round(x, 5) for x in losses]}; step ms "
           f"{[round(1e3 * x, 3) for x in times]} (steady {steady:.3f}); "
           f"peak device memory {peak:.2f} GB")
+    # each step: the encoder units' self-attention and the decoder
+    # units' self- and cross-attention, each again in the backward's
+    # recompute (remat: the config's default)
     n_enc, n_dec = model.P * model.n_head_units, model.n_trunk_units
-    check_attention_counts(counts, W_TRAIN_STEPS * (n_enc + 2 * n_dec), 0,
-                           f"{WHISPER} training")
+    check_attention_counts(
+        counts, W_TRAIN_STEPS * (1 + cfg.remat) * (n_enc + 2 * n_dec), 0,
+        f"{WHISPER} training")
     if not (all(math.isfinite(x) for x in losses)
             and losses[-1] < losses[0]):
         raise AssertionError(f"{WHISPER}: the loss did not fall: {losses}")
@@ -5970,10 +5986,44 @@ def built_prefill_is_direct(model, params):
             "step_peak_bytes": peak}
 
 
+def remat_step(cfg, shape, mesh, params, batch):
+    """One ``build_train`` step of ``cfg`` from ``params``: (updated
+    leaves on the host, loss, attention launches by route, the bytes
+    allocated when the loss is in hand and its backward not begun, the
+    step's peak)."""
+    import torch
+    from repro_torch.kernels import block_attention as attn
+    from repro_torch.launch import steps
+    from repro_torch.tree import tree_leaves
+    fn, _, _, _ = steps.build(cfg, shape, mesh)
+    state = steps.make_optimizer(cfg).init(params)
+    held = []
+    inner = steps.grads_of
+
+    def grads_of(loss, tree, *a):
+        torch.cuda.synchronize()
+        held.append(torch.cuda.memory_allocated())
+        return inner(loss, tree, *a)
+
+    attn.reset_launch_counts()
+    result = []
+    with patched(steps, grads_of=grads_of):
+        peak = step_peak(lambda: result.extend(fn(params, state, batch, 0)))
+    p, _, m = result
+    leaves = [t.cpu() for t in tree_leaves(p)]
+    del p, state, result
+    return (leaves, float(m["loss"]), dict(attn.launch_counts), held[0],
+            peak)
+
+
 def built_train():
     """25(d): ``build_train`` at full width, 4 layers cut after 2, one
-    batch of 8 x 256: 1 and 4 microbatches (losses within rel 1e-4),
-    the bf16 optimizer state, ms a step."""
+    batch of 8 x 256: one step with ``remat`` off and one with it on
+    (the config's default) from the same params — loss and every
+    updated leaf bitwise equal, tc launched ``units`` and ``2·units``
+    times, fewer bytes held between the loss and the backward with it
+    on and a one-step peak no higher; 1 and 4 microbatches (losses
+    within rel 1e-4), the bf16 optimizer state, ms a step."""
     import numpy as np
     import torch
     from repro_torch.configs import ShapeConfig
@@ -5983,6 +6033,7 @@ def built_train():
     from repro_torch.models.model import SplitModel
     from repro_torch.tree import tree_leaves
     cfg = lm_train_cfg()
+    assert cfg.remat
     model = SplitModel(cfg)
     mesh = make_host_mesh()
     shape = ShapeConfig("train_card", LM_TRAIN_SEQ, LM_TRAIN_BATCH, "train")
@@ -5992,7 +6043,39 @@ def built_train():
              "labels": torch.from_numpy(np.ascontiguousarray(
                  toks[:, 1:]).astype(np.int32)).cuda()}
     units = model.P * model.n_head_units + model.n_trunk_units
-    out = {"losses": {}, "counts": {}}
+    out = {"losses": {}, "counts": {}, "remat": {}}
+    card = card_line()
+    runs = {}
+    for remat in (False, True):
+        free_card()
+        runs[remat] = remat_step(cfg.replace(remat=remat), shape, mesh,
+                                 params, batch)
+        _, loss, counts, held, peak = runs[remat]
+        # every unit's kernel forward once, and with remat once more in
+        # the backward's recompute
+        want = units * (1 + remat)
+        out["remat"]["on" if remat else "off"] = {"loss": loss, "tc": counts[
+            "block_attention.tc"], "held_bytes": held, "peak_bytes": peak}
+        print(f"  (d) build_train, remat={remat}: loss {loss:.6f}; tc "
+              f"launches {counts['block_attention.tc']} (needed exactly "
+              f"{want}); {held / 1e9:.3f} GB allocated between the loss and "
+              f"the backward; one-step peak {peak / 1e9:.3f} GB ({card})")
+        if counts["block_attention.tc"] != want:
+            raise AssertionError(f"(d) remat={remat}: tc launched "
+                                 f"{counts['block_attention.tc']} != {want}")
+    off, on = runs[False], runs[True]
+    same = off[1] == on[1] and all(torch.equal(a, b)
+                                   for a, b in zip(off[0], on[0]))
+    saved = off[3] - on[3]
+    print(f"  (d) remat on == off: loss and every updated leaf bitwise "
+          f"equal: {same}; remat holds {saved / 1e9:.3f} GB fewer between "
+          f"the loss and the backward; peak {on[4] / 1e9:.3f} vs "
+          f"{off[4] / 1e9:.3f} GB")
+    if not same or saved <= 0 or on[4] > off[4]:
+        raise AssertionError("(d) remat on != off, or it held no fewer "
+                             "bytes, or its peak is higher")
+    out["remat_saved_bytes"] = saved
+    del runs, off, on
     for nm in (1, 4):
         fn, args, _, _ = steps.build(cfg, shape, mesh, n_microbatches=nm)
         state = steps.make_optimizer(cfg).init(params)
@@ -6000,10 +6083,10 @@ def built_train():
         _, _, m = fn(params, state, batch, 0)
         out["losses"][nm] = float(m["loss"])
         out["counts"][nm] = dict(attn.launch_counts)
-        if out["counts"][nm]["block_attention.tc"] != units * nm:
+        if out["counts"][nm]["block_attention.tc"] != 2 * units * nm:
             raise AssertionError(f"(d) {nm} microbatches: tc launched "
                                  f"{out['counts'][nm]['block_attention.tc']}"
-                                 f" != {units * nm}")
+                                 f" != {2 * units * nm}")
         del state, m
     rel = abs(out["losses"][1] - out["losses"][4]) / abs(out["losses"][1])
     out["micro_rel"] = rel
@@ -6036,9 +6119,9 @@ def built_train():
           f"{cfg.split.cut_layer}, {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}: loss "
           f"{out['losses'][1]:.6f} in one batch, {out['losses'][4]:.6f} in "
           f"4 microbatches (rel {rel:.3e}, limit 1e-4); tc launches "
-          f"{units} / {4 * units}; opt_state_dtype=bfloat16 state dtypes "
-          f"{dtypes}; steps ms {[round(x, 3) for x in ms]} (median of the "
-          f"last 3 {out['step_ms_median']:.3f}); peak "
+          f"{2 * units} / {8 * units}; opt_state_dtype=bfloat16 state "
+          f"dtypes {dtypes}; steps ms {[round(x, 3) for x in ms]} (median of"
+          f" the last 3 {out['step_ms_median']:.3f}); peak "
           f"{out['peak_gb']:.2f} GB, the last step's own "
           f"{out['step_peak_bytes'] / 1e9:.3f} GB")
     if rel > 1e-4 or dtypes != ["torch.bfloat16"] or \
@@ -6413,6 +6496,14 @@ def phase_dryrun(built):
     return out
 
 
+def card_line():
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6432,10 +6523,7 @@ def main():
             phase_s[last[0]] = round(now - last[1], 2)
         last[:] = [label, now]
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = card_line()
     name = torch.cuda.get_device_name(0)
     bw, flops = peaks(name)
     mark("1")

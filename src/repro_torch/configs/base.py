@@ -127,7 +127,7 @@ class ArchConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     zero_sharding: bool = False
-    remat: bool = True             # no effect: the port keeps activations
+    remat: bool = True             # checkpoint each stack unit in training
 
     def __post_init__(self):
         if self.head_dim == 0:

@@ -25,6 +25,10 @@ per-device shapes:
   its own);
 * ``kernels``: the kernels' described launches by route.
 
+An op met again with the arguments' metadata it was met with before is
+not run: its results are made with the layouts it gave then, and its
+FLOPs and bytes counted as then (``Trace._remember``).
+
 Why ``meta`` and not fake tensors on ``cuda``: on a build of torch
 without CUDA, autograd aborts the process on a fake ``cuda`` tensor
 (its input metadata asks for a CUDA device guard), so a train step
@@ -44,10 +48,9 @@ from typing import Dict, List
 import torch
 from torch._subclasses.fake_tensor import is_fake
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
 
 from repro_torch.kernels import fake
-from repro_torch.sharding.dtensor import current_site
+from repro_torch.sharding.dtensor import _dtensor_type, current_site
 
 #: ``_c10d_functional`` ops under the reference's collective names
 COLLECTIVE_KINDS = {
@@ -85,6 +88,9 @@ class Trace(TorchDispatchMode):
         self.kernel_flops = 0
         self._refs: Dict[int, int] = {}      # storage -> live tensors
         self._size: Dict[int, int] = {}      # storage -> bytes
+        self._watch: Dict = {}    # id(weakref to a tensor) -> (it, storage)
+        self._memo: Dict = {}     # op and argument key -> layouts, tallies
+        self._memo_ok: Dict = {}             # op -> memoisable
         from torch.utils.flop_counter import flop_registry
         self._flop_formulas = flop_registry
 
@@ -99,9 +105,11 @@ class Trace(TorchDispatchMode):
             self.live += self._size[key]
             self.peak = max(self.peak, self.live)
         self._refs[key] += 1
-        weakref.finalize(t, self._release, key)
+        ref = weakref.ref(t, self._dead)
+        self._watch[id(ref)] = ref, key
 
-    def _release(self, key: int) -> None:
+    def _dead(self, ref) -> None:
+        _, key = self._watch.pop(id(ref))
         self._refs[key] -= 1
         if not self._refs[key]:
             del self._refs[key]
@@ -131,30 +139,86 @@ class Trace(TorchDispatchMode):
             self._tally.__exit__(*exc)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        from torch.distributed.tensor import DTensor
-        if any(issubclass(t, DTensor) for t in types):
+        if any(issubclass(t, _dtensor_type()) for t in types):
             return NotImplemented
         kwargs = kwargs or {}
+        ins = _tensors(args, [])
+        if kwargs:
+            _tensors(kwargs.values(), ins)
+        key = self._memo_key(func, args, kwargs, ins)
+        try:
+            hit = None if key is None else self._memo.get(key)
+        except TypeError:               # an argument that cannot be hashed
+            key = hit = None
+        if hit is not None:
+            kind, layouts, flops, nbytes = hit
+            outs = [torch.empty_strided(shape, stride, dtype=dtype,
+                                        device="meta")
+                    for shape, stride, dtype in layouts]
+            self.flops += flops
+            self.bytes_accessed += nbytes
+            for t in outs:
+                self.track(t)
+            return outs[0] if kind is None else kind(outs)
         out = func(*args, **kwargs)
-        ins = [t for t in tree_leaves((args, kwargs))
-               if isinstance(t, torch.Tensor)]
-        outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
-        if any(is_fake(t) for t in ins + outs):
+        outs = _tensors(out if isinstance(out, (list, tuple)) else (out,),
+                        [])
+        if any(type(t) is not torch.Tensor and is_fake(t)
+               for t in ins + outs):
             return out                  # DTensor's sharding propagation
         packet = func._overloadpacket
         name = packet.__name__
         if func.namespace == "_c10d_functional" and \
                 name not in _C10D_BOOKKEEPING:
             self._collective(name, args, outs)
+        flops = nbytes = 0
         if packet in self._flop_formulas:
-            self.flops += int(self._flop_formulas[packet](
-                *args, **kwargs, out_val=out))
+            flops = int(self._flop_formulas[packet](*args, **kwargs,
+                                                    out_val=out))
         if not func.is_view and name not in _NO_BYTES:
-            self.bytes_accessed += sum(t.numel() * t.element_size()
-                                       for t in ins + outs)
+            nbytes = sum(t.numel() * t.element_size() for t in ins + outs)
+        self.flops += flops
+        self.bytes_accessed += nbytes
         for t in outs:
             self.track(t)
+        if key is not None:
+            self._remember(key, out, ins, flops, nbytes)
         return out
+
+    def _memo_key(self, func, args, kwargs, ins):
+        """The key under which an op on ``meta`` tensors is remembered:
+        the op and its arguments' metadata, on which its results'
+        layouts, FLOPs and bytes depend; ``None`` for an op that is not
+        to be remembered (a view, an in-place op, a collective, an op on
+        real tensors or with an argument that cannot be hashed)."""
+        ok = self._memo_ok.get(func)
+        if ok is None:
+            ok = self._memo_ok[func] = _memoisable(func)
+        if not ok or not ins or not all(type(t) is torch.Tensor
+                                        and t.is_meta for t in ins):
+            return None
+        return func, _meta_key(args), _meta_key(tuple(kwargs.items()))
+
+    def _remember(self, key, out, ins, flops, nbytes):
+        """Keep an op's results' layouts and tallies under ``key``: an op
+        met again with the same metadata is then made with
+        ``empty_strided`` and skips torch's ``meta`` function (most run
+        in Python at 0.03-0.8 ms, which a recurrence of thousands of
+        steps, the sLSTM's, cannot afford); the ops that function
+        dispatches itself (its allocations, a decomposition's
+        temporaries, which no card kernel makes) are then not tallied
+        again.  Only fresh results are kept: none on an input's storage
+        (``_unsafe_view`` shares it with no alias in its schema)."""
+        kind = None if isinstance(out, torch.Tensor) else type(out)
+        outs = [out] if kind is None else out
+        if kind not in (None, list, tuple) or not outs or not all(
+                isinstance(o, torch.Tensor) for o in outs):
+            return
+        shared = {t.untyped_storage()._cdata for t in ins}
+        layouts = [o.untyped_storage()._cdata not in shared and _layout(o)
+                   for o in outs]
+        if all(layouts):
+            self._memo[key] = (kind, layouts, flops, nbytes)
 
     def _collective(self, name, args, outs):
         if name not in COLLECTIVE_KINDS:
@@ -168,3 +232,49 @@ class Trace(TorchDispatchMode):
                 "shape": list(t.shape),
                 "groups": self.groups_of(group_name),
                 "site": current_site()})
+
+
+def _tensors(items, acc: list) -> list:
+    """The tensors among ``items`` and in their lists, tuples and dicts,
+    appended to ``acc`` (a plain walk: ``pytree``'s costs the trace
+    ~10 us an op)."""
+    for x in items:
+        if isinstance(x, torch.Tensor):
+            acc.append(x)
+        elif isinstance(x, (list, tuple)):
+            _tensors(x, acc)
+        elif isinstance(x, dict):
+            _tensors(x.values(), acc)
+    return acc
+
+
+def _meta_key(x):
+    """What a ``meta`` op's result can depend on, of one argument: a
+    ``meta`` tensor's shape, strides and dtype; a scalar's type and
+    value; a sequence's items."""
+    if isinstance(x, torch.Tensor):
+        return x.shape, x.stride(), x.dtype
+    if isinstance(x, (list, tuple)):
+        return type(x), tuple(map(_meta_key, x))
+    return type(x), x
+
+
+def _memoisable(func) -> bool:
+    """An op whose results are fresh tensors: no view, no alias, no
+    in-place write, no collective."""
+    schema = func._schema
+    return (not func.is_view and not schema.is_mutable
+            and func.namespace not in ("_c10d_functional", "c10d")
+            and all(a.alias_info is None
+                    for a in list(schema.arguments) + list(schema.returns)))
+
+
+def _layout(t: torch.Tensor):
+    """``(shape, stride, dtype)`` of a fresh result that
+    ``empty_strided`` makes again exactly (its own storage, no spare
+    bytes), else ``None``."""
+    extent = 1 + sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+    if t.storage_offset() or t.untyped_storage().nbytes() != \
+            (extent if t.numel() else 0) * t.element_size():
+        return None
+    return t.shape, t.stride(), t.dtype

@@ -104,7 +104,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.privacy import gaussian_cut_noise
 from repro_torch.models import layers, transformer
 from repro_torch.models.attention import RowPositions
-from repro_torch.sharding.dtensor import (first_tensor, on_pod, owners,
+from repro_torch.sharding.dtensor import (first_tensor, on_pod, one_owner,
+                                          owner_cuts, owners, pod_local,
                                           site, stack_owners)
 from repro_torch.sharding.specs import constrain
 from repro_torch.tree import stack_draws, tree_map
@@ -282,19 +283,25 @@ class SplitModel:
                 stack_owners(auxes, like))
 
     def _modal_heads(self, heads, owner_inputs, caches, pos, swa_override):
-        """The vision / audio heads, owner by owner (asymmetric inputs)."""
-        cuts, aux = [], None
-        for p, (name, x) in enumerate(owner_inputs.items()):
+        """The vision / audio heads, owner by owner (asymmetric inputs):
+        on a dry-run mesh with the owner dim over "pod" each pod runs
+        its own owners' heads, as the text path does."""
+        items = list(owner_inputs.items())
+        mine, take = owners(heads, self.P)
+        cuts, auxes = [], []
+        for p in mine:
+            name, x = items[p]
             positions = self._positions(x.shape[1], p,
                                         0 if pos is None else pos, x.device)
             cut, _, a = self._head_one(
-                transformer.unit(heads, p), x, positions, p,
-                None if caches is None else caches[name], pos, swa_override)
+                take(heads, p), pod_local(x), positions, p,
+                None if caches is None else pod_local(caches[name]), pos,
+                swa_override)
             cuts.append(cut)
-            aux = a if aux is None else aux + a
-        if len({c.shape for c in cuts}) == 1:
-            cuts = torch.stack(cuts)
-        return cuts, caches, aux
+            auxes.append(a)
+        like = first_tensor(heads)
+        return (owner_cuts(cuts, [x.shape[1] for _, x in items], like),
+                caches, stack_owners(auxes, like))
 
     # ------------------------------------------------------------- combine
 
@@ -564,9 +571,13 @@ class SplitModel:
             positions = pos + torch.arange(1, device=token.device)
             if cfg.rope == "mrope":
                 positions = torch.stack([positions] * 3, dim=-1)
-            z, _, _ = self._head_one(
-                transformer.unit(params["heads"], 1), token, positions, 1,
-                caches["heads"]["tokens"], pos_local, swa_override)
+            z = one_owner(
+                lambda hp: self._head_one(
+                    hp, pod_local(token), positions, 1,
+                    pod_local(caches["heads"]["tokens"]), pos_local,
+                    swa_override)[0],
+                1, params["heads"], self.P, pod_local(token), (1, self.k),
+                self.cdtype)
             hc = caches["heads"]
         logits, tc = on_pod(self.decode_trunk, params["trunk"], z,
                             caches["trunk"], pos, swa_override=swa_override)

@@ -22,7 +22,10 @@ which ``stack_apply`` sums from an f32 zero as the reference does.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import (attention, layers, mlp as mlp_mod,
                                 moe as moe_mod, ssm, xlstm)
@@ -190,6 +193,31 @@ def unit(tree, u: int):
     return tree_map(lambda a: a[u], tree)
 
 
+def _unit_apply(x, aux, up, shared, *, cfg, pattern, positions, caches,
+                pos, enc_out, swa_override, bidir):
+    """One unit (one repetition of ``pattern``): returns (x, aux), the
+    unit's blocks' auxiliary losses added to ``aux`` in block order."""
+    for i, kind in enumerate(pattern):
+        attn_kind, window = "causal", 0
+        if kind == "attn:local":
+            attn_kind, window = "local", cfg.swa_window
+        elif kind in ("attn:global", "shared_attn", "dec") and swa_override:
+            attn_kind, window = "local", swa_override
+        if bidir and kind.startswith("attn"):
+            attn_kind, window = "bidir", 0
+        if kind == "dec" and enc_out is None:
+            raise ValueError("dec block needs enc_out")
+        bp = shared["shared_attn"] if kind == "shared_attn" else up[f"b{i}"]
+        x, _, aux_i = block_apply(
+            bp, x, cfg=cfg, kind=kind, positions=positions,
+            attn_kind=attn_kind, window=window,
+            cache=None if caches is None else caches[f"b{i}"], pos=pos,
+            enc_out=enc_out)
+        if aux_i is not None:
+            aux = aux + aux_i
+    return x, aux
+
+
 def stack_apply(params, x, *, cfg, pattern=None, positions=None,
                 caches=None, pos=None, enc_out=None, swa_override=None,
                 bidir: bool = False):
@@ -201,34 +229,32 @@ def stack_apply(params, x, *, cfg, pattern=None, positions=None,
     variant).  ``bidir``: bidirectional self-attention in every block
     whose kind starts with ``attn`` (the whisper encoder), applied after
     ``swa_override``.  ``enc_out``: the encoder's output, which every
-    ``dec`` block needs.  ``pattern``: as in :func:`stack_init`."""
+    ``dec`` block needs.  ``pattern``: as in :func:`stack_init`.
+
+    With ``cfg.remat`` each unit runs under non-reentrant
+    ``torch.utils.checkpoint`` while autograd records and no cache is
+    given, as the reference wraps its super-block in ``jax.checkpoint``:
+    autograd keeps each unit's input and recomputes the unit's forward
+    in the backward.  Non-reentrant, because the split programs take
+    ``torch.autograd.grad`` on chosen leaves; never with caches, which
+    are written in place and would be written again by the recompute."""
     pattern = pattern if pattern is not None else cfg.block_pattern
     units, shared = params["units"], params["shared"]
-    n_units = _n_units(units)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for u in range(n_units):
+    run = functools.partial(
+        _unit_apply, shared=shared, cfg=cfg, pattern=pattern,
+        positions=positions, pos=pos, enc_out=enc_out,
+        swa_override=swa_override, bidir=bidir)
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
+    for u in range(_n_units(units)):
         up = unit(units, u)
-        uc = None if caches is None else unit(caches, u)
-        for i, kind in enumerate(pattern):
-            attn_kind, window = "causal", 0
-            if kind == "attn:local":
-                attn_kind, window = "local", cfg.swa_window
-            elif kind in ("attn:global", "shared_attn", "dec") and \
-                    swa_override:
-                attn_kind, window = "local", swa_override
-            if bidir and kind.startswith("attn"):
-                attn_kind, window = "bidir", 0
-            if kind == "dec" and enc_out is None:
-                raise ValueError("dec block needs enc_out")
-            bp = (shared["shared_attn"] if kind == "shared_attn"
-                  else up[f"b{i}"])
-            x, _, aux_i = block_apply(
-                bp, x, cfg=cfg, kind=kind, positions=positions,
-                attn_kind=attn_kind, window=window,
-                cache=None if uc is None else uc[f"b{i}"], pos=pos,
-                enc_out=enc_out)
-            if aux_i is not None:
-                aux = aux + aux_i
+        if remat:
+            # the units draw no random numbers: no RNG state to restore
+            x, aux = checkpoint(run, x, aux, up, caches=None,
+                                use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, aux = run(x, aux, up,
+                         caches=None if caches is None else unit(caches, u))
     return x, caches, aux
 
 

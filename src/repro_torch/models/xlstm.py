@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers
 from repro_torch.models.ssm import conv1d_apply
-from repro_torch.sharding.dtensor import split_heads
+from repro_torch.sharding.dtensor import on_shards, pinned, split_heads
 
 NEG = -2.0 ** 30
 
@@ -185,14 +185,24 @@ def mlstm_apply(params, x, cfg, cache=None):
         + layers.cast(params["if_bias"], x.dtype)
     i_raw, f_raw = gates[..., :H], gates[..., H:]         # (B,S,H)
 
-    carry = None if cache is None else (cache["C"], cache["n"], cache["m"])
-    if cache is not None and S == 1:          # decode
-        y, carry = mlstm_step(q, k, v, i_raw, f_raw, carry)
-    else:                                     # train / prefill
-        y, carry = mlstm_chunked(q, k, v, i_raw, f_raw,
-                                 cfg.xlstm.chunk_size, carry=carry)
+    carry = () if cache is None else (cache["C"], cache["n"], cache["m"])
 
-    y = y.reshape(Bb, S, d_in)
+    def core(q, k, v, i_raw, f_raw, *carry):
+        if carry and S == 1:                  # decode
+            y, carry = mlstm_step(q, k, v, i_raw, f_raw, carry)
+        else:                                 # train / prefill
+            y, carry = mlstm_chunked(q, k, v, i_raw, f_raw,
+                                     cfg.xlstm.chunk_size,
+                                     carry=carry or None)
+        return (y,) + tuple(carry)
+
+    # on the dry-run's DTensors the recurrence runs on each rank's rows
+    # and heads, as the kernels do
+    y, *carry = on_shards(core, (q, k, v, i_raw, f_raw) + carry,
+                          [(0, 2)] * 5 + [(0, 1)] * len(carry),
+                          [(0, 2)] + [(0, 1)] * 3)
+
+    y = pinned(y.reshape(Bb, S, d_in))
     y = layers.norm_apply(params["out_norm"], y, "rmsnorm")
     y = y * F.silu(z)
     out = layers.dense_apply(params["down"], y)
@@ -268,22 +278,32 @@ def slstm_apply(params, x, cfg, cache=None):
         f32).contiguous()
     r = layers.cast(params["r_gates"], f32)
 
-    if cache is not None:
-        st = tuple(cache[k].transpose(0, 1) for k in ("c", "n", "h", "m"))
-    else:
-        zero = torch.zeros((H, Bb, hd), dtype=f32, device=x.device)
-        st = (zero, zero, zero.to(x.dtype),
-              torch.full((H, Bb, hd), NEG, dtype=f32, device=x.device))
-    ys = []
-    for t in range(S):
-        st = _slstm_cell(gx[t], st, r)
-        ys.append(st[2])
-    y = torch.stack(ys, dim=2).permute(1, 2, 0, 3)        # (B,S,H,hd)
+    st = () if cache is None else tuple(
+        cache[k].transpose(0, 1) for k in ("c", "n", "h", "m"))
+
+    def scan(gx, r, *st):
+        if not st:
+            zero = torch.zeros(gx.shape[1:3] + (hd,), dtype=f32,
+                               device=gx.device)
+            st = (zero, zero, zero.to(x.dtype), torch.full_like(zero, NEG))
+        ys = []
+        # one unbind, not S selects: the backward stacks the steps'
+        # gradients once instead of adding S zero-padded copies of gx's
+        for g in gx.unbind(0):
+            st = _slstm_cell(g, st, r)
+            ys.append(st[2])
+        return (torch.stack(ys, dim=2).permute(1, 2, 0, 3),) + st
+
+    # on the dry-run's DTensors the scan runs on each rank's rows and
+    # heads: its S steps are plain ops on the local shard
+    y, *st = on_shards(scan, (gx, r) + st,
+                       [(2, 1), (None, 0)] + [(1, 0)] * len(st),
+                       [(0, 2)] + [(1, 0)] * 4)         # y (B,S,H,hd)
     if cache is not None:
         for key, val in zip(("c", "n", "h", "m"), st):
             cache[key].copy_(val.transpose(0, 1))
 
-    y = y.reshape(Bb, S, d)
+    y = pinned(y.reshape(Bb, S, d))
     h = layers.dense_apply(params["up"], y)
     h = F.gelu(h, approximate="tanh")
     out = layers.dense_apply(params["down"], h)

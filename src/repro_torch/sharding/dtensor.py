@@ -12,9 +12,12 @@ at all, the model calls these:
   activation a collective is issued for (the trace records it: claim
   C4 counts the cut's);
 * :func:`owners` / :func:`stack_owners`: the heads run owner-parallel,
-  each pod its own owners' heads over the pod's sub-mesh; :func:`on_pod`
-  runs a trunk replicated over the pods on the pod's sub-mesh (or, when
-  it is data-parallel over the pods, over "pod" and "data" merged);
+  each pod its own owners' heads over the pod's sub-mesh (their inputs
+  moved there by :func:`pod_local`, a ragged cut lifted by
+  :func:`owner_cuts`, one owner's result by :func:`one_owner`);
+  :func:`on_pod` runs a trunk replicated over the pods on the pod's
+  sub-mesh (or, when it is data-parallel over the pods, over "pod" and
+  "data" merged);
 * :func:`on_shards`: a kernel on each rank's rows and heads (its local
   shards); :func:`replicas`: ops DTensor has no placement for (MoE's
   sorts and gathers) on every rank over the whole value;
@@ -247,6 +250,103 @@ def stack_owners(parts, like):
                                                  device="meta").stride())
 
 
+def _off_pod(x, sub, i: int):
+    """DTensor ``x`` with its mesh's "pod" dim (``i``) dropped: the same
+    local tensor over ``sub``."""
+    from torch.distributed.tensor import DTensor
+    pl = x.placements[:i] + x.placements[i + 1:]
+    return DTensor.from_local(x.to_local(), sub, pl, run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+def pod_local(tree):
+    """``tree`` with each DTensor that a mesh's "pod" dim replicates
+    moved onto this rank's pod's sub-mesh (no collective), as the heads
+    :func:`owners` hands over expect their inputs; anything else as it
+    is."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    def one(x):
+        if not isinstance(x, DTensor) or "pod" not in (
+                x.device_mesh.mesh_dim_names or ()):
+            return x
+        dm = x.device_mesh
+        i = dm.mesh_dim_names.index("pod")
+        if x.placements[i] != Replicate():
+            raise ValueError("an owner's input split over the pods")
+        return _off_pod(x, dm[tuple(a for a in dm.mesh_dim_names
+                                    if a != "pod")], i)
+    return _tree_map(one, tree)
+
+
+def _pod_mesh(like) -> bool:
+    """Whether ``like`` is a DTensor over a mesh with a "pod" dim."""
+    return is_dtensor(like) and "pod" in (like.device_mesh.mesh_dim_names
+                                         or ())
+
+
+def owner_cuts(parts, lengths, like):
+    """The owners' cuts from :func:`owners`' loop, each (B, S_p, k):
+    stacked on a leading owner dim (:func:`stack_owners`) when the
+    owners' lengths agree, else a list in owner order (a ragged cut).
+    On a "pod" mesh a ragged cut is lifted pod by pod: each pod's cuts
+    padded with zeros to the longest length (a local pad, no
+    collective), stacked over "pod", gathered at "cut_stacked" (the
+    cut's one crossing) and cut back to each owner's length."""
+    if len(set(lengths)) == 1:
+        return stack_owners(parts, like)
+    if not _pod_mesh(like):
+        return list(parts)
+    from torch.distributed.tensor import DTensor, Replicate
+    L = max(lengths)
+
+    def padded(c):
+        if any(q.is_shard(1) for q in c.placements):
+            raise ValueError("a ragged cut split along its sequence")
+        loc = c.to_local()
+        loc = torch.cat([loc, loc.new_zeros((loc.shape[0], L - c.shape[1])
+                                            + tuple(loc.shape[2:]))], 1)
+        return DTensor.from_local(loc, c.device_mesh, c.placements,
+                                  run_check=False)
+    stacked = stack_owners([padded(c) for c in parts], like)
+    i = like.device_mesh.mesh_dim_names.index("pod")
+    pl = list(stacked.placements)
+    pl[i] = Replicate()
+    with site("cut_stacked"):
+        full = redistribute(stacked, pl)
+    return [full[p][:, :n] for p, n in enumerate(lengths)]
+
+
+def one_owner(run, p: int, heads, n: int, rows, tail, dtype):
+    """``run(owner p's slice of heads)``: one owner's result, such as a
+    vision decode step's cut, as the trunk receives it.  Plain tensors,
+    or a mesh without a "pod" dim: ``run`` on the slice.  On a "pod"
+    mesh a pod that runs owner p runs it on its sub-mesh, the other
+    owners of its pod run no head and stand zeros of ``rows``' rows by
+    ``tail`` (``rows`` on the pod's sub-mesh) in their slots, and the
+    owners' stack, lifted onto the mesh, gives owner p's slot: gathered
+    at "cut_stacked" (the cut's one crossing) where the owner dim lies
+    over "pod"."""
+    mine, take = owners(heads, n)
+    like = first_tensor(heads)
+    if not _pod_mesh(like):
+        return run(take(heads, p))
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    parts = []
+    for q in mine:
+        if q == p:
+            parts.append(run(take(heads, q)))
+            continue
+        pl = tuple(Shard(0) if x == Shard(0) else Replicate()
+                   for x in rows.placements)
+        loc = torch.zeros((rows.to_local().shape[0],) + tuple(tail),
+                          dtype=dtype, device=rows.to_local().device)
+        parts.append(DTensor.from_local(loc, rows.device_mesh, pl,
+                                        run_check=False))
+    with site("cut_stacked"):
+        return stack_owners(parts, like)[p]
+
+
 def _merged(dm):
     """``dm`` with its "pod" and "data" dims merged into one "data" dim
     (pod-major, as their ranks lie)."""
@@ -287,11 +387,7 @@ def on_pod(fn, *args, **kwargs):
         return fn(*args, **kwargs)
 
     def down(x):
-        if not isinstance(x, DTensor):
-            return x
-        pl = x.placements[:i] + x.placements[i + 1:]
-        return DTensor.from_local(x.to_local(), sub, pl, run_check=False,
-                                  shape=x.shape, stride=x.stride())
+        return _off_pod(x, sub, i) if isinstance(x, DTensor) else x
 
     def up(x):
         if not isinstance(x, DTensor):

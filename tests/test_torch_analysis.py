@@ -304,3 +304,33 @@ def test_trace_counts_live_bytes_and_flops():
     del c
     assert trace.live == elt * (64 * 32 + 32 * 16 + 1)
     assert d.shape == ()
+
+
+def test_trace_memo_makes_what_the_op_makes():
+    """An op met again with the same argument metadata is made from the
+    layout it gave the first time (``Trace._remember``): the same shape,
+    strides and dtype as the op's own result on a transposed, a
+    broadcast and a promoting call, and the same tallies; views and a
+    result on its input's storage (``_unsafe_view``) still run, so they
+    share their input's storage and add no live bytes."""
+    from repro_torch.launch.trace import Trace
+    a = _meta((8, 4, 16), torch.bfloat16)
+    b = _meta((4, 8, 16), torch.float32).transpose(0, 1)
+    c = _meta((1, 4, 1), torch.float32)
+    calls = [lambda: a * b, lambda: b + c, lambda: torch.tanh(b),
+             lambda: torch.bmm(a.float(), b.transpose(1, 2)),
+             lambda: b.sum(-1)]
+    trace = Trace()
+    with trace:
+        runs = [[f() for f in calls] for _ in range(3)]
+        flat = torch.ops.aten._unsafe_view(runs[0][0].contiguous(),
+                                           (32, 16))
+        v = runs[0][0].view(32, 16)
+    want = [f() for f in calls]
+    for got in runs:
+        assert [(x.shape, x.stride(), x.dtype) for x in got] == \
+            [(x.shape, x.stride(), x.dtype) for x in want]
+    assert len(trace._memo) == len(calls) + 1     # and a.float()
+    for x in (flat, v):
+        assert x.untyped_storage()._cdata == \
+            runs[0][0].untyped_storage()._cdata
